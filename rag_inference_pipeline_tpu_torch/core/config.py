@@ -2,16 +2,19 @@
 
 Reads the same environment names, with the same defaults, as the JAX
 package's `core/config.py::Settings`, for the fields the ported serving
-slice reads. Plain stdlib: the GPU machine has no pydantic.
+paths read. Plain stdlib: the GPU machine has no pydantic.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 import os
 import typing
 from dataclasses import dataclass
 from typing import Optional
+
+from .enums import IndexKind, PayloadMode
 
 _BOOL_TRUE = {"1", "true", "yes", "on"}
 
@@ -22,36 +25,80 @@ class Settings:
 
     # --- node topology ---
     node_number: int = 0
+    total_nodes: int = 1  # the port serves one node: 1 is the only value
     base_port: int = 8000
+    pipeline_role_profile: Optional[str] = None
 
     # --- device ---
     device_platform: Optional[str] = None  # None = cuda (core/device.py)
     param_dtype: str = "bfloat16"
 
     # --- batching ---
+    gateway_batch_size: int = 8
+    gateway_batch_timeout_ms: float = 50.0
+    retrieval_batch_size: int = 32
+    retrieval_batch_timeout_ms: float = 20.0
+    gateway_pipeline_chunks: int = 4
+    adaptive_batching: bool = True
+    adaptive_min_delay_ms: float = 5.0
+    batch_flush_on_ready: bool = True
     batch_shape_buckets: str = "1,2,4,8,16,32,64"
 
+    # --- caches ---
+    query_cache_capacity: int = 1024
+    query_cache_ttl_s: float = 300.0
+    query_cache_fuzzy: bool = False
+    embedding_cache_capacity: int = 10000
+    search_cache_capacity: int = 4096
+    document_cache_capacity: int = 8192
+    document_cache_ttl_s: float = 600.0
+
     # --- index ---
+    index_kind: IndexKind = IndexKind.FLAT
     index_path: Optional[str] = None
+    index_dim: int = 768
+    index_metric: str = "ip"
+    index_nlist: int = 4096
+    index_nprobe: int = 64
     index_dtype: str = "bfloat16"
+    index_search_oversample: int = 4
+    index_rescore_k: int = 64
+    index_rescore_store: str = "device"  # "host" is refused (not ported)
+    index_cap_factor: float = 2.5
 
     # --- retrieval / generation semantics ---
     retrieval_k: int = 10
+    rerank_top_n: int = 3
     max_tokens: int = 128
     truncate_length: int = 512
     llm_context_docs: int = 3
-    # refused at load until the port carries them (W8A8, speculation)
+    llm_doc_chars: int = 200
+    # refused at load until the port carries them (W8A8, speculation, the
+    # decode engine)
     use_speculative_decoding: bool = False
     llm_weight_quant: str = "none"
     encoder_weight_quant: str = "none"
+    use_continuous_batching: bool = False
+
+    # --- payload ---
+    documents_payload_mode: PayloadMode = PayloadMode.FULL
 
     # --- model names ---
     embedding_model: str = "BAAI/bge-base-en-v1.5"
+    reranker_model: str = "BAAI/bge-reranker-base"
     llm_model: str = "Qwen/Qwen2.5-0.5B-Instruct"
     sentiment_model: str = "nlptown/bert-base-multilingual-uncased-sentiment"
     toxicity_model: str = "unitary/toxic-bert"
     model_weights_dir: Optional[str] = None
     allow_random_weights: bool = True
+
+    # --- doc store ---
+    document_db_path: Optional[str] = None
+    doc_store_backend: str = "native"  # sqlite | memory; native is refused
+    doc_store_in_memory: bool = False
+
+    # --- serving ---
+    request_timeout_s: float = 120.0
 
     # --- telemetry ---
     log_level: str = "INFO"
@@ -60,6 +107,9 @@ class Settings:
     use_fused_pipeline: bool = False
     doc_tokens_path: Optional[str] = None
     fused_chunk_lanes: int = 8
+
+    # --- generation ---
+    prefill_buckets: str = "128,256,512"
 
     @property
     def listen_port(self) -> int:
@@ -73,6 +123,10 @@ class Settings:
     def shape_buckets(self) -> tuple[int, ...]:
         return tuple(int(x) for x in self.batch_shape_buckets.split(",") if x)
 
+    @property
+    def prefill_bucket_list(self) -> tuple[int, ...]:
+        return tuple(int(x) for x in self.prefill_buckets.split(",") if x)
+
 
 def _coerce(hint, raw: str):
     if hint is bool:
@@ -81,7 +135,18 @@ def _coerce(hint, raw: str):
         return int(raw)
     if hint is float:
         return float(raw)
+    if isinstance(hint, type) and issubclass(hint, enum.Enum):
+        return hint(raw)
     return raw  # str and Optional[str]
+
+
+def replace_settings(settings: Settings, **raw) -> Settings:
+    """`settings` with fields replaced; each value is coerced from its
+    string form as an environment variable would be."""
+    hints = typing.get_type_hints(Settings)
+    return dataclasses.replace(
+        settings, **{k: _coerce(hints[k], str(v)) for k, v in raw.items()}
+    )
 
 
 def load_settings(env: Optional[dict[str, str]] = None) -> Settings:

@@ -19,38 +19,13 @@ import numpy as np
 import torch
 
 from ..core.config import Settings
-from ..models.bert import bert_classify
-from ..models.components import _SENTIMENT_LABELS
+from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
 from .device_pipeline import DeviceRAGPipeline, RAGStepOutput
 
 logger = logging.getLogger(__name__)
 
 # wire text for a filtered answer (the reference's serve/schemas.py)
 TOXIC_PLACEHOLDER = "[Content Filtered due to toxicity]"
-
-
-def pick_bucket(n: int, buckets: Sequence[int]) -> int:
-    """Smallest bucket >= n; the largest bucket caps oversize batches."""
-    if n <= 0:
-        raise ValueError("n must be positive")
-    for b in sorted(buckets):
-        if n <= b:
-            return b
-    return max(buckets)
-
-
-def chunk_spans(n: int, max_chunk: int) -> list[tuple[int, int]]:
-    """Split [0, n) into spans of at most max_chunk rows."""
-    return [(s, min(s + max_chunk, n)) for s in range(0, n, max_chunk)]
-
-
-def pad_rows(arr: np.ndarray, bucket: int, pad_value=0) -> np.ndarray:
-    """Pad axis 0 of a numpy array up to `bucket` rows."""
-    n = arr.shape[0]
-    if n > bucket:
-        raise ValueError(f"batch {n} exceeds bucket {bucket}")
-    pad = [(0, bucket - n)] + [(0, 0)] * (arr.ndim - 1)
-    return np.pad(arr, pad, constant_values=pad_value)
 
 
 class FusedExecutor:
@@ -193,41 +168,23 @@ class FusedExecutor:
             for text, sent, (t, _) in zip(texts, sentiments, tox)
         ]
 
-    @torch.inference_mode()
     def _classify_joint(
         self, texts: Sequence[str]
     ) -> tuple[list[str], list[tuple[bool, float]]]:
         """Sentiment (argmax 5-star label) and toxicity (largest sigmoid vs
-        0.5) over the same texts, chunked and padded to shape buckets as the
-        reference's joint dispatch does. A classifier that is not loaded
-        answers "neutral" / not toxic."""
+        0.5) over the same texts, each chunked and padded to the shape
+        buckets. A classifier that is not loaded answers "neutral" / not
+        toxic."""
         sent, tox = self.sentiment, self.toxicity
         n = len(texts)
-        labels = ["neutral"] * n
-        verdicts = [(False, 0.0)] * n
-        clipped = [t[:512] for t in texts]  # char-truncate, as the reference
-        buckets = self.settings.shape_buckets
-
-        def run(comp):
-            ids, mask = comp.tokenizer.encode_batch(clipped, comp.max_len)
-            outs = []
-            for cs, ce in chunk_spans(n, max(buckets)):
-                bucket = pick_bucket(ce - cs, buckets)
-                ids_t, mask_t = (
-                    torch.from_numpy(pad_rows(a[cs:ce], bucket)).to(self.device)
-                    for a in (ids, mask)
-                )
-                outs.append(
-                    bert_classify(comp.params, comp.cfg, ids_t, mask_t)[: ce - cs]
-                )
-            return torch.cat(outs)
-
-        if sent is not None and sent.is_loaded:
-            star = torch.argmax(run(sent), dim=1).cpu().tolist()
-            labels = [_SENTIMENT_LABELS[i] for i in star]
-        if tox is not None and tox.is_loaded:
-            worst = torch.sigmoid(run(tox)).amax(dim=1).cpu().tolist()
-            verdicts = [(bool(w >= tox.THRESHOLD), float(w)) for w in worst]
+        labels = (
+            sent.analyze_batch(texts) if sent is not None and sent.is_loaded
+            else ["neutral"] * n
+        )
+        verdicts = (
+            tox.check_batch(texts) if tox is not None and tox.is_loaded
+            else [(False, 0.0)] * n
+        )
         return labels, verdicts
 
     def _dispatch_chunk(self, items: Sequence[dict], buckets) -> RAGStepOutput:

@@ -1,5 +1,6 @@
-"""BERT-family encoder in PyTorch: the BGE embedder and the BERT
-classifiers. Port of `rag_inference_pipeline_tpu/models/bert.py`.
+"""BERT-family encoder in PyTorch: the BGE embedder, the BGE cross-encoder
+reranker (XLM-RoBERTa-base) and the BERT classifiers. Port of
+`rag_inference_pipeline_tpu/models/bert.py`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,19 @@ class BertConfig:
     def bge_base() -> "BertConfig":
         """BAAI/bge-base-en-v1.5 (BERT-base)."""
         return BertConfig()
+
+    @staticmethod
+    def bge_reranker() -> "BertConfig":
+        """BAAI/bge-reranker-base (XLM-RoBERTa-base, 1 logit)."""
+        return BertConfig(
+            vocab_size=250002,
+            max_positions=514,
+            type_vocab=1,
+            eps=1e-5,
+            roberta_positions=True,
+            pad_token_id=1,
+            num_labels=1,
+        )
 
     @staticmethod
     def sentiment() -> "BertConfig":

@@ -1,24 +1,35 @@
-"""Model components of the fused serving path: embedder, LLM, sentiment
-and toxicity classifiers — load (random init when no weights are given),
-tokenizer and params on the port's device.
+"""Model components: embedder, reranker, LLM, sentiment and toxicity —
+load (random init when no weights are given), tokenizer, params on the
+port's device, and the batch APIs of the staged path.
 
-Port of the load side of `rag_inference_pipeline_tpu/models/components.py`.
-PyTorch runs eagerly, so there is no per-bucket compile warmup to port.
-Loading safetensors checkpoints comes with a later port of the weights
-converter; until then a checkpoint under `MODEL_WEIGHTS_DIR` raises rather
-than being ignored.
+Port of `rag_inference_pipeline_tpu/models/components.py`: the embedder's
+SHA-256-keyed cache, the reranker's sigmoid relevance sorted descending,
+the LLM's chat prompt from the top docs (`llm_doc_chars` each) with
+prefill buckets, the 5-star sentiment labels and the 0.5 toxicity
+threshold. Every forward runs over row chunks padded to the shape buckets,
+as the reference pads them. PyTorch runs eagerly, so there is no
+per-bucket compile warmup to port, and the LLM's ladder is the configured
+one (the reference clamps it to a 16 GB TPU's memory). Loading safetensors
+checkpoints comes with a later port of the weights converter; until then a
+checkpoint under `MODEL_WEIGHTS_DIR` raises rather than being ignored.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
+from typing import Optional, Sequence
+
+import numpy as np
 import torch
 
 from ..core.config import Settings
 from ..core.device import torch_dtype
-from .bert import BertConfig, init_bert_params
-from .qwen import QwenConfig, init_qwen_params
+from ..utils.cache import LRUCache
+from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
+from .bert import BertConfig, bert_classify, bert_embed, init_bert_params
+from .qwen import QwenConfig, greedy_generate, init_qwen_params
 from .tokenizer import make_tokenizer
 
 logger = logging.getLogger(__name__)
@@ -29,6 +40,7 @@ _SENTIMENT_LABELS = [
 
 _BERT_CONFIGS = {
     "BAAI/bge-base-en-v1.5": BertConfig.bge_base,
+    "BAAI/bge-reranker-base": BertConfig.bge_reranker,
     "nlptown/bert-base-multilingual-uncased-sentiment": BertConfig.sentiment,
     "unitary/toxic-bert": BertConfig.toxicity,
 }
@@ -53,6 +65,19 @@ def _qwen_config_for(name: str) -> QwenConfig:
     if lname in ("meta-llama/llama-3.1-8b-instruct", "meta-llama/llama-3.1-8b"):
         return QwenConfig.llama31_8b()
     raise ValueError(f"unknown llm model {name!r}")
+
+
+@torch.inference_mode()
+def _bucketed_forward(fwd, arrays: Sequence[np.ndarray], buckets, device) -> np.ndarray:
+    """`fwd` over row chunks of at most the largest bucket, each padded to
+    its bucket; returns the real rows' outputs as float32 numpy."""
+    n = arrays[0].shape[0]
+    outs = []
+    for s, e in chunk_spans(n, max(buckets)):
+        bucket = pick_bucket(e - s, buckets)
+        padded = [torch.from_numpy(pad_rows(a[s:e], bucket)).to(device) for a in arrays]
+        outs.append(fwd(*padded)[: e - s].float().cpu().numpy())
+    return np.concatenate(outs)
 
 
 def _generator(device: torch.device, seed: int = 0) -> torch.Generator:
@@ -109,16 +134,108 @@ class _BertBase:
             vocab_size=self.cfg.vocab_size, pad_id=self.cfg.pad_token_id,
         )
 
+    def _forward(self, fwd, arrays: Sequence[np.ndarray]) -> np.ndarray:
+        return _bucketed_forward(
+            lambda *t: fwd(self.params, self.cfg, *t), arrays,
+            self.settings.shape_buckets, self.device,
+        )
+
 
 class EmbedderComponent(_BertBase):
-    """Query embedding model (BGE); the fused step runs its forward."""
+    """Query embedding (BGE): `encode` returns L2-normalized float32 [B,
+    dim], cached by the SHA-256 of the text; the fused step runs its
+    forward itself."""
 
     def __init__(self, settings: Settings, device: torch.device):
         super().__init__(settings, settings.embedding_model, device)
+        self.cache = LRUCache(settings.embedding_cache_capacity)
 
     @property
     def dim(self) -> int:
         return self.cfg.hidden
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        if not self.is_loaded:
+            raise RuntimeError("embedder not loaded")
+        if not texts:
+            return np.zeros((0, self.dim), np.float32)
+        keys = [hashlib.sha256(t.encode()).hexdigest() for t in texts]
+        out: dict[int, np.ndarray] = {}
+        misses: list[int] = []
+        for i, k in enumerate(keys):
+            hit = self.cache.get(k)
+            if hit is not None:
+                out[i] = hit
+            else:
+                misses.append(i)
+        if misses:
+            ids, mask = self.tokenizer.encode_batch(
+                [texts[i] for i in misses], self.max_len
+            )
+            emb = self._forward(bert_embed, (ids, mask))
+            for j, i in enumerate(misses):
+                out[i] = emb[j]
+                self.cache.put(keys[i], emb[j])
+        return np.stack([out[i] for i in range(len(texts))])
+
+
+def _sigmoid(x: np.ndarray) -> np.ndarray:
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+class RerankerComponent(_BertBase):
+    """Cross-encoder rerank: (query, doc) pairs -> sigmoid relevance,
+    sorted descending, with `rerank_score` added to each doc."""
+
+    def __init__(self, settings: Settings, device: torch.device):
+        super().__init__(settings, settings.reranker_model, device, num_labels=1)
+        self.max_len = min(settings.truncate_length, self.cfg.max_positions - 2)
+
+    def score_pairs(self, pairs: Sequence[tuple[str, str]]) -> np.ndarray:
+        if not self.is_loaded:
+            raise RuntimeError("reranker not loaded")
+        if not pairs:
+            return np.zeros((0,), np.float32)
+        ids, mask, tt = self.tokenizer.encode_pair_batch(pairs, self.max_len)
+        if self.cfg.type_vocab == 1:
+            # XLM-RoBERTa has one token type and its tokenizer gives all 0;
+            # the hash tokenizer's second segment (type 1) has no row, where
+            # the reference gathers NaN (ROADMAP.md Queue 3)
+            tt = np.zeros_like(tt)
+        logits = self._forward(bert_classify, (ids, mask, tt))[:, 0]
+        return _sigmoid(logits)
+
+    def _top(self, docs: Sequence[dict], scores: np.ndarray, top_n) -> list[dict]:
+        order = np.argsort(-scores)
+        top_n = top_n or self.settings.rerank_top_n
+        return [{**docs[i], "rerank_score": float(scores[i])} for i in order[:top_n]]
+
+    def rerank(
+        self, query: str, docs: Sequence[dict], top_n: Optional[int] = None
+    ) -> list[dict]:
+        """docs: [{id, content, ...}] -> the top_n docs with 'rerank_score'."""
+        if not docs:
+            return []
+        scores = self.score_pairs([(query, d.get("content", "")) for d in docs])
+        return self._top(docs, scores, top_n)
+
+    def rerank_batch(
+        self, queries: Sequence[str], docs_batch: Sequence[Sequence[dict]],
+        top_n: Optional[int] = None,
+    ) -> list[list[dict]]:
+        """Every query's pairs scored in one bucketed batch."""
+        pairs, spans = [], []
+        for q, docs in zip(queries, docs_batch):
+            start = len(pairs)
+            pairs.extend((q, d.get("content", "")) for d in docs)
+            spans.append((start, len(pairs)))
+        if not pairs:
+            return [[] for _ in queries]
+        scores = self.score_pairs(pairs)
+        return [
+            self._top(docs, scores[a:b], top_n)
+            for (a, b), docs in zip(spans, docs_batch)
+        ]
 
 
 class SentimentComponent(_BertBase):
@@ -126,6 +243,15 @@ class SentimentComponent(_BertBase):
 
     def __init__(self, settings: Settings, device: torch.device):
         super().__init__(settings, settings.sentiment_model, device, num_labels=5)
+
+    def analyze_batch(self, texts: Sequence[str]) -> list[str]:
+        if not self.is_loaded:
+            raise RuntimeError("sentiment not loaded")
+        if not texts:
+            return []
+        ids, mask = self.tokenizer.encode_batch([t[:512] for t in texts], self.max_len)
+        logits = self._forward(bert_classify, (ids, mask))
+        return [_SENTIMENT_LABELS[int(i)] for i in logits.argmax(axis=1)]
 
 
 class ToxicityComponent(_BertBase):
@@ -135,6 +261,15 @@ class ToxicityComponent(_BertBase):
 
     def __init__(self, settings: Settings, device: torch.device):
         super().__init__(settings, settings.toxicity_model, device, num_labels=6)
+
+    def check_batch(self, texts: Sequence[str]) -> list[tuple[bool, float]]:
+        if not self.is_loaded:
+            raise RuntimeError("toxicity not loaded")
+        if not texts:
+            return []
+        ids, mask = self.tokenizer.encode_batch([t[:512] for t in texts], self.max_len)
+        worst = _sigmoid(self._forward(bert_classify, (ids, mask))).max(axis=1)
+        return [(bool(w >= self.THRESHOLD), float(w)) for w in worst]
 
 
 class LLMComponent:
@@ -178,3 +313,71 @@ class LLMComponent:
             vocab_size=self.cfg.vocab_size, pad_id=0, eos_id=2,
             eos_token=eos_token,
         )
+
+    def build_prompt(self, query: str, docs: Sequence[dict]) -> str:
+        """Chat-template prompt from the top `llm_context_docs` docs, each
+        cut to `llm_doc_chars`, per model family."""
+        s = self.settings
+        ctx = "\n\n".join(
+            f"Document {i + 1}: {d.get('content', '')[: s.llm_doc_chars]}"
+            for i, d in enumerate(docs[: s.llm_context_docs])
+        )
+        sys_msg = (
+            "You are a helpful assistant. Use the provided "
+            "context to answer the question."
+        )
+        user_msg = f"Context:\n{ctx}\n\nQuestion: {query}"
+        if not self.is_instruct:
+            return f"{sys_msg}\n\n{user_msg}\n\nAnswer:"
+        if self.model_name.lower().startswith("meta-llama"):
+            return (
+                "<|begin_of_text|><|start_header_id|>system"
+                f"<|end_header_id|>\n\n{sys_msg}<|eot_id|>"
+                "<|start_header_id|>user"
+                f"<|end_header_id|>\n\n{user_msg}<|eot_id|>"
+                "<|start_header_id|>assistant<|end_header_id|>\n\n"
+            )
+        return (
+            f"<|im_start|>system\n{sys_msg}<|im_end|>\n"
+            f"<|im_start|>user\n{user_msg}<|im_end|>\n"
+            "<|im_start|>assistant\n"
+        )
+
+    def generate_batch(
+        self, queries: Sequence[str], docs_batch: Sequence[Sequence[dict]],
+        max_new_tokens: Optional[int] = None,
+    ) -> list[str]:
+        """Greedy answers, one per query: prompts cut to a prefill bucket
+        that covers the longest, rows padded to a shape bucket (a padded
+        row keeps one live token), each answer cut at the first eos."""
+        if not self.is_loaded:
+            raise RuntimeError("llm not loaded")
+        if not queries:
+            return []
+        s = self.settings
+        max_new = max_new_tokens or s.max_tokens
+        prompts = [self.build_prompt(q, d) for q, d in zip(queries, docs_batch)]
+        plen_cap = min(s.truncate_length, self.cfg.max_len - max_new)
+        all_ids, all_mask = self.tokenizer.encode_batch(prompts, plen_cap)
+        ladder = s.shape_buckets
+        eos = self.tokenizer.eos_id
+        out: list[str] = []
+        for cs, ce in chunk_spans(len(prompts), max(ladder)):
+            ids, mask = all_ids[cs:ce], all_mask[cs:ce]
+            longest = int(mask.sum(axis=1).max())
+            plen = min(pick_bucket(longest, s.prefill_bucket_list + (plen_cap,)), plen_cap)
+            bucket = pick_bucket(ce - cs, ladder)
+            ids = pad_rows(ids[:, :plen], bucket)
+            mask = pad_rows(mask[:, :plen], bucket)
+            mask[ce - cs :, 0] = 1
+            toks = greedy_generate(
+                self.params, self.cfg,
+                torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(mask).to(self.device),
+                max_new, eos_token_id=eos, cache_len=plen + max_new,
+            )[: ce - cs].cpu().numpy()
+            for row in toks:
+                stop = np.where(row == eos)[0]
+                end = int(stop[0]) if len(stop) else len(row)
+                out.append(self.tokenizer.decode(row[:end]))
+        return out

@@ -2,7 +2,8 @@
 deterministic hash tokenizer otherwise (air-gapped fallback).
 
 Port of `rag_inference_pipeline_tpu/models/tokenizer.py`; `encode_batch`
-gives the same ids and masks as the JAX package's tokenizers.
+and `encode_pair_batch` give the same ids, masks and token types as the JAX
+package's tokenizers.
 """
 
 from __future__ import annotations
@@ -64,6 +65,27 @@ class HashTokenizer:
         pairs = [self.encode(t, max_len) for t in texts]
         return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
+    def encode_pair_batch(
+        self, pairs: Sequence[tuple[str, str]], max_len: int
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(query, doc) pairs -> ids/mask/token types (cross-encoder input):
+        [CLS] query [SEP] doc [SEP], the query cut to half the budget."""
+        ids = np.full((len(pairs), max_len), self.pad_id, np.int32)
+        mask = np.zeros((len(pairs), max_len), np.int32)
+        tt = np.zeros((len(pairs), max_len), np.int32)
+        for r, (a, b) in enumerate(pairs):
+            wa = [self._word_id(w) for w in _WORD_RE.findall(a)]
+            wb = [self._word_id(w) for w in _WORD_RE.findall(b)]
+            budget = max_len - 3
+            wa = wa[: budget // 2]
+            wb = wb[: budget - len(wa)]
+            seq = [self.cls_id] + wa + [self.sep_id] + wb + [self.sep_id]
+            n = len(seq)
+            ids[r, :n] = seq
+            mask[r, :n] = 1
+            tt[r, len(wa) + 2 : n] = 1
+        return ids, mask, tt
+
     def decode(self, ids: Sequence[int]) -> str:
         """Hash ids aren't invertible; emit placeholder words (offline mode)."""
         return " ".join(
@@ -104,6 +126,21 @@ class HFTokenizer:
     def encode_batch(self, texts, max_len: int):
         pairs = [self.encode(t, max_len) for t in texts]
         return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+    def encode_pair_batch(self, pairs, max_len: int):
+        """(query, doc) pairs through the tokenizer's own pair template;
+        token types are all 0, as the reference returns them."""
+        ids_list, masks = [], []
+        for a, b in pairs:
+            ids = self.tk.encode(a, b).ids[:max_len]
+            row = np.full(max_len, self.pad_id, np.int32)
+            m = np.zeros(max_len, np.int32)
+            row[: len(ids)] = ids
+            m[: len(ids)] = 1
+            ids_list.append(row)
+            masks.append(m)
+        tt = np.zeros((len(pairs), max_len), np.int32)
+        return np.stack(ids_list), np.stack(masks), tt
 
     def decode(self, ids) -> str:
         return self.tk.decode([int(i) for i in ids], skip_special_tokens=True)

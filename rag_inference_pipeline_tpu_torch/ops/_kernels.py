@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` is compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface, `build/kernels/libragtorch_kernels.so`
-at the root of the checkout, and loaded with `ctypes`. The library is built
-at first use and rebuilt when it is older than any source, as
+Every `csrc/*.cu` is compiled by its own `nvcc` process for `sm_90a`, all
+started together, and the objects are linked into one shared library with
+a plain C interface, `build/kernels/libragtorch_kernels.so` at the root of
+the checkout, loaded with `ctypes`. The library is built at first use and
+rebuilt when it is older than any source or header, as
 `rag_inference_pipeline_tpu/utils/cpuscan.py` does for `native/`. Nothing
 here runs at import time: the CPU tests import every module of the port on
 a machine with no `nvcc`.
@@ -23,10 +24,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libragtorch_kernels.so")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -55,24 +54,54 @@ def build(verbose: bool = False) -> str:
     path. `verbose` rebuilds with `-Xptxas -v` and prints nvcc's report of
     each kernel's registers, shared memory and spills."""
     srcs = _sources()
+    deps = srcs + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     stale = not os.path.exists(LIB_PATH) or any(
-        os.path.getmtime(LIB_PATH) < os.path.getmtime(s) for s in srcs
+        os.path.getmtime(LIB_PATH) < os.path.getmtime(s) for s in deps
     )
     if not stale and not verbose:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build beside the target and rename: a second process that loads the
-    # library meanwhile sees either the old file or the whole new one
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
-    proc = subprocess.run(
-        [*cmd, "-o", tmp, *srcs], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, flush=True)
-    os.replace(tmp, LIB_PATH)
+    nvcc = _nvcc()
+    # per-process names: a second process that builds meanwhile writes its
+    # own objects, and the rename below replaces the library in one step
+    tag = os.getpid()
+    objs = [
+        os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs
+    ]
+    ptxas = ("-Xptxas", "-v") if verbose else ()
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, *ptxas, "-o", o, s],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for s, o in zip(srcs, objs)
+    ]
+    tmp = f"{LIB_PATH}.{tag}.tmp"
+    try:
+        errors = []
+        for s, p in zip(srcs, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{os.path.basename(s)}:\n{err}")
+            elif verbose and err:
+                print(err, flush=True)
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for p in procs:  # a failed build leaves no compiler running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     return LIB_PATH
 
 
@@ -84,9 +113,22 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build())
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ragtorch_binmax_int8gs.argtypes = [
-            vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, i32, vp,
-        ]
-        lib.ragtorch_binmax_int8gs.restype = i32
+        sigs = {
+            # q, db, part_vals, part_steps, vals, idxs, B, D, ntotal, nbins,
+            # groups, stream
+            "ragtorch_binmax_int8gs": [vp] * 6 + [i32, i32, i64, i32, i32, vp],
+            # ... elem_bytes before the stream
+            "ragtorch_binmax_bf16": [vp] * 6 + [i32, i32, i64, i32, i32, i32, vp],
+            # q, buckets, slots, sizes, out, B, D, n_slots, cap, elem_bytes,
+            # stream
+            "ragtorch_ivf_dedup": [vp] * 5 + [i32] * 5 + [vp],
+            # q, buckets, probe, sizes, vals, win, B, D, nprobe, cap,
+            # elem_bytes, stream
+            "ragtorch_ivf_scan": [vp] * 6 + [i32] * 5 + [vp],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32
         _lib = lib
         return lib

@@ -1,0 +1,105 @@
+"""k-means (Lloyd's) on the device, for the IVF coarse quantizer.
+
+Port of `rag_inference_pipeline_tpu/ops/kmeans.py`: chunked float32
+matmuls for the nearest-centroid scores and one-hot matmuls for the
+per-cluster sums, as the reference computes them (no Pallas kernel is
+involved). The random init and the reseeding noise come from an explicit
+`torch.Generator`; `jax.random` cannot be reproduced, so `kmeans` matches
+the reference in kind, not bit for bit, while `assign_clusters` and
+`_lloyd_step` match it on the same centroids.
+
+float32 matmuls on a CUDA card must not run in TF32, or assignments and
+IVF probe sets move: `require_full_f32` refuses a process that turned
+TF32 on (`torch.get_float32_matmul_precision() != "highest"`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def require_full_f32(t: torch.Tensor) -> None:
+    """Raise when float32 matmuls on `t`'s CUDA device would use TF32."""
+    if t.device.type == "cuda" and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "float32 matmuls run in TF32 (torch.set_float32_matmul_precision "
+            f"is {torch.get_float32_matmul_precision()!r}): k-means "
+            "assignments and IVF probe sets need full float32"
+        )
+
+
+def _scores(xc: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor) -> torch.Tensor:
+    """2 x.c - |c|^2 (argmax = nearest centroid in L2), float32."""
+    return 2.0 * torch.matmul(xc.float(), c.T) - c_sq[None, :]
+
+
+def assign_clusters(
+    x: torch.Tensor, centroids: torch.Tensor, *, chunk: int = 65536
+) -> torch.Tensor:
+    """Nearest-centroid assignment (L2). Returns [N] int32; among equal
+    scores the lower centroid id (`argmax` returns the first)."""
+    require_full_f32(x)
+    c = centroids.float()
+    c_sq = (c * c).sum(dim=1)
+    out = [
+        torch.argmax(_scores(x[s : s + chunk], c, c_sq), dim=1)
+        for s in range(0, x.shape[0], chunk)
+    ]
+    return torch.cat(out).to(torch.int32)
+
+
+def _lloyd_step(
+    x_pad: torch.Tensor, n_real: int, centroids: torch.Tensor, *, chunk: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Lloyd iteration over padded data: rows at or past `n_real` do
+    not count. Returns (new_centroids [k, D] f32, counts [k] f32); an empty
+    cluster keeps its old centroid."""
+    k, d = centroids.shape
+    c = centroids.float()
+    c_sq = (c * c).sum(dim=1)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x_pad.device)
+    counts = torch.zeros((k,), dtype=torch.float32, device=x_pad.device)
+    for start in range(0, x_pad.shape[0], chunk):
+        xf = x_pad[start : start + chunk].float()
+        a = torch.argmax(_scores(xf, c, c_sq), dim=1)
+        onehot = torch.nn.functional.one_hot(a, k).float()
+        rid = torch.arange(start, start + xf.shape[0], device=x_pad.device)
+        onehot = onehot * (rid < n_real).float()[:, None]
+        sums = sums + torch.matmul(onehot.T, xf)
+        counts = counts + onehot.sum(dim=0)
+    new_c = sums / torch.clamp(counts, min=1.0)[:, None]
+    return torch.where((counts > 0)[:, None], new_c, c), counts
+
+
+def kmeans(
+    x: torch.Tensor,
+    k: int,
+    *,
+    iters: int = 15,
+    chunk: int = 65536,
+    generator: Optional[torch.Generator] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lloyd's k-means. Returns (centroids [k, D] f32, counts [k] f32).
+
+    Init: k points sampled without replacement (`randperm`). Each
+    iteration reseeds empty clusters at perturbed copies of the largest
+    cluster's centroid, as the reference does. `generator` lives on x's
+    device; the same seed gives the same result."""
+    require_full_f32(x)
+    n, _ = x.shape
+    if n < k:
+        raise ValueError(f"k-means needs at least k training points: n={n} < k={k}")
+    chunk = min(chunk, max(256, n))
+    perm = torch.randperm(n, generator=generator, device=x.device)[:k]
+    c = x[perm].float()
+    counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    for _ in range(iters):
+        new_c, counts = _lloyd_step(x, n, c, chunk=chunk)
+        big = torch.argmax(counts)
+        noise = 1e-3 * torch.randn(
+            new_c.shape, generator=generator, device=x.device
+        )
+        c = torch.where((counts > 0)[:, None], new_c, new_c[big][None, :] + noise)
+    return c, counts

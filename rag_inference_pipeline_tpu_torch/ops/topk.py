@@ -1,12 +1,14 @@
-"""Flat similarity scan + top-k: exact scan, the global-scale int8 bin-max
-scan (kernel K1) and the fused int8 search with exact bf16 re-score.
+"""Flat similarity scan + top-k: exact scan, the bf16/f32 bin-max scan
+(kernel K2) with its fused search, the global-scale int8 bin-max scan
+(kernel K1) and the fused int8 search with exact bf16 re-score.
 
-Port of `rag_inference_pipeline_tpu/ops/topk.py`. The int8 scan keeps, per
-query, a running (max, earliest row) in each of `nbins` bins (bin = row %
-nbins); an exact top-k over the survivors gives the result. On a CUDA
-tensor `binmax_partial_topk_int8gs` launches the hand-written Hopper kernel
-in `csrc/binmax_int8gs.cu`; on a CPU tensor it runs the plain PyTorch
-version beside it, which is also the kernel's oracle.
+Port of `rag_inference_pipeline_tpu/ops/topk.py`. A bin-max scan keeps,
+per query, a running (max, earliest row) in each of `nbins` bins (bin =
+row % nbins); an exact top-k over the survivors gives the result. On CUDA
+tensors `binmax_partial_topk` and `binmax_partial_topk_int8gs` launch the
+hand-written Hopper kernels in `csrc/binmax_bf16.cu` and
+`csrc/binmax_int8gs.cu`; on CPU tensors they run the plain PyTorch
+versions beside them, which are also the kernels' oracles.
 
 Ties: `lax.top_k` puts the lower index first, so every top-k here is a
 stable descending sort (`_topk`).
@@ -84,6 +86,162 @@ def exact_topk(
         best_s, sel = _topk(cand_s, k)
         best_i = torch.gather(cand_i, 1, sel)
     return best_s, best_i
+
+
+def _on_cpu(a: torch.Tensor, b: torch.Tensor, what: str) -> bool:
+    """True when both tensors lie on the CPU (run the plain version), False
+    when both lie on one CUDA device (launch the kernel); raises otherwise."""
+    devs = {a.device.type, b.device.type}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"} or a.device != b.device:
+        raise ValueError(
+            f"{what}: tensors on {a.device} and {b.device}: both must be on "
+            "one CUDA device (or both on the CPU)"
+        )
+    return False
+
+
+def _check_words(*tensors: torch.Tensor) -> None:
+    """The scan kernels read 32-bit words from contiguous rows."""
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 4 != 0:
+            raise ValueError("kernel inputs must be contiguous and 4-byte aligned")
+        if (t.shape[-1] * t.element_size()) % 4 != 0:
+            raise ValueError(
+                f"the kernel reads 32-bit words: a row of {t.shape[-1]} "
+                f"{t.dtype} is not a whole number of words"
+            )
+
+
+def _nvalid(n: int, ntotal) -> int:
+    """Rows the scan may read: `min(ntotal or n, n)`, as the reference."""
+    return min(int(ntotal) or n, n) if ntotal is not None else n
+
+
+# ---------------------------------------------------------------------------
+# bf16 / f32 bin-max scan (K2): f32 accumulation, global row ids.
+# ---------------------------------------------------------------------------
+
+
+def binmax_partial_topk_plain(
+    queries: torch.Tensor,  # [B, D], cast to db's dtype
+    db: torch.Tensor,  # [N, D] bf16 / f32
+    *,
+    nbins: int = 512,
+    ntotal: Optional[int] = None,
+    rows_per_chunk: int = 65536,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2, on any device.
+
+    Scores are f32 matmuls of the db-dtype values (a bf16 x bf16 product is
+    exact in f32), row chunk by row chunk; within a chunk the bin max comes
+    from a reshape to [B, steps, nbins] and its earliest row from `argmax`
+    over the equality mask. Chunks merge with a strict `>`, so the earliest
+    row keeps a tie; rows at or past min(ntotal, N) never enter. Returns
+    (vals [B,nbins] f32, NEG_INF = empty bin; idxs [B,nbins] i32, -1)."""
+    n = db.shape[0]
+    b = queries.shape[0]
+    nt = _nvalid(n, ntotal)
+    dev = db.device
+    vals = torch.full((b, nbins), NEG_INF, dtype=torch.float32, device=dev)
+    idxs = torch.full((b, nbins), -1, dtype=torch.int64, device=dev)
+    q = queries.to(db.dtype).float()
+    col = torch.arange(nbins, device=dev)
+    step_rows = _round_up(max(rows_per_chunk, nbins), nbins)
+    for start in range(0, nt, step_rows):
+        stop = min(start + step_rows, nt)
+        s = q @ db[start:stop].float().T  # [B, rows]
+        steps = -(-(stop - start) // nbins)
+        pad = steps * nbins - (stop - start)
+        s = torch.nn.functional.pad(s, (0, pad), value=-float("inf"))
+        s3 = s.view(b, steps, nbins)
+        m = s3.amax(dim=1)
+        first = torch.argmax((s3 == m[:, None, :]).to(torch.uint8), dim=1)
+        better = m > vals  # -inf (no row) never beats NEG_INF
+        vals = torch.where(better, m, vals)
+        idxs = torch.where(better, start + first * nbins + col[None, :], idxs)
+    return vals, idxs.to(torch.int32)
+
+
+def binmax_partial_topk(
+    queries: torch.Tensor,  # [B, D]
+    db: torch.Tensor,  # [N, D] bf16 or f32
+    *,
+    nbins: int = 512,
+    ntotal: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """bf16/f32 partial top-k (K2): per query, the (score, global row) of
+    the best row in each of `nbins` row-residue bins. Returns (vals [B,
+    nbins] f32, idxs [B, nbins] i32), unsorted; an empty bin holds NEG_INF
+    and -1.
+
+    The result does not depend on the reference kernel's `chunk` (its grid
+    step), so there is none here. On CUDA tensors this launches
+    csrc/binmax_bf16.cu (or raises); on CPU tensors it runs
+    `binmax_partial_topk_plain`."""
+    if queries.dim() != 2 or db.dim() != 2:
+        raise ValueError("queries and db must be 2-D")
+    n, d = db.shape
+    b = queries.shape[0]
+    if queries.shape[1] != d:
+        raise ValueError(f"query dim {queries.shape[1]} != db dim {d}")
+    nt = _nvalid(n, ntotal)
+    if _on_cpu(queries, db, "binmax_partial_topk"):
+        return binmax_partial_topk_plain(queries, db, nbins=nbins, ntotal=nt)
+    if db.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"binmax_partial_topk scans bf16 or f32, not {db.dtype}")
+    q = queries.to(db.dtype).contiguous()
+    _check_words(q, db)
+    from . import _kernels
+
+    dev = db.device
+    vals = torch.empty((b, nbins), dtype=torch.float32, device=dev)
+    idxs = torch.empty((b, nbins), dtype=torch.int32, device=dev)
+    if b == 0:
+        return vals, idxs
+    groups = _scan_groups(dev, b, nbins, nt)
+    part_vals = torch.empty((groups, b, nbins), dtype=torch.float32, device=dev)
+    part_steps = torch.empty((groups, b, nbins), dtype=torch.int32, device=dev)
+    lib = _kernels.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ragtorch_binmax_bf16(
+            q.data_ptr(), db.data_ptr(),
+            part_vals.data_ptr(), part_steps.data_ptr(),
+            vals.data_ptr(), idxs.data_ptr(),
+            b, d, nt, nbins, groups, db.element_size(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"binmax_bf16 launch failed: cudaError {rc}")
+    binmax_partial_topk.launches += 1
+    return vals, idxs
+
+
+binmax_partial_topk.launches = 0  # kernel launches, for chip_smoke.py
+
+
+def fused_topk(
+    queries: torch.Tensor,
+    db: torch.Tensor,
+    k: int,
+    *,
+    nbins: int = 512,
+    ntotal: Optional[int] = None,
+    scan=binmax_partial_topk,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused flat-IP search: bin-max scan (K2) + exact top-k over the
+    survivors. Returns (scores [B,k] f32, ids [B,k] i32). Requires k <=
+    nbins; `scan` is the partial top-k (the K2 wrapper; its plain version
+    to compare on the card)."""
+    if k > nbins:
+        raise ValueError(
+            f"fused_topk keeps only nbins={nbins} candidates; k={k} exceeds "
+            "it — raise nbins or use exact_topk"
+        )
+    vals, idxs = scan(queries, db, nbins=nbins, ntotal=ntotal)
+    s, sel = _topk(vals, min(k, vals.shape[1]))
+    return s, torch.gather(idxs, 1, sel)
 
 
 # ---------------------------------------------------------------------------
@@ -181,15 +339,9 @@ def binmax_partial_topk_int8gs(
     if queries_i8.shape[1] != d:
         raise ValueError(f"query dim {queries_i8.shape[1]} != db dim {d}")
     nt = n if ntotal is None else max(min(int(ntotal), n), 0)
-    devs = {queries_i8.device.type, db_i8.device.type}
-    if devs == {"cpu"}:
+    if _on_cpu(queries_i8, db_i8, "binmax_partial_topk_int8gs"):
         return binmax_partial_topk_int8gs_plain(
             queries_i8, db_i8, nbins=nbins, ntotal=nt
-        )
-    if devs != {"cuda"} or queries_i8.device != db_i8.device:
-        raise ValueError(
-            f"queries on {queries_i8.device}, db on {db_i8.device}: both "
-            "must be on one CUDA device (or both on the CPU)"
         )
     if queries_i8.dtype != torch.int8 or db_i8.dtype != torch.int8:
         raise TypeError("binmax_partial_topk_int8gs takes int8 tensors")

@@ -97,3 +97,143 @@ def test_k1_kernel_refuses_what_it_cannot_take():
         ttopk.binmax_partial_topk_int8gs(q, db, nbins=4)
     with pytest.raises(ValueError):
         ttopk.binmax_partial_topk_int8gs(q.cpu()[:, :4], db[:, :4], nbins=4)
+
+
+# --- K2, K4, K5 -------------------------------------------------------------
+
+
+def _card_inputs(g, integer, *shape, dtype=torch.bfloat16):
+    """Integer-valued entries in [-8, 8] (exact f32 sums: bit-identical to
+    the plain version) or random unit rows (scores within rtol/atol 1e-5)."""
+    if integer:
+        x = torch.randint(-8, 9, shape, generator=g, device="cuda").float()
+    else:
+        x = torch.randn(shape, generator=g, device="cuda")
+        x = x / x.norm(dim=-1, keepdim=True)
+    return x.to(dtype)
+
+
+def _close(a, b, exact):
+    if exact:
+        assert torch.equal(a, b)
+    else:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _same_choice(k_idx, p_idx, exact):
+    """Bit-exact inputs pick the same rows; random inputs sum in another
+    order, so a near-tie (scores within the tolerance, checked by
+    `_close`) may pick the other row, in a tiny share of the bins."""
+    if exact:
+        assert torch.equal(k_idx, p_idx)
+    else:
+        assert (k_idx != p_idx).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,ntotal,d,nbins,integer,dtype", [
+    (8, 1_000_777, 1_000_333, 768, 512, True, torch.bfloat16),  # main path
+    (8, 1_000_777, 1_000_333, 768, 512, False, torch.bfloat16),
+    (37, 5000, 4321, 64, 128, True, torch.bfloat16),
+    (5, 3000, 90, 768, 128, True, torch.float32),  # ntotal < nbins
+])
+def test_k2_kernel_matches_plain_on_card(b, n, ntotal, d, nbins, integer, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K2 kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(b + n)
+    q = _card_inputs(g, integer, b, d, dtype=torch.float32)
+    db = _card_inputs(g, integer, n, d, dtype=dtype)
+    db[nbins + 5] = db[5]  # a tie: the earlier row keeps the bin
+    before = ttopk.binmax_partial_topk.launches
+    kv, ki = ttopk.binmax_partial_topk(q, db, nbins=nbins, ntotal=ntotal)
+    pv, pi = ttopk.binmax_partial_topk_plain(q, db, nbins=nbins, ntotal=ntotal)
+    torch.cuda.synchronize()
+    assert ttopk.binmax_partial_topk.launches == before + 1
+    _close(kv, pv, integer)
+    _same_choice(ki, pi, integer)
+
+
+def _card_listing(g, integer, nlist, cap, d, fill):
+    """A listing with ragged, empty and full lists (sizes from `fill`)."""
+    from rag_inference_pipeline_tpu_torch.ops.ivf import IVFListing
+
+    sizes = (torch.rand(nlist, generator=g, device="cuda") * fill * cap).int()
+    sizes[:3] = torch.tensor([0, cap, cap - 1], device="cuda", dtype=torch.int32)
+    buckets = _card_inputs(g, integer, nlist, cap, d)
+    pos = torch.arange(cap, device="cuda")
+    buckets[pos[None, :] >= sizes[:, None]] = 0
+    ids = torch.where(pos[None, :] < sizes[:, None],
+                      torch.arange(nlist * cap, device="cuda").view(nlist, cap),
+                      -1).int()
+    cents = _card_inputs(g, integer, nlist, d, dtype=torch.float32)
+    return IVFListing(cents, buckets, ids, sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nprobe,integer", [(8, 64, True), (8, 64, False), (13, 5, True)])
+def test_k5_kernel_matches_plain_on_card(b, nprobe, integer):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K5 kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import ivf
+
+    g = torch.Generator(device="cuda").manual_seed(b * nprobe)
+    lst = _card_listing(g, integer, 4096, 640, 768, 0.8)
+    q = _card_inputs(g, integer, b, 768)
+    probe = torch.randint(0, 4096, (b, nprobe), generator=g, device="cuda").int()
+    probe[:, 0] = torch.arange(b, device="cuda") % 3  # the empty and full lists
+    slots, _ = ivf.dedup_probes(probe, 4096, min(4096, b * nprobe))
+    before = ivf.ivf_dedup_scores.launches
+    k = ivf.ivf_dedup_scores(q, lst.buckets, slots, lst.list_sizes)
+    p = ivf.ivf_dedup_scores_plain(q, lst.buckets, slots, lst.list_sizes)
+    torch.cuda.synchronize()
+    assert ivf.ivf_dedup_scores.launches == before + 1
+    _close(k, p, integer)
+    ks, ki = ivf.ivf_search_dedup(lst, q.float(), 10, nprobe=nprobe)
+    ps, pi = ivf.ivf_search_dedup(lst, q.float(), 10, nprobe=nprobe,
+                                  scan=ivf.ivf_dedup_scores_plain)
+    assert torch.equal(ki, pi)
+    _close(ks, ps, integer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nprobe,integer", [(64, 64, True), (64, 64, False), (5, 3, True)])
+def test_k4_kernel_matches_plain_on_card(b, nprobe, integer):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K4 kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import ivf
+
+    g = torch.Generator(device="cuda").manual_seed(b * nprobe + 1)
+    lst = _card_listing(g, integer, 4096, 640, 768, 0.8)
+    q = _card_inputs(g, integer, b, 768)
+    probe = torch.randint(0, 4096, (b, nprobe), generator=g, device="cuda").int()
+    probe[:, 1] = probe[:, 0]  # a repeated list: the earlier slot wins
+    probe[0, :3] = torch.tensor([0, 1, 1], device="cuda")  # empty, full, full
+    before = ivf.ivf_scan_partial.launches
+    kv, kw = ivf.ivf_scan_partial(q, lst.buckets, probe, lst.list_sizes)
+    pv, pw = ivf.ivf_scan_partial_plain(q, lst.buckets, probe, lst.list_sizes)
+    torch.cuda.synchronize()
+    assert ivf.ivf_scan_partial.launches == before + 1
+    _close(kv, pv, integer)
+    _same_choice(kw, pw, integer)
+    # a repeated list never wins from the later slot
+    assert not (kw[1:] == 1).any() and not (kw[0] == 2).any()
+
+
+@pytest.mark.cuda
+def test_ivf_kernels_refuse_what_they_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rag_inference_pipeline_tpu_torch.ops import ivf
+
+    buckets = torch.zeros((4, 128, 16), dtype=torch.float16, device="cuda")
+    sizes = torch.zeros(4, dtype=torch.int32, device="cuda")
+    slots = torch.arange(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        ivf.ivf_dedup_scores(buckets[0, :2], buckets, slots, sizes)
+    with pytest.raises(TypeError):
+        ivf.ivf_dedup_scores(buckets[0, :2].bfloat16(), buckets.bfloat16(),
+                             slots.long(), sizes)
+    with pytest.raises(ValueError):
+        ivf.ivf_scan_partial(buckets[0, :2].cpu(), buckets, slots[None], sizes)
+    with pytest.raises(TypeError):
+        ttopk.binmax_partial_topk(buckets[0, :2], buckets[0])

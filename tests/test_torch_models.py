@@ -254,3 +254,49 @@ def test_hf_tokenizer_identical():
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_array_equal(tm, jm)
     assert t.decode(ti[0][tm[0] > 0]) == j.decode(ji[0][jm[0] > 0])
+
+
+def test_pair_encoding_identical():
+    """encode_pair_batch: [CLS] query [SEP] doc [SEP] with token types,
+    from the hash tokenizer and from a local tokenizer.json."""
+    import os
+
+    pairs = [("what is rag?", "Retrieval-augmented generation " * 12),
+             ("", "only a document"), ("a long query " * 20, "")]
+    j, t = JHashTokenizer(pad_id=1), THashTokenizer(pad_id=1)
+    for max_len in (16, 64):
+        for a, b in zip(t.encode_pair_batch(pairs, max_len),
+                        j.encode_pair_batch(pairs, max_len)):
+            np.testing.assert_array_equal(a, b)
+    wdir = os.path.join(os.path.dirname(__file__), "fixtures", "weights")
+    kw = dict(vocab_size=1000, pad_id=0, eos_id=2)
+    jh = j_make_tokenizer("tiny-qwen", wdir, **kw)
+    th = t_make_tokenizer("tiny-qwen", wdir, **kw)
+    for a, b in zip(th.encode_pair_batch(pairs, 32), jh.encode_pair_batch(pairs, 32)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_reranker_tree_carries_across():
+    """The bge-reranker (XLM-RoBERTa) tree — one token type, RoBERTa
+    positions from pad id 1, 514 positions, one logit — at narrow width:
+    names and shapes check strictly, and the cross-encoder logits match."""
+    import dataclasses
+
+    narrow = dict(vocab_size=300, hidden=64, layers=2, heads=4, intermediate=128)
+    jcfg = dataclasses.replace(jbert.BertConfig.bge_reranker(), **narrow)
+    tcfg = dataclasses.replace(tbert.BertConfig.bge_reranker(), **narrow)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert (tcfg.type_vocab, tcfg.max_positions, tcfg.pad_token_id) == (1, 514, 1)
+    jp = jbert.init_bert_params(jax.random.key(3), jcfg)
+    tp = bert_params_from_jax(jax.device_get(jp), tcfg)
+    assert tp.embeddings.token_type.shape == (1, 64)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(2, 300, (5, 40)).astype(np.int32)
+    mask = (np.arange(40)[None] < rng.integers(3, 41, (5, 1))).astype(np.int32)
+    ids = np.where(mask > 0, ids, 1)  # pad id 1
+    tt = np.zeros_like(ids)
+    jl = jbert.bert_classify(jp, jcfg, jnp.asarray(ids), jnp.asarray(mask),
+                             jnp.asarray(tt), use_pooler=True)
+    tl = tbert.bert_classify(tp, tcfg, _t(ids), _t(mask), _t(tt), use_pooler=True)
+    assert tl.shape == (5, 1)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-5)

@@ -105,6 +105,35 @@ def test_flat_index_re_add_matches_jax():
     assert tidx._db_gscale.item() == float(jidx._db_gscale)
 
 
+@pytest.mark.parametrize("dtype,metric", [("bfloat16", "ip"), ("bfloat16", "l2"),
+                                          ("float32", "l2")])
+def test_flat_vector_index_npz_both_ways(tmp_path, dtype, metric):
+    """bf16 / f32 vector storage: a JAX artifact loads in the port and the
+    port's save loads in the JAX index, with the same ids and scores (the
+    CPU routes both through the exact scan; l2 uses the stored norms)."""
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((700, 24)).astype(np.float32)
+    q = rng.standard_normal((6, 24)).astype(np.float32)
+    jidx = JFlatIndex(24, dtype=dtype, metric=metric)
+    jidx.add(vecs[:400])
+    jidx.add(vecs[400:])  # a second add appends
+    jidx.save(str(tmp_path / "j.npz"))
+    tidx = load_index(str(tmp_path / "j.npz"), CPU)
+    assert (tidx.ntotal, tidx.dtype_name, tidx.metric) == (700, dtype, metric)
+    own = FlatIndex(24, dtype=dtype, metric=metric, device=CPU)
+    own.add(vecs[:400])
+    own.add(vecs[400:])
+    own.save(str(tmp_path / "t.npz"))
+    back = JFlatIndex._load(str(tmp_path / "t.npz"))
+    for t, j in ((tidx, jidx), (own, back)):
+        ts, ti = t.search(q, 10)
+        js, ji = (np.asarray(a) for a in j.search(q, 10))
+        np.testing.assert_array_equal(ti.numpy(), ji)
+        np.testing.assert_allclose(ts.numpy(), js, rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="storage dtype"):
+        FlatIndex(24, dtype="float16")
+
+
 @pytest.fixture(params=[64, 0], ids=["rescore", "no_rescore"])
 def corpus(tmp_path, request):
     """A saved tiny corpus; without a rescore copy the executor takes the

@@ -55,6 +55,79 @@ class TestBinmaxInt8gs:
             assert (ti.numpy()[:, ntotal:] == -1).all()
 
 
+# (B, N, ntotal, D, nbins, chunk) for K2: integer-valued bf16 inputs are
+# exact in f32 (bit-identical); ntotal < N; ntotal < nbins (empty bins)
+K2_CASES = [
+    (5, 1000, None, 64, 128, 512),
+    (13, 1300, 777, 64, 128, 512),
+    (8, 700, 90, 64, 128, 256),
+    (3, 1100, 1050, 768, 256, 512),
+]
+
+
+class TestBinmaxBf16:
+    @pytest.mark.parametrize("b,n,ntotal,d,nbins,chunk", K2_CASES)
+    def test_plain_bit_identical_to_pallas_on_integer_inputs(
+        self, b, n, ntotal, d, nbins, chunk
+    ):
+        rng = np.random.default_rng(b * 7919 + n)
+        q = rng.integers(-8, 9, (b, d)).astype(np.float32)
+        db = rng.integers(-8, 9, (n, d)).astype(np.float32)
+        db[nbins + 3] = db[3]  # a tie in bin 3: row 3 must win
+        db[2 * nbins + 3] = db[3]
+        jv, ji = jtopk.binmax_partial_topk(
+            jnp.asarray(q), jnp.asarray(db, jnp.bfloat16), nbins=nbins,
+            chunk=chunk, interpret=True, ntotal=ntotal,
+        )
+        tv, ti = ttopk.binmax_partial_topk(
+            torch.from_numpy(q), torch.from_numpy(db).to(torch.bfloat16),
+            nbins=nbins, ntotal=ntotal,
+        )
+        assert tv.dtype == torch.float32 and ti.dtype == torch.int32
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        if ntotal is not None and ntotal < nbins:
+            assert (ti.numpy()[:, ntotal:] == -1).all()
+            assert (tv.numpy()[:, ntotal:] == np.float32(ttopk.NEG_INF)).all()
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_plain_matches_pallas_on_random_inputs(self, dtype):
+        rng = np.random.default_rng(17)
+        q = rng.standard_normal((6, 96)).astype(np.float32)
+        db = rng.standard_normal((1500, 96)).astype(np.float32)
+        jv, ji = jtopk.binmax_partial_topk(
+            jnp.asarray(q), jnp.asarray(db, getattr(jnp, dtype)), nbins=128,
+            chunk=512, interpret=True, ntotal=1400,
+        )
+        # row chunks smaller than N exercise the plain version's merge
+        tv, ti = ttopk.binmax_partial_topk_plain(
+            torch.from_numpy(q),
+            torch.from_numpy(db).to(getattr(torch, dtype)),
+            nbins=128, ntotal=1400, rows_per_chunk=256,
+        )
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("ntotal", [None, 1900])
+    def test_fused_topk_matches_jax(self, ntotal):
+        rng = np.random.default_rng(23)
+        db = rng.standard_normal((2048, 64)).astype(np.float32)
+        db /= np.linalg.norm(db, axis=1, keepdims=True)
+        q = rng.standard_normal((7, 64)).astype(np.float32)
+        js, ji = jtopk.fused_topk(
+            jnp.asarray(q), jnp.asarray(db, jnp.bfloat16), 10, nbins=256,
+            chunk=512, interpret=True, ntotal=ntotal,
+        )
+        ts, ti = ttopk.fused_topk(
+            torch.from_numpy(q), torch.from_numpy(db).to(torch.bfloat16), 10,
+            nbins=256, ntotal=ntotal,
+        )
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+        with pytest.raises(ValueError, match="nbins"):
+            ttopk.fused_topk(torch.from_numpy(q), torch.from_numpy(db), 300, nbins=256)
+
+
 class TestQuantizeAndExact:
     @pytest.mark.parametrize("n", [1000, 1537])
     def test_quantize_global_int8_identical(self, n):
