@@ -53,9 +53,29 @@ and exits non-zero before the last line:
 11. retrieve_flat — PIPELINE_ROLE_PROFILE=retrieval_default over the flat
              bf16 index of the same corpus: /retrieve at B=8, the K2 count
              rising, ids equal to a search with the plain scan.
+12. pq_build — IVFPQIndex.train_add on the card over the same corpus and
+             lists (nlist 4096, cap factor 2.5): PQ4 at m=192 and PQ8 at
+             m=96, each with an exact bf16 re-score of 256, and PQ4 with
+             the int8 host refine store; build times, cap, imbalance and
+             code bytes; .npz save/load parity of 50k-row PQ4 and PQ8
+             indexes, saved, loaded, saved and loaded again.
+13. k6     — the PQ4 ADC kernel against its plain version over the 1M PQ4
+             listing at B=8 (the batch's ~512 unique probed buckets) and
+             B=64 (all 4096): integer-valued tables bit for bit, the
+             listing's own bf16 tables within rtol=atol=1e-5; kernel,
+             plain and embedding_bag times from CUDA events; the whole B=64
+             search's time and peak memory, and its flat top-k's time.
+14. serve_pq — the staged server over the PQ indexes: retrieval_pq4 (an
+             8- and a 64-item /retrieve, K6 rising, ids equal to a search
+             with the plain scan), retrieval_pq_host_refine and
+             retrieval_ivfpq (8 items each), with recall@10 against the
+             exact scan; then single_node_full with INDEX_KIND=ivf_pq at
+             full model width: two /query, K6 rising.
 
-Then one JSON line of kernel results, and last the device line that the
-chip check reads.
+Then one JSON line of kernel results (each with its bound: the bytes or
+operations of the function over the card's peak rates, and the time of one
+PyTorch call computing the same function where there is one), and last the
+device line that the chip check reads.
 """
 
 from __future__ import annotations
@@ -105,6 +125,21 @@ RETRIEVE_B = 64
 # near-tie, not for a fault
 RECALL_BAR = 0.95
 TOL = dict(rtol=1e-5, atol=1e-5)  # f32 sums of bf16 products, another order
+# IVF-PQ on the same corpus and lists: PQ4 at m=192 (configs/retrieval_pq4.yaml
+# doubles PQ8's m for equal bits per row), PQ8 at m=96 (the settings' default),
+# both re-scoring a 256-deep ADC shortlist (INDEX_PQ_RESCORE_K)
+PQ4_M, PQ8_M, PQ_RESCORE_K = 192, 96, 256
+# recall@10 of the PQ /retrieve calls against the exact scan, measured on one
+# H100 with these settings: PQ4 + exact re-score 0.9844 (64 queries), PQ4 +
+# host int8 refine 0.9375 and PQ8 + exact 0.9875 (8 queries each, so one id
+# is 0.0125). The bars leave room for a few near-ties, not for a fault.
+PQ_RECALL_BAR = {"pq4": 0.95, "pq4_host": 0.9, "pq8": 0.95}
+# the least time the card could take: bytes over the HBM rate, operations
+# over the peak rate of their type (NVIDIA's H100 SXM data sheet, dense).
+# The sheet's 67 TFLOP/s of float32 counts an FMA as two operations, so
+# plain f32 adds issue at half that.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
 
 
 def phase(name: str, t0: float, **info) -> None:
@@ -119,11 +154,21 @@ def check(cond: bool, msg: str) -> None:
 
 def zero_launches() -> None:
     """Every kernel wrapper's launch count to 0, just before a path runs."""
-    from rag_inference_pipeline_tpu_torch.ops import ivf, topk
+    from rag_inference_pipeline_tpu_torch.ops import ivf, pq, topk
 
     for fn in (topk.binmax_partial_topk_int8gs, topk.binmax_partial_topk,
-               ivf.ivf_scan_partial, ivf.ivf_dedup_scores):
+               ivf.ivf_scan_partial, ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores):
         fn.launches = 0
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """`bound_ms`: the larger of the bytes the function must move (inputs
+    read once, outputs written once) over the HBM rate and its operations
+    over the peak rate for `kind`; `bound_by` says which."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -208,6 +253,9 @@ def phase_k1():
                 "max_abs_err": err,
                 "ms": cuda_ms(lambda: kernel(q, db, nbins=nbins, ntotal=nt), 20),
                 "plain_ms": cuda_ms(lambda: plain(q, db, nbins=nbins, ntotal=nt), 3),
+                # rows below ntotal, the queries, (value, row) per bin
+                **bound(nt * d + b * d + b * nbins * 8, 2 * b * nt * d, "int8"),
+                "library_ms": None,  # a positional bin max: no one call
             }
         del q, db
     torch.cuda.empty_cache()
@@ -271,6 +319,10 @@ def phase_k2():
         if not integer:
             out["ms"] = cuda_ms(lambda: kernel(q, db, nbins=nbins, ntotal=nt), 20)
             out["plain_ms"] = cuda_ms(lambda: plain(q, db, nbins=nbins, ntotal=nt), 3)
+            # bf16 rows below ntotal, f32 queries, (value, row) per bin
+            out.update(bound(nt * DIM * 2 + b * DIM * 4 + b * nbins * 8,
+                             2 * b * nt * DIM, "bf16"))
+            out["library_ms"] = None  # a positional bin max: no one call
         del q, db
     torch.cuda.empty_cache()
     phase("k2", t0, integer_bit_identical=True, max_abs_err=out["max_abs_err"],
@@ -382,7 +434,26 @@ def phase_k45(ivf, queries):
             out["k5"]["plain_ms"] = cuda_ms(lambda: ops.ivf_dedup_scores_plain(*args5), 3)
             out["k4"]["ms"] = cuda_ms(lambda: ops.ivf_scan_partial(*args4), 10)
             out["k4"]["plain_ms"] = cuda_ms(lambda: ops.ivf_scan_partial_plain(*args4), 2)
+            # the yardstick for K5: one batched matmul of the slot buckets,
+            # gathered outside the timing, against the queries
+            gathered = buckets[slots.long()]
+            out["k5"]["library_ms"] = cuda_ms(lambda: torch.matmul(gathered, q5.T), 20)
+            del gathered
+            out["k4"]["library_ms"] = None  # a positional max: no one call
         del buckets, kv, pv
+    sizes = lst.list_sizes.long()
+    cap = lst.buckets.shape[1]
+    n_slots = slots.shape[0]
+    filled5 = int(sizes[slots.long()].sum())
+    # K5: the unique slots' filled rows once, queries, [n_slots, B, cap] f32
+    out["k5"].update(bound(filled5 * DIM * 2 + MAIN_B * DIM * 2 + n_slots * MAIN_B * cap * 4,
+                           2 * MAIN_B * DIM * filled5, "bf16"))
+    # K4: the filled rows of the lists the batch probes, once; the products
+    # of every (query, probed list) pair; (value, slot) per position
+    filled4 = int(sizes[torch.unique(probe64.long())].sum())
+    pairs4 = int(sizes[probe64.long()].sum())
+    out["k4"].update(bound(filled4 * DIM * 2 + RETRIEVE_B * DIM * 2 + probe64.numel() * 4
+                           + RETRIEVE_B * cap * 8, 2 * DIM * pairs4, "bf16"))
     torch.cuda.empty_cache()
     phase("k45", t0, slots=int(slots.shape[0]), integer_bit_identical=True,
           k5_ms=f"{out['k5']['ms']:.4f}", k5_plain_ms=f"{out['k5']['plain_ms']:.4f}",
@@ -696,6 +767,227 @@ def phase_retrieve_flat(corpus, queries, db_path: str):
     return {"launches": launches}
 
 
+def phase_pq_build(corpus, queries, workdir: str):
+    import torch
+    from rag_inference_pipeline_tpu_torch.index.base import load_index
+    from rag_inference_pipeline_tpu_torch.index.ivf_pq import IVFPQIndex
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    built, info = {}, {}
+    for name, m, ksub, kind in (("pq4", PQ4_M, 16, "exact"), ("pq8", PQ8_M, 256, "exact"),
+                                ("pq4_host", PQ4_M, 16, "host_int8")):
+        tb = time.perf_counter()
+        idx = IVFPQIndex(DIM, NLIST, m, nprobe=NPROBE, rescore_k=PQ_RESCORE_K, ksub=ksub,
+                         rescore_kind=kind, device=dev)
+        idx.train_add(corpus)
+        torch.cuda.synchronize()
+        lst = idx._listing
+        sizes = lst.list_sizes.float()
+        check(int((lst.ids >= 0).sum()) == N_ROWS, f"{name}: build lost or duplicated rows")
+        check(int(lst.code_buckets[..., m:].count_nonzero()) == 0 and
+              int(lst.code_buckets.max()) < ksub, f"{name}: codes out of range")
+        info[f"{name}_build_s"] = f"{time.perf_counter() - tb:.3f}"
+        info[f"{name}_cap"] = lst.code_buckets.shape[1]
+        info[f"{name}_imbalance"] = f"{(sizes.max() / sizes.mean()).item():.4f}"
+        info[f"{name}_codes_gb"] = f"{lst.code_buckets.numel() / 1e9:.3f}"
+        built[name] = idx
+    # .npz parity on 50k-row IVF-PQ indexes built the same way: save, load,
+    # save the loaded one and load it again
+    ts = time.perf_counter()
+    for name, m, ksub in (("pq4", PQ4_M, 16), ("pq8", PQ8_M, 256)):
+        small = IVFPQIndex(DIM, 256, m, nprobe=16, rescore_k=64, ksub=ksub, device=dev)
+        small.train_add(corpus[:50_000], kmeans_iters=5, pq_iters=5)
+        ref = small.search(queries[:8], 10)
+        for hop in range(2):
+            path = os.path.join(workdir, f"{name}_small_{hop}.npz")
+            small.save(path)
+            back = load_index(path, dev)
+            for a, b_ in zip(small._listing, back._listing):
+                check(torch.equal(a, b_), f"{name} .npz round trip changed the listing")
+            check(torch.equal(small._vectors, back._vectors), f"{name}: re-score rows changed")
+            out = back.search(queries[:8], 10)
+            check(all(torch.equal(a, b_) for a, b_ in zip(ref, out)),
+                  f"reloaded {name} searches differ")
+            small = back
+    info["small_npz_roundtrips_s"] = f"{time.perf_counter() - ts:.3f}"
+    phase("pq_build", t0, **info)
+    return built
+
+
+def phase_k6(pq4, queries):
+    import torch
+    import torch.nn.functional as F
+    from rag_inference_pipeline_tpu_torch.ops import ivf, pq
+    from rag_inference_pipeline_tpu_torch.ops.topk import _topk
+
+    t0 = time.perf_counter()
+    lst = pq4._listing
+    nlist, cap, _ = lst.code_buckets.shape
+    m = lst.codebooks.shape[0]
+    codes, sizes = lst.code_buckets, lst.list_sizes
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    res = {}
+    for b in (MAIN_B, RETRIEVE_B):
+        q = queries[:b]
+        probe = _topk(ivf.coarse_scores(lst.centroids, q), NPROBE)[1].int()
+        slots, _ = ivf.dedup_probes(probe, nlist, min(nlist, b * NPROBE))
+        b_pad = -(-b // 8) * 8
+        own = F.pad(pq.pq_lut(q, lst.codebooks), (0, 0, 0, b_pad - b)).to(torch.bfloat16)
+        integer = torch.randint(-8, 9, own.shape, generator=g, device=DEVICE).to(torch.bfloat16)
+        r = {"max_abs_err": 0.0}
+        for is_int, lut in ((True, integer), (False, own)):
+            kv = pq.ivfpq4_adc_scores(lut, codes, slots, sizes)
+            pv = pq.ivfpq4_adc_scores_plain(lut, codes, slots, sizes)
+            torch.cuda.synchronize()
+            r["max_abs_err"] = max(r["max_abs_err"], _hold(f"K6 B={b}", is_int, kv, pv))
+            if not is_int:
+                plain_out = pv
+            del kv, pv
+        r["ms"] = cuda_ms(lambda: pq.ivfpq4_adc_scores(own, codes, slots, sizes), 20)
+        r["plain_ms"] = cuda_ms(lambda: pq.ivfpq4_adc_scores_plain(own, codes, slots, sizes), 2)
+        # the yardstick: one embedding_bag over the filled rows' codes
+        # (offset by 16 per subspace, gathered outside the timing) into the
+        # bf16-rounded tables held in f32
+        sl = slots.long()
+        filled = torch.arange(cap, device=DEVICE)[None, :] < sizes[sl][:, None]
+        idx = codes[sl][filled][:, :m].long() + 16 * torch.arange(m, device=DEVICE)
+        weight = own.float().T.contiguous()
+        lib = F.embedding_bag(idx, weight, mode="sum")
+        check(torch.allclose(lib, plain_out.permute(0, 2, 1)[filled], **TOL),
+              f"K6 B={b}: the embedding_bag yardstick disagrees")
+        r["library_ms"] = cuda_ms(lambda: F.embedding_bag(idx, weight, mode="sum"), 10)
+        rows = idx.shape[0]
+        # the filled rows' m code bytes once, the tables, the slot ids and
+        # sizes, [n_slots, b_pad, cap] f32 out; one f32 add per lookup
+        r.update(bound(rows * m + own.numel() * 2 + (sl.numel() + nlist) * 4
+                       + sl.numel() * b_pad * cap * 4, b_pad * m * rows, "f32_add"))
+        r["slots"], r["filled_rows"] = int(sl.numel()), rows
+        res[b] = r
+        del idx, weight, lib, plain_out, filled
+    # the whole B=64 search (K6 + the flat top-k of [64, n_slots * cap])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pq.ivfpq4_search_dedup(lst, queries, PQ_RESCORE_K, nprobe=NPROBE)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    search_ms = cuda_ms(lambda: pq.ivfpq4_search_dedup(lst, queries, PQ_RESCORE_K,
+                                                       nprobe=NPROBE), 5)
+    flat = torch.randn(RETRIEVE_B, res[RETRIEVE_B]["slots"] * cap, generator=g, device=DEVICE)
+    topk_ms = cuda_ms(lambda: _topk(flat, PQ_RESCORE_K), 5)
+    del flat
+    torch.cuda.empty_cache()
+    b8, b64 = res[MAIN_B], res[RETRIEVE_B]
+    phase("k6", t0, integer_bit_identical=True,
+          b8_slots=b8["slots"], b8_ms=f"{b8['ms']:.4f}", b8_plain_ms=f"{b8['plain_ms']:.4f}",
+          b8_library_ms=f"{b8['library_ms']:.4f}", b8_bound_ms=f"{b8['bound_ms']:.4f}",
+          b64_slots=b64["slots"], b64_ms=f"{b64['ms']:.4f}",
+          b64_plain_ms=f"{b64['plain_ms']:.4f}", b64_library_ms=f"{b64['library_ms']:.4f}",
+          b64_bound_ms=f"{b64['bound_ms']:.4f}", err8=b8["max_abs_err"],
+          err64=b64["max_abs_err"], search64_ms=f"{search_ms:.4f}",
+          topk64_ms=f"{topk_ms:.4f}", search64_peak_gb=f"{peak_gb:.3f}")
+    return b8
+
+
+def _recall(results, ref) -> float:
+    import numpy as np
+
+    return float(np.mean([len(set(r["ids"]) & set(e)) / 10 for r, e in zip(results, ref)]))
+
+
+def phase_serve_pq(built, corpus, queries, db_path: str):
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops.pq import (
+        ivfpq4_adc_scores,
+        ivfpq4_adc_scores_plain,
+    )
+    from rag_inference_pipeline_tpu_torch.ops.topk import exact_topk
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = exact_topk(queries, corpus.to(torch.bfloat16), 10)[1].cpu().numpy()
+    base = {**STAGED_ENV, "DOCUMENT_DB_PATH": db_path, "INDEX_KIND": "ivf_pq"}
+    pq4_env = {"INDEX_PQ_BITS": "4", "INDEX_PQ_M": str(PQ4_M)}
+    stats, recalls = {}, {}
+
+    def retrieve_only(profile, index, env, sizes):
+        server, th = _serve({**base, **env, "PIPELINE_ROLE_PROFILE": profile}, index)
+        port = server.server_address[1]
+        try:
+            check(_get_health(port)["profile"] == profile, f"profile {profile}")
+            zero_launches()
+            out = []
+            for b in sizes:
+                ret, secs = _retrieve(port, queries[:b])
+                out.append((ret["results"], secs, ivfpq4_adc_scores.launches))
+            health = _get_health(port)["kernel_launches"]
+        finally:
+            _stop(server, th)
+        check(health["ivfpq4_adc"] == ivfpq4_adc_scores.launches,
+              f"{profile}: /health disagrees with the K6 launch count")
+        for res, _, _ in out:
+            check(all(len(r["ids"]) == 10 and np.isfinite(r["scores"]).all() for r in res),
+                  f"{profile}: 10 finite results per item expected")
+            check(all(r["documents"][0]["title"] == f"doc {r['ids'][0]}" for r in res),
+                  f"{profile}: documents do not match their ids")
+        return out
+
+    # PQ4 with exact re-score: an 8-item and a 64-item /retrieve
+    (r8, s8, n8), (r64, s64, n64) = retrieve_only("retrieval_pq4", built["pq4"], pq4_env, (MAIN_B, RETRIEVE_B))
+    check(n8 >= 1 and n64 > n8, f"retrieval_pq4: K6 launched {n8}, then {n64} in all")
+    pq4 = built["pq4"]
+    ps, pi = pq4.search(queries[:MAIN_B], 10, scan=ivfpq4_adc_scores_plain)
+    got = torch.tensor([r["ids"] for r in r8], device=DEVICE)
+    got_s = torch.tensor([r["scores"] for r in r8], device=DEVICE)
+    differ = got != pi
+    # the kernel sums in another order than the plain scan: an id may
+    # differ only where two shortlist candidates tie within the tolerance
+    check(torch.allclose(got_s, ps, **TOL), "K6 route: scores differ from the plain scan")
+    check(int(differ.sum()) <= 1, f"K6 route: {int(differ.sum())} ids differ from the plain scan")
+    recalls["pq4"] = _recall(r64, ref)  # its first 8 items hit the search cache
+    stats.update(pq4_k6_launches=n64, pq4_retrieve8_s=f"{s8:.4f}",
+                 pq4_retrieve64_s=f"{s64:.4f}", pq4_ids_identical=not bool(differ.any()))
+    # PQ4 shortlist, int8 refine store in host RAM
+    ((rh, sh, nh),) = retrieve_only("retrieval_pq_host_refine", built["pq4_host"], pq4_env, (MAIN_B,))
+    check(nh >= 1, "retrieval_pq_host_refine: /retrieve did not run K6")
+    recalls["pq4_host"] = _recall(rh, ref)
+    stats.update(host_k6_launches=nh, host_retrieve8_s=f"{sh:.4f}")
+    # PQ8: the gather-ADC search, no kernel
+    ((r_8, s_8, n_8),) = retrieve_only("retrieval_ivfpq", built["pq8"], {}, (MAIN_B,))
+    check(n_8 == 0, "retrieval_ivfpq (PQ8) ran the PQ4 kernel")
+    recalls["pq8"] = _recall(r_8, ref)
+    stats.update(pq8_retrieve8_s=f"{s_8:.4f}")
+    for name, rec in recalls.items():
+        check(rec >= PQ_RECALL_BAR[name], f"{name} recall@10 {rec:.4f} < {PQ_RECALL_BAR[name]}")
+        stats[f"{name}_recall_at_10"] = f"{rec:.4f}"
+    # /query on single_node_full over the PQ4 index, models at full width
+    server, th = _serve({**base, **pq4_env}, pq4)
+    port = server.server_address[1]
+    tq = time.perf_counter()
+    try:
+        health = _get_health(port)
+        check(health["status"] == "ok" and health["profile"] == "single_node_full",
+              f"not loaded: {health}")
+        zero_launches()
+        results = [_post(port, f"what does the corpus say about topic {i}?", f"p{i}")
+                   for i in range(2)]
+        k6_query = ivfpq4_adc_scores.launches
+    finally:
+        _stop(server, th)
+    keys = {"request_id", "generated_response", "sentiment", "is_toxic"}
+    for i, (status, body, _) in enumerate(results):
+        check(status == 200 and set(body) == keys and body["request_id"] == f"p{i}",
+              f"/query {i} over IVF-PQ: HTTP {status}, {sorted(body)}")
+    check(k6_query >= 1, "/query over IVF-PQ did not run K6")
+    stats.update(query_k6_launches=k6_query, query_first_s=f"{results[0][2]:.4f}",
+                 query_second_s=f"{results[1][2]:.4f}",
+                 query_phase_s=f"{time.perf_counter() - tq:.3f}")
+    phase("serve_pq", t0, **stats)
+    return n64 + nh + k6_query
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py: no {PKG}/ beside this script", file=sys.stderr)
@@ -732,6 +1024,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         flat = phase_retrieve_flat(corpus, queries, db_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        built = phase_pq_build(corpus, queries, workdir)
+        k6 = phase_k6(built["pq4"], queries)
+        k6_launches = phase_serve_pq(built, corpus, queries, db_path)
+        del built
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -742,7 +1040,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/{name}.cu",
             "replaces": f"rag_inference_pipeline_tpu/{replaces}",
             "launches": launches, "max_abs_err": m["max_abs_err"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         }
 
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
@@ -751,6 +1050,7 @@ def main() -> int:
         entry("binmax_bf16", "ops/topk.py:118", flat["launches"], k2),
         entry("ivf_scan", "ops/ivf.py:156", staged["k4_launches"], k45["k4"]),
         entry("ivf_dedup", "ops/ivf.py:290", staged["k5_launches"], k45["k5"]),
+        entry("ivfpq4_adc", "ops/pq.py:432", k6_launches, k6),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

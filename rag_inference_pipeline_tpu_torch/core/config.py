@@ -60,10 +60,15 @@ class Settings:
     index_metric: str = "ip"
     index_nlist: int = 4096
     index_nprobe: int = 64
+    index_pq_m: int = 96  # subspaces (768/8)
+    index_pq_bits: int = 8  # 4 = PQ4 (ksub=16, kernel K6), 8 = PQ8
     index_dtype: str = "bfloat16"
     index_search_oversample: int = 4
     index_rescore_k: int = 64
     index_rescore_store: str = "device"  # "host" is refused (not ported)
+    index_pq_rescore_k: int = 256  # IVF-PQ shortlist re-score depth
+    # exact | int4 | pq8 | host_int8 | host_f16 (index/ivf_pq.py)
+    index_pq_rescore_kind: str = "exact"
     index_cap_factor: float = 2.5
 
     # --- retrieval / generation semantics ---
@@ -110,6 +115,33 @@ class Settings:
 
     # --- generation ---
     prefill_buckets: str = "128,256,512"
+
+    def __post_init__(self) -> None:
+        """The reference's `_check_pq` model validator."""
+        if self.index_dim % self.index_pq_m != 0:
+            raise ValueError(
+                f"index_dim ({self.index_dim}) must be divisible by "
+                f"index_pq_m ({self.index_pq_m})"
+            )
+        if self.index_pq_bits not in (4, 8):
+            raise ValueError(
+                "index_pq_bits must be 4 (PQ4, ksub=16 — double index_pq_m "
+                "for equal bits/row) or 8 (PQ8, ksub=256)"
+            )
+        if self.index_cap_factor < 1.0:
+            raise ValueError(
+                "index_cap_factor must be >= 1.0 (bucket capacity as a "
+                "multiple of the mean list size)"
+            )
+        if self.index_rescore_store not in ("device", "host"):
+            raise ValueError("index_rescore_store must be 'device' or 'host'")
+        if self.index_pq_rescore_kind not in (
+            "exact", "int4", "pq8", "host_int8", "host_f16"
+        ):
+            raise ValueError(
+                "index_pq_rescore_kind must be 'exact', 'int4', 'pq8', "
+                "'host_int8' or 'host_f16'"
+            )
 
     @property
     def listen_port(self) -> int:

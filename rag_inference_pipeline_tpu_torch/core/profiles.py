@@ -3,7 +3,8 @@
 Port of the part of `rag_inference_pipeline_tpu/core/profiles.py` that the
 one-node staged path needs, as Python data (the GPU machine has no yaml):
 the built-in `single_node_full` (`profiles.py:117-139`) and the named
-profiles `retrieval_default` and `retrieval_ivf`, with the same components,
+profiles `retrieval_default`, `retrieval_ivf`, `retrieval_ivfpq`,
+`retrieval_pq4` and `retrieval_pq_host_refine`, with the same components,
 per-component config and routes as `configs/<name>.yaml`. Selection, as in
 `profiles.py:159`: PIPELINE_ROLE_PROFILE names a profile; else
 TOTAL_NODES=1 means `single_node_full`. A multi-node deployment needs the
@@ -73,6 +74,36 @@ _PROFILES = {
         components=_specs(
             "mesh", "embedder", "index", "doc_store",
             config={"index": {"kind": "ivf_flat"}},
+        ),
+        routes=("retrieval",),
+    ),
+    "retrieval_ivfpq": Profile(
+        name="retrieval_ivfpq",
+        description="IVF-PQ compressed index retrieval node",
+        components=_specs(
+            "mesh", "embedder", "index", "doc_store",
+            config={"index": {"kind": "ivf_pq"}},
+        ),
+        routes=("retrieval",),
+    ),
+    "retrieval_pq4": Profile(
+        name="retrieval_pq4",
+        description="PQ4 residual IVF-PQ codes (kernel K6) with exact bf16 "
+        "re-score; set INDEX_PQ_M=192 at 768d",
+        components=_specs(
+            "mesh", "embedder", "index", "doc_store",
+            config={"index": {"kind": "ivf_pq", "pq_bits": 4}},
+        ),
+        routes=("retrieval",),
+    ),
+    "retrieval_pq_host_refine": Profile(
+        name="retrieval_pq_host_refine",
+        description="PQ4 shortlist on the device, int8 refine store in host RAM",
+        components=_specs(
+            "mesh", "embedder", "index", "doc_store",
+            config={"index": {
+                "kind": "ivf_pq", "pq_bits": 4, "pq_rescore_kind": "host_int8",
+            }},
         ),
         routes=("retrieval",),
     ),

@@ -1,4 +1,4 @@
-"""Indexes of the port: flat (bf16/f32 or int8) and IVF-Flat."""
+"""Indexes of the port: flat (bf16/f32 or int8), IVF-Flat and IVF-PQ."""
 
 from __future__ import annotations
 
@@ -9,11 +9,12 @@ import torch
 
 def make_index(settings, device: Optional[torch.device] = None):
     """Settings -> an empty index of the configured kind (the reference's
-    `index/__init__.py::make_index`, dp=1). IVF-PQ and the host rescore
-    store are refused by name until they are ported (ROADMAP.md)."""
+    `index/__init__.py::make_index`, dp=1). The host rescore store of the
+    flat index is refused by name until it is ported (ROADMAP.md)."""
     from ..core.enums import IndexKind
     from .flat import FlatIndex
     from .ivf_flat import IVFFlatIndex
+    from .ivf_pq import IVFPQIndex
 
     if settings.index_rescore_store != "device":
         raise NotImplementedError(
@@ -45,7 +46,15 @@ def make_index(settings, device: Optional[torch.device] = None):
             device=device,
             cap_factor=settings.index_cap_factor,
         )
-    raise NotImplementedError(
-        f"INDEX_KIND={kind.value!r} is not ported yet (ROADMAP.md, Queue 1: "
-        "IVF-PQ and kernel K6)"
+    return IVFPQIndex(
+        settings.index_dim,
+        settings.index_nlist,
+        settings.index_pq_m,
+        nprobe=settings.index_nprobe,
+        rescore_k=settings.index_pq_rescore_k,
+        cap_factor=settings.index_cap_factor,
+        # 4-bit codes -> ksub=16, the K6 bucket scan
+        ksub=16 if settings.index_pq_bits == 4 else 256,
+        rescore_kind=settings.index_pq_rescore_kind,
+        device=device,
     )

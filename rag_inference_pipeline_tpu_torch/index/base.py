@@ -1,5 +1,5 @@
 """Index persistence and shared checks: the JAX package's `.npz` artifact
-format, the load dispatch on its declared `kind` (flat and ivf_flat), the
+format, the load dispatch on its declared `kind` (flat, ivf_flat, ivf_pq), the
 storage dtypes and the query validation of `index/base.py`."""
 
 from __future__ import annotations
@@ -56,15 +56,13 @@ def load_index(path: str, device: Optional[torch.device] = None):
     """Load an index artifact written by either package."""
     from .flat import FlatIndex
     from .ivf_flat import IVFFlatIndex
+    from .ivf_pq import IVFPQIndex
 
     with np.load(path, allow_pickle=False) as z:
         kind = str(z["kind"])
-    if kind == "ivf_pq":
-        raise NotImplementedError(
-            f"{path}: index kind 'ivf_pq' is not ported yet (ROADMAP.md, "
-            "Queue 1: IVF-PQ and kernel K6)"
-        )
-    impl = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex}.get(kind)
+    impl = {
+        "flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
+    }.get(kind)
     if impl is None:
         raise ValueError(f"unknown index kind {kind!r} in {path}")
     return impl._load(path, device)

@@ -125,6 +125,9 @@ def load_library() -> ctypes.CDLL:
             # q, buckets, probe, sizes, vals, win, B, D, nprobe, cap,
             # elem_bytes, stream
             "ragtorch_ivf_scan": [vp] * 6 + [i32] * 5 + [vp],
+            # lut, codes, slots, sizes, out, b_pad, m, n_slots, cap, m_store,
+            # stream
+            "ragtorch_ivfpq4_adc": [vp] * 5 + [i32] * 5 + [vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)

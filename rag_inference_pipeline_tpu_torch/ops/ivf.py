@@ -175,16 +175,25 @@ def build_ivf(
     )
 
 
+def coarse_scores(
+    centroids: torch.Tensor, qf: torch.Tensor, metric: str = "ip"
+) -> torch.Tensor:
+    """Coarse scores [B, nlist] f32 of float32 queries against the
+    centroids (full float32, never TF32)."""
+    require_full_f32(qf)
+    coarse = torch.matmul(qf, centroids.T)
+    if metric == "l2":
+        coarse = 2.0 * coarse - (centroids * centroids).sum(dim=1)[None, :]
+    return coarse
+
+
 def coarse_probe(
-    listing: IVFListing, qf: torch.Tensor, nprobe: int, metric: str = "ip"
+    listing, qf: torch.Tensor, nprobe: int, metric: str = "ip"
 ) -> torch.Tensor:
     """Coarse scan: the top-nprobe lists per query, [B, nprobe] i32, best
-    first, lower list id first on a tie (as `lax.top_k`)."""
-    require_full_f32(qf)
-    c = listing.centroids
-    coarse = torch.matmul(qf, c.T)
-    if metric == "l2":
-        coarse = 2.0 * coarse - (c * c).sum(dim=1)[None, :]
+    first, lower list id first on a tie (as `lax.top_k`). `listing` is any
+    listing with `centroids` (IVF-Flat or IVF-PQ)."""
+    coarse = coarse_scores(listing.centroids, qf, metric)
     return _topk(coarse, nprobe)[1].to(torch.int32)
 
 

@@ -1,4 +1,5 @@
-"""k-means (Lloyd's) on the device, for the IVF coarse quantizer.
+"""k-means (Lloyd's) on the device, for the IVF coarse quantizer and, as a
+batch of independent problems, the PQ codebooks.
 
 Port of `rag_inference_pipeline_tpu/ops/kmeans.py`: chunked float32
 matmuls for the nearest-centroid scores and one-hot matmuls for the
@@ -31,8 +32,9 @@ def require_full_f32(t: torch.Tensor) -> None:
 
 
 def _scores(xc: torch.Tensor, c: torch.Tensor, c_sq: torch.Tensor) -> torch.Tensor:
-    """2 x.c - |c|^2 (argmax = nearest centroid in L2), float32."""
-    return 2.0 * torch.matmul(xc.float(), c.T) - c_sq[None, :]
+    """2 x.c - |c|^2 (argmax = nearest centroid in L2), float32; any
+    leading batch dimensions broadcast."""
+    return 2.0 * torch.matmul(xc.float(), c.transpose(-1, -2)) - c_sq[..., None, :]
 
 
 def assign_clusters(
@@ -54,23 +56,28 @@ def _lloyd_step(
     x_pad: torch.Tensor, n_real: int, centroids: torch.Tensor, *, chunk: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One Lloyd iteration over padded data: rows at or past `n_real` do
-    not count. Returns (new_centroids [k, D] f32, counts [k] f32); an empty
+    not count. x_pad [..., N, D] and centroids [..., k, D]: a leading
+    dimension runs independent problems at once (the PQ subspaces).
+    Returns (new_centroids [..., k, D] f32, counts [..., k] f32); an empty
     cluster keeps its old centroid."""
-    k, d = centroids.shape
+    k = centroids.shape[-2]
     c = centroids.float()
-    c_sq = (c * c).sum(dim=1)
-    sums = torch.zeros((k, d), dtype=torch.float32, device=x_pad.device)
-    counts = torch.zeros((k,), dtype=torch.float32, device=x_pad.device)
-    for start in range(0, x_pad.shape[0], chunk):
-        xf = x_pad[start : start + chunk].float()
-        a = torch.argmax(_scores(xf, c, c_sq), dim=1)
-        onehot = torch.nn.functional.one_hot(a, k).float()
-        rid = torch.arange(start, start + xf.shape[0], device=x_pad.device)
+    c_sq = (c * c).sum(dim=-1)
+    sums = torch.zeros(c.shape, dtype=torch.float32, device=x_pad.device)
+    counts = torch.zeros(c.shape[:-1], dtype=torch.float32, device=x_pad.device)
+    for start in range(0, x_pad.shape[-2], chunk):
+        xf = x_pad[..., start : start + chunk, :].float()
+        a = torch.argmax(_scores(xf, c, c_sq), dim=-1)
+        # a float one-hot without one_hot's int64 intermediate
+        onehot = torch.zeros((*a.shape, k), device=x_pad.device).scatter_(
+            -1, a[..., None], 1.0
+        )
+        rid = torch.arange(start, start + xf.shape[-2], device=x_pad.device)
         onehot = onehot * (rid < n_real).float()[:, None]
-        sums = sums + torch.matmul(onehot.T, xf)
-        counts = counts + onehot.sum(dim=0)
-    new_c = sums / torch.clamp(counts, min=1.0)[:, None]
-    return torch.where((counts > 0)[:, None], new_c, c), counts
+        sums = sums + torch.matmul(onehot.transpose(-1, -2), xf)
+        counts = counts + onehot.sum(dim=-2)
+    new_c = sums / torch.clamp(counts, min=1.0)[..., None]
+    return torch.where((counts > 0)[..., None], new_c, c), counts
 
 
 def kmeans(
@@ -83,23 +90,33 @@ def kmeans(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Lloyd's k-means. Returns (centroids [k, D] f32, counts [k] f32).
 
-    Init: k points sampled without replacement (`randperm`). Each
-    iteration reseeds empty clusters at perturbed copies of the largest
-    cluster's centroid, as the reference does. `generator` lives on x's
-    device; the same seed gives the same result."""
+    `x` is [N, D], or [M, N, D] for M independent problems trained at once
+    (the reference vmaps its k-means over the PQ subspaces); the results
+    then gain the leading M. Init: k points sampled without replacement
+    (`randperm`, one per problem). Each iteration reseeds empty clusters at
+    perturbed copies of the largest cluster's centroid, as the reference
+    does. `generator` lives on x's device; the same seed gives the same
+    result."""
     require_full_f32(x)
-    n, _ = x.shape
+    n, d = x.shape[-2:]
     if n < k:
         raise ValueError(f"k-means needs at least k training points: n={n} < k={k}")
     chunk = min(chunk, max(256, n))
-    perm = torch.randperm(n, generator=generator, device=x.device)[:k]
-    c = x[perm].float()
-    counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    if x.dim() == 2:
+        c = x[torch.randperm(n, generator=generator, device=x.device)[:k]].float()
+    else:
+        perm = torch.stack([
+            torch.randperm(n, generator=generator, device=x.device)[:k]
+            for _ in range(x.shape[0])
+        ])
+        c = torch.gather(x, 1, perm[:, :, None].expand(-1, -1, d)).float()
+    counts = torch.zeros(c.shape[:-1], dtype=torch.float32, device=x.device)
     for _ in range(iters):
         new_c, counts = _lloyd_step(x, n, c, chunk=chunk)
-        big = torch.argmax(counts)
+        big = torch.argmax(counts, dim=-1, keepdim=True)  # [..., 1]
+        fattest = torch.gather(new_c, -2, big[..., None].expand(*big.shape, d))
         noise = 1e-3 * torch.randn(
             new_c.shape, generator=generator, device=x.device
         )
-        c = torch.where((counts > 0)[:, None], new_c, new_c[big][None, :] + noise)
+        c = torch.where((counts > 0)[..., None], new_c, fattest + noise)
     return c, counts

@@ -56,6 +56,7 @@ from ..models.components import (
     ToxicityComponent,
 )
 from ..ops.ivf import ivf_dedup_scores, ivf_scan_partial
+from ..ops.pq import ivfpq4_adc_scores
 from ..ops.topk import binmax_partial_topk, binmax_partial_topk_int8gs
 from ..utils.docstore import DocumentStore
 from .services import GenerationService, RetrievalExecutor
@@ -70,6 +71,7 @@ def kernel_launches() -> dict[str, int]:
         "binmax_bf16": binmax_partial_topk.launches,
         "ivf_scan": ivf_scan_partial.launches,
         "ivf_dedup": ivf_dedup_scores.launches,
+        "ivfpq4_adc": ivfpq4_adc_scores.launches,
     }
 
 
@@ -162,7 +164,10 @@ class FusedApp:
 _INDEX_CFG_KEYS = {
     "kind": "index_kind", "path": "index_path", "metric": "index_metric",
     "dtype": "index_dtype", "nlist": "index_nlist", "nprobe": "index_nprobe",
+    "pq_m": "index_pq_m", "pq_bits": "index_pq_bits",
     "rescore_k": "index_rescore_k", "rescore_store": "index_rescore_store",
+    "pq_rescore_k": "index_pq_rescore_k",
+    "pq_rescore_kind": "index_pq_rescore_kind",
     "cap_factor": "index_cap_factor",
 }
 

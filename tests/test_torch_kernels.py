@@ -1,6 +1,6 @@
-"""The K1 wrapper (int8 bin-max scan) without the JAX package: its CPU
-dispatch and plain version here, and the hand-written CUDA kernel against
-that plain version on a card.
+"""The kernel wrappers without the JAX package: the K1 wrapper's CPU
+dispatch and plain version here, and every hand-written CUDA kernel (K1,
+K2, K4, K5, K6) against its plain version on a card.
 
 This file imports no jax, so the card tests run on a machine without it:
 
@@ -237,3 +237,83 @@ def test_ivf_kernels_refuse_what_they_cannot_take():
         ivf.ivf_scan_partial(buckets[0, :2].cpu(), buckets, slots[None], sizes)
     with pytest.raises(TypeError):
         ttopk.binmax_partial_topk(buckets[0, :2], buckets[0])
+
+
+# --- K6 ---------------------------------------------------------------------
+
+
+def _pq4_buckets(g, nlist, cap, m, fill):
+    """PQ4 code buckets lane-padded to 128 columns (zeros past m), with
+    ragged, empty and full lists; zeros past each list's size."""
+    m_store = max(128, -(-m // 128) * 128)
+    sizes = (torch.rand(nlist, generator=g, device="cuda") * fill * cap).int()
+    sizes[:3] = torch.tensor([0, cap, cap - 1], device="cuda", dtype=torch.int32)
+    codes = torch.randint(0, 16, (nlist, cap, m_store), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    codes[:, :, m:] = 0
+    pos = torch.arange(cap, device="cuda")
+    codes[pos[None, :] >= sizes[:, None]] = 0
+    return codes, sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nprobe,m,integer", [
+    (8, 64, 192, True),  # the main path: 512 slots of the 1M PQ4 layout
+    (8, 64, 192, False),
+    (64, 64, 192, True),  # every list a slot
+    (13, 5, 24, True),  # an odd number of 8-subspace groups, b_pad 16
+])
+def test_k6_kernel_matches_plain_on_card(b, nprobe, m, integer):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K6 kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import ivf, pq
+
+    g = torch.Generator(device="cuda").manual_seed(b * m + nprobe)
+    codes, sizes = _pq4_buckets(g, 4096, 640, m, 0.8)
+    b_pad = -(-b // 8) * 8
+    lut = _card_inputs(g, integer, b_pad, m * 16)
+    probe = torch.randint(0, 4096, (b, nprobe), generator=g, device="cuda").int()
+    probe[:, 0] = torch.arange(b, device="cuda") % 3  # the empty and full lists
+    slots, _ = ivf.dedup_probes(probe, 4096, min(4096, b * nprobe))
+    before = pq.ivfpq4_adc_scores.launches
+    k = pq.ivfpq4_adc_scores(lut, codes, slots, sizes)
+    p = pq.ivfpq4_adc_scores_plain(lut, codes, slots, sizes)
+    torch.cuda.synchronize()
+    assert pq.ivfpq4_adc_scores.launches == before + 1
+    _close(k, p, integer)
+    # the whole search, kernel against plain, on a listing of these codes
+    cb = _card_inputs(g, integer, m, 16, 4, dtype=torch.float32)
+    cents = _card_inputs(g, integer, 4096, 4 * m, dtype=torch.float32)
+    pos = torch.arange(640, device="cuda")
+    ids = torch.where(pos[None, :] < sizes[:, None],
+                      torch.arange(4096 * 640, device="cuda").view(4096, 640), -1).int()
+    lst = pq.IVFPQListing(cents, cb, codes, ids, sizes)
+    q = _card_inputs(g, integer, b, 4 * m, dtype=torch.float32)
+    ks, ki = pq.ivfpq4_search_dedup(lst, q, 10, nprobe=nprobe)
+    ps, pi = pq.ivfpq4_search_dedup(lst, q, 10, nprobe=nprobe,
+                                    scan=pq.ivfpq4_adc_scores_plain)
+    _close(ks, ps, integer)
+    if integer:
+        assert torch.equal(ki, pi)
+    else:
+        assert (ki != pi).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_k6_kernel_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rag_inference_pipeline_tpu_torch.ops import pq
+
+    codes = torch.zeros((4, 128, 128), dtype=torch.uint8, device="cuda")
+    sizes = torch.zeros(4, dtype=torch.int32, device="cuda")
+    slots = torch.arange(4, dtype=torch.int32, device="cuda")
+    lut = torch.zeros((8, 16 * 16), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError):
+        pq.ivfpq4_adc_scores(lut.float(), codes, slots, sizes)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pq.ivfpq4_adc_scores(lut[:7], codes, slots, sizes)
+    with pytest.raises(ValueError, match="16-byte"):
+        pq.ivfpq4_adc_scores(lut, codes[:, :, :8].contiguous(), slots, sizes)
+    with pytest.raises(TypeError):
+        pq.ivfpq4_adc_scores(lut, codes, slots.long(), sizes)

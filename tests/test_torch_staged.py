@@ -1,5 +1,5 @@
-"""Port parity for the staged path: the retrieval executor over flat bf16
-and over IVF-Flat, the generation service and the orchestrator's /query,
+"""Port parity for the staged path: the retrieval executor over flat bf16,
+IVF-Flat and IVF-PQ4, the generation service and the orchestrator's /query,
 against the JAX package on converted tiny weights (float32 on the CPU);
 the built-in role profiles against the JAX loader; and the stdlib server
 answering concurrent /query and /retrieve.
@@ -26,6 +26,7 @@ from rag_inference_pipeline_tpu.core.profiles import load_role_profile as j_prof
 from rag_inference_pipeline_tpu.engine.orchestrator import Orchestrator as JOrchestrator
 from rag_inference_pipeline_tpu.index.flat import FlatIndex as JFlatIndex
 from rag_inference_pipeline_tpu.index.ivf_flat import IVFFlatIndex as JIVFFlatIndex
+from rag_inference_pipeline_tpu.index.ivf_pq import IVFPQIndex as JIVFPQIndex
 from rag_inference_pipeline_tpu.models import components as jcomp
 from rag_inference_pipeline_tpu.models.qwen import init_qwen_params
 from rag_inference_pipeline_tpu.serve.services import (
@@ -43,6 +44,7 @@ from rag_inference_pipeline_tpu_torch.engine.orchestrator import Orchestrator
 from rag_inference_pipeline_tpu_torch.index import make_index
 from rag_inference_pipeline_tpu_torch.index.base import load_index
 from rag_inference_pipeline_tpu_torch.index.ivf_flat import IVFFlatIndex
+from rag_inference_pipeline_tpu_torch.index.ivf_pq import IVFPQIndex
 from rag_inference_pipeline_tpu_torch.models import components as tcomp
 from rag_inference_pipeline_tpu_torch.models import qwen as tqwen
 from rag_inference_pipeline_tpu_torch.models.weights import (
@@ -70,6 +72,8 @@ _TINY = dict(
     retrieval_k=5, llm_context_docs=2, llm_doc_chars=60,
     param_dtype="float32", index_dim=DIM, gateway_batch_size=4,
     gateway_pipeline_chunks=2, model_weights_dir="",
+    # both packages check that index_pq_m divides index_dim
+    index_pq_m=16,
 )
 
 _WORDS = ["alpha", "beta", "gamma", "delta", "retrieval", "vector", "tpu",
@@ -117,12 +121,11 @@ def _component_pairs(js, ts):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """Tiny components on both sides, a doc store, and flat bf16 and
-    IVF-Flat indexes over the same corpus (JAX-built, loaded by the port
+    """Tiny components on both sides, a doc store, and flat bf16, IVF-Flat
+    and IVF-PQ4 indexes over the same corpus (JAX-built, loaded by the port
     from the JAX artifacts)."""
     rng = np.random.default_rng(0)
-    # index_pq_m: the JAX settings check it divides index_dim
-    js = JSettings(**_TINY, index_pq_m=16)
+    js = JSettings(**_TINY)
     ts = Settings(**_TINY, device_platform="cpu")
     pairs = _component_pairs(js, ts)
     docs = _docs(rng, 400)
@@ -137,12 +140,18 @@ def world(tmp_path_factory):
     jivf = JIVFFlatIndex(DIM, 8, nprobe=3)
     jivf.train_add(corpus, iters=4)
     jivf.save(str(tmp / "ivf.npz"))
+    # PQ4 (K6's plain version here, Pallas interpret in JAX) with an exact
+    # re-score of a 24-deep shortlist
+    jpq = JIVFPQIndex(DIM, 8, 16, nprobe=3, rescore_k=24, ksub=16)
+    jpq.train_add(corpus, kmeans_iters=4, pq_iters=4)
+    jpq.save(str(tmp / "pq.npz"))
     return dict(
         js=js, ts=ts, pairs=pairs, docs=docs, stores=stores, tmp=tmp,
         corpus=corpus,
         indexes={
             "flat": (jflat, load_index(str(tmp / "flat.npz"), CPU)),
             "ivf_flat": (jivf, load_index(str(tmp / "ivf.npz"), CPU)),
+            "ivf_pq": (jpq, load_index(str(tmp / "pq.npz"), CPU)),
         },
     )
 
@@ -186,7 +195,7 @@ def _assert_results_match(tout, jout):
                     assert td[key] == jd[key]
 
 
-@pytest.mark.parametrize("kind", ["flat", "ivf_flat"])
+@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq"])
 def test_retrieval_executor_matches_jax(world, kind):
     """Encoded and provided embeddings, per-item k (the k ladder), the
     rerank flag, a batch over the largest bucket (chunked) and the search
@@ -236,7 +245,7 @@ def test_generation_service_matches_jax(world):
     assert all(o["generated_response"].startswith("tok") for o in tout)
 
 
-@pytest.mark.parametrize("kind", ["flat", "ivf_flat"])
+@pytest.mark.parametrize("kind", ["flat", "ivf_flat", "ivf_pq"])
 def test_orchestrator_query_matches_jax(world, kind):
     """/query through the orchestrator (query cache, batching, the three
     stage workers) gives the JAX package's responses."""
@@ -339,12 +348,12 @@ def test_refusals_name_what_is_not_ported(tmp_path):
         RetrievalExecutor(comp, index=None)
     with pytest.raises(NotImplementedError, match="compressed"):
         GenerationService(comp, llm=None)
-    pq = load_settings({"INDEX_KIND": "ivf_pq"})
-    with pytest.raises(NotImplementedError, match="ivf_pq"):
-        make_index(pq, CPU)
-    np.savez(tmp_path / "pq.npz", kind="ivf_pq", dim=8)
-    with pytest.raises(NotImplementedError, match="ivf_pq"):
-        load_index(str(tmp_path / "pq.npz"), CPU)
+    host = load_settings({"INDEX_KIND": "ivf_pq", "INDEX_RESCORE_STORE": "host"})
+    with pytest.raises(NotImplementedError, match="INDEX_RESCORE_STORE"):
+        make_index(host, CPU)
+    np.savez(tmp_path / "odd.npz", kind="hnsw", dim=8)
+    with pytest.raises(ValueError, match="hnsw"):
+        load_index(str(tmp_path / "odd.npz"), CPU)
     with pytest.raises(NotImplementedError, match="RPC"):
         load_role_profile(Settings(total_nodes=3))
     with pytest.raises(ValueError, match="carries"):
@@ -435,7 +444,7 @@ def test_server_serves_staged_query_and_retrieve(served):
     st, health = _req(port, "/health")
     assert st == 200 and health["status"] == "ok" and all(health["components"].values())
     assert set(health["kernel_launches"]) == {
-        "binmax_int8gs", "binmax_bf16", "ivf_scan", "ivf_dedup"}
+        "binmax_int8gs", "binmax_bf16", "ivf_scan", "ivf_dedup", "ivfpq4_adc"}
     assert sum(health["kernel_launches"].values()) == 0  # the CPU: plain versions
     for bad in ({"items": [{"embedding": [1.0, 2.0]}]}, {"items": "x"},
                 {"items": [], "response_format": "b64"}):
@@ -447,9 +456,33 @@ def test_server_serves_staged_query_and_retrieve(served):
     assert e.value.code == 400
 
 
+def test_server_serves_ivf_pq(served, tmp_path):
+    """The PQ profiles and INDEX_KIND=ivf_pq on the staged server: /retrieve
+    on retrieval_pq4 finds each corpus row first (PQ4 shortlist, exact
+    re-score); /query on single_node_full answers over the same artifact."""
+    start, vecs = served
+    idx = IVFPQIndex(DIM, 8, 16, nprobe=4, rescore_k=64, ksub=16, device=CPU)
+    idx.train_add(vecs, kmeans_iters=3, pq_iters=4)
+    idx.save(str(tmp_path / "pq.npz"))
+    port, server = start(PIPELINE_ROLE_PROFILE="retrieval_pq4",
+                         INDEX_PATH=str(tmp_path / "pq.npz"), INDEX_NPROBE="8")
+    assert server.app.profile.name == "retrieval_pq4"
+    assert server.app.settings.index_pq_bits == 8  # the profile's config is per index
+    index = server.app.components["index"]
+    assert isinstance(index, IVFPQIndex) and index.ksub == 16 and index.nprobe == 8
+    status, ret = _req(port, "/retrieve", {"items": [{"embedding": vecs[i].tolist()} for i in range(9)]})
+    assert status == 200 and [r["ids"][0] for r in ret["results"]] == list(range(9))
+    st, health = _req(port, "/health")
+    assert st == 200 and health["kernel_launches"]["ivfpq4_adc"] == 0  # the CPU
+    port2, server2 = start(INDEX_KIND="ivf_pq", INDEX_PATH=str(tmp_path / "pq.npz"))
+    assert server2.app.profile.name == "single_node_full"
+    st, body = _req(port2, "/query", {"query": "gpu kernel index", "request_id": "p0"})
+    assert st == 200 and set(body) == {"request_id", "generated_response", "sentiment", "is_toxic"}
+
+
 def test_server_retrieval_profile_over_flat_bf16(served, tmp_path):
     start, vecs = served
-    flat = make_index(load_settings({"INDEX_DIM": str(DIM)}), CPU)
+    flat = make_index(load_settings({"INDEX_DIM": str(DIM), "INDEX_PQ_M": "16"}), CPU)
     flat.add(vecs)
     flat.save(str(tmp_path / "flat.npz"))
     port, server = start(PIPELINE_ROLE_PROFILE="retrieval_default",
