@@ -71,6 +71,27 @@ and exits non-zero before the last line:
              retrieval_ivfpq (8 items each), with recall@10 against the
              exact scan; then single_node_full with INDEX_KIND=ivf_pq at
              full model width: two /query, K6 rising.
+15. k3     — the per-row-scale int8 bin-max kernel against its plain
+             version, bit for bit, at B=8 x 1,000,777 x 768, nbins 512, with
+             f32 scales over many binades (a negative, a zero and a NaN
+             among them) and on two small ragged cases (B=37; N < nbins);
+             then fused_topk_int8 (rescore_k=64) over 1M seeded unit rows,
+             64 noisy queries: the K3 count, zeroed just before, must rise,
+             its ids must equal those through the plain scan, and recall@10
+             against the exact scan must reach 0.95.
+16. k8     — the stream kernel against its plain version at 1M x 768 int8
+             for chunk 4096 and 8192 (out and checksum identical), its GB/s
+             beside the data sheet's 3.35 TB/s; then the kernel lab
+             (tools/bench_kernel.py): its stream mode (K8 count zeroed
+             just before, must rise), its scan and tail modes at B=128,
+             nbins 1024.
+17. k7     — the decode-anatomy probe (tools/bench_decode_anatomy.py) at
+             full width: Qwen2.5-0.5B, random bf16 weights, B in {1, 8},
+             prompt 128, cache 384, every variant; --length and --reps cut
+             to ANATOMY_ARGS for the time limit. The K7 count, zeroed just
+             before, must equal 2 x 24 layers x steps x calls; K7 against
+             its plain version, bit for bit, on the probe's own B=8 cache
+             (one position past the end).
 
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
@@ -139,6 +160,8 @@ PQ_RECALL_BAR = {"pq4": 0.95, "pq4_host": 0.9, "pq8": 0.95}
 # The sheet's 67 TFLOP/s of float32 counts an FMA as two operations, so
 # plain f32 adds issue at half that.
 HBM_BYTES_PER_S = 3.35e12
+# the anatomy probe's --length 128 and --reps 3, cut to fit the time limit
+ANATOMY_ARGS = ["--length", "32", "--reps", "2"]
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
 
 
@@ -154,10 +177,12 @@ def check(cond: bool, msg: str) -> None:
 
 def zero_launches() -> None:
     """Every kernel wrapper's launch count to 0, just before a path runs."""
-    from rag_inference_pipeline_tpu_torch.ops import ivf, pq, topk
+    from rag_inference_pipeline_tpu_torch.ops import ivf, kv, pq, stream, topk
 
     for fn in (topk.binmax_partial_topk_int8gs, topk.binmax_partial_topk,
-               ivf.ivf_scan_partial, ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores):
+               topk.binmax_partial_topk_int8, ivf.ivf_scan_partial,
+               ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores, kv.kv_row_insert,
+               stream.stream_sum):
         fn.launches = 0
 
 
@@ -988,6 +1013,170 @@ def phase_serve_pq(built, corpus, queries, db_path: str):
     return n64 + nh + k6_query
 
 
+def phase_k3():
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops.topk import (
+        binmax_partial_topk_int8 as kernel,
+        binmax_partial_topk_int8_plain as plain,
+        exact_topk,
+        fused_topk_int8,
+        quantize_rows_int8,
+    )
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    out = {"max_abs_err": 0.0}
+    for i, (b, n, d, nbins) in enumerate([  # main shape first
+        (MAIN_B, N_ROWS + 777, DIM, 512),
+        (37, 5000, 64, 128),
+        (5, 90, DIM, 128),  # N < nbins: empty bins
+    ]):
+        q = torch.randint(-127, 128, (b, d), generator=g, device=DEVICE, dtype=torch.int8)
+        db = torch.randint(-127, 128, (n, d), generator=g, device=DEVICE, dtype=torch.int8)
+        # f32 scales over many binades, one negative, one zero, one NaN
+        scales = torch.exp(torch.rand(n, generator=g, device=DEVICE) * 25 - 20)
+        scales[:3] = torch.tensor([-0.25, 0.0, float("nan")], device=DEVICE)
+        if n > nbins + 5:
+            db[nbins + 5], scales[nbins + 5] = db[5], scales[5]  # a tie
+        kv, ki = kernel(q, db, scales, nbins=nbins)
+        pv, pi = plain(q, db, scales, nbins=nbins)
+        torch.cuda.synchronize()
+        same = torch.equal(kv, pv) and torch.equal(ki, pi)
+        fin = torch.isfinite(kv) & torch.isfinite(pv)
+        err = (kv[fin] - pv[fin]).abs().max().item() if fin.any() else 0.0
+        check(same, f"K3 case {i} differs from its plain version (max err {err})")
+        check(n >= nbins or bool((ki[:, n:] == -1).all()), f"K3 case {i}: empty bins")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if i == 0:
+            out["ms"] = cuda_ms(lambda: kernel(q, db, scales, nbins=nbins), 20)
+            out["plain_ms"] = cuda_ms(lambda: plain(q, db, scales, nbins=nbins), 3)
+            # the rows and their f32 scales, the queries, (value, row) per bin
+            out.update(bound(n * d + 4 * n + b * d + b * nbins * 8, 2 * b * n * d, "int8"))
+            out["library_ms"] = None  # a positional bin max: no one call
+        del q, db, scales
+    # the public op over seeded unit rows, queries = rows + noise
+    corpus = torch.randn(N_ROWS, DIM, generator=g, device=DEVICE)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    rows = torch.randint(0, N_ROWS, (RETRIEVE_B,), generator=g, device=DEVICE)
+    queries = corpus[rows] + QUERY_NOISE * torch.randn(RETRIEVE_B, DIM, generator=g, device=DEVICE)
+    queries /= queries.norm(dim=1, keepdim=True)
+    db_i8, scales = quantize_rows_int8(corpus)
+    rescore = corpus.to(torch.bfloat16)
+    del corpus
+    zero_launches()
+    _, ids = fused_topk_int8(queries, db_i8, scales, 10, rescore_db=rescore, rescore_k=64)
+    torch.cuda.synchronize()
+    out["launches"] = kernel.launches
+    check(out["launches"] >= 1, "fused_topk_int8 did not run K3")
+    _, plain_ids = fused_topk_int8(queries, db_i8, scales, 10, rescore_db=rescore,
+                                   rescore_k=64, scan=plain)
+    check(torch.equal(ids, plain_ids), "fused_topk_int8: the kernel and the plain "
+          "scan return different ids")
+    with torch.inference_mode():
+        _, exact = exact_topk(queries, rescore, 10)
+    got, ref = ids.cpu().numpy(), exact.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(e)) / 10 for a, e in zip(got, ref)]))
+    check(recall >= 0.95, f"fused_topk_int8 recall@10 {recall:.4f} < 0.95")
+    del db_i8, scales, rescore
+    torch.cuda.empty_cache()
+    phase("k3", t0, cases=3, bit_identical=True, main_ms=f"{out['ms']:.4f}",
+          main_plain_ms=f"{out['plain_ms']:.4f}", bound_ms=f"{out['bound_ms']:.4f}",
+          k3_launches=out["launches"], ids_identical=True, recall_at_10=f"{recall:.4f}")
+    return out
+
+
+def phase_k8():
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops.stream import stream_sum, stream_sum_plain
+    from rag_inference_pipeline_tpu_torch.tools import bench_kernel as lab
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    db = torch.randint(-128, 128, (N_ROWS, DIM), generator=g, device=DEVICE, dtype=torch.int8)
+    q = torch.randint(-1000, 1000, (8, 128), generator=g, device=DEVICE, dtype=torch.int32)
+    out = {"max_abs_err": 0.0}
+    for chunk in (4096, 8192):
+        ko, kc = stream_sum(q, db, chunk)
+        po, pc = stream_sum_plain(q, db, chunk)
+        torch.cuda.synchronize()
+        check(torch.equal(ko, po) and torch.equal(kc, pc),
+              f"K8 chunk={chunk}: out or checksum differs from the plain version")
+    rows = N_ROWS // 8192 * 8192
+    out["ms"] = cuda_ms(lambda: stream_sum(q, db, 8192), 20)
+    out["plain_ms"] = cuda_ms(lambda: stream_sum_plain(q, db, 8192), 5)
+    out["library_ms"] = cuda_ms(lambda: torch.sum(db[:rows], dtype=torch.int64), 20)
+    # every streamed byte once, q and out; one add per byte
+    out.update(bound(rows * DIM + 2 * q.numel() * 4 + 8, rows * DIM, "int8"))
+    gbs = rows * DIM / out["ms"] / 1e6
+    del db
+    torch.cuda.empty_cache()
+    # the kernel lab: its stream mode is K8's path; scan and tail run K1
+    zero_launches()
+    lab_stream = lab.main(["--mode", "stream"])
+    out["launches"] = stream_sum.launches
+    check(out["launches"] >= 1, "the lab's stream mode did not run K8")
+    scan = lab.main(["--mode", "scan", "--batch", "128", "--nbins", "1024"])["results"][0]
+    tail = lab.main(["--mode", "tail", "--batch", "128", "--nbins", "1024"])["results"]
+    torch.cuda.empty_cache()
+    lab_gbs = {r["chunk"]: round(r["gb_per_s"], 1) for r in lab_stream["results"]}
+    phase("k8", t0, identical=True, ms=f"{out['ms']:.4f}", gb_per_s=f"{gbs:.1f}",
+          sheet_gb_per_s=HBM_BYTES_PER_S / 1e9, plain_ms=f"{out['plain_ms']:.4f}",
+          torch_sum_ms=f"{out['library_ms']:.4f}", lab_stream_gb_per_s=lab_gbs,
+          k8_launches=out["launches"], scan128_ms=f"{scan['ms_inprogram']:.4f}",
+          scan128_recall=f"{scan['recall']:.4f}",
+          tail128_ms="/".join(f"{r['ms_inprogram']:.4f}" for r in tail))
+    return out
+
+
+def phase_k7():
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops.kv import kv_row_insert, kv_row_insert_plain
+    from rag_inference_pipeline_tpu_torch.tools import bench_decode_anatomy as anatomy
+
+    t0 = time.perf_counter()
+    zero_launches()
+    res = anatomy.main(ANATOMY_ARGS)
+    out = {"launches": kv_row_insert.launches}
+    want = 2 * res["layers"] * res["length"] * res["calls_per_variant"] * len(res["batches"])
+    check(out["launches"] == want, f"K7 launched {out['launches']} times, not {want}")
+    # K7 against its plain version on the probe's own B=8 cache
+    with torch.inference_mode():
+        cfg, params = anatomy.make_model(False, torch.device(DEVICE))
+        warm, _ = anatomy.warm_cache(params, cfg, MAIN_B, 128, 384, np.random.default_rng(0))
+        cache = warm.k[0]
+        s_len = cache.shape[1]
+        g = torch.Generator(device=DEVICE).manual_seed(11)
+        new = torch.randn(MAIN_B, cfg.kv_heads, cfg.head_dim, generator=g,
+                          device=DEVICE).to(cache.dtype)
+        pos = torch.arange(128, 128 + MAIN_B, device=DEVICE, dtype=torch.int32)
+        pos[-1] = s_len + 16  # past the end: row S-1
+        a = kv_row_insert(cache.clone(), new, pos)
+        b = kv_row_insert_plain(cache.clone(), new, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), "K7 differs from its plain version on the probe's cache")
+        out["max_abs_err"] = (a.float() - b.float()).abs().max().item()
+        out["ms"] = cuda_ms(lambda: kv_row_insert(a, new, pos), 200)
+        out["plain_ms"] = cuda_ms(lambda: kv_row_insert_plain(b, new, pos), 200)
+        # the port's own decode insert: index_copy_ over the flattened rows
+        flat = cache.clone().view(MAIN_B * s_len, cfg.kv_heads, cfg.head_dim)
+        rows = torch.arange(MAIN_B, device=DEVICE) * s_len + pos.long().clamp(max=s_len - 1)
+        out["library_ms"] = cuda_ms(lambda: flat.index_copy_(0, rows, new), 200)
+        # the new rows read once and written once, the positions
+        out.update(bound(2 * new.numel() * new.element_size() + 4 * MAIN_B, 0, "bf16"))
+        del params, warm, cache, a, b, flat
+    torch.cuda.empty_cache()
+    ms_rows = {k: round(v, 3) for k, v in res["rows"].items() if not k.endswith("_agree")}
+    agree = {k: v for k, v in res["rows"].items() if k.endswith("_agree")}
+    phase("k7", t0, k7_launches=out["launches"], expected=want, bit_identical=True,
+          ms=f"{out['ms']:.5f}", plain_ms=f"{out['plain_ms']:.5f}",
+          index_copy_ms=f"{out['library_ms']:.5f}", length=res["length"],
+          reps=res["reps"], ms_per_step=json.dumps(ms_rows, separators=(",", ":")),
+          agree=json.dumps(agree, separators=(",", ":")))
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py: no {PKG}/ beside this script", file=sys.stderr)
@@ -1029,28 +1218,38 @@ def main() -> int:
         built = phase_pq_build(corpus, queries, workdir)
         k6 = phase_k6(built["pq4"], queries)
         k6_launches = phase_serve_pq(built, corpus, queries, db_path)
-        del built
+        del built, corpus, queries
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3 = phase_k3()
+    k8 = phase_k8()
+    k7 = phase_k7()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "rag_inference_pipeline_tpu" for m in sys.modules),
           "the JAX package was imported")
+
     def entry(name, replaces, launches, m):
         return {
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/{name}.cu",
-            "replaces": f"rag_inference_pipeline_tpu/{replaces}",
-            "launches": launches, "max_abs_err": m["max_abs_err"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         }
 
+    jax_ops = "rag_inference_pipeline_tpu/ops"
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     print(json.dumps({"kernels": [
-        entry("binmax_int8gs", "ops/topk.py:442", k1_launches, k1),
-        entry("binmax_bf16", "ops/topk.py:118", flat["launches"], k2),
-        entry("ivf_scan", "ops/ivf.py:156", staged["k4_launches"], k45["k4"]),
-        entry("ivf_dedup", "ops/ivf.py:290", staged["k5_launches"], k45["k5"]),
-        entry("ivfpq4_adc", "ops/pq.py:432", k6_launches, k6),
+        entry("binmax_int8gs", f"{jax_ops}/topk.py:442", k1_launches, k1),
+        entry("binmax_bf16", f"{jax_ops}/topk.py:118", flat["launches"], k2),
+        entry("binmax_int8", f"{jax_ops}/topk.py:268", k3["launches"], k3),
+        entry("ivf_scan", f"{jax_ops}/ivf.py:156", staged["k4_launches"], k45["k4"]),
+        entry("ivf_dedup", f"{jax_ops}/ivf.py:290", staged["k5_launches"], k45["k5"]),
+        entry("ivfpq4_adc", f"{jax_ops}/pq.py:432", k6_launches, k6),
+        entry("kv_row_insert", "scripts/bench_decode_anatomy.py:88", k7["launches"], k7),
+        entry("stream", "scripts/bench_kernel.py:171", k8["launches"], k8),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

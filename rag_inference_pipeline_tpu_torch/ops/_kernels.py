@@ -117,6 +117,13 @@ def load_library() -> ctypes.CDLL:
             # q, db, part_vals, part_steps, vals, idxs, B, D, ntotal, nbins,
             # groups, stream
             "ragtorch_binmax_int8gs": [vp] * 6 + [i32, i32, i64, i32, i32, vp],
+            # q, db, scales, part_vals, part_steps, vals, idxs, B, D, N,
+            # nbins, groups, stream
+            "ragtorch_binmax_int8": [vp] * 7 + [i32, i32, i64, i32, i32, vp],
+            # cache, rows, pos, B, S, row_bytes, stream
+            "ragtorch_kv_row_insert": [vp] * 3 + [i32] * 3 + [vp],
+            # db, out, checksum, rows, D, chunk, blocks, stream
+            "ragtorch_stream_sum": [vp] * 3 + [i64, i32, i32, i32, vp],
             # ... elem_bytes before the stream
             "ragtorch_binmax_bf16": [vp] * 6 + [i32, i32, i64, i32, i32, i32, vp],
             # q, buckets, slots, sizes, out, B, D, n_slots, cap, elem_bytes,

@@ -1,14 +1,16 @@
 """Flat similarity scan + top-k: exact scan, the bf16/f32 bin-max scan
 (kernel K2) with its fused search, the global-scale int8 bin-max scan
-(kernel K1) and the fused int8 search with exact bf16 re-score.
+(kernel K1) and the fused int8 search with exact bf16 re-score, and the
+per-row-scale int8 scan (kernel K3) with its fused search.
 
 Port of `rag_inference_pipeline_tpu/ops/topk.py`. A bin-max scan keeps,
 per query, a running (max, earliest row) in each of `nbins` bins (bin =
 row % nbins); an exact top-k over the survivors gives the result. On CUDA
-tensors `binmax_partial_topk` and `binmax_partial_topk_int8gs` launch the
-hand-written Hopper kernels in `csrc/binmax_bf16.cu` and
-`csrc/binmax_int8gs.cu`; on CPU tensors they run the plain PyTorch
-versions beside them, which are also the kernels' oracles.
+tensors `binmax_partial_topk`, `binmax_partial_topk_int8gs` and
+`binmax_partial_topk_int8` launch the hand-written Hopper kernels in
+`csrc/binmax_bf16.cu`, `csrc/binmax_int8gs.cu` and `csrc/binmax_int8.cu`;
+on CPU tensors they run the plain PyTorch versions beside them, which are
+also the kernels' oracles.
 
 Ties: `lax.top_k` puts the lower index first, so every top-k here is a
 stable descending sort (`_topk`).
@@ -387,6 +389,26 @@ def _scan_groups(dev: torch.device, b: int, nbins: int, nt: int) -> int:
     return max(1, min(steps, -(-4 * sms // base), 65535))
 
 
+def _rescore(
+    queries: torch.Tensor, vals: torch.Tensor, idxs: torch.Tensor,
+    rescore_db: torch.Tensor, rescore_k: int, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-score of the top `rescore_k` scan survivors against
+    `rescore_db`, the query cast to its dtype first; empty bins (id -1)
+    score NEG_INF. Returns the top k (scores, ids)."""
+    shortlist = min(rescore_k, vals.shape[1])
+    _, sel = _topk(vals, shortlist)
+    cand_ids = torch.gather(idxs, 1, sel)  # [B, S]
+    cand = rescore_db[cand_ids.clamp(min=0).long()]  # [B, S, D]
+    # products of the working dtype are exact in f32; f32 accumulation
+    exact = torch.einsum(
+        "bsd,bd->bs", cand.float(), queries.to(cand.dtype).float()
+    )
+    exact = torch.where(cand_ids >= 0, exact, NEG_INF)
+    s, sel2 = _topk(exact, min(k, shortlist))
+    return s, torch.gather(cand_ids, 1, sel2)
+
+
 def fused_topk_int8gs(
     queries: torch.Tensor,  # [B, D] float — quantized internally
     db_i8: torch.Tensor,
@@ -414,16 +436,163 @@ def fused_topk_int8gs(
         idxs >= 0, vals_i.float() * (q_scale * db_scale.float()), NEG_INF
     )
     if rescore_db is not None and rescore_k > k:
-        shortlist = min(rescore_k, vals.shape[1])
-        _, sel = _topk(vals, shortlist)
-        cand_ids = torch.gather(idxs, 1, sel)  # [B, S]
-        cand = rescore_db[cand_ids.clamp(min=0).long()]  # [B, S, D]
-        # products of the working dtype are exact in f32; f32 accumulation
-        exact = torch.einsum(
-            "bsd,bd->bs", cand.float(), queries.to(cand.dtype).float()
+        return _rescore(queries, vals, idxs, rescore_db, rescore_k, k)
+    s, sel = _topk(vals, min(k, vals.shape[1]))
+    return s, torch.gather(idxs, 1, sel)
+
+
+# ---------------------------------------------------------------------------
+# Per-row-scale int8 scan (K3): scores = float(q_i8 . db_i8) * db_scale[row],
+# compared in f32. Reached only through `fused_topk_int8`.
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization. Returns (q [N,D] i8, scales [N]
+    f32). Divides by the scale (not a multiply by its reciprocal) and
+    rounds half to even, as the reference."""
+    xf = x.float()
+    scales = torch.clamp(xf.abs().amax(dim=-1), min=1e-9) / 127.0
+    q = torch.clamp(torch.round(xf / scales[:, None]), -127, 127).to(torch.int8)
+    return q, scales
+
+
+def binmax_partial_topk_int8_plain(
+    queries_i8: torch.Tensor,  # [B, D] int8
+    db_i8: torch.Tensor,  # [N, D] int8
+    db_scales: torch.Tensor,  # [N] f32
+    *,
+    nbins: int = 512,
+    rows_per_chunk: int = 65536,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3, on any device: K1's plain scan with
+    one f32 multiply by the row scale.
+
+    The float64 dot is exact; its cast to f32 rounds as the reference's
+    int32 -> f32 convert does, and the product with the f32 row scale is
+    one f32 multiply. A score that is NaN or not above NEG_INF never
+    enters a bin (strict `>` from NEG_INF, as the reference). Returns
+    (vals [B,nbins] f32, NEG_INF = empty bin; idxs [B,nbins] i32, -1)."""
+    n = db_i8.shape[0]
+    b = queries_i8.shape[0]
+    dev = db_i8.device
+    vals = torch.full((b, nbins), NEG_INF, dtype=torch.float32, device=dev)
+    idxs = torch.full((b, nbins), -1, dtype=torch.int64, device=dev)
+    q = queries_i8.to(torch.float64)
+    scales = db_scales.to(torch.float32)
+    col = torch.arange(nbins, device=dev)
+    step_rows = _round_up(max(rows_per_chunk, nbins), nbins)
+    for start in range(0, n, step_rows):
+        stop = min(start + step_rows, n)
+        s = (q @ db_i8[start:stop].to(torch.float64).T).float()
+        s = s * scales[None, start:stop]
+        s = torch.where(torch.isnan(s), -float("inf"), s)
+        steps = -(-(stop - start) // nbins)
+        pad = steps * nbins - (stop - start)
+        s = torch.nn.functional.pad(s, (0, pad), value=-float("inf"))
+        s3 = s.view(b, steps, nbins)
+        m = s3.amax(dim=1)
+        first = torch.argmax((s3 == m[:, None, :]).to(torch.uint8), dim=1)
+        better = m > vals
+        vals = torch.where(better, m, vals)
+        idxs = torch.where(better, start + first * nbins + col[None, :], idxs)
+    return vals, idxs.to(torch.int32)
+
+
+def binmax_partial_topk_int8(
+    queries_i8: torch.Tensor,  # [B, D] int8 (pre-quantized)
+    db_i8: torch.Tensor,  # [N, D] int8
+    db_scales: torch.Tensor,  # [N] f32
+    *,
+    nbins: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row-scale int8 partial top-k (K3). Returns (vals [B,nbins] f32
+    scores dequantized by the row scale only, idxs [B,nbins] i32 rows, -1
+    for an empty bin). The query scale is left out: a positive constant
+    per query does not change its ranking.
+
+    The result does not depend on the reference kernel's `chunk`, so
+    there is none here. On CUDA tensors this launches csrc/binmax_int8.cu
+    (or raises); on CPU tensors it runs `binmax_partial_topk_int8_plain`."""
+    if queries_i8.dim() != 2 or db_i8.dim() != 2 or db_scales.dim() != 1:
+        raise ValueError("queries and db must be 2-D, db_scales 1-D")
+    n, d = db_i8.shape
+    b = queries_i8.shape[0]
+    if queries_i8.shape[1] != d or db_scales.shape[0] != n:
+        raise ValueError(
+            f"shapes disagree: queries {tuple(queries_i8.shape)}, db "
+            f"{tuple(db_i8.shape)}, scales {tuple(db_scales.shape)}"
         )
-        exact = torch.where(cand_ids >= 0, exact, NEG_INF)
-        s, sel2 = _topk(exact, min(k, shortlist))
-        return s, torch.gather(cand_ids, 1, sel2)
+    if _on_cpu(queries_i8, db_i8, "binmax_partial_topk_int8"):
+        if db_scales.device.type != "cpu":
+            raise ValueError("binmax_partial_topk_int8: db_scales not on the CPU")
+        return binmax_partial_topk_int8_plain(
+            queries_i8, db_i8, db_scales, nbins=nbins
+        )
+    if db_scales.device != db_i8.device:
+        raise ValueError(f"db_scales on {db_scales.device}, db on {db_i8.device}")
+    if queries_i8.dtype != torch.int8 or db_i8.dtype != torch.int8:
+        raise TypeError("binmax_partial_topk_int8 takes int8 queries and rows")
+    if db_scales.dtype != torch.float32:
+        raise TypeError(f"db_scales must be float32, not {db_scales.dtype}")
+    _check_words(queries_i8, db_i8, db_scales)
+    from . import _kernels
+
+    dev = db_i8.device
+    vals = torch.empty((b, nbins), dtype=torch.float32, device=dev)
+    idxs = torch.empty((b, nbins), dtype=torch.int32, device=dev)
+    if b == 0:
+        return vals, idxs
+    groups = _scan_groups(dev, b, nbins, n)
+    part_vals = torch.empty((groups, b, nbins), dtype=torch.float32, device=dev)
+    part_steps = torch.empty((groups, b, nbins), dtype=torch.int32, device=dev)
+    lib = _kernels.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ragtorch_binmax_int8(
+            queries_i8.data_ptr(), db_i8.data_ptr(), db_scales.data_ptr(),
+            part_vals.data_ptr(), part_steps.data_ptr(),
+            vals.data_ptr(), idxs.data_ptr(),
+            b, d, n, nbins, groups, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"binmax_int8 launch failed: cudaError {rc}")
+    binmax_partial_topk_int8.launches += 1
+    return vals, idxs
+
+
+binmax_partial_topk_int8.launches = 0  # kernel launches, for chip_smoke.py
+
+
+def fused_topk_int8(
+    queries: torch.Tensor,  # [B, D] float — quantized internally
+    db_i8: torch.Tensor,
+    db_scales: torch.Tensor,  # [N] f32 (from quantize_rows_int8)
+    k: int,
+    *,
+    nbins: int = 512,
+    chunk: int = 8192,
+    rescore_db: Optional[torch.Tensor] = None,  # [N, D] full-precision rows
+    rescore_k: int = 0,
+    scan=binmax_partial_topk_int8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row-scale quantized flat search: int8 scan (K3) + top-k over the
+    nbins survivors, with an exact re-score of the top rescore_k against
+    `rescore_db` when rescore_k > k. Returns (scores [B,k] f32, ids [B,k]
+    i32).
+
+    `chunk` is the reference kernel's grid step; the result does not
+    depend on it, and it is checked as the reference checks it. Without a
+    re-score the scores are the scan's times the query's own scale, so an
+    empty bin scores NEG_INF * q_scale with id -1, as in the reference.
+    `scan` is the partial top-k (the K3 wrapper; its plain version to
+    compare on the card)."""
+    if chunk % nbins != 0:
+        raise ValueError(f"chunk ({chunk}) must be a multiple of nbins ({nbins})")
+    q_i8, q_scales = quantize_rows_int8(queries)
+    vals, idxs = scan(q_i8, db_i8, db_scales, nbins=nbins)
+    vals = vals * q_scales[:, None]
+    if rescore_db is not None and rescore_k > k:
+        return _rescore(queries, vals, idxs, rescore_db, rescore_k, k)
     s, sel = _topk(vals, min(k, vals.shape[1]))
     return s, torch.gather(idxs, 1, sel)

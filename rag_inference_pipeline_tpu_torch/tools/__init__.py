@@ -1,0 +1,8 @@
+"""Measurement tools of the port, each run as a module:
+
+    python -m rag_inference_pipeline_tpu_torch.tools.bench_kernel --mode stream
+    python -m rag_inference_pipeline_tpu_torch.tools.bench_decode_anatomy
+
+`--smoke` runs either at tiny shapes on the CPU; otherwise they run on the
+card and raise without one. Results go to `build/bench/`.
+"""

@@ -1,6 +1,6 @@
 """The kernel wrappers without the JAX package: the K1 wrapper's CPU
-dispatch and plain version here, and every hand-written CUDA kernel (K1,
-K2, K4, K5, K6) against its plain version on a card.
+dispatch and plain version here, and every hand-written CUDA kernel (K1
+to K8) against its plain version on a card.
 
 This file imports no jax, so the card tests run on a machine without it:
 
@@ -317,3 +317,84 @@ def test_k6_kernel_refuses_what_it_cannot_take():
         pq.ivfpq4_adc_scores(lut, codes[:, :, :8].contiguous(), slots, sizes)
     with pytest.raises(TypeError):
         pq.ivfpq4_adc_scores(lut, codes, slots.long(), sizes)
+
+
+# --- K3, K7, K8 -------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,nbins", [
+    (8, 1_000_777, 768, 512),  # fused_topk_int8's default nbins at 1M rows
+    (37, 5000, 64, 128),
+    (5, 90, 768, 128),  # N < nbins: empty bins
+])
+def test_k3_kernel_matches_plain_on_card(b, n, d, nbins):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K3 kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(b + n)
+    q = torch.randint(-127, 128, (b, d), generator=g, device="cuda", dtype=torch.int8)
+    db = torch.randint(-127, 128, (n, d), generator=g, device="cuda", dtype=torch.int8)
+    # f32 scales over many binades, one negative, one zero, one NaN
+    scales = torch.exp(torch.rand(n, generator=g, device="cuda") * 25 - 20)
+    scales[:3] = torch.tensor([-0.25, 0.0, float("nan")], device="cuda")
+    if n > nbins + 5:
+        db[nbins + 5], scales[nbins + 5] = db[5], scales[5]  # a tie: row 5 keeps it
+    before = ttopk.binmax_partial_topk_int8.launches
+    kv, ki = ttopk.binmax_partial_topk_int8(q, db, scales, nbins=nbins)
+    pv, pi = ttopk.binmax_partial_topk_int8_plain(q, db, scales, nbins=nbins)
+    torch.cuda.synchronize()
+    assert ttopk.binmax_partial_topk_int8.launches == before + 1
+    assert torch.equal(kv, pv)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,dtype", [
+    (8, 384, 2, 64, torch.bfloat16),  # Qwen2.5-0.5B's cache at B=8
+    (3, 16, 4, 8, torch.float32),
+])
+def test_k7_kernel_matches_plain_on_card(b, s, h, d, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K7 kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import kv
+
+    g = torch.Generator(device="cuda").manual_seed(b * s)
+    cache = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
+    new = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+    pos = torch.randint(0, s, (b,), generator=g, device="cuda").int()
+    pos[0], pos[-1] = s + 20, -3  # past the end: row S-1; below 0: row 0
+    ref = kv.kv_row_insert_plain(cache.clone(), new, pos)
+    before = kv.kv_row_insert.launches
+    out = kv.kv_row_insert(cache, new, pos)
+    torch.cuda.synchronize()
+    assert out is cache and kv.kv_row_insert.launches == before + 1
+    assert torch.equal(out, ref)
+    with pytest.raises(TypeError):
+        kv.kv_row_insert(cache, new, pos.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,chunk", [
+    (1_000_000, 768, 4096),  # the lab's stream shapes
+    (1_000_000, 768, 8192),
+    (1000, 128, 64),  # N not a multiple of chunk
+    (100, 256, 512),  # chunk > N: nothing streamed
+])
+def test_k8_kernel_matches_plain_on_card(n, d, chunk):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K8 kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import stream
+
+    g = torch.Generator(device="cuda").manual_seed(n + chunk)
+    db = torch.randint(-128, 128, (n, d), generator=g, device="cuda", dtype=torch.int8)
+    q = torch.randint(-1000, 1000, (8, 128), generator=g, device="cuda", dtype=torch.int32)
+    before = stream.stream_sum.launches
+    out, checksum = stream.stream_sum(q, db, chunk)
+    ref, ref_sum = stream.stream_sum_plain(q, db, chunk)
+    torch.cuda.synchronize()
+    assert stream.stream_sum.launches == before + 1
+    assert torch.equal(out, ref)
+    assert torch.equal(checksum, ref_sum)
+    strided = torch.zeros((64, d + 8), dtype=torch.int8, device="cuda")[:, 8:]
+    with pytest.raises(ValueError, match="16-byte"):
+        stream.stream_sum(q, strided, 8)

@@ -1,0 +1,228 @@
+"""Port parity of the tooling path: the KV row insert (kernel K7) and the
+stream kernel (K8) against the reference scripts' Pallas kernels, rebuilt
+here as the scripts launch them and run in interpret mode; the port's
+timing helpers; and both tools' `--smoke` runs end to end on the CPU.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from rag_inference_pipeline_tpu_torch import bench
+from rag_inference_pipeline_tpu_torch.ops import kv as tkv
+from rag_inference_pipeline_tpu_torch.ops import stream as tstream
+from rag_inference_pipeline_tpu_torch.tools import bench_decode_anatomy as anatomy
+from rag_inference_pipeline_tpu_torch.tools import bench_kernel as lab
+
+
+# --- the reference kernels, as scripts/bench_decode_anatomy.py:88-117 and
+# scripts/bench_kernel.py:171-197 build and launch them --------------------
+
+
+def _row_insert_kernel(pos_ref, new_ref, cache_ref, out_ref):
+    del pos_ref, cache_ref
+    out_ref[...] = new_ref[...]
+
+
+def _pallas_row_insert(cache, new, positions):
+    bsz, s_len, h_, d_ = cache.shape
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1,
+        grid=(bsz,),
+        in_specs=[
+            pl.BlockSpec((1, 1, h_, d_), lambda b, pos: (b, 0, 0, 0)),
+            pl.BlockSpec((1, 1, h_, d_), lambda b, pos: (b, pos[b], 0, 0)),
+        ],
+        out_specs=pl.BlockSpec((1, 1, h_, d_), lambda b, pos: (b, pos[b], 0, 0)),
+    )
+    return pl.pallas_call(
+        _row_insert_kernel,
+        grid_spec=grid_spec,
+        out_shape=jax.ShapeDtypeStruct(cache.shape, cache.dtype),
+        input_output_aliases={2: 0},
+        interpret=True,
+    )(positions, new[:, None], cache)
+
+
+def stream_kernel(q_ref, db_ref, out_ref):
+    i = pl.program_id(0)
+
+    @pl.when(i == 0)
+    def _():
+        out_ref[:] = q_ref[:]
+
+    out_ref[:] = out_ref[:] + db_ref[0:8, 0:128].astype(jnp.int32)
+
+
+def _pallas_stream(q, db_i8, chunk):
+    n, d = db_i8.shape
+    return pl.pallas_call(
+        stream_kernel,
+        grid=(n // chunk,),
+        in_specs=[
+            pl.BlockSpec((8, 128), lambda i: (0, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((chunk, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((8, 128), lambda i: (0, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
+        compiler_params=pltpu.CompilerParams(dimension_semantics=("arbitrary",)),
+        interpret=True,
+    )(q, db_i8)
+
+
+class TestK7:
+    @pytest.mark.parametrize("dtype,pos", [
+        ("bfloat16", [3, 0, 15]),
+        ("float32", [20, 7, 15]),  # 20 >= S = 16: the last row is written
+        ("bfloat16", [16, 16, 2]),
+    ])
+    def test_plain_matches_pallas(self, dtype, pos):
+        rng = np.random.default_rng(len(dtype) + pos[0])
+        b, s, h, d = 3, 16, 2, 64
+        cache = rng.standard_normal((b, s, h, d)).astype(np.float32)
+        new = rng.standard_normal((b, h, d)).astype(np.float32)
+        positions = np.array(pos, np.int32)
+        ref = _pallas_row_insert(
+            jnp.asarray(cache, getattr(jnp, dtype)),
+            jnp.asarray(new, getattr(jnp, dtype)), jnp.asarray(positions),
+        )
+        t_cache = torch.from_numpy(cache).to(getattr(torch, dtype))
+        before = tkv.kv_row_insert.launches
+        out = tkv.kv_row_insert(
+            t_cache, torch.from_numpy(new).to(getattr(torch, dtype)),
+            torch.from_numpy(positions),
+        )
+        assert out is t_cache  # in place
+        assert tkv.kv_row_insert.launches == before  # the CPU runs the plain version
+        np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref, np.float32))
+
+    def test_refuses_mismatched_shapes(self):
+        cache = torch.zeros((2, 8, 2, 16))
+        with pytest.raises(ValueError, match="disagree"):
+            tkv.kv_row_insert(cache, torch.zeros((2, 2, 8)), torch.zeros(2, dtype=torch.int32))
+        with pytest.raises(ValueError, match="CUDA"):
+            tkv.kv_row_insert(cache, torch.zeros((2, 2, 16)),
+                              torch.zeros(2, dtype=torch.int32, device="meta"))
+
+
+class TestK8:
+    @pytest.mark.parametrize("n,d,chunk", [
+        (1000, 128, 64),  # N not a multiple of chunk: a ragged tail unread
+        (512, 256, 128),
+        (300, 128, 8),
+    ])
+    def test_plain_matches_pallas(self, n, d, chunk):
+        rng = np.random.default_rng(n + d + chunk)
+        db = rng.integers(-128, 128, (n, d)).astype(np.int8)
+        q = rng.integers(-1000, 1000, (8, 128)).astype(np.int32)
+        ref = np.asarray(_pallas_stream(jnp.asarray(q), jnp.asarray(db), chunk))
+        before = tstream.stream_sum.launches
+        out, checksum = tstream.stream_sum(torch.from_numpy(q), torch.from_numpy(db), chunk)
+        assert tstream.stream_sum.launches == before
+        assert out.dtype == torch.int32 and checksum.dtype == torch.int64
+        np.testing.assert_array_equal(out.numpy(), ref)
+        rows = n // chunk * chunk
+        assert int(checksum) == int(db[:rows].astype(np.int64).sum())
+
+    def test_refuses_what_it_cannot_take(self):
+        db = torch.zeros((64, 128), dtype=torch.int8)
+        q = torch.zeros((8, 128), dtype=torch.int32)
+        with pytest.raises(ValueError, match="corner rows"):
+            tstream.stream_sum(q, db, 4)
+        with pytest.raises(ValueError, match="columns"):
+            tstream.stream_sum(q, db[:, :64], 16)
+        with pytest.raises(ValueError, match="int32"):
+            tstream.stream_sum(q.long(), db, 16)
+
+
+class TestProtocol:
+    def test_helpers_on_the_cpu(self):
+        calls = []
+
+        def body(q, scale):
+            calls.append(q.clone())
+            return (q * scale, {"sum": q.sum()})
+
+        variants = [torch.full((4, 3), float(v)).unsqueeze(1).expand(4, 2, 3).clone()
+                    + torch.arange(4.0)[:, None, None] for v in range(3)]
+        ms = bench.time_inprogram(body, variants, extra=(2.0,), reps=3)
+        assert ms > 0
+        # one warm-up call, then reps passes over S = 4 inputs, variant r % 3
+        assert len(calls) == 1 + 3 * 4
+        assert all(torch.equal(c, variants[1][i]) for i, c in enumerate(calls[5:9]))
+        rtt = bench.measure_rtt(variants[0])
+        assert 0 <= rtt < 1
+        inputs = list(variants[0])
+        assert bench.time_pipelined(lambda q: body(q, 1.0), inputs) > 0
+        assert np.isfinite(bench.time_fetch(lambda q: body(q, 1.0), inputs, rtt))
+
+
+class TestLabSmoke:
+    @pytest.mark.parametrize("mode", ["scan", "ladder", "stream", "tail"])
+    def test_runs_end_to_end(self, tmp_path, mode):
+        path = tmp_path / f"{mode}.json"
+        out = lab.main(["--smoke", "--mode", mode, "--out", str(path)])
+        assert json.loads(path.read_text()) == json.loads(json.dumps(out))
+        assert out["device"] == "cpu" and out["results"]
+        if mode in ("scan", "ladder"):
+            assert len(out["results"]) == (1 if mode == "scan" else 4)
+            assert all(r["recall"] >= 0.5 for r in out["results"])
+        elif mode == "stream":
+            assert [r["chunk"] for r in out["results"]] == [256, 512]
+            assert all(r["rows"] == 3072 for r in out["results"])
+        else:
+            assert [r["stage"] for r in out["results"]] == [
+                "raw scan", "+top_k", "+top_k+rescore"]
+
+    def test_without_smoke_needs_a_card(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            lab.main(["--mode", "stream", "--out", str(tmp_path / "x.json")])
+
+
+class TestAnatomySmoke:
+    def test_every_variant_runs_and_inserts_agree(self, tmp_path):
+        path = tmp_path / "anatomy.json"
+        before = tkv.kv_row_insert.launches
+        out = anatomy.main(["--smoke", "--reps", "2", "--out", str(path)])
+        assert json.loads(path.read_text())["rows"] == out["rows"]
+        rows = out["rows"]
+        for b in (1, 8):
+            for v in anatomy.VARIANTS:
+                assert rows[f"bf16_b{b}_{v}"] > 0
+            for v in anatomy.INSERTS:
+                assert rows[f"bf16_b{b}_{v}_agree"] == 1.0
+        assert out["calls_per_variant"] == 3 and out["layers"] == 2
+        assert tkv.kv_row_insert.launches == before  # CPU: the plain version
+
+    def test_insert_variants_write_the_same_cache(self):
+        """One step of every insert variant leaves the same per-layer caches
+        and tokens as `full`, one lane writing the last row."""
+        with torch.inference_mode():
+            cfg, params = anatomy.make_model(True, torch.device("cpu"))
+            warm, tok = anatomy.warm_cache(params, cfg, 3, 8, 16, np.random.default_rng(1))
+            pos = torch.tensor([8, 15, 9], dtype=torch.int32)
+            caches = {}
+            for v in ("full",) + anatomy.INSERTS:
+                ck = [warm.k[i].clone() for i in range(cfg.layers)]
+                cv = [warm.v[i].clone() for i in range(cfg.layers)]
+                nxt = anatomy.step_variant(params, cfg, tok, ck, cv, pos, v)
+                caches[v] = (nxt, ck, cv)
+        ref = caches["full"]
+        for v in anatomy.INSERTS:
+            assert torch.equal(caches[v][0], ref[0])
+            for a, b in zip(caches[v][1] + caches[v][2], ref[1] + ref[2]):
+                assert torch.equal(a, b)
+
+    def test_refusals(self, monkeypatch):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            anatomy.main(["--smoke", "--weights", "int8"])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            anatomy.main([])

@@ -1,5 +1,6 @@
-"""Port parity: the flat int8 scan (kernel K1), its quantizer, the exact
-scan and the fused search, against the JAX package on the same inputs.
+"""Port parity: the flat scans (kernels K1, K2 and K3), their quantizers,
+the exact scan and the fused searches, against the JAX package on the same
+inputs.
 
 The JAX side runs as its own tests run it on the CPU (Pallas in
 interpret mode); the port runs its plain PyTorch versions on the CPU.
@@ -187,6 +188,133 @@ class TestFusedInt8gs:
         np.testing.assert_allclose(
             ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5
         )
+
+
+class TestQuantizeRowsInt8:
+    @pytest.mark.parametrize("n,d", [(300, 48), (1537, 768)])
+    def test_identical(self, n, d):
+        rng = np.random.default_rng(n + d)
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        x[5] = 0.0  # maxabs clamps to 1e-9
+        x[7] *= 1e4
+        x[9, :4] = [0.5, -0.5, 1.5, -2.5]  # ties round half to even
+        x[9, 4] = 127.0
+        jq, js = jtopk.quantize_rows_int8(jnp.asarray(x))
+        tq, ts = ttopk.quantize_rows_int8(torch.from_numpy(x))
+        assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+# (B, N, D, nbins, chunk): B not a multiple of 32 (the reference pads to 32),
+# N not a multiple of chunk; the last case has N < nbins (empty bins)
+K3_CASES = [
+    (3, 1300, 64, 128, 512),
+    (33, 1300, 64, 128, 512),
+    (3, 2500, 768, 512, 1024),
+    (33, 2100, 96, 512, 1024),
+    (33, 300, 64, 512, 1024),
+]
+
+
+class TestBinmaxInt8:
+    @pytest.mark.parametrize("b,n,d,nbins,chunk", K3_CASES)
+    def test_plain_bit_identical_to_pallas(self, b, n, d, nbins, chunk):
+        rng = np.random.default_rng(b * 7919 + n + d)
+        q, db = _i8(rng, b, d), _i8(rng, n, d)
+        # f32 scales over many binades, one negative, one zero, one NaN
+        scales = np.exp(rng.uniform(-20, 5, n)).astype(np.float32)
+        if n > nbins + 3:  # equal rows and scales: row 3 keeps bin 3
+            db[nbins + 3], scales[nbins + 3] = db[3], scales[3]
+        scales[[11, 12, 13]] = [-0.25, 0.0, np.nan]
+        jv, ji = jtopk.binmax_partial_topk_int8(
+            jnp.asarray(q), jnp.asarray(db), jnp.asarray(scales), nbins=nbins,
+            chunk=chunk, interpret=True,
+        )
+        # row chunks smaller than N exercise the plain version's merge
+        tv, ti = ttopk.binmax_partial_topk_int8_plain(
+            torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(scales),
+            nbins=nbins, rows_per_chunk=nbins,
+        )
+        assert tv.dtype == torch.float32 and ti.dtype == torch.int32
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        if n < nbins:
+            assert (ti.numpy()[:, n:] == -1).all()
+            assert (tv.numpy()[:, n:] == np.float32(ttopk.NEG_INF)).all()
+
+    def test_wrapper_on_cpu_runs_the_plain_version(self):
+        rng = np.random.default_rng(2)
+        q, db = torch.from_numpy(_i8(rng, 4, 32)), torch.from_numpy(_i8(rng, 700, 32))
+        scales = torch.from_numpy(rng.uniform(0.1, 2, 700).astype(np.float32))
+        before = ttopk.binmax_partial_topk_int8.launches
+        out = ttopk.binmax_partial_topk_int8(q, db, scales, nbins=64)
+        ref = ttopk.binmax_partial_topk_int8_plain(q, db, scales, nbins=64)
+        assert ttopk.binmax_partial_topk_int8.launches == before
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        # the brute-force bin max, earliest row on a tie
+        s = (q.double() @ db.double().T).float() * scales
+        for j in (0, 17, 63):
+            col = s[:, j::64]
+            best = col.max(dim=1)
+            assert torch.equal(out[0][:, j], best.values)
+            assert torch.equal(out[1][:, j], (j + 64 * best.indices).int())
+        with pytest.raises(ValueError, match="shapes"):
+            ttopk.binmax_partial_topk_int8(q, db, scales[:-1], nbins=64)
+
+
+class TestFusedInt8:
+    @pytest.mark.parametrize("rescore_k", [0, 64])
+    @pytest.mark.parametrize("n", [2048, 100])
+    def test_matches_jax(self, rescore_k, n):
+        rng = np.random.default_rng(31 + n)
+        d = 64
+        db = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((7, d)).astype(np.float32)
+        db_i8, scales = jtopk.quantize_rows_int8(jnp.asarray(db))
+        js, ji = jtopk.fused_topk_int8(
+            jnp.asarray(q), db_i8, scales, 10, nbins=128, chunk=512,
+            interpret=True,
+            rescore_db=jnp.asarray(db, jnp.bfloat16) if rescore_k else None,
+            rescore_k=rescore_k,
+        )
+        ts, ti = ttopk.fused_topk_int8(
+            torch.from_numpy(q), torch.from_numpy(np.array(db_i8)),
+            torch.from_numpy(np.array(scales)), 10, nbins=128, chunk=512,
+            rescore_db=(
+                torch.from_numpy(db).to(torch.bfloat16) if rescore_k else None
+            ),
+            rescore_k=rescore_k,
+        )
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        # scan scores x the same f32 query scale: identical; the bf16
+        # re-score sums in another order: f32 rounding of a 64-term sum
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+
+    def test_empty_bins_keep_the_reference_scores(self):
+        """With N < k: no re-score leaves NEG_INF * q_scale and id -1; the
+        re-score leaves NEG_INF and id -1, as the reference."""
+        rng = np.random.default_rng(5)
+        db = rng.standard_normal((6, 32)).astype(np.float32)
+        q = rng.standard_normal((2, 32)).astype(np.float32)
+        db_i8, scales = jtopk.quantize_rows_int8(jnp.asarray(db))
+        for rescore_k in (0, 16):
+            kw = dict(nbins=64, chunk=64, rescore_k=rescore_k)
+            js, ji = jtopk.fused_topk_int8(
+                jnp.asarray(q), db_i8, scales, 8, interpret=True,
+                rescore_db=jnp.asarray(db) if rescore_k else None, **kw,
+            )
+            ts, ti = ttopk.fused_topk_int8(
+                torch.from_numpy(q), torch.from_numpy(np.array(db_i8)),
+                torch.from_numpy(np.array(scales)), 8,
+                rescore_db=torch.from_numpy(db) if rescore_k else None, **kw,
+            )
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+            assert (ti.numpy()[:, 6:] == -1).all()
+            np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5)
+        with pytest.raises(ValueError, match="multiple of nbins"):
+            ttopk.fused_topk_int8(torch.from_numpy(q), torch.from_numpy(np.array(db_i8)),
+                                  torch.from_numpy(np.array(scales)), 8, nbins=64, chunk=96)
 
 
 def test_port_imports_no_jax():
