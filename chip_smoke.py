@@ -38,10 +38,12 @@ and exits non-zero before the last line:
              .npz save/load parity of a 50k-row IVF (the 1M index goes to
              the server as built: its float32 artifact would be 8 GB).
 9. k45     — the IVF bucket kernels against their plain versions over the
-             1M listing: K5 at B=8 (the batch's unique probed buckets), K4
-             at B=64, nprobe 64; the listing's own rows within
-             rtol=atol=1e-5, integer-valued rows of the same layout bit for
-             bit; times from CUDA events.
+             1M listing: K5 at B=8 (the batch's 512 unique probed buckets)
+             and at B=32 (2,048 slots, one z-tile of 32 queries), K4 at
+             B=64, nprobe 64; the listing's own rows within rtol=atol=1e-5,
+             integer-valued rows of the same layout bit for bit; kernel,
+             plain and (for K5) torch.matmul times from CUDA events, and
+             the K5 blocks that read rows.
 10. serve_staged — the staged path (TOTAL_NODES=1, profile
              single_node_full) over the 1M IVF-Flat index at full width
              (BGE-base, bge-reranker-base, Qwen2.5-0.5B, the two BERT-base
@@ -88,10 +90,14 @@ and exits non-zero before the last line:
 17. k7     — the decode-anatomy probe (tools/bench_decode_anatomy.py) at
              full width: Qwen2.5-0.5B, random bf16 weights, B in {1, 8},
              prompt 128, cache 384, every variant; --length and --reps cut
-             to ANATOMY_ARGS for the time limit. The K7 count, zeroed just
-             before, must equal 2 x 24 layers x steps x calls; K7 against
-             its plain version, bit for bit, on the probe's own B=8 cache
-             (one position past the end).
+             to ANATOMY_ARGS for the time limit. The K7 pair count, zeroed
+             just before, must equal 24 layers x steps x calls x batches
+             (one launch per layer for K and V); the single and pair inserts
+             against their plain versions, bit for bit, on the probe's own
+             B=8 caches (one position past the end, one below 0); the pair
+             against the two index_copy_ calls that write the same rows,
+             in device ms and host us per call (medians of 7 alternated
+             rounds: the calls are host-bound).
 
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
@@ -121,6 +127,9 @@ DEVICE = "cuda"
 # default document length; Qwen2.5's vocabulary for the doc tokens
 N_ROWS, DIM, DOC_LEN, DOC_VOCAB = 1_000_000, 768, 48, 151936
 MAIN_B, MAIN_NBINS = 8, 1024
+# K5's widest batch on the served route: the dedup path is taken up to
+# B ~ 40 at nprobe 64 and cap 640 (the 1 GB gate of index/ivf_flat.py)
+K5_WIDE_B = 32
 # the served configuration: default model names at full width, random
 # weights, the int8 flat index, 128 new tokens
 SERVE_ENV = {
@@ -182,7 +191,7 @@ def zero_launches() -> None:
     for fn in (topk.binmax_partial_topk_int8gs, topk.binmax_partial_topk,
                topk.binmax_partial_topk_int8, ivf.ivf_scan_partial,
                ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores, kv.kv_row_insert,
-               stream.stream_sum):
+               kv.kv_row_insert_pair, stream.stream_sum):
         fn.launches = 0
 
 
@@ -428,51 +437,62 @@ def phase_k45(ivf, queries):
 
     t0 = time.perf_counter()
     lst = ivf._listing
-    nlist = lst.buckets.shape[0]
-    q8 = queries[:MAIN_B].contiguous()
-    probe8 = ops.coarse_probe(lst, q8, NPROBE)
-    slots, _ = ops.dedup_probes(probe8, nlist, min(nlist, MAIN_B * NPROBE))
+    nlist, cap = lst.buckets.shape[:2]
+    # K5's slots at B=8 (the main path) and B=32 (its widest served batch)
+    k5_cases = {}
+    for key, b in (("k5", MAIN_B), ("k5_b32", K5_WIDE_B)):
+        probe = ops.coarse_probe(lst, queries[:b].contiguous(), NPROBE)
+        k5_cases[key] = (b, ops.dedup_probes(probe, nlist, min(nlist, b * NPROBE))[0])
     probe64 = ops.coarse_probe(lst, queries, NPROBE)
     g = torch.Generator(device=DEVICE).manual_seed(7)
-    pos = torch.arange(lst.buckets.shape[1], device=DEVICE)
+    pos = torch.arange(cap, device=DEVICE)
     filled = (pos[None, :] < lst.list_sizes[:, None])[:, :, None]
-    out = {"k5": {"max_abs_err": 0.0}, "k4": {"max_abs_err": 0.0}}
+    out = {key: {"max_abs_err": 0.0} for key in (*k5_cases, "k4")}
     for integer in (False, True):
         if integer:  # the same layout, integer-valued rows and queries
             buckets = _values(g, True, *lst.buckets.shape, dtype=torch.bfloat16) * filled
             qs = _values(g, True, RETRIEVE_B, DIM, dtype=torch.bfloat16)
         else:
             buckets, qs = lst.buckets, queries.to(torch.bfloat16)
-        q5 = qs[:MAIN_B].contiguous()
-        args5 = (q5, buckets, slots, lst.list_sizes)
-        kv = ops.ivf_dedup_scores(*args5)
-        pv = ops.ivf_dedup_scores_plain(*args5)
-        torch.cuda.synchronize()
-        out["k5"]["max_abs_err"] = max(out["k5"]["max_abs_err"], _hold("K5", integer, kv, pv))
+        for key, (b, slots) in k5_cases.items():
+            q5 = qs[:b].contiguous()
+            args5 = (q5, buckets, slots, lst.list_sizes)
+            kv = ops.ivf_dedup_scores(*args5)
+            pv = ops.ivf_dedup_scores_plain(*args5)
+            torch.cuda.synchronize()
+            r = out[key]
+            r["max_abs_err"] = max(r["max_abs_err"], _hold(f"K5 B={b}", integer, kv, pv))
+            del kv, pv
+            if not integer:
+                r["ms"] = cuda_ms(lambda: ops.ivf_dedup_scores(*args5), 20)
+                r["plain_ms"] = cuda_ms(lambda: ops.ivf_dedup_scores_plain(*args5), 3)
+                # the yardstick: one batched matmul of the slot buckets,
+                # gathered outside the timing, against the queries
+                gathered = buckets[slots.long()]
+                r["library_ms"] = cuda_ms(lambda: torch.matmul(gathered, q5.T), 20)
+                del gathered
         args4 = (qs, buckets, probe64, lst.list_sizes)
         kv, kw = ops.ivf_scan_partial(*args4)
         pv, pw = ops.ivf_scan_partial_plain(*args4)
         torch.cuda.synchronize()
         out["k4"]["max_abs_err"] = max(out["k4"]["max_abs_err"], _hold("K4", integer, kv, pv, kw, pw))
         if not integer:
-            out["k5"]["ms"] = cuda_ms(lambda: ops.ivf_dedup_scores(*args5), 20)
-            out["k5"]["plain_ms"] = cuda_ms(lambda: ops.ivf_dedup_scores_plain(*args5), 3)
             out["k4"]["ms"] = cuda_ms(lambda: ops.ivf_scan_partial(*args4), 10)
             out["k4"]["plain_ms"] = cuda_ms(lambda: ops.ivf_scan_partial_plain(*args4), 2)
-            # the yardstick for K5: one batched matmul of the slot buckets,
-            # gathered outside the timing, against the queries
-            gathered = buckets[slots.long()]
-            out["k5"]["library_ms"] = cuda_ms(lambda: torch.matmul(gathered, q5.T), 20)
-            del gathered
             out["k4"]["library_ms"] = None  # a positional max: no one call
         del buckets, kv, pv
     sizes = lst.list_sizes.long()
-    cap = lst.buckets.shape[1]
-    n_slots = slots.shape[0]
-    filled5 = int(sizes[slots.long()].sum())
-    # K5: the unique slots' filled rows once, queries, [n_slots, B, cap] f32
-    out["k5"].update(bound(filled5 * DIM * 2 + MAIN_B * DIM * 2 + n_slots * MAIN_B * cap * 4,
-                           2 * MAIN_B * DIM * filled5, "bf16"))
+    for key, (b, slots) in k5_cases.items():
+        n_slots = slots.shape[0]
+        filled5 = int(sizes[slots.long()].clamp(max=cap).sum())
+        # K5: the unique slots' filled rows once, queries, [n_slots, B, cap] f32
+        out[key].update(bound(filled5 * DIM * 2 + b * DIM * 2 + n_slots * b * cap * 4,
+                              2 * b * DIM * filled5, "bf16"))
+        z_tiles, _ = ops.dedup_query_tiles(b)
+        out[key]["slots"] = n_slots
+        # blocks that read rows, of the n_slots x ceil(cap / 128) x z grid
+        out[key]["row_blocks"] = z_tiles * ops.dedup_filled_tiles(slots, lst.list_sizes, cap)
+        out[key]["grid_blocks"] = z_tiles * n_slots * -(-cap // ops.K5_ROWS)
     # K4: the filled rows of the lists the batch probes, once; the products
     # of every (query, probed list) pair; (value, slot) per position
     filled4 = int(sizes[torch.unique(probe64.long())].sum())
@@ -480,10 +500,17 @@ def phase_k45(ivf, queries):
     out["k4"].update(bound(filled4 * DIM * 2 + RETRIEVE_B * DIM * 2 + probe64.numel() * 4
                            + RETRIEVE_B * cap * 8, 2 * DIM * pairs4, "bf16"))
     torch.cuda.empty_cache()
-    phase("k45", t0, slots=int(slots.shape[0]), integer_bit_identical=True,
-          k5_ms=f"{out['k5']['ms']:.4f}", k5_plain_ms=f"{out['k5']['plain_ms']:.4f}",
-          k4_ms=f"{out['k4']['ms']:.4f}", k4_plain_ms=f"{out['k4']['plain_ms']:.4f}",
-          k5_err=out["k5"]["max_abs_err"], k4_err=out["k4"]["max_abs_err"])
+    k5, w5, k4 = out["k5"], out["k5_b32"], out["k4"]
+    phase("k45", t0, integer_bit_identical=True,
+          k5_slots=k5["slots"], k5_ms=f"{k5['ms']:.4f}", k5_plain_ms=f"{k5['plain_ms']:.4f}",
+          k5_matmul_ms=f"{k5['library_ms']:.4f}", k5_bound_ms=f"{k5['bound_ms']:.4f}",
+          k5_row_blocks=f"{k5['row_blocks']}/{k5['grid_blocks']}", k5_err=k5["max_abs_err"],
+          k5_b32_slots=w5["slots"], k5_b32_ms=f"{w5['ms']:.4f}",
+          k5_b32_plain_ms=f"{w5['plain_ms']:.4f}", k5_b32_matmul_ms=f"{w5['library_ms']:.4f}",
+          k5_b32_bound_ms=f"{w5['bound_ms']:.4f}",
+          k5_b32_row_blocks=f"{w5['row_blocks']}/{w5['grid_blocks']}",
+          k5_b32_err=w5["max_abs_err"],
+          k4_ms=f"{k4['ms']:.4f}", k4_plain_ms=f"{k4['plain_ms']:.4f}", k4_err=k4["max_abs_err"])
     return out
 
 
@@ -1129,49 +1156,102 @@ def phase_k8():
     return out
 
 
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call: the time to issue `iters` calls, the
+    device left to finish after the clock stops."""
+    import torch
+
+    fn()  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def alternated(timer, fns: dict, iters: int, rounds: int = 7) -> dict:
+    """The median of `rounds` timings of each function, the functions
+    taken in turn in every round: a host-bound call's time moves with the
+    host's load, and turns keep a burst from landing on one side only."""
+    runs = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            runs[name].append(timer(fn, iters))
+    return {name: statistics.median(v) for name, v in runs.items()}
+
+
 def phase_k7():
     import numpy as np
     import torch
-    from rag_inference_pipeline_tpu_torch.ops.kv import kv_row_insert, kv_row_insert_plain
+    from rag_inference_pipeline_tpu_torch.ops import kv
     from rag_inference_pipeline_tpu_torch.tools import bench_decode_anatomy as anatomy
 
     t0 = time.perf_counter()
     zero_launches()
     res = anatomy.main(ANATOMY_ARGS)
-    out = {"launches": kv_row_insert.launches}
-    want = 2 * res["layers"] * res["length"] * res["calls_per_variant"] * len(res["batches"])
-    check(out["launches"] == want, f"K7 launched {out['launches']} times, not {want}")
-    # K7 against its plain version on the probe's own B=8 cache
+    out = {"launches": kv.kv_row_insert_pair.launches}
+    want = res["layers"] * res["length"] * res["calls_per_variant"] * len(res["batches"])
+    check(out["launches"] == want, f"the K7 pair launched {out['launches']} times, not {want}")
+    check(kv.kv_row_insert.launches == 0, "the probe launched the single insert")
+    # the single and pair inserts against their plain versions on the
+    # probe's own B=8 caches of layer 0
     with torch.inference_mode():
         cfg, params = anatomy.make_model(False, torch.device(DEVICE))
         warm, _ = anatomy.warm_cache(params, cfg, MAIN_B, 128, 384, np.random.default_rng(0))
-        cache = warm.k[0]
-        s_len = cache.shape[1]
+        ck, cv = warm.k[0], warm.v[0]
+        s_len = ck.shape[1]
         g = torch.Generator(device=DEVICE).manual_seed(11)
-        new = torch.randn(MAIN_B, cfg.kv_heads, cfg.head_dim, generator=g,
-                          device=DEVICE).to(cache.dtype)
+        nk, nv = (torch.randn(MAIN_B, cfg.kv_heads, cfg.head_dim, generator=g,
+                              device=DEVICE).to(ck.dtype) for _ in range(2))
         pos = torch.arange(128, 128 + MAIN_B, device=DEVICE, dtype=torch.int32)
-        pos[-1] = s_len + 16  # past the end: row S-1
-        a = kv_row_insert(cache.clone(), new, pos)
-        b = kv_row_insert_plain(cache.clone(), new, pos)
+        pos[0], pos[-1] = -3, s_len + 16  # row S-3; past the end: row S-1
+        a = kv.kv_row_insert(ck.clone(), nk, pos)
+        b = kv.kv_row_insert_plain(ck.clone(), nk, pos)
+        ak, av = kv.kv_row_insert_pair(ck.clone(), cv.clone(), nk, nv, pos)
+        bk, bv = kv.kv_row_insert_pair_plain(ck.clone(), cv.clone(), nk, nv, pos)
         torch.cuda.synchronize()
-        check(torch.equal(a, b), "K7 differs from its plain version on the probe's cache")
-        out["max_abs_err"] = (a.float() - b.float()).abs().max().item()
-        out["ms"] = cuda_ms(lambda: kv_row_insert(a, new, pos), 200)
-        out["plain_ms"] = cuda_ms(lambda: kv_row_insert_plain(b, new, pos), 200)
-        # the port's own decode insert: index_copy_ over the flattened rows
-        flat = cache.clone().view(MAIN_B * s_len, cfg.kv_heads, cfg.head_dim)
-        rows = torch.arange(MAIN_B, device=DEVICE) * s_len + pos.long().clamp(max=s_len - 1)
-        out["library_ms"] = cuda_ms(lambda: flat.index_copy_(0, rows, new), 200)
-        # the new rows read once and written once, the positions
-        out.update(bound(2 * new.numel() * new.element_size() + 4 * MAIN_B, 0, "bf16"))
-        del params, warm, cache, a, b, flat
+        check(torch.equal(a, b), "the K7 single insert differs from its plain version")
+        check(torch.equal(ak, bk) and torch.equal(av, bv),
+              "the K7 pair differs from its plain version")
+        out["max_abs_err"] = max((x.float() - y.float()).abs().max().item()
+                                 for x, y in ((a, b), (ak, bk), (av, bv)))
+        out["plain_ms"] = cuda_ms(lambda: kv.kv_row_insert_pair_plain(bk, bv, nk, nv, pos), 200)
+        # the yardstick: the port's own decode insert, index_copy_ over the
+        # flattened rows, once per cache
+        flat_k = ck.clone().view(MAIN_B * s_len, cfg.kv_heads, cfg.head_dim)
+        flat_v = cv.clone().view(MAIN_B * s_len, cfg.kv_heads, cfg.head_dim)
+        p = pos.long()
+        rows = torch.arange(MAIN_B, device=DEVICE) * s_len + torch.where(p < 0, p + s_len, p).clamp(0, s_len - 1)
+
+        def two_index_copies():
+            flat_k.index_copy_(0, rows, nk)
+            flat_v.index_copy_(0, rows, nv)
+
+        two_index_copies()
+        check(torch.equal(flat_k.view_as(ck), ak) and torch.equal(flat_v.view_as(cv), av),
+              "the index_copy_ yardstick writes other rows")
+        # host-bound calls: each side timed in 7 alternated rounds, medians
+        fns = {"pair": lambda: kv.kv_row_insert_pair(ak, av, nk, nv, pos),
+               "copies": two_index_copies,
+               "single": lambda: kv.kv_row_insert(a, nk, pos),
+               "checks": lambda: kv._check("pair", ak, av, nk, nv, pos)}
+        dev_ms = alternated(cuda_ms, {k: fns[k] for k in ("pair", "copies", "single")}, 200)
+        out["ms"], out["library_ms"], single_ms = dev_ms["pair"], dev_ms["copies"], dev_ms["single"]
+        host = alternated(host_us, {k: fns[k] for k in ("pair", "copies", "checks")}, 1000)
+        pair_host, copies_host, checks_host = host["pair"], host["copies"], host["checks"]
+        # the two caches' new rows read once and written once, the positions
+        out.update(bound(2 * 2 * nk.numel() * nk.element_size() + 4 * MAIN_B, 0, "bf16"))
+        del params, warm, ck, cv, a, b, ak, av, bk, bv, flat_k, flat_v
     torch.cuda.empty_cache()
     ms_rows = {k: round(v, 3) for k, v in res["rows"].items() if not k.endswith("_agree")}
     agree = {k: v for k, v in res["rows"].items() if k.endswith("_agree")}
-    phase("k7", t0, k7_launches=out["launches"], expected=want, bit_identical=True,
-          ms=f"{out['ms']:.5f}", plain_ms=f"{out['plain_ms']:.5f}",
-          index_copy_ms=f"{out['library_ms']:.5f}", length=res["length"],
+    phase("k7", t0, k7_pair_launches=out["launches"], expected=want, bit_identical=True,
+          pair_ms=f"{out['ms']:.5f}", pair_plain_ms=f"{out['plain_ms']:.5f}",
+          two_index_copy_ms=f"{out['library_ms']:.5f}", single_ms=f"{single_ms:.5f}",
+          pair_host_us=f"{pair_host:.3f}", two_index_copy_host_us=f"{copies_host:.3f}",
+          pair_checks_host_us=f"{checks_host:.3f}", length=res["length"],
           reps=res["reps"], ms_per_step=json.dumps(ms_rows, separators=(",", ":")),
           agree=json.dumps(agree, separators=(",", ":")))
     return out

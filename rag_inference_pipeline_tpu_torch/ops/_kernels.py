@@ -8,6 +8,12 @@ rebuilt when it is older than any source or header, as
 `rag_inference_pipeline_tpu/utils/cpuscan.py` does for `native/`. Nothing
 here runs at import time: the CPU tests import every module of the port on
 a machine with no `nvcc`.
+
+Every wrapper launches through `launch`: the library is loaded once per
+process and read without a lock after that, the stream is PyTorch's
+current raw stream of the tensors' device (an int, no `Stream` object),
+and a device guard is entered only when that device is not the current
+one.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -29,6 +37,9 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+# torch._C._cuda_getCurrentRawStream, looked up at the first launch: a CPU
+# build of torch lacks it
+_raw_stream: Optional[Callable[[int], int]] = None
 
 
 def _sources() -> list[str]:
@@ -120,15 +131,16 @@ def load_library() -> ctypes.CDLL:
             # q, db, scales, part_vals, part_steps, vals, idxs, B, D, N,
             # nbins, groups, stream
             "ragtorch_binmax_int8": [vp] * 7 + [i32, i32, i64, i32, i32, vp],
-            # cache, rows, pos, B, S, row_bytes, stream
-            "ragtorch_kv_row_insert": [vp] * 3 + [i32] * 3 + [vp],
+            # cache_k, cache_v (or null), rows_k, rows_v, pos, B, S,
+            # row_bytes, stream
+            "ragtorch_kv_row_insert": [vp] * 5 + [i32] * 3 + [vp],
             # db, out, checksum, rows, D, chunk, blocks, stream
             "ragtorch_stream_sum": [vp] * 3 + [i64, i32, i32, i32, vp],
             # ... elem_bytes before the stream
             "ragtorch_binmax_bf16": [vp] * 6 + [i32, i32, i64, i32, i32, i32, vp],
             # q, buckets, slots, sizes, out, B, D, n_slots, cap, elem_bytes,
-            # stream
-            "ragtorch_ivf_dedup": [vp] * 5 + [i32] * 5 + [vp],
+            # z_tiles, q_tile, stream
+            "ragtorch_ivf_dedup": [vp] * 5 + [i32] * 7 + [vp],
             # q, buckets, probe, sizes, vals, win, B, D, nprobe, cap,
             # elem_bytes, stream
             "ragtorch_ivf_scan": [vp] * 6 + [i32] * 5 + [vp],
@@ -142,3 +154,27 @@ def load_library() -> ctypes.CDLL:
             fn.restype = i32
         _lib = lib
         return lib
+
+
+def needs_device_guard(index: int, current: int) -> bool:
+    """A launch on device `index` enters a device guard only when the
+    calling thread's current device is another one."""
+    return index != current
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Call the library's entry point `name` with `args` and the current
+    stream of CUDA device `index`; raises on a non-zero cudaError."""
+    global _raw_stream
+    lib = _lib if _lib is not None else load_library()
+    raw_stream = _raw_stream
+    if raw_stream is None:
+        raw_stream = _raw_stream = torch._C._cuda_getCurrentRawStream
+    fn = getattr(lib, name)
+    if needs_device_guard(index, torch._C._cuda_getDevice()):
+        with torch.cuda.device(index):
+            rc = fn(*args, raw_stream(index))
+    else:
+        rc = fn(*args, raw_stream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")

@@ -33,8 +33,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import _kernels
 from .kmeans import assign_clusters, kmeans, require_full_f32
 from .topk import NEG_INF, _check_words, _on_cpu, _topk
+
+# K5's bf16 grid (csrc/ivf_dedup.cu): bucket positions per block, and the
+# most queries a block takes (five n-tiles of 8)
+K5_ROWS, K5_MAX_Q = 128, 40
 
 
 class IVFListing(NamedTuple):
@@ -272,6 +277,22 @@ def ivf_dedup_scores_plain(
     return torch.cat(out)
 
 
+def dedup_query_tiles(b: int) -> tuple[int, int]:
+    """K5's split of a bf16 batch of `b` queries into z-tiles: (z_tiles,
+    queries per tile), at most K5_MAX_Q a tile and as even as can be. Each
+    bucket row is read once per z-tile: once per batch up to K5_MAX_Q."""
+    z_tiles = max(1, -(-b // K5_MAX_Q))
+    return z_tiles, max(1, -(-b // z_tiles))
+
+
+def dedup_filled_tiles(slots: torch.Tensor, sizes: torch.Tensor, cap: int) -> int:
+    """The (slot, K5_ROWS-position tile) pairs that hold a filled row: the
+    blocks of a bf16 K5 launch, per z-tile, that read bucket rows. The
+    other blocks of its n_slots x ceil(cap / K5_ROWS) grid write zeros."""
+    filled = sizes[slots.long()].long().clamp(0, cap)
+    return int(((filled + K5_ROWS - 1) // K5_ROWS).sum())
+
+
 def _index_args(*tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.dtype != torch.int32 or not t.is_contiguous():
@@ -293,30 +314,26 @@ def ivf_dedup_scores(
     sizes: torch.Tensor,
 ) -> torch.Tensor:
     """K5: every query against each unique probed bucket. On CUDA tensors
-    this launches csrc/ivf_dedup.cu (or raises); on CPU tensors it runs
+    this launches csrc/ivf_dedup.cu (or raises): bf16 on the tensor cores,
+    K5_ROWS positions by up to K5_MAX_Q queries a block
+    (`dedup_query_tiles`); f32 on the CUDA cores. On CPU tensors it runs
     `ivf_dedup_scores_plain`. Returns [n_slots, B, cap] f32."""
     if _on_cpu(q, buckets, "ivf_dedup_scores"):
         return ivf_dedup_scores_plain(q, buckets, slots, sizes)
     _check_buckets(q, buckets)
     _index_args(slots, sizes)
-    from . import _kernels
-
     b, d = q.shape
     cap = buckets.shape[1]
     n_slots = slots.shape[0]
     out = torch.empty((n_slots, b, cap), dtype=torch.float32, device=q.device)
     if b == 0 or n_slots == 0:
         return out
-    lib = _kernels.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ragtorch_ivf_dedup(
-            q.data_ptr(), buckets.data_ptr(), slots.data_ptr(),
-            sizes.data_ptr(), out.data_ptr(), b, d, n_slots, cap,
-            buckets.element_size(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ivf_dedup launch failed: cudaError {rc}")
+    z_tiles, q_tile = dedup_query_tiles(b)
+    _kernels.launch(
+        "ragtorch_ivf_dedup", q.get_device(), q.data_ptr(), buckets.data_ptr(),
+        slots.data_ptr(), sizes.data_ptr(), out.data_ptr(), b, d, n_slots, cap,
+        buckets.element_size(), z_tiles, q_tile,
+    )
     ivf_dedup_scores.launches += 1
     return out
 
@@ -404,8 +421,6 @@ def ivf_scan_partial(
         return ivf_scan_partial_plain(q, buckets, probe, sizes)
     _check_buckets(q, buckets)
     _index_args(probe, sizes)
-    from . import _kernels
-
     b, d = q.shape
     cap = buckets.shape[1]
     nprobe = probe.shape[1]
@@ -413,16 +428,11 @@ def ivf_scan_partial(
     win = torch.empty((b, cap), dtype=torch.int32, device=q.device)
     if b == 0:
         return vals, win
-    lib = _kernels.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ragtorch_ivf_scan(
-            q.data_ptr(), buckets.data_ptr(), probe.data_ptr(),
-            sizes.data_ptr(), vals.data_ptr(), win.data_ptr(), b, d,
-            nprobe, cap, buckets.element_size(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ivf_scan launch failed: cudaError {rc}")
+    _kernels.launch(
+        "ragtorch_ivf_scan", q.get_device(), q.data_ptr(), buckets.data_ptr(),
+        probe.data_ptr(), sizes.data_ptr(), vals.data_ptr(), win.data_ptr(),
+        b, d, nprobe, cap, buckets.element_size(),
+    )
     ivf_scan_partial.launches += 1
     return vals, win
 

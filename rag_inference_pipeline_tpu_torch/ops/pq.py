@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import _kernels
 from .ivf import coarse_scores, dedup_probes, layout_inverted_lists, _index_args
 from .kmeans import assign_clusters, kmeans, require_full_f32
 from .topk import NEG_INF, _on_cpu, _round_up, _topk
@@ -402,22 +403,15 @@ def ivfpq4_adc_scores(
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("K6 inputs must be contiguous and 16-byte aligned")
     _index_args(slots, sizes)
-    from . import _kernels
-
     n_slots = slots.shape[0]
     out = torch.empty((n_slots, b_pad, cap), dtype=torch.float32, device=lut.device)
     if n_slots == 0 or b_pad == 0:
         return out
-    lib = _kernels.load_library()
-    with torch.cuda.device(lut.device):
-        stream = torch.cuda.current_stream(lut.device).cuda_stream
-        rc = lib.ragtorch_ivfpq4_adc(
-            lut.data_ptr(), code_buckets.data_ptr(), slots.data_ptr(),
-            sizes.data_ptr(), out.data_ptr(), b_pad, m, n_slots, cap, m_store,
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"ivfpq4_adc launch failed: cudaError {rc}")
+    _kernels.launch(
+        "ragtorch_ivfpq4_adc", lut.get_device(), lut.data_ptr(),
+        code_buckets.data_ptr(), slots.data_ptr(), sizes.data_ptr(),
+        out.data_ptr(), b_pad, m, n_slots, cap, m_store,
+    )
     ivfpq4_adc_scores.launches += 1
     return out
 

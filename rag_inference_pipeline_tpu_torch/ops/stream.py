@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _kernels
+
 CORNER = (8, 128)  # the rows and columns of each chunk that `out` sums
 
 
@@ -65,8 +67,6 @@ def stream_sum(
     if d % 16 != 0 or not db.is_contiguous() or db.data_ptr() % 16 != 0:
         raise ValueError("the kernel reads 16-byte words: db must be contiguous, "
                          f"16-byte aligned, with D % 16 == 0 (D={d})")
-    from . import _kernels
-
     dev = db.device
     out = q.contiguous().clone()
     checksum = torch.zeros((), dtype=torch.int64, device=dev)
@@ -74,15 +74,10 @@ def stream_sum(
     # below 2^31 words
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = max(8 * sms, -(-rows * (d // 16) // 2**30))
-    lib = _kernels.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ragtorch_stream_sum(
-            db.data_ptr(), out.data_ptr(), checksum.data_ptr(),
-            rows, d, chunk, blocks, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"stream_sum launch failed: cudaError {rc}")
+    _kernels.launch(
+        "ragtorch_stream_sum", dev.index, db.data_ptr(), out.data_ptr(),
+        checksum.data_ptr(), rows, d, chunk, blocks,
+    )
     stream_sum.launches += 1
     return out, checksum
 

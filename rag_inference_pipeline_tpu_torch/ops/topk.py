@@ -23,6 +23,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from . import _kernels
+
 NEG_INF = -3.0e38
 INT32_MIN = -(2**31) + 1
 
@@ -195,8 +197,6 @@ def binmax_partial_topk(
         raise TypeError(f"binmax_partial_topk scans bf16 or f32, not {db.dtype}")
     q = queries.to(db.dtype).contiguous()
     _check_words(q, db)
-    from . import _kernels
-
     dev = db.device
     vals = torch.empty((b, nbins), dtype=torch.float32, device=dev)
     idxs = torch.empty((b, nbins), dtype=torch.int32, device=dev)
@@ -205,17 +205,11 @@ def binmax_partial_topk(
     groups = _scan_groups(dev, b, nbins, nt)
     part_vals = torch.empty((groups, b, nbins), dtype=torch.float32, device=dev)
     part_steps = torch.empty((groups, b, nbins), dtype=torch.int32, device=dev)
-    lib = _kernels.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ragtorch_binmax_bf16(
-            q.data_ptr(), db.data_ptr(),
-            part_vals.data_ptr(), part_steps.data_ptr(),
-            vals.data_ptr(), idxs.data_ptr(),
-            b, d, nt, nbins, groups, db.element_size(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"binmax_bf16 launch failed: cudaError {rc}")
+    _kernels.launch(
+        "ragtorch_binmax_bf16", dev.index, q.data_ptr(), db.data_ptr(),
+        part_vals.data_ptr(), part_steps.data_ptr(), vals.data_ptr(),
+        idxs.data_ptr(), b, d, nt, nbins, groups, db.element_size(),
+    )
     binmax_partial_topk.launches += 1
     return vals, idxs
 
@@ -352,8 +346,6 @@ def binmax_partial_topk_int8gs(
     for t in (queries_i8, db_i8):
         if not t.is_contiguous() or t.data_ptr() % 4 != 0:
             raise ValueError("queries and db must be contiguous and 4-byte aligned")
-    from . import _kernels
-
     dev = db_i8.device
     vals = torch.empty((b, nbins), dtype=torch.int32, device=dev)
     idxs = torch.empty((b, nbins), dtype=torch.int32, device=dev)
@@ -362,17 +354,11 @@ def binmax_partial_topk_int8gs(
     groups = _scan_groups(dev, b, nbins, nt)
     part_vals = torch.empty((groups, b, nbins), dtype=torch.int32, device=dev)
     part_steps = torch.empty((groups, b, nbins), dtype=torch.int32, device=dev)
-    lib = _kernels.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ragtorch_binmax_int8gs(
-            queries_i8.data_ptr(), db_i8.data_ptr(),
-            part_vals.data_ptr(), part_steps.data_ptr(),
-            vals.data_ptr(), idxs.data_ptr(),
-            b, d, nt, nbins, groups, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"binmax_int8gs launch failed: cudaError {rc}")
+    _kernels.launch(
+        "ragtorch_binmax_int8gs", dev.index, queries_i8.data_ptr(),
+        db_i8.data_ptr(), part_vals.data_ptr(), part_steps.data_ptr(),
+        vals.data_ptr(), idxs.data_ptr(), b, d, nt, nbins, groups,
+    )
     binmax_partial_topk_int8gs.launches += 1
     return vals, idxs
 
@@ -536,8 +522,6 @@ def binmax_partial_topk_int8(
     if db_scales.dtype != torch.float32:
         raise TypeError(f"db_scales must be float32, not {db_scales.dtype}")
     _check_words(queries_i8, db_i8, db_scales)
-    from . import _kernels
-
     dev = db_i8.device
     vals = torch.empty((b, nbins), dtype=torch.float32, device=dev)
     idxs = torch.empty((b, nbins), dtype=torch.int32, device=dev)
@@ -546,17 +530,12 @@ def binmax_partial_topk_int8(
     groups = _scan_groups(dev, b, nbins, n)
     part_vals = torch.empty((groups, b, nbins), dtype=torch.float32, device=dev)
     part_steps = torch.empty((groups, b, nbins), dtype=torch.int32, device=dev)
-    lib = _kernels.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ragtorch_binmax_int8(
-            queries_i8.data_ptr(), db_i8.data_ptr(), db_scales.data_ptr(),
-            part_vals.data_ptr(), part_steps.data_ptr(),
-            vals.data_ptr(), idxs.data_ptr(),
-            b, d, n, nbins, groups, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"binmax_int8 launch failed: cudaError {rc}")
+    _kernels.launch(
+        "ragtorch_binmax_int8", dev.index, queries_i8.data_ptr(),
+        db_i8.data_ptr(), db_scales.data_ptr(), part_vals.data_ptr(),
+        part_steps.data_ptr(), vals.data_ptr(), idxs.data_ptr(), b, d, n,
+        nbins, groups,
+    )
     binmax_partial_topk_int8.launches += 1
     return vals, idxs
 

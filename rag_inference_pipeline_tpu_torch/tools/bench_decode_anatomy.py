@@ -12,8 +12,9 @@ steps, `--reps` times:
   noattn   no attention (projections, MLP and head; insert as `full`)
   onehot   the insert as a masked rewrite of the whole cache
   atset    the insert as one batched indexed write
-  kernel   the insert by kernel K7 (`ops/kv.py::kv_row_insert`), twice
-           per layer: the reference's `pallas` variant
+  kernel   the insert by kernel K7 (`ops/kv.py::kv_row_insert_pair`),
+           one launch per layer for K and V: the reference's `pallas`
+           variant, which launches its kernel once per cache
 
 The insert variants write the same values as `full`, so their tokens must
 agree with it (at least 0.9 of the lanes, as the reference asserts). Each
@@ -53,7 +54,7 @@ from ..models.qwen import (
     qwen_decode_step,
     qwen_prefill,
 )
-from ..ops.kv import kv_row_insert
+from ..ops.kv import kv_row_insert_pair
 
 OUT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -70,8 +71,6 @@ def _insert(variant: str, cache: torch.Tensor, new: torch.Tensor,
     `positions` [B] int32, by the variant's method."""
     b, s = cache.shape[:2]
     lanes = torch.arange(b, device=cache.device)
-    if variant == "kernel":
-        return kv_row_insert(cache, new, positions)
     if variant == "onehot":
         hit = torch.arange(s, device=cache.device)[None, :] == positions[:, None]
         return torch.where(hit[:, :, None, None], new[:, None], cache)
@@ -100,7 +99,10 @@ def step_variant(params, cfg: QwenConfig, tok: torch.Tensor, ck: list,
         v = dense(y, lp.v_w, lp.get("v_b")).reshape(b, 1, cfg.kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin, pos2)
         k = apply_rope(k, cos, sin, pos2)
-        if variant != "nocache":
+        if variant == "kernel":
+            kv_row_insert_pair(ck[li], cv[li], k[:, 0].contiguous(),
+                               v[:, 0].contiguous(), positions)
+        elif variant != "nocache":
             ck[li] = _insert(variant, ck[li], k[:, 0].contiguous(), positions)
             cv[li] = _insert(variant, cv[li], v[:, 0].contiguous(), positions)
         if variant == "noattn":

@@ -246,6 +246,36 @@ class TestSearches:
         assert (win[1].numpy() >= -1).all() and (win[1].numpy() != 1).all()
 
 
+class TestK5Tiling:
+    """The host side of K5's bf16 grid: the query z-tiles and the count of
+    (slot, position tile) blocks that read bucket rows."""
+
+    @pytest.mark.parametrize("b", [1, 8, 13, 32, 33, 40, 41, 64, 80, 81, 200])
+    def test_query_tiles_cover_the_batch(self, b):
+        z, per = tivf.dedup_query_tiles(b)
+        assert 1 <= per <= tivf.K5_MAX_Q and z * per >= b
+        assert (z - 1) * per < b  # no z-tile is empty
+        assert z == -(-b // tivf.K5_MAX_Q)  # each bucket read once per 40 queries
+        assert (b <= tivf.K5_MAX_Q) == (z == 1)
+
+    @pytest.mark.parametrize("cap", [128, 640, 200])
+    def test_filled_tiles_against_numpy(self, cap):
+        rng = np.random.default_rng(cap)
+        nlist = 50
+        sizes = rng.integers(0, cap + 1, nlist).astype(np.int32)
+        sizes[:4] = [0, cap, cap - 1, tivf.K5_ROWS]
+        slots = rng.permutation(nlist)[:30].astype(np.int32)
+        slots[:4] = [0, 1, 2, 3]
+        want = sum(
+            1
+            for s in slots
+            for t in range(-(-cap // tivf.K5_ROWS))
+            if t * tivf.K5_ROWS < sizes[s]
+        )
+        got = tivf.dedup_filled_tiles(torch.from_numpy(slots), torch.from_numpy(sizes), cap)
+        assert got == want
+
+
 class TestIVFFlatIndex:
     def test_npz_round_trips_both_ways(self, tmp_path):
         """A JAX-built index loads in the port and searches to the same ids

@@ -1,6 +1,6 @@
 """The kernel wrappers without the JAX package: the K1 wrapper's CPU
-dispatch and plain version here, and every hand-written CUDA kernel (K1
-to K8) against its plain version on a card.
+dispatch and plain version and the shared launch helper here, and every
+hand-written CUDA kernel (K1 to K8) against its plain version on a card.
 
 This file imports no jax, so the card tests run on a machine without it:
 
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from rag_inference_pipeline_tpu_torch.ops import _kernels
 from rag_inference_pipeline_tpu_torch.ops import topk as ttopk
 
 
@@ -60,6 +61,48 @@ class TestBinmaxInt8gsPlain:
             nbins=16,
         )
         assert ttopk.binmax_partial_topk_int8gs.launches == before
+
+
+class TestLaunchHelper:
+    """`_kernels.launch`, which every wrapper calls: the stream comes from
+    the raw current-stream lookup, a device guard is entered only for a
+    device other than the current one, and a non-zero cudaError raises."""
+
+    @pytest.mark.parametrize("index,current,guard", [
+        (0, 0, False), (1, 0, True), (0, 2, True), (3, 3, False),
+    ])
+    def test_device_guard_decision(self, index, current, guard):
+        assert _kernels.needs_device_guard(index, current) is guard
+
+    @pytest.mark.parametrize("index,current,rc", [(0, 0, 0), (1, 0, 0), (2, 2, 700)])
+    def test_launch_on_a_fake_library(self, monkeypatch, index, current, rc):
+        import contextlib
+
+        calls, guards = [], []
+
+        class FakeLib:
+            def ragtorch_fake(self, *args):
+                calls.append(args)
+                return rc
+
+        @contextlib.contextmanager
+        def device(i):
+            guards.append(i)
+            yield
+
+        monkeypatch.setattr(_kernels, "_lib", FakeLib())
+        monkeypatch.setattr(_kernels, "_raw_stream", None)  # looked up at the launch
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                            lambda i: 1000 + i, raising=False)
+        monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: current, raising=False)
+        monkeypatch.setattr(torch.cuda, "device", device)
+        if rc:
+            with pytest.raises(RuntimeError, match="ragtorch_fake launch failed: cudaError 700"):
+                _kernels.launch("ragtorch_fake", index, 7, None)
+        else:
+            _kernels.launch("ragtorch_fake", index, 7, None)
+        assert calls == [(7, None, 1000 + index)]
+        assert guards == ([index] if index != current else [])
 
 
 @pytest.mark.cuda
@@ -193,6 +236,52 @@ def test_k5_kernel_matches_plain_on_card(b, nprobe, integer):
                                   scan=ivf.ivf_dedup_scores_plain)
     assert torch.equal(ki, pi)
     _close(ks, ps, integer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,kind", [
+    (1, 768, "int"),
+    (8, 768, "int"),  # the main path: 512 slots
+    (8, 768, "real"),
+    (13, 768, "int"),
+    (32, 768, "int"),  # 2,048 slots, one z-tile
+    (32, 768, "real"),
+    (33, 768, "int"),  # five n-tiles, the last one ragged
+    (64, 768, "int"),  # every list a slot, two z-tiles of 32
+    (64, 768, "real"),
+    (13, 36, "int"),  # 72-byte rows: 4-byte copies, a zero-filled k-tail
+    (33, 36, "real"),
+    (8, 768, "f32"),  # f32 buckets: the CUDA-core path
+    (33, 36, "f32"),
+])
+def test_k5_kernel_across_batches_on_card(b, d, kind):
+    """K5 at nprobe 64 over a 4096 x 640 listing: integer-valued inputs bit
+    for bit, real unit rows within rtol=atol=1e-5 (the tensor cores sum in
+    another order than cuBLAS), and the same ids from ivf_search_dedup."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K5 kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import ivf
+
+    exact = kind != "real"
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(b * d)
+    lst = _card_listing(g, exact, 4096, 640, d, 0.8)
+    lst = lst._replace(buckets=lst.buckets.to(dtype))
+    q = _card_inputs(g, exact, b, d, dtype=dtype)
+    probe = torch.randint(0, 4096, (b, 64), generator=g, device="cuda").int()
+    probe[:, 0] = torch.arange(b, device="cuda") % 3  # the empty and full lists
+    slots, _ = ivf.dedup_probes(probe, 4096, min(4096, b * 64))
+    before = ivf.ivf_dedup_scores.launches
+    k = ivf.ivf_dedup_scores(q, lst.buckets, slots, lst.list_sizes)
+    p = ivf.ivf_dedup_scores_plain(q, lst.buckets, slots, lst.list_sizes)
+    torch.cuda.synchronize()
+    assert ivf.ivf_dedup_scores.launches == before + 1
+    _close(k, p, exact)
+    ks, ki = ivf.ivf_search_dedup(lst, q.float(), 10, nprobe=64)
+    ps, pi = ivf.ivf_search_dedup(lst, q.float(), 10, nprobe=64,
+                                  scan=ivf.ivf_dedup_scores_plain)
+    assert torch.equal(ki, pi)
+    _close(ks, ps, exact)
 
 
 @pytest.mark.cuda
@@ -362,7 +451,7 @@ def test_k7_kernel_matches_plain_on_card(b, s, h, d, dtype):
     cache = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
     new = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
     pos = torch.randint(0, s, (b,), generator=g, device="cuda").int()
-    pos[0], pos[-1] = s + 20, -3  # past the end: row S-1; below 0: row 0
+    pos[0], pos[-1] = s + 20, -3  # past the end: row S-1; below 0: row S-3
     ref = kv.kv_row_insert_plain(cache.clone(), new, pos)
     before = kv.kv_row_insert.launches
     out = kv.kv_row_insert(cache, new, pos)
@@ -371,6 +460,38 @@ def test_k7_kernel_matches_plain_on_card(b, s, h, d, dtype):
     assert torch.equal(out, ref)
     with pytest.raises(TypeError):
         kv.kv_row_insert(cache, new, pos.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,dtype", [
+    (8, 384, 2, 64, torch.bfloat16),  # Qwen2.5-0.5B's cache at B=8
+    (3, 16, 4, 8, torch.float32),
+])
+def test_k7_pair_matches_plain_on_card(b, s, h, d, dtype):
+    """One launch writes both caches, bit-identical to two plain inserts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K7 kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import kv
+
+    g = torch.Generator(device="cuda").manual_seed(b * s + 1)
+    ck, cv = (torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    nk, nv = (torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    pos = torch.randint(0, s, (b,), generator=g, device="cuda").int()
+    pos[0], pos[-1] = s + 20, -3  # past the end: row S-1; below 0: row S-3
+    ref_k, ref_v = kv.kv_row_insert_pair_plain(ck.clone(), cv.clone(), nk, nv, pos)
+    before = (kv.kv_row_insert.launches, kv.kv_row_insert_pair.launches)
+    out_k, out_v = kv.kv_row_insert_pair(ck, cv, nk, nv, pos)
+    torch.cuda.synchronize()
+    assert out_k is ck and out_v is cv
+    assert (kv.kv_row_insert.launches, kv.kv_row_insert_pair.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(out_k, ref_k) and torch.equal(out_v, ref_v)
+    with pytest.raises(ValueError, match="CUDA"):
+        kv.kv_row_insert_pair(ck, cv.cpu(), nk, nv, pos)
+    with pytest.raises(ValueError, match="16-byte"):
+        kv.kv_row_insert_pair(ck, cv, nk, nv.transpose(1, 2).contiguous().transpose(1, 2), pos)
 
 
 @pytest.mark.cuda

@@ -110,6 +110,87 @@ class TestK7:
             tkv.kv_row_insert(cache, torch.zeros((2, 2, 16)),
                               torch.zeros(2, dtype=torch.int32, device="meta"))
 
+    @pytest.mark.parametrize("dtype,pos", [
+        ("bfloat16", [3, 0, 15, 7]),
+        ("float32", [20, -3, 15, 2]),  # past the end: row S-1; -3: row S-3
+        ("bfloat16", [16, -1, -16, -40]),  # -16: row 0; -40 clamps to row 0
+    ])
+    def test_pair_plain_matches_two_pallas_inserts(self, dtype, pos):
+        """The pair writes what the reference's kernel writes when it is
+        launched once for K and once for V."""
+        rng = np.random.default_rng(len(dtype) + pos[0] + 7)
+        b, s, h, d = 4, 16, 2, 64
+        cache_k, cache_v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+                            for _ in range(2))
+        new_k, new_v = (rng.standard_normal((b, h, d)).astype(np.float32)
+                        for _ in range(2))
+        positions = np.array(pos, np.int32)
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        refs = [_pallas_row_insert(jnp.asarray(c, jdt), jnp.asarray(n, jdt),
+                                   jnp.asarray(positions))
+                for c, n in ((cache_k, new_k), (cache_v, new_v))]
+        t_k, t_v = (torch.from_numpy(c).to(tdt) for c in (cache_k, cache_v))
+        out_k, out_v = tkv.kv_row_insert_pair_plain(
+            t_k, t_v, torch.from_numpy(new_k).to(tdt), torch.from_numpy(new_v).to(tdt),
+            torch.from_numpy(positions),
+        )
+        assert out_k is t_k and out_v is t_v  # in place
+        for out, ref in ((out_k, refs[0]), (out_v, refs[1])):
+            np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref, np.float32))
+
+    @pytest.mark.parametrize("pair", [False, True])
+    def test_cpu_wrappers_launch_nothing(self, pair):
+        rng = np.random.default_rng(11)
+        cache = torch.from_numpy(rng.standard_normal((3, 8, 2, 16)).astype(np.float32))
+        new = torch.from_numpy(rng.standard_normal((3, 2, 16)).astype(np.float32))
+        pos = torch.tensor([1, 9, -2], dtype=torch.int32)
+        ref = tkv.kv_row_insert_plain(cache.clone(), new, pos)
+        fn = tkv.kv_row_insert_pair if pair else tkv.kv_row_insert
+        before = fn.launches
+        if pair:
+            out_k, out_v = fn(cache.clone(), cache.clone(), new, new, pos)
+            assert torch.equal(out_k, ref) and torch.equal(out_v, ref)
+        else:
+            assert torch.equal(fn(cache.clone(), new, pos), ref)
+        assert fn.launches == before
+
+    @pytest.mark.parametrize("fault,error,match", [
+        ("dtype", TypeError, "dtype"),
+        ("v_dtype", TypeError, "dtype"),
+        ("shape", ValueError, "disagree"),
+        ("v_shape", ValueError, "disagree"),
+        ("positions", ValueError, "disagree"),
+        ("device", ValueError, "CUDA"),
+        ("v_device", ValueError, "CUDA"),
+    ])
+    def test_wrappers_refuse_mismatches(self, fault, error, match):
+        """Both wrappers check before they dispatch: a CPU call with a
+        mismatched dtype, shape or device raises, as a CUDA call does."""
+        ck, cv = torch.zeros((2, 8, 2, 16)), torch.zeros((2, 8, 2, 16))
+        nk, nv = torch.zeros((2, 2, 16)), torch.zeros((2, 2, 16))
+        pos = torch.zeros(2, dtype=torch.int32)
+        if fault == "dtype":
+            nk = nk.double()
+        elif fault == "v_dtype":
+            cv = cv.half()
+        elif fault == "shape":
+            nk = torch.zeros((2, 2, 8))
+        elif fault == "v_shape":
+            cv = torch.zeros((2, 9, 2, 16))
+        elif fault == "positions":
+            pos = torch.zeros(3, dtype=torch.int32)
+        elif fault == "device":
+            pos = pos.to("meta")
+        else:
+            nv = nv.to("meta")
+        before = (tkv.kv_row_insert.launches, tkv.kv_row_insert_pair.launches)
+        with pytest.raises(error, match=match):
+            tkv.kv_row_insert_pair(ck, cv, nk, nv, pos)
+        if not fault.startswith("v_"):
+            with pytest.raises(error, match=match):
+                tkv.kv_row_insert(ck, nk, pos)
+        assert (tkv.kv_row_insert.launches, tkv.kv_row_insert_pair.launches) == before
+
 
 class TestK8:
     @pytest.mark.parametrize("n,d,chunk", [
@@ -190,6 +271,7 @@ class TestAnatomySmoke:
     def test_every_variant_runs_and_inserts_agree(self, tmp_path):
         path = tmp_path / "anatomy.json"
         before = tkv.kv_row_insert.launches
+        before_pair = tkv.kv_row_insert_pair.launches
         out = anatomy.main(["--smoke", "--reps", "2", "--out", str(path)])
         assert json.loads(path.read_text())["rows"] == out["rows"]
         rows = out["rows"]
@@ -200,6 +282,7 @@ class TestAnatomySmoke:
                 assert rows[f"bf16_b{b}_{v}_agree"] == 1.0
         assert out["calls_per_variant"] == 3 and out["layers"] == 2
         assert tkv.kv_row_insert.launches == before  # CPU: the plain version
+        assert tkv.kv_row_insert_pair.launches == before_pair
 
     def test_insert_variants_write_the_same_cache(self):
         """One step of every insert variant leaves the same per-layer caches
