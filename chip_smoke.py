@@ -43,7 +43,9 @@ and exits non-zero before the last line:
              B=64, nprobe 64; the listing's own rows within rtol=atol=1e-5,
              integer-valued rows of the same layout bit for bit; kernel,
              plain and (for K5) torch.matmul times from CUDA events, and
-             the K5 blocks that read rows.
+             the K5 blocks that read rows; K4's pair bytes and their rate;
+             K4 on a small ragged listing (B=5, nprobe 3, D=36, an empty
+             list, a list probed twice), bit for bit.
 10. serve_staged — the staged path (TOTAL_NODES=1, profile
              single_node_full) over the 1M IVF-Flat index at full width
              (BGE-base, bge-reranker-base, Qwen2.5-0.5B, the two BERT-base
@@ -65,8 +67,12 @@ and exits non-zero before the last line:
              listing at B=8 (the batch's ~512 unique probed buckets) and
              B=64 (all 4096): integer-valued tables bit for bit, the
              listing's own bf16 tables within rtol=atol=1e-5; kernel,
-             plain and embedding_bag times from CUDA events; the whole B=64
-             search's time and peak memory, and its flat top-k's time.
+             plain and embedding_bag times from CUDA events, and the
+             one-hot form's bf16 TFLOP/s; B=13 (a partly padded query
+             tile) on integer tables bit for bit; the whole B=64 search's
+             time and peak memory; its flat top-k (the exact selection)
+             beside the stable sort it replaced, and the same indices as
+             that sort on integer rows with NEG_INF ties.
 14. serve_pq — the staged server over the PQ indexes: retrieval_pq4 (an
              8- and a 64-item /retrieve, K6 rising, ids equal to a search
              with the plain scan), retrieval_pq_host_refine and
@@ -431,6 +437,33 @@ def phase_ivf_build(workdir: str):
     return corpus, ivf, queries, db_path
 
 
+def _k4_ragged(g) -> float:
+    """K4 against its plain version on a small ragged listing, integer
+    rows bit for bit: B=5, nprobe 3, D=36 (72-byte rows: 4-byte copies), a
+    list of size 0, a full list, and a list probed twice (a tie between
+    probes: the earlier slot wins)."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import ivf as ops
+
+    nlist, cap, d, b = 16, 128, 36, 5
+    sizes = torch.randint(1, cap, (nlist,), generator=g, device=DEVICE, dtype=torch.int32)
+    sizes[:2] = torch.tensor([0, cap], device=DEVICE, dtype=torch.int32)
+    filled = (torch.arange(cap, device=DEVICE)[None, :] < sizes[:, None])[:, :, None]
+    buckets = _values(g, True, nlist, cap, d, dtype=torch.bfloat16) * filled
+    q = _values(g, True, b, d, dtype=torch.bfloat16)
+    probe = torch.randint(0, nlist, (b, 3), generator=g, device=DEVICE, dtype=torch.int32)
+    probe[:, 1] = probe[:, 0]
+    probe[0] = torch.tensor([0, 1, 1], device=DEVICE, dtype=torch.int32)
+    args = (q, buckets, probe, sizes)
+    kv, kw = ops.ivf_scan_partial(*args)
+    pv, pw = ops.ivf_scan_partial_plain(*args)
+    torch.cuda.synchronize()
+    err = _hold("K4 ragged", True, kv, pv, kw, pw)
+    check(not bool((kw[1:] == 1).any()) and not bool((kw[0] == 2).any()),
+          "K4 ragged: a repeated list won from the later slot")
+    return err
+
+
 def phase_k45(ivf, queries):
     import torch
     from rag_inference_pipeline_tpu_torch.ops import ivf as ops
@@ -481,6 +514,7 @@ def phase_k45(ivf, queries):
             out["k4"]["plain_ms"] = cuda_ms(lambda: ops.ivf_scan_partial_plain(*args4), 2)
             out["k4"]["library_ms"] = None  # a positional max: no one call
         del buckets, kv, pv
+    out["k4"]["ragged_err"] = _k4_ragged(g)
     sizes = lst.list_sizes.long()
     for key, (b, slots) in k5_cases.items():
         n_slots = slots.shape[0]
@@ -499,6 +533,7 @@ def phase_k45(ivf, queries):
     pairs4 = int(sizes[probe64.long()].sum())
     out["k4"].update(bound(filled4 * DIM * 2 + RETRIEVE_B * DIM * 2 + probe64.numel() * 4
                            + RETRIEVE_B * cap * 8, 2 * DIM * pairs4, "bf16"))
+    out["k4"]["pair_gb"] = pairs4 * DIM * 2 / 1e9  # what the kernel reads
     torch.cuda.empty_cache()
     k5, w5, k4 = out["k5"], out["k5_b32"], out["k4"]
     phase("k45", t0, integer_bit_identical=True,
@@ -510,7 +545,10 @@ def phase_k45(ivf, queries):
           k5_b32_bound_ms=f"{w5['bound_ms']:.4f}",
           k5_b32_row_blocks=f"{w5['row_blocks']}/{w5['grid_blocks']}",
           k5_b32_err=w5["max_abs_err"],
-          k4_ms=f"{k4['ms']:.4f}", k4_plain_ms=f"{k4['plain_ms']:.4f}", k4_err=k4["max_abs_err"])
+          k4_ms=f"{k4['ms']:.4f}", k4_plain_ms=f"{k4['plain_ms']:.4f}",
+          k4_bound_ms=f"{k4['bound_ms']:.4f}", k4_pair_gb=f"{k4['pair_gb']:.3f}",
+          k4_pair_tb_per_s=f"{k4['pair_gb'] / k4['ms']:.3f}", k4_err=k4["max_abs_err"],
+          k4_ragged_bit_identical=True)
     return out
 
 
@@ -871,7 +909,7 @@ def phase_k6(pq4, queries):
     import torch
     import torch.nn.functional as F
     from rag_inference_pipeline_tpu_torch.ops import ivf, pq
-    from rag_inference_pipeline_tpu_torch.ops.topk import _topk
+    from rag_inference_pipeline_tpu_torch.ops.topk import NEG_INF, _topk
 
     t0 = time.perf_counter()
     lst = pq4._listing
@@ -915,8 +953,19 @@ def phase_k6(pq4, queries):
         r.update(bound(rows * m + own.numel() * 2 + (sl.numel() + nlist) * 4
                        + sl.numel() * b_pad * cap * 4, b_pad * m * rows, "f32_add"))
         r["slots"], r["filled_rows"] = int(sl.numel()), rows
+        # the one-hot form's bf16 flops: 2 * 16 columns per (query, row, subspace)
+        r["onehot_tflops"] = 2 * 16 * b_pad * m * rows / (r["ms"] * 1e-3) / 1e12
         res[b] = r
         del idx, weight, lib, plain_out, filled
+    # B=13: a partly padded query tile (b_pad 16), integer tables bit for bit
+    probe = _topk(ivf.coarse_scores(lst.centroids, queries[:13]), NPROBE)[1].int()
+    slots13, _ = ivf.dedup_probes(probe, nlist, min(nlist, 13 * NPROBE))
+    lut13 = torch.randint(-8, 9, (16, m * 16), generator=g, device=DEVICE).to(torch.bfloat16)
+    kv = pq.ivfpq4_adc_scores(lut13, codes, slots13, sizes)
+    pv = pq.ivfpq4_adc_scores_plain(lut13, codes, slots13, sizes)
+    torch.cuda.synchronize()
+    _hold("K6 B=13", True, kv, pv)
+    del kv, pv
     # the whole B=64 search (K6 + the flat top-k of [64, n_slots * cap])
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -926,19 +975,31 @@ def phase_k6(pq4, queries):
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     search_ms = cuda_ms(lambda: pq.ivfpq4_search_dedup(lst, queries, PQ_RESCORE_K,
                                                        nprobe=NPROBE), 5)
-    flat = torch.randn(RETRIEVE_B, res[RETRIEVE_B]["slots"] * cap, generator=g, device=DEVICE)
+    # the selection beside the stable sort it replaced, at the search's shape
+    width = res[RETRIEVE_B]["slots"] * cap
+    flat = torch.randn(RETRIEVE_B, width, generator=g, device=DEVICE)
     topk_ms = cuda_ms(lambda: _topk(flat, PQ_RESCORE_K), 5)
-    del flat
+    sort_ms = cuda_ms(lambda: torch.sort(flat, dim=-1, descending=True, stable=True), 5)
+    # the same indices as the stable sort on integer-valued rows (long runs
+    # of ties) and on rows of NEG_INF fill with fewer valid entries than k
+    flat = torch.randint(-3, 4, flat.shape, generator=g, device=DEVICE).float()
+    flat[RETRIEVE_B // 2:, 100:] = NEG_INF
+    sel = _topk(flat, PQ_RESCORE_K)[1]
+    ref = torch.sort(flat, dim=-1, descending=True, stable=True)[1][:, :PQ_RESCORE_K]
+    check(torch.equal(sel, ref), "_topk differs from the stable sort on ties")
+    del flat, sel, ref
     torch.cuda.empty_cache()
     b8, b64 = res[MAIN_B], res[RETRIEVE_B]
-    phase("k6", t0, integer_bit_identical=True,
+    phase("k6", t0, integer_bit_identical=True, b13_bit_identical=True,
           b8_slots=b8["slots"], b8_ms=f"{b8['ms']:.4f}", b8_plain_ms=f"{b8['plain_ms']:.4f}",
           b8_library_ms=f"{b8['library_ms']:.4f}", b8_bound_ms=f"{b8['bound_ms']:.4f}",
+          b8_onehot_tflops=f"{b8['onehot_tflops']:.1f}",
           b64_slots=b64["slots"], b64_ms=f"{b64['ms']:.4f}",
           b64_plain_ms=f"{b64['plain_ms']:.4f}", b64_library_ms=f"{b64['library_ms']:.4f}",
-          b64_bound_ms=f"{b64['bound_ms']:.4f}", err8=b8["max_abs_err"],
-          err64=b64["max_abs_err"], search64_ms=f"{search_ms:.4f}",
-          topk64_ms=f"{topk_ms:.4f}", search64_peak_gb=f"{peak_gb:.3f}")
+          b64_bound_ms=f"{b64['bound_ms']:.4f}", b64_onehot_tflops=f"{b64['onehot_tflops']:.1f}",
+          err8=b8["max_abs_err"], err64=b64["max_abs_err"], search64_ms=f"{search_ms:.4f}",
+          topk64_ms=f"{topk_ms:.4f}", sort64_ms=f"{sort_ms:.4f}", topk_equals_sort=True,
+          search64_peak_gb=f"{peak_gb:.3f}")
     return b8
 
 

@@ -163,14 +163,17 @@ def _block(
     k = apply_rope(k, cos, sin, positions)
     if t == 1:
         # decode-step insert, in place with index_copy_ over the flattened
-        # [B*S] rows. Positions clamp to the last slot, as the reference's
-        # one-hot insert does, so a lane past the end overwrites slot S-1
-        # instead of dropping the newest k/v.
+        # [B*S] rows. As in the reference's one-hot insert, a lane past the
+        # end overwrites slot S-1 instead of dropping the newest k/v, and a
+        # lane below 0 writes nothing: it rewrites its own slot 0 with the
+        # value already there (no host sync, so the step can be captured).
         s_len = cache_k.shape[1]
-        pos = torch.clamp(positions[:, 0].long(), max=s_len - 1)
-        rows = torch.arange(b, device=x.device) * s_len + pos
-        cache_k.view(b * s_len, *cache_k.shape[2:]).index_copy_(0, rows, k[:, 0])
-        cache_v.view(b * s_len, *cache_v.shape[2:]).index_copy_(0, rows, v[:, 0])
+        pos = positions[:, 0].long()
+        rows = torch.arange(b, device=x.device) * s_len + pos.clamp(0, s_len - 1)
+        keep = (pos >= 0)[:, None, None]
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            flat = cache.view(b * s_len, *cache.shape[2:])
+            flat.index_copy_(0, rows, torch.where(keep, new[:, 0], flat[rows]))
     else:
         # prefill of a right-padded prompt writes at offset 0
         cache_k[:, :t] = k

@@ -379,9 +379,10 @@ def ivfpq4_adc_scores(
     sizes: torch.Tensor,
 ) -> torch.Tensor:
     """K6: every query's PQ4 ADC score against each unique probed bucket.
-    On CUDA tensors this launches csrc/ivfpq4_adc.cu (or raises); on CPU
-    tensors it runs `ivfpq4_adc_scores_plain`. Returns [n_slots, b_pad, cap]
-    f32."""
+    On CUDA tensors this launches csrc/ivfpq4_adc.cu (or raises): the
+    reference's one-hot matmul on the tensor cores, 128 positions by up to
+    64 queries a block; on CPU tensors it runs `ivfpq4_adc_scores_plain`.
+    Returns [n_slots, b_pad, cap] f32."""
     if _on_cpu(lut, code_buckets, "ivfpq4_adc_scores"):
         return ivfpq4_adc_scores_plain(lut, code_buckets, slots, sizes)
     b_pad, width = lut.shape
@@ -457,8 +458,9 @@ def ivfpq4_search_dedup(
     ids_g = listing.ids[sl]  # [n_slots, cap]
     # the residual identity: score = q.centroid_probe + q.residual
     s_bq = scores[:, :b].permute(1, 0, 2) + coarse[:, sl][:, :, None]
-    valid = member[:, :, None] & (ids_g >= 0)[None]
-    flat_s = torch.where(valid, s_bq, NEG_INF).reshape(b, n_slots * cap)
+    del scores
+    s_bq.masked_fill_(~member[:, :, None] | (ids_g < 0)[None], NEG_INF)
+    flat_s = s_bq.reshape(b, n_slots * cap)
     flat_i = ids_g.reshape(1, n_slots * cap).expand(b, -1)
     top_s, sel = _topk(flat_s, min(k, n_slots * cap))
     return top_s, torch.gather(flat_i, 1, sel)

@@ -12,8 +12,8 @@ tensors `binmax_partial_topk`, `binmax_partial_topk_int8gs` and
 on CPU tensors they run the plain PyTorch versions beside them, which are
 also the kernels' oracles.
 
-Ties: `lax.top_k` puts the lower index first, so every top-k here is a
-stable descending sort (`_topk`).
+Ties: `lax.top_k` puts the lower index first, so every top-k here goes
+through `_topk`, an exact selection in that order.
 """
 
 from __future__ import annotations
@@ -33,11 +33,68 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# entries up to which `_topk` on the card builds the int64 keys of every
+# entry (at most 128 MB) in one pass with no host sync: the coarse probes and
+# the small flat top-ks; the PQ4 search's at B=64 (168M entries) is above it
+_ONE_PASS_MAX = 1 << 24
+
+
 def _topk(s: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis; among equal values the lower index first
-    (the order `lax.top_k` gives; `torch.topk` promises none)."""
-    vals, idx = torch.sort(s, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """Top-k along the last axis in `lax.top_k`'s order: descending in the
+    float total order (NaN first, +0.0 before -0.0), the lower index first
+    among equal values.
+
+    float32 is an exact selection with no sort, over the int64 keys
+    `(key32 << 32) | (n - 1 - index)`, where key32 is the order-preserving
+    integer of the f32 bits (`_order_key`): the keys are distinct, so the
+    order `torch.topk` leaves unspecified on ties never arises.
+
+    - On the CPU, and on the card up to `_ONE_PASS_MAX` entries, one
+      `torch.topk` over the keys of every entry (CPU `torch.topk` compares
+      floats, so -0.0 would tie +0.0).
+    - On the card above that, the keys of every entry would be 8 bytes an
+      entry read several times, so a selection of the values instead: CUDA
+      `torch.topk`'s radix select ranks floats in the total order itself
+      (NaN first), so it returns every entry above the k-th value t and
+      some of those equal to t. Where a row has more entries equal to t
+      than it kept (a host sync decides), a second selection of
+      `n - 1 - index` over the entries whose bits equal t's gives the
+      lowest-index ties; the k best keys of the two disjoint sets are the
+      answer.
+
+    Other dtypes take a stable descending sort."""
+    if s.dtype != torch.float32 or k == 0:
+        vals, idx = torch.sort(s, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k]
+    n = s.shape[-1]
+    s = s.contiguous()
+    rev = torch.arange(n - 1, -1, -1, dtype=torch.int32, device=s.device)
+    if s.device.type == "cpu" or s.numel() <= _ONE_PASS_MAX:
+        comp = (_order_key(s).long() << 32) | rev
+        sel = (n - 1) - (torch.topk(comp, k, dim=-1).values & 0xFFFFFFFF)
+        return torch.gather(s, -1, sel), sel
+    v1, i1 = torch.topk(s, k, dim=-1, sorted=False)
+    key1 = _order_key(v1)
+    t = key1.amin(dim=-1, keepdim=True)  # the k-th value's key
+    rev_i, key = (n - 1) - i1, key1
+    # _order_key is its own inverse: t's bits are _order_key(t)
+    tied = s.view(torch.int32) == _order_key(t.view(torch.float32))
+    if bool((tied.sum(dim=-1) > (key1 == t).sum(dim=-1)).any()):
+        v2 = torch.topk(torch.where(tied, rev, -1), k, dim=-1, sorted=False).values
+        above = torch.where(key1 > t, rev_i, -1)  # the ties come from v2 alone
+        rev_i = torch.cat([above, v2.long()], dim=-1)
+        key = torch.cat([key1, t.expand_as(key1)], dim=-1)
+    del tied
+    comp = torch.where(rev_i >= 0, (key.long() << 32) | rev_i, torch.iinfo(torch.int64).min)
+    sel = (n - 1) - (torch.topk(comp, k, dim=-1).values & 0xFFFFFFFF)
+    return torch.gather(s, -1, sel), sel
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys of float32 values that order as the floats' total order
+    (a negative float's bits order backwards: flip all but the sign bit)."""
+    bits = x.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
 
 # ---------------------------------------------------------------------------
@@ -83,8 +140,8 @@ def exact_topk(
             start, start + rows.shape[0], device=db.device, dtype=torch.int32
         )
         s = torch.where(gids[None, :] < n_true, s, NEG_INF)
-        # earlier candidates sit first, so the stable sort keeps the lower
-        # row on a tie, as the reference's running merge does
+        # earlier candidates sit first, so `_topk` (the lower index first on
+        # a tie) keeps the lower row, as the reference's running merge does
         cand_s = torch.cat([best_s, s], dim=1)
         cand_i = torch.cat([best_i, gids[None, :].expand(b, -1)], dim=1)
         best_s, sel = _topk(cand_s, k)

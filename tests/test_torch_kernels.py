@@ -285,27 +285,52 @@ def test_k5_kernel_across_batches_on_card(b, d, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,nprobe,integer", [(64, 64, True), (64, 64, False), (5, 3, True)])
-def test_k4_kernel_matches_plain_on_card(b, nprobe, integer):
+@pytest.mark.parametrize("b,nprobe,d,kind", [
+    (64, 64, 768, "int"),  # the main path: a 64-item /retrieve
+    (64, 64, 768, "real"),
+    (5, 3, 768, "int"),
+    (1, 1, 768, "int"),
+    (1, 64, 768, "real"),
+    (65, 64, 768, "int"),
+    (5, 3, 36, "int"),  # 72-byte rows: 4-byte copies
+    (65, 3, 36, "real"),
+    (64, 64, 768, "f32"),  # f32 buckets
+    (5, 3, 36, "f32"),
+    (1, 3, 36, "f32"),
+])
+def test_k4_kernel_matches_plain_on_card(b, nprobe, d, kind):
+    """K4 over a 4096 x 640 listing with empty, full and ragged lists and
+    a list probed twice: integer-valued inputs bit for bit, real unit rows
+    within rtol=atol=1e-5, and the same ids from ivf_search_scan."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the K4 kernel has no CPU mode")
     from rag_inference_pipeline_tpu_torch.ops import ivf
 
-    g = torch.Generator(device="cuda").manual_seed(b * nprobe + 1)
-    lst = _card_listing(g, integer, 4096, 640, 768, 0.8)
-    q = _card_inputs(g, integer, b, 768)
+    exact = kind != "real"
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(b * nprobe + d)
+    lst = _card_listing(g, exact, 4096, 640, d, 0.8)
+    lst = lst._replace(buckets=lst.buckets.to(dtype))
+    q = _card_inputs(g, exact, b, d, dtype=dtype)
     probe = torch.randint(0, 4096, (b, nprobe), generator=g, device="cuda").int()
-    probe[:, 1] = probe[:, 0]  # a repeated list: the earlier slot wins
-    probe[0, :3] = torch.tensor([0, 1, 1], device="cuda")  # empty, full, full
+    if nprobe >= 2:
+        probe[:, 1] = probe[:, 0]  # a repeated list: the earlier slot wins
+    if nprobe >= 3:
+        probe[0, :3] = torch.tensor([0, 1, 1], device="cuda")  # empty, full, full
     before = ivf.ivf_scan_partial.launches
     kv, kw = ivf.ivf_scan_partial(q, lst.buckets, probe, lst.list_sizes)
     pv, pw = ivf.ivf_scan_partial_plain(q, lst.buckets, probe, lst.list_sizes)
     torch.cuda.synchronize()
     assert ivf.ivf_scan_partial.launches == before + 1
-    _close(kv, pv, integer)
-    _same_choice(kw, pw, integer)
-    # a repeated list never wins from the later slot
-    assert not (kw[1:] == 1).any() and not (kw[0] == 2).any()
+    _close(kv, pv, exact)
+    _same_choice(kw, pw, exact)
+    if nprobe >= 3:  # a repeated list never wins from the later slot
+        assert not (kw[1:] == 1).any() and not (kw[0] == 2).any()
+    ks, ki = ivf.ivf_search_scan(lst, q.float(), 10, nprobe=nprobe)
+    ps, pi = ivf.ivf_search_scan(lst, q.float(), 10, nprobe=nprobe,
+                                 scan=ivf.ivf_scan_partial_plain)
+    assert torch.equal(ki, pi)
+    _close(ks, ps, exact)
 
 
 @pytest.mark.cuda
@@ -349,8 +374,14 @@ def _pq4_buckets(g, nlist, cap, m, fill):
 @pytest.mark.parametrize("b,nprobe,m,integer", [
     (8, 64, 192, True),  # the main path: 512 slots of the 1M PQ4 layout
     (8, 64, 192, False),
-    (64, 64, 192, True),  # every list a slot
-    (13, 5, 24, True),  # an odd number of 8-subspace groups, b_pad 16
+    (64, 64, 192, True),  # every list a slot, 8 n-tiles
+    (64, 64, 192, False),
+    (13, 5, 24, True),  # an 8-subspace tail chunk, b_pad 16
+    (1, 64, 8, True),  # one n-tile, one tail chunk
+    (1, 3, 192, False),
+    (13, 64, 16, True),  # a partly padded query tile
+    (72, 64, 192, True),  # two z-tiles: 40 and 32 queries
+    (72, 3, 16, False),
 ])
 def test_k6_kernel_matches_plain_on_card(b, nprobe, m, integer):
     if not torch.cuda.is_available():
@@ -382,10 +413,7 @@ def test_k6_kernel_matches_plain_on_card(b, nprobe, m, integer):
     ps, pi = pq.ivfpq4_search_dedup(lst, q, 10, nprobe=nprobe,
                                     scan=pq.ivfpq4_adc_scores_plain)
     _close(ks, ps, integer)
-    if integer:
-        assert torch.equal(ki, pi)
-    else:
-        assert (ki != pi).float().mean().item() < 1e-3
+    assert torch.equal(ki, pi)
 
 
 @pytest.mark.cuda
@@ -406,6 +434,43 @@ def test_k6_kernel_refuses_what_it_cannot_take():
         pq.ivfpq4_adc_scores(lut, codes[:, :, :8].contiguous(), slots, sizes)
     with pytest.raises(TypeError):
         pq.ivfpq4_adc_scores(lut, codes, slots.long(), sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,k,case", [
+    (4, 97, 40, "ties"),
+    (6, 64, 20, "signed_zeros"),
+    (5, 50, 12, "nan"),
+    (4, 300, 100, "neg_inf_fill"),
+    (3, 33, 33, "k_equals_n"),
+    # the B=64 PQ4 search's flat top-k: above _ONE_PASS_MAX, two passes
+    (64, 2_621_440, 256, "ties"),
+    (64, 2_621_440, 256, "signed_zeros"),
+    (64, 2_621_440, 256, "nan"),
+    (64, 2_621_440, 256, "neg_inf_fill"),
+])
+def test_topk_selection_on_card_matches_cpu(rows, n, k, case):
+    """The card's selection (one pass over int64 keys for small inputs, two
+    passes over the values for large ones) returns the CPU selection's
+    indices and value bits (the CPU one is held to lax.top_k in
+    test_torch_topk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the two-pass selection runs on CUDA tensors")
+    rng = np.random.default_rng(rows * n + k)
+    x = rng.integers(-3, 4, (rows, n)).astype(np.float32)
+    if case == "signed_zeros":
+        x = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), (rows, n))
+    elif case == "nan":
+        x = rng.standard_normal((rows, n)).astype(np.float32)
+        x[rng.random(x.shape) < 0.1] = np.nan
+    elif case == "neg_inf_fill":
+        x[:, rng.random(n) < max(0.5, 1 - 0.5 * k / n)] = ttopk.NEG_INF
+        x[0, 20:] = ttopk.NEG_INF  # fewer valid entries than k
+    cpu = torch.from_numpy(x)
+    cv, ci = ttopk._topk(cpu, k)
+    gv, gi = ttopk._topk(cpu.cuda(), k)
+    assert torch.equal(gi.cpu(), ci)
+    assert torch.equal(gv.cpu().view(torch.int32), cv.view(torch.int32))
 
 
 # --- K3, K7, K8 -------------------------------------------------------------

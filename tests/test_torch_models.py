@@ -186,6 +186,38 @@ class TestQwen:
         assert np.abs(_np(tc.k)[:, 1, s - 1]).sum() > 0
         np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=1e-4, rtol=0)
 
+    @pytest.mark.parametrize("lengths", [[-1, 2], [3, -1]])
+    def test_decode_insert_below_zero_writes_nothing(self, qwen_pair, lengths):
+        """A lane whose position is below 0 drops its write, as the
+        reference's one-hot insert matches no column there; the other lane
+        writes its row. Caches start from seeded random values, so a stray
+        write to any row shows."""
+        cfg, jp, tcfg, tp = qwen_pair
+        s = 6
+        rng = np.random.default_rng(sum(lengths) + 10)
+        shape = (tcfg.layers, 2, s, tcfg.kv_heads, tcfg.head_dim)
+        k0 = rng.standard_normal(shape).astype(np.float32)
+        v0 = rng.standard_normal(shape).astype(np.float32)
+        length = np.asarray(lengths, np.int32)
+        tcache = tqwen.KVCache(_t(k0), _t(v0), _t(length))
+        jcache = jlayers.KVCache(k=jnp.asarray(k0), v=jnp.asarray(v0),
+                                 length=jnp.asarray(length))
+        toks = np.array([5, 9], np.int32)
+        jl, jc = jax.jit(partial(jqwen.qwen_decode_step, cfg=cfg))(
+            jp, tokens=toks, cache=jcache)
+        with torch.inference_mode():
+            tl, tc = tqwen.qwen_decode_step(tp, tcfg, _t(toks), tcache)
+        for got, ref, before in ((tc.k, jc.k, k0), (tc.v, jc.v, v0)):
+            np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-5, rtol=0)
+            changed = (_np(got) != before).any(axis=(0, 3, 4))  # [B, S]
+            want = np.zeros((2, s), bool)
+            for lane, pos in enumerate(lengths):
+                if pos >= 0:
+                    want[lane, pos] = True
+            np.testing.assert_array_equal(changed, want)
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(tc.length.numpy(), length + 1)
+
     def test_greedy_tokens_identical(self, qwen_pair):
         cfg, jp, tcfg, tp = qwen_pair
         rng = np.random.default_rng(8)

@@ -317,6 +317,43 @@ class TestFusedInt8:
                                   torch.from_numpy(np.array(scales)), 8, nbins=64, chunk=96)
 
 
+def _topk_case(name):
+    """[rows, n] f32 inputs for `_topk` from a numpy seed, and k."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "ties":  # few distinct values: long runs of equal scores
+        return rng.integers(-3, 4, (6, 97)).astype(np.float32), 40
+    if name == "signed_zeros":  # +0.0 and -0.0 compare equal but order apart
+        x = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32), (6, 64))
+        x[0, :7] = [-0.0, 0.0, -0.0, 0.0, 1.0, -3e38, -3e38]
+        return x, 20
+    if name == "nan":  # NaN first, then the rest in order
+        x = rng.standard_normal((5, 50)).astype(np.float32)
+        x[rng.random(x.shape) < 0.1] = np.nan
+        x[:, 7] = x[:, 3]
+        return x, 12
+    if name == "neg_inf_fill":  # fewer valid entries than k: NEG_INF in flat order
+        x = np.full((4, 300), ttopk.NEG_INF, np.float32)
+        x[:, rng.integers(0, 300, 15)] = rng.integers(-5, 5, (4, 15))
+        return x, 100
+    x = rng.integers(-2, 3, (3, 33)).astype(np.float32)  # "k_equals_n"
+    x[1] = rng.standard_normal(33)
+    return x, 33
+
+
+@pytest.mark.parametrize("name", ["ties", "signed_zeros", "nan", "neg_inf_fill",
+                                  "k_equals_n"])
+def test_topk_order_matches_lax_top_k(name):
+    """`_topk` returns `lax.top_k`'s indices and values: the lower index
+    first on ties, +0.0 before -0.0, NaN first, NEG_INF fill in flat order."""
+    import jax
+
+    x, k = _topk_case(name)
+    jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+    tv, ti = ttopk._topk(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy().view(np.int32), np.asarray(jv).view(np.int32))
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports without loading jax."""
     code = (
