@@ -15,7 +15,12 @@ and exits non-zero before the last line:
 3. k1      — the int8 bin-max scan kernel against its plain PyTorch version on
              the card, bit for bit, at the main-path shape (B=8, D=768,
              1M rows plus a ragged tail, ntotal < N, nbins=1024) and on
-             small ragged cases; kernel and plain times from CUDA events.
+             small ragged cases; kernel and plain times from CUDA events,
+             and the kernel at the kernel lab's B=128 over the same rows,
+             bit for bit, timed with its passes over them (one per query
+             tile). Phases k1, k2
+             and k3 print each kernel's ms, its bound, the bytes of the
+             bound over the time (TB/s) and its share of the bound.
 4. k2      — the bf16 bin-max scan kernel against its plain version at
              B=8 x 1,000,777 rows (ntotal 1,000,333), D=768, nbins=512:
              integer-valued inputs bit for bit, random unit rows within
@@ -56,7 +61,10 @@ and exits non-zero before the last line:
              the exact scan of the bf16 corpus.
 11. retrieve_flat — PIPELINE_ROLE_PROFILE=retrieval_default over the flat
              bf16 index of the same corpus: /retrieve at B=8, the K2 count
-             rising, ids equal to a search with the plain scan.
+             rising, ids equal to a search with the plain scan but for at
+             most one swapped pair a query (or one exchange at the last
+             rank) of candidates whose exact scores tie within the
+             tolerance.
 12. pq_build — IVFPQIndex.train_add on the card over the same corpus and
              lists (nlist 4096, cap factor 2.5): PQ4 at m=192 and PQ8 at
              m=96, each with an exact bf16 re-score of 256, and PQ4 with
@@ -133,6 +141,7 @@ DEVICE = "cuda"
 # default document length; Qwen2.5's vocabulary for the doc tokens
 N_ROWS, DIM, DOC_LEN, DOC_VOCAB = 1_000_000, 768, 48, 151936
 MAIN_B, MAIN_NBINS = 8, 1024
+LAB_B = 128  # the kernel lab's scan batch (BASELINE.json's in-program QPS)
 # K5's widest batch on the served route: the dedup path is taken up to
 # B ~ 40 at nprobe 64 and cap 640 (the 1 GB gate of index/ivf_flat.py)
 K5_WIDE_B = 32
@@ -207,8 +216,18 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
     over the peak rate for `kind`; `bound_by` says which."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
+    return {"bound_ms": max(t_bytes, t_ops), "bound_bytes": nbytes,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rate(tag: str, m: dict) -> dict:
+    """A kernel's ms and bound, the bytes its bound counts over that time
+    (TB/s) and its share of the bound, each under a name that starts with
+    `tag`."""
+    nbytes = m["bound_bytes"]
+    return {f"{tag}_ms": f"{m['ms']:.4f}", f"{tag}_bound_ms": f"{m['bound_ms']:.4f}",
+            f"{tag}_tb_per_s": f"{nbytes / m['ms'] / 1e9:.3f}",
+            f"{tag}_of_bound": f"{m['bound_ms'] / m['ms']:.3f}"}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -259,6 +278,7 @@ def phase_build():
 
 def phase_k1():
     import torch
+    from rag_inference_pipeline_tpu_torch.ops import _kernels
     from rag_inference_pipeline_tpu_torch.ops.topk import (
         binmax_partial_topk_int8gs as kernel,
         binmax_partial_topk_int8gs_plain as plain,
@@ -297,10 +317,24 @@ def phase_k1():
                 **bound(nt * d + b * d + b * nbins * 8, 2 * b * nt * d, "int8"),
                 "library_ms": None,  # a positional bin max: no one call
             }
+            # the kernel lab's batch over the same rows, bit for bit, then
+            # timed: one pass over the rows per query tile
+            wide = torch.randint(-127, 128, (LAB_B, d), generator=g, device="cuda",
+                                 dtype=torch.int8)
+            wv, wi = kernel(wide, db, nbins=nbins, ntotal=nt)
+            pv, pi = plain(wide, db, nbins=nbins, ntotal=nt)
+            check(torch.equal(wv, pv) and torch.equal(wi, pi),
+                  f"K1 at B={LAB_B} differs from its plain version")
+            b128 = {"ms": cuda_ms(lambda: kernel(wide, db, nbins=nbins, ntotal=nt), 10),
+                    **bound(nt * d + LAB_B * d + LAB_B * nbins * 8,
+                            2 * LAB_B * nt * d, "int8")}
+            row_passes = -(-LAB_B // _kernels.binmax_tile()[1])
+            del wide, wv, wi, pv, pi
         del q, db
     torch.cuda.empty_cache()
-    phase("k1", t0, cases=len(cases), bit_identical=True,
-          main_ms=f"{out['ms']:.4f}", main_plain_ms=f"{out['plain_ms']:.4f}")
+    phase("k1", t0, cases=len(cases) + 1, bit_identical=True,
+          main_plain_ms=f"{out['plain_ms']:.4f}", **rate("main", out),
+          **rate("b128", b128), b128_row_passes=row_passes)
     return out
 
 
@@ -366,7 +400,7 @@ def phase_k2():
         del q, db
     torch.cuda.empty_cache()
     phase("k2", t0, integer_bit_identical=True, max_abs_err=out["max_abs_err"],
-          main_ms=f"{out['ms']:.4f}", main_plain_ms=f"{out['plain_ms']:.4f}")
+          main_plain_ms=f"{out['plain_ms']:.4f}", **rate("main", out))
     return out
 
 
@@ -848,12 +882,29 @@ def phase_retrieve_flat(corpus, queries, db_path: str):
     got = torch.tensor([r["ids"] for r in ret["results"]], device=DEVICE)
     got_s = torch.tensor([r["scores"] for r in ret["results"]], device=DEVICE)
     differ = got != pi
-    # the kernel sums in another order than the plain scan: an id may
-    # differ only where two candidates tie within the tolerance
+    # the kernel sums in another order than the plain scan: a query's ids
+    # may differ only by one swapped pair of neighbouring ranks, or at the
+    # last rank, and only where the candidates tie within the tolerance by
+    # their exact (float64) scores over the bf16 values
     check(torch.allclose(got_s, ps, **TOL), "K2 route: scores differ from the plain scan")
-    check(int(differ.sum()) <= 1, f"K2 route: {int(differ.sum())} ids differ from the plain scan")
+    k = got.shape[1]
+    for b in range(got.shape[0]):
+        at = differ[b].nonzero().flatten().tolist()
+        swap = (len(at) == 2 and at[1] == at[0] + 1
+                and got[b, at[0]] == pi[b, at[1]] and got[b, at[1]] == pi[b, at[0]])
+        check(not at or swap or at == [k - 1],
+              f"K2 route: query {b}'s ids differ at ranks {at}, not one swapped pair")
+    qd = q8.to(torch.bfloat16).double()[:, None, :]
+
+    def exact(ids):
+        return (flat._db[ids.long()].double() * qd).sum(-1)
+
+    gaps = (exact(got) - exact(pi)).abs()[differ].tolist()
+    check(all(g <= TOL["atol"] for g in gaps),
+          f"K2 route: ids differ from the plain scan beyond a near-tie: gaps {gaps}")
     phase("retrieve_flat", t0, k2_launches=launches, retrieve8_s=f"{retrieve_s:.4f}",
-          ids_identical=not bool(differ.any()))
+          ids_identical=not bool(differ.any()), ids_differ=int(differ.sum()),
+          near_tie_gaps=gaps)
     return {"launches": launches}
 
 
@@ -1168,9 +1219,9 @@ def phase_k3():
     check(recall >= 0.95, f"fused_topk_int8 recall@10 {recall:.4f} < 0.95")
     del db_i8, scales, rescore
     torch.cuda.empty_cache()
-    phase("k3", t0, cases=3, bit_identical=True, main_ms=f"{out['ms']:.4f}",
-          main_plain_ms=f"{out['plain_ms']:.4f}", bound_ms=f"{out['bound_ms']:.4f}",
-          k3_launches=out["launches"], ids_identical=True, recall_at_10=f"{recall:.4f}")
+    phase("k3", t0, cases=3, bit_identical=True, main_plain_ms=f"{out['plain_ms']:.4f}",
+          **rate("main", out), k3_launches=out["launches"], ids_identical=True,
+          recall_at_10=f"{recall:.4f}")
     return out
 
 

@@ -1,4 +1,4 @@
-// bf16 (or f32) bin-max partial top-k for Hopper (sm_90a).
+// bf16 (or f32) bin-max partial top-k for Hopper (sm_90a), kernel K2.
 //
 // Replaces the TPU kernel rag_inference_pipeline_tpu/ops/topk.py::
 // _binmax_kernel (launched by binmax_partial_topk). For every query b and
@@ -8,85 +8,84 @@
 // (-3.0e38) and row -1. nvalid = min(ntotal, N): no row at or past it is
 // read.
 //
-// Bound on the H100: the kernel reads the N x D corpus once per tile of
-// kQTile queries; at the serving batch (B=8, one query tile) that is 1.54 GB
-// for 1M x 768 bf16, 0.46 ms at 3.35 TB/s. Products are fmaf on the CUDA
-// cores (2 per 32-bit word and query), not mma.sync: the first version keeps
-// K1's layout and a fixed D order (scan_tile.cuh) and leaves tensor cores
-// and TMA to a later change.
+// Bound on the H100: at the serving batch (B=8) the rows read once, 1.54 GB
+// for 1M x 768 bf16, 0.46 ms at 3.35 TB/s; the 1.2e10 bf16 operations are
+// 12 us at 989 TFLOP/s, and at B=128 (2.0e14) 0.20 ms, still below the
+// bytes.
 //
-// Design, as K1 (binmax_int8gs.cu):
-// - A block owns kBinTile bins x kQTile queries and walks the row groups
-//   r = s*nbins + j, s = 0, 1, ...; the rows of one step are contiguous.
-//   Each thread owns one bin and kQPerThread queries and keeps its running
-//   (max, step) in registers.
-// - The step range is split over gridDim.z groups writing to scratch; a
-//   second small kernel merges the groups in ascending order with strict
-//   `>`, so the earliest row keeps a tie, bit-exactly.
-// - The wrapper (ops/topk.py) allocates outputs and scratch; nothing here
-//   allocates or synchronises. The C entry point returns cudaGetLastError().
+// bf16 rows: the tensor-core body of binmax_mma.cuh, shared with K1 and K3:
+// m16n8k16 mma.sync with f32 accumulation (the reference also scores on
+// its matrix unit, topk.py `_binmax_kernel`), rows fed by a 4-stage 16-byte
+// cp.async ring, 128 bins by up to 64 queries a block, (max, step) in
+// registers, the step range split over gridDim.z and merged in order.
+// Products of bf16 values are exact in f32 and the tensor cores sum them
+// in f32, so integer-valued inputs (|x| <= 8, D <= 768) give exact sums;
+// real inputs sum in another order than the plain version's matmul.
+//
+// f32 rows stay on the CUDA cores (scan_tile.cuh: fmaf in ascending D
+// order): TF32 tensor cores would round the inputs. That kernel owns 64
+// bins x 8 queries a block and takes the same group split as the bf16 one.
 
+#include "binmax_mma.cuh"
 #include "scan_tile.cuh"
 
 namespace {
 
-using ragtorch::kNegInf;
-using ragtorch::kStride;
+constexpr int kF32BinTile = 64;
+constexpr int kF32QTile = 8;
+constexpr int kF32QPerThread = 2;
+constexpr int kF32QGroups = kF32QTile / kF32QPerThread;
+constexpr int kF32Threads = kF32BinTile * kF32QGroups;
 
-constexpr int kBinTile = 64;
-constexpr int kQTile = 8;
-constexpr int kQPerThread = 2;
-constexpr int kQGroups = kQTile / kQPerThread;
-constexpr int kThreads = kBinTile * kQGroups;
-constexpr int kMergeThreads = 256;
-
-template <int kPerWord>
-__global__ void __launch_bounds__(kThreads)
-binmax_partial_kernel(const uint32_t* __restrict__ q,   // [B, Dw]
-                      const uint32_t* __restrict__ db,  // [N, Dw]
-                      float* __restrict__ part_vals,    // [G, B, nbins]
-                      int* __restrict__ part_steps,     // [G, B, nbins]
-                      int B, int Dw, long long nvalid, int nbins,
-                      int steps_per_group, int total_steps) {
-  __shared__ uint32_t rows[kBinTile * kStride];
-  __shared__ uint32_t qs[kQTile * kStride];
+// each thread owns one bin and kF32QPerThread queries and keeps their
+// running (max, step) in registers
+__global__ void __launch_bounds__(kF32Threads)
+binmax_f32_kernel(const uint32_t* __restrict__ q,   // [B, D]
+                  const uint32_t* __restrict__ db,  // [N, D]
+                  float* __restrict__ part_vals,    // [G, B, nbins]
+                  int* __restrict__ part_steps,     // [G, B, nbins]
+                  int B, int D, long long nvalid, int nbins,
+                  int steps_per_group, int total_steps) {
+  using ragtorch::kNegInf;
+  __shared__ uint32_t rows[kF32BinTile * ragtorch::kStride];
+  __shared__ uint32_t qs[kF32QTile * ragtorch::kStride];
 
   const int tid = threadIdx.x;
-  const int bin = tid / kQGroups;
-  const int qg = tid % kQGroups;
-  const int bin0 = blockIdx.x * kBinTile;
-  const int q0 = blockIdx.y * kQTile;
+  const int bin = tid / kF32QGroups;
+  const int qg = tid % kF32QGroups;
+  const int bin0 = blockIdx.x * kF32BinTile;
+  const int q0 = blockIdx.y * kF32QTile;
   const int g = blockIdx.z;
   const int s_begin = g * steps_per_group;
   const int s_end = min(total_steps, s_begin + steps_per_group);
   const bool bin_ok = bin0 + bin < nbins;
 
-  float best[kQPerThread];
-  int best_step[kQPerThread];
+  float best[kF32QPerThread];
+  int best_step[kF32QPerThread];
 #pragma unroll
-  for (int k = 0; k < kQPerThread; ++k) {
+  for (int k = 0; k < kF32QPerThread; ++k) {
     best[k] = kNegInf;
     best_step[k] = -1;
   }
   auto q_ptr = [&](int qi) -> const uint32_t* {
-    return q0 + qi < B ? q + (size_t)(q0 + qi) * Dw : nullptr;
+    return q0 + qi < B ? q + (size_t)(q0 + qi) * D : nullptr;
   };
 
   for (int s = s_begin; s < s_end; ++s) {
     const long long row0 = (long long)s * nbins + bin0;
     auto row_ptr = [&](int rb) -> const uint32_t* {
       return (bin0 + rb < nbins && row0 + rb < nvalid)
-                 ? db + (size_t)(row0 + rb) * Dw
+                 ? db + (size_t)(row0 + rb) * D
                  : nullptr;
     };
-    float acc[kQPerThread];
+    float acc[kF32QPerThread];
 #pragma unroll
-    for (int k = 0; k < kQPerThread; ++k) acc[k] = 0.0f;
-    ragtorch::tile_dot<kBinTile, kQTile, kQPerThread, kThreads, kPerWord>(
-        row_ptr, q_ptr, Dw, rows, qs, bin, qg, acc);
+    for (int k = 0; k < kF32QPerThread; ++k) acc[k] = 0.0f;
+    ragtorch::tile_dot<kF32BinTile, kF32QTile, kF32QPerThread, kF32Threads, 1>(
+        row_ptr, q_ptr, D, rows, qs, bin, qg, acc);
     if (bin_ok && row0 + bin < nvalid) {
 #pragma unroll
-      for (int k = 0; k < kQPerThread; ++k) {
+      for (int k = 0; k < kF32QPerThread; ++k) {
         if (acc[k] > best[k]) {  // strict: the earliest row keeps a tie
           best[k] = acc[k];
           best_step[k] = s;
@@ -97,36 +96,14 @@ binmax_partial_kernel(const uint32_t* __restrict__ q,   // [B, Dw]
 
   if (!bin_ok) return;
 #pragma unroll
-  for (int k = 0; k < kQPerThread; ++k) {
-    const int qi = q0 + qg * kQPerThread + k;
+  for (int k = 0; k < kF32QPerThread; ++k) {
+    const int qi = q0 + qg * kF32QPerThread + k;
     if (qi < B) {
       const size_t o = ((size_t)g * B + qi) * nbins + bin0 + bin;
       part_vals[o] = best[k];
       part_steps[o] = best_step[k];
     }
   }
-}
-
-__global__ void __launch_bounds__(kMergeThreads)
-binmax_merge_kernel(const float* __restrict__ part_vals,
-                    const int* __restrict__ part_steps,
-                    float* __restrict__ vals, int* __restrict__ idxs, int B,
-                    int nbins, int groups) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n = (long long)B * nbins;
-  if (i >= n) return;
-  float best = kNegInf;
-  int step = -1;
-  for (int g = 0; g < groups; ++g) {  // ascending: earlier rows first
-    const long long o = (long long)g * n + i;
-    const float v = part_vals[o];
-    if (v > best) {
-      best = v;
-      step = part_steps[o];
-    }
-  }
-  vals[i] = best;
-  idxs[i] = step >= 0 ? step * nbins + (int)(i % nbins) : -1;
 }
 
 }  // namespace
@@ -137,30 +114,23 @@ extern "C" int ragtorch_binmax_bf16(const void* q, const void* db,
                                     void* vals, void* idxs, int B, int D,
                                     long long nvalid, int nbins, int groups,
                                     int elem_bytes, void* stream) {
+  using namespace ragtorch_binmax;
+  const ScanArgs a{q, db, nullptr, part_vals, static_cast<int*>(part_steps),
+                   vals, static_cast<int*>(idxs), B, D * elem_bytes, nvalid,
+                   nbins, groups};
+  if (elem_bytes == 2) return launch_binmax<Bf16>(a, stream);
+  if (elem_bytes != 4 || groups < 1 || nbins < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
-  const int total_steps = (int)((nvalid + nbins - 1) / nbins);
-  const int steps_per_group = (total_steps + groups - 1) / groups;
-  const int Dw = D * elem_bytes / 4;
-  const dim3 grid((nbins + kBinTile - 1) / kBinTile, (B + kQTile - 1) / kQTile,
-                  groups);
-  const uint32_t* qw = static_cast<const uint32_t*>(q);
-  const uint32_t* dbw = static_cast<const uint32_t*>(db);
-  float* pv = static_cast<float*>(part_vals);
-  int* ps = static_cast<int*>(part_steps);
-  if (elem_bytes == 2) {
-    binmax_partial_kernel<2><<<grid, kThreads, 0, st>>>(
-        qw, dbw, pv, ps, B, Dw, nvalid, nbins, steps_per_group, total_steps);
-  } else {
-    binmax_partial_kernel<1><<<grid, kThreads, 0, st>>>(
-        qw, dbw, pv, ps, B, Dw, nvalid, nbins, steps_per_group, total_steps);
-  }
-  cudaError_t err = cudaGetLastError();
+  int total = 0;
+  const int spg = steps_per_group(nvalid, nbins, groups, &total);
+  const dim3 grid((nbins + kF32BinTile - 1) / kF32BinTile,
+                  (B + kF32QTile - 1) / kF32QTile, groups);
+  binmax_f32_kernel<<<grid, kF32Threads, 0, st>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(db),
+      static_cast<float*>(part_vals), static_cast<int*>(part_steps), B, D,
+      nvalid, nbins, spg, total);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)B * nbins;
-  binmax_merge_kernel<<<(unsigned)((n + kMergeThreads - 1) / kMergeThreads),
-                        kMergeThreads, 0, st>>>(
-      pv, ps, static_cast<float*>(vals), static_cast<int*>(idxs), B, nbins,
-      groups);
-  return (int)cudaGetLastError();
+  return launch_merge<Bf16>(a, st);
 }

@@ -7,27 +7,32 @@
 // with r % nbins == j, compared in f32 with a strict `>` from NEG_INF, and
 // the earliest such row; a bin with no row keeps NEG_INF and row -1.
 //
-// Exactness: `__dp4a` gives the exact int32 dot; at D=768, |dot| <=
-// 127^2 * 768 < 2^24, so the convert to f32 is exact (above 2^24 it rounds
-// to nearest even, as the reference's convert does), followed by one
-// rounded f32 multiply by the row scale (__fmul_rn: nothing contracts into
-// an FMA). The result is bit-identical to the plain version in ops/topk.py
-// for any f32 scales.
+// Exactness: m16n8k32 s8 mma.sync gives the exact int32 dot; at D=768,
+// |dot| <= 128^2 * 768 < 2^24, so the convert to f32 is exact (above 2^24
+// it rounds to nearest even, as the reference's convert does), followed by
+// one rounded f32 multiply by the row scale (__fmul_rn: nothing contracts
+// into an FMA). The result is bit-identical to the plain version in
+// ops/topk.py for any f32 scales.
 //
 // Bound on the H100: the N x D rows and the N f32 scales once, N*D + 4N
-// bytes: 1M x 768 at 3.35 TB/s is 0.23 ms at best; the dp4a work is far
-// below the int8 peak. Layout, group split and ordered merge as K1
-// (binmax_int8.cuh); the row scale is one more 4-byte load per step and
-// thread, shared by the four threads of a bin.
+// bytes: 1M x 768 at 3.35 TB/s is 0.23 ms at best; at B=8 the 1.2e10 int8
+// operations are 6 us, at B=64 (fused_topk_int8's batch in chip_smoke.py)
+// 9.8e10, 0.05 ms. Design as K1 (binmax_mma.cuh): a 4-stage cp.async ring
+// of rows, products on the tensor cores, up to 64 queries a tile (the
+// batch of 64 reads the rows once); each thread loads the scales of its
+// four rows of a step with the step's first chunk and uses them at the
+// step's fold.
 
-#include "binmax_int8.cuh"
+#include "binmax_mma.cuh"
 
 extern "C" int ragtorch_binmax_int8(const void* q, const void* db,
                                     const void* scales, void* part_vals,
                                     void* part_steps, void* vals, void* idxs,
                                     int B, int D, long long ntotal, int nbins,
                                     int groups, void* stream) {
-  return ragtorch_int8::launch_binmax_int8<ragtorch_int8::RowScale>(
-      q, db, scales, part_vals, part_steps, vals, idxs, B, D, ntotal, nbins,
-      groups, stream);
+  using namespace ragtorch_binmax;
+  const ScanArgs a{q, db, static_cast<const float*>(scales), part_vals,
+                   static_cast<int*>(part_steps), vals,
+                   static_cast<int*>(idxs), B, D, ntotal, nbins, groups};
+  return launch_binmax<RowScale>(a, stream);
 }

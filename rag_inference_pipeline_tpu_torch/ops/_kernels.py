@@ -40,6 +40,7 @@ _lock = threading.Lock()
 # torch._C._cuda_getCurrentRawStream, looked up at the first launch: a CPU
 # build of torch lacks it
 _raw_stream: Optional[Callable[[int], int]] = None
+_binmax_tile: Optional[tuple[int, int]] = None
 
 
 def _sources() -> list[str]:
@@ -131,12 +132,14 @@ def load_library() -> ctypes.CDLL:
             # q, db, scales, part_vals, part_steps, vals, idxs, B, D, N,
             # nbins, groups, stream
             "ragtorch_binmax_int8": [vp] * 7 + [i32, i32, i64, i32, i32, vp],
+            # bins a block, queries a y-tile at most (out)
+            "ragtorch_binmax_tile": [ctypes.POINTER(i32)] * 2,
             # cache_k, cache_v (or null), rows_k, rows_v, pos, B, S,
             # row_bytes, stream
             "ragtorch_kv_row_insert": [vp] * 5 + [i32] * 3 + [vp],
             # db, out, checksum, rows, D, chunk, blocks, stream
             "ragtorch_stream_sum": [vp] * 3 + [i64, i32, i32, i32, vp],
-            # ... elem_bytes before the stream
+            # as ragtorch_binmax_int8gs, elem_bytes before the stream
             "ragtorch_binmax_bf16": [vp] * 6 + [i32, i32, i64, i32, i32, i32, vp],
             # q, buckets, slots, sizes, out, B, D, n_slots, cap, elem_bytes,
             # z_tiles, q_tile, stream
@@ -154,6 +157,19 @@ def load_library() -> ctypes.CDLL:
             fn.restype = i32
         _lib = lib
         return lib
+
+
+def binmax_tile() -> tuple[int, int]:
+    """The block tile of the bin-max kernels K1, K2 and K3 as the library
+    reports it (csrc/binmax_mma.cuh): (bins a block, queries a y-tile at
+    most). Read once per process."""
+    global _binmax_tile
+    if _binmax_tile is None:
+        lib = _lib if _lib is not None else load_library()
+        bins, max_q = ctypes.c_int(), ctypes.c_int()
+        lib.ragtorch_binmax_tile(ctypes.byref(bins), ctypes.byref(max_q))
+        _binmax_tile = (bins.value, max_q.value)
+    return _binmax_tile
 
 
 def needs_device_guard(index: int, current: int) -> bool:

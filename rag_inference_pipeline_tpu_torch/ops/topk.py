@@ -424,12 +424,18 @@ binmax_partial_topk_int8gs.launches = 0  # kernel launches, for chip_smoke.py
 
 
 def _scan_groups(dev: torch.device, b: int, nbins: int, nt: int) -> int:
-    """Split of K1's step range over gridDim.z: about four blocks per SM,
-    and never more groups than steps (or than a grid dimension allows)."""
+    """Split of the bin-max kernels' step range (one step: nbins rows) over
+    gridDim.z, the same rule for K1, K2 and K3: at most four blocks of
+    their grid per SM, two waves of the two that run at once (rounding up
+    would start a third, mostly idle wave), and never more groups than
+    steps (or than a grid dimension allows). The grid is the kernels' own
+    tile (`_kernels.binmax_tile`): bin tiles by ceil(b / max_q) query
+    tiles, each of which reads the rows once."""
+    bin_tile, max_q = _kernels.binmax_tile()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    base = -(-nbins // 64) * -(-b // 8)  # the kernel's kBinTile x kQTile
+    base = -(-nbins // bin_tile) * -(-b // max_q)
     steps = -(-nt // nbins)
-    return max(1, min(steps, -(-4 * sms // base), 65535))
+    return max(1, min(steps, 4 * sms // base, 65535))
 
 
 def _rescore(

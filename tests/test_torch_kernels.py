@@ -105,12 +105,116 @@ class TestLaunchHelper:
         assert guards == ([index] if index != current else [])
 
 
+class TestScanGrid:
+    """The grid of the bin-max kernels K1, K2 and K3 on the CPU, with the
+    card's SM count and the library's tile faked: a split of the step range
+    over at most four blocks (bin tiles by query tiles) per SM, never more
+    groups than steps or than 65535, the same for the three wrappers."""
+
+    @staticmethod
+    def _fake_card(monkeypatch, sms, tile=(128, 64)):
+        class Props:
+            multi_processor_count = sms
+
+        monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: Props())
+        monkeypatch.setattr(_kernels, "binmax_tile", lambda: tile)
+
+    @pytest.mark.parametrize("b,nbins,nt,sms,tile,groups", [
+        (8, 1024, 1_000_333, 132, (128, 64), 66),  # K1 on the fused /query
+        (128, 1024, 1_000_333, 132, (128, 64), 33),  # the kernel lab's batch
+        (8, 512, 1_000_333, 132, (128, 64), 132),  # K2 on the flat /retrieve
+        (64, 512, 1_000_777, 132, (128, 64), 132),  # K3 under fused_topk_int8
+        (200, 1024, 1_000_333, 132, (128, 64), 16),  # 4 query tiles; 528 // 32
+        (33, 512, 49_000, 132, (128, 64), 96),  # never more groups than steps
+        (128, 65_536, 10**7, 132, (128, 64), 1),  # more base blocks than 4 an SM
+        (1, 1, 10**6, 100_000, (128, 64), 65535),  # never more than a grid allows
+        (128, 1024, 1_000_333, 132, (64, 32), 8),  # another tile: 16 x 4 blocks
+        (8, 1024, 1_000_333, 132, (64, 8), 33),  # 16 x 1
+    ])
+    def test_scan_groups_follow_the_tile(self, monkeypatch, b, nbins, nt, sms,
+                                         tile, groups):
+        self._fake_card(monkeypatch, sms, tile)
+        got = ttopk._scan_groups(torch.device("cpu"), b, nbins, nt)
+        assert got == groups
+        assert 1 <= got <= min(-(-nt // nbins), 65535)
+
+    def test_tile_read_once_from_the_library(self, monkeypatch):
+        """`_kernels.binmax_tile` asks the library once and keeps it."""
+        calls = []
+
+        class FakeLib:
+            def ragtorch_binmax_tile(self, bins, max_q):
+                calls.append(1)
+                bins._obj.value, max_q._obj.value = 128, 64
+                return 0
+
+        monkeypatch.setattr(_kernels, "_lib", FakeLib())
+        monkeypatch.setattr(_kernels, "_binmax_tile", None)
+        assert _kernels.binmax_tile() == (128, 64)
+        assert _kernels.binmax_tile() == (128, 64)
+        assert calls == [1]
+
+    @pytest.mark.parametrize("b,n,nbins", [(8, 5000, 128), (33, 3000, 256), (70, 900, 512)])
+    def test_k1_k2_k3_take_the_same_grid(self, monkeypatch, b, n, nbins):
+        """Each wrapper, made to take its card route on CPU tensors, hands
+        its kernel the groups of the one shared rule."""
+        self._fake_card(monkeypatch, 132)
+        calls = {}
+        monkeypatch.setattr(ttopk, "_on_cpu", lambda *args: False)
+        monkeypatch.setattr(ttopk._kernels, "launch",
+                            lambda name, index, *args: calls.__setitem__(name, args))
+        for fn in (ttopk.binmax_partial_topk_int8gs, ttopk.binmax_partial_topk_int8,
+                   ttopk.binmax_partial_topk):  # counts of real launches, restored
+            monkeypatch.setattr(fn, "launches", fn.launches)
+        rng = np.random.default_rng(b)
+        q, db = torch.from_numpy(_i8(rng, b, 16)), torch.from_numpy(_i8(rng, n, 16))
+        ttopk.binmax_partial_topk_int8gs(q, db, nbins=nbins)
+        ttopk.binmax_partial_topk_int8(q, db, torch.ones(n), nbins=nbins)
+        ttopk.binmax_partial_topk(q.float(), db.to(torch.bfloat16), nbins=nbins)
+        groups = ttopk._scan_groups(db.device, b, nbins, n)
+        assert calls["ragtorch_binmax_int8gs"][-2:] == (nbins, groups)
+        assert calls["ragtorch_binmax_int8"][-2:] == (nbins, groups)
+        assert calls["ragtorch_binmax_bf16"][-3:] == (nbins, groups, 2)
+
+
+def _plant_ties(q, db, nbins, nt, scales=None):
+    """Rows 5 and 7 made query 0's best in their bins (all of query 0's
+    signs, at full scale), then copied to a later step (row nbins + 5) and
+    to the last z-group of the kernel's split (row 7 + (G-1) * steps a
+    group * nbins, when below nt): the earlier row must keep the bin. With
+    `scales` (K3), the copies take the same scale."""
+    top = 127 if db.dtype == torch.int8 else 8
+    for r in (5, 7):
+        if r < nt:
+            db[r] = (torch.sign(q[0].float()) * top).to(db.dtype)
+    steps = -(-nt // nbins)
+    groups = ttopk._scan_groups(db.device, q.shape[0], nbins, nt)
+    late = 7 + (groups - 1) * -(-steps // groups) * nbins
+    for src, dst in ((5, nbins + 5), (7, late)):
+        if dst < nt and dst != src:
+            db[dst] = db[src]
+            if scales is not None:
+                scales[dst] = scales[src]
+
+
+# B in {1, 8, 9, 33, 128} and more (1 or 2 query tiles of at most 64: 1-8
+# n-tiles, the last one partly full),
+# D in {12, 36, 768} (12 and 36: rows not a multiple of 16 bytes, 4-byte
+# copies), ntotal in the middle of a 128-bin tile and below nbins
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,ntotal,d,nbins", [
     (8, 1_000_777, 1_000_333, 768, 1024),  # the main path's shape
     (37, 5000, 4321, 64, 128),
     (5, 3000, 90, 768, 128),  # ntotal < nbins: empty bins
     (9, 4096, None, 12, 1024),  # D % 16 != 0, one step per bin
+    (1, 20_000, 19_950, 36, 256),
+    (33, 50_000, 49_000, 768, 512),
+    (128, 200_000, 199_937, 768, 1024),  # the kernel lab's batch
+    (128, 9_000, 8_999, 12, 128),
+    (20, 9_000, 8_999, 36, 128),  # 3 n-tiles
+    (30, 9_000, 8_999, 768, 256),  # 4
+    (90, 9_000, 8_999, 768, 256),  # two tiles of 45: 6 n-tiles
+    (100, 9_000, 8_999, 36, 128),  # two tiles of 50: 7 n-tiles
 ])
 def test_k1_kernel_matches_plain_on_card(b, n, ntotal, d, nbins):
     if not torch.cuda.is_available():
@@ -120,7 +224,7 @@ def test_k1_kernel_matches_plain_on_card(b, n, ntotal, d, nbins):
                       dtype=torch.int8)
     db = torch.randint(-127, 128, (n, d), generator=g, device="cuda",
                        dtype=torch.int8)
-    db[nbins + 5] = db[5]  # a tie: the earlier row keeps the bin
+    _plant_ties(q, db, nbins, n if ntotal is None else ntotal)
     before = ttopk.binmax_partial_topk_int8gs.launches
     kv, ki = ttopk.binmax_partial_topk_int8gs(q, db, nbins=nbins, ntotal=ntotal)
     pv, pi = ttopk.binmax_partial_topk_int8gs_plain(q, db, nbins=nbins, ntotal=ntotal)
@@ -179,6 +283,14 @@ def _same_choice(k_idx, p_idx, exact):
     (8, 1_000_777, 1_000_333, 768, 512, False, torch.bfloat16),
     (37, 5000, 4321, 64, 128, True, torch.bfloat16),
     (5, 3000, 90, 768, 128, True, torch.float32),  # ntotal < nbins
+    (1, 20_000, 19_950, 36, 256, True, torch.bfloat16),  # 4-byte copies
+    (9, 30_000, 29_999, 12, 128, False, torch.bfloat16),
+    (33, 50_000, 49_000, 768, 512, False, torch.bfloat16),  # 5 n-tiles
+    (128, 200_000, 199_937, 768, 1024, True, torch.bfloat16),  # two query tiles
+    (128, 200_000, 199_937, 768, 1024, False, torch.bfloat16),
+    (5, 3000, 90, 768, 128, True, torch.bfloat16),  # ntotal < nbins
+    (20, 9_000, 8_999, 36, 128, True, torch.bfloat16),  # 3 n-tiles
+    (100, 9_000, 8_999, 768, 256, True, torch.bfloat16),  # 7 n-tiles
 ])
 def test_k2_kernel_matches_plain_on_card(b, n, ntotal, d, nbins, integer, dtype):
     if not torch.cuda.is_available():
@@ -186,7 +298,10 @@ def test_k2_kernel_matches_plain_on_card(b, n, ntotal, d, nbins, integer, dtype)
     g = torch.Generator(device="cuda").manual_seed(b + n)
     q = _card_inputs(g, integer, b, d, dtype=torch.float32)
     db = _card_inputs(g, integer, n, d, dtype=dtype)
-    db[nbins + 5] = db[5]  # a tie: the earlier row keeps the bin
+    if integer:
+        _plant_ties(q, db, nbins, ntotal)
+    else:
+        db[nbins + 5] = db[5]  # a tie: the earlier row keeps the bin
     before = ttopk.binmax_partial_topk.launches
     kv, ki = ttopk.binmax_partial_topk(q, db, nbins=nbins, ntotal=ntotal)
     pv, pi = ttopk.binmax_partial_topk_plain(q, db, nbins=nbins, ntotal=ntotal)
@@ -481,6 +596,12 @@ def test_topk_selection_on_card_matches_cpu(rows, n, k, case):
     (8, 1_000_777, 768, 512),  # fused_topk_int8's default nbins at 1M rows
     (37, 5000, 64, 128),
     (5, 90, 768, 128),  # N < nbins: empty bins
+    (1, 20_000, 36, 256),  # 4-byte copies; N in the middle of a tile
+    (9, 30_001, 12, 128),
+    (33, 50_000, 768, 512),
+    (128, 200_000, 768, 1024),
+    (30, 9_001, 36, 128),  # 4 n-tiles
+    (90, 9_001, 768, 256),  # two tiles of 45: 6 n-tiles
 ])
 def test_k3_kernel_matches_plain_on_card(b, n, d, nbins):
     if not torch.cuda.is_available():
@@ -491,8 +612,8 @@ def test_k3_kernel_matches_plain_on_card(b, n, d, nbins):
     # f32 scales over many binades, one negative, one zero, one NaN
     scales = torch.exp(torch.rand(n, generator=g, device="cuda") * 25 - 20)
     scales[:3] = torch.tensor([-0.25, 0.0, float("nan")], device="cuda")
-    if n > nbins + 5:
-        db[nbins + 5], scales[nbins + 5] = db[5], scales[5]  # a tie: row 5 keeps it
+    scales[5:8] = 1e3  # rows 5 and 7 win their bins for query 0
+    _plant_ties(q, db, nbins, n, scales)
     before = ttopk.binmax_partial_topk_int8.launches
     kv, ki = ttopk.binmax_partial_topk_int8(q, db, scales, nbins=nbins)
     pv, pi = ttopk.binmax_partial_topk_int8_plain(q, db, scales, nbins=nbins)
