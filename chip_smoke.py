@@ -103,15 +103,46 @@ and exits non-zero before the last line:
              nbins 1024.
 17. k7     — the decode-anatomy probe (tools/bench_decode_anatomy.py) at
              full width: Qwen2.5-0.5B, random bf16 weights, B in {1, 8},
-             prompt 128, cache 384, every variant; --length and --reps cut
-             to ANATOMY_ARGS for the time limit. The K7 pair count, zeroed
-             just before, must equal 24 layers x steps x calls x batches
-             (one launch per layer for K and V); the single and pair inserts
+             prompt 128, cache 384, every variant, eager and as one
+             replayed CUDA graph of the call (tokens bit for bit); --length
+             and --reps cut to ANATOMY_ARGS for the time limit. The K7 pair
+             count, zeroed just before, must equal 24 layers x steps x
+             batches x (eager calls + the capture's eager warm-up): one
+             launch per layer for K and V, counted by the wrapper, which a
+             capture and its replays do not call. One replay of the kernel
+             variant's graph must run 24 x steps K7 launches, counted by
+             name in a torch.profiler trace. The single and pair inserts
              against their plain versions, bit for bit, on the probe's own
              B=8 caches (one position past the end, one below 0); the pair
              against the two index_copy_ calls that write the same rows,
              in device ms and host us per call (medians of 7 alternated
              rounds: the calls are host-bound).
+
+18. serve_spec — the fused path of phase 6 with USE_SPECULATIVE_DECODING=1
+             (gamma 8): 10 POST /query, 8 of them concurrent; the K1 count,
+             zeroed just before, must rise.
+19. engine_serve — the staged server of phase 10 with
+             USE_CONTINUOUS_BATCHING=1 (32 lanes, cache 1024, segment 8),
+             then with USE_SPECULATIVE_DECODING=1 too: a second /query alone,
+             16 concurrent /query of mixed lengths (answers capped at
+             MAX_TOKENS=128); the K5 count, zeroed just before, must rise; the
+             engine's segments, tokens and peak lanes.
+20. decode_graph — greedy_generate at Qwen2.5-0.5B width (bf16, random
+             weights), prompt bucket 512 (384-512 live tokens), 128 new tokens,
+             at B=8 and B=1: the step graph against greedy_generate_eager,
+             tokens bit for bit, ms per token of each in alternated rounds,
+             the graph's capture seconds and pool MB; at B=8 a torch.profiler
+             trace of 8 step replays (the device's busy share, kernels a step).
+21. spec   — ngram_speculative_generate against greedy_generate in float32
+             at B=8, gamma 8, 128 tokens: a row may leave greedy only at a
+             step whose two top logits lie within NEAR_TIE (each such gap
+             printed); then, in bf16, the benchmark-only injected acceptance
+             at p in {0.7, 0.9}: ms per token and commits per call.
+22. engine — a DecodeEngine at full width in float32 (32 lanes, cache 1024,
+             segment 8), plain and speculative, over 16 prompts of 64-512
+             tokens with budgets of 16-128: every sequence held to a solo
+             greedy_generate under the near-tie rule; wall, segments, tokens,
+             capture seconds and pool MB.
 
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
@@ -187,6 +218,14 @@ HBM_BYTES_PER_S = 3.35e12
 # the anatomy probe's --length 128 and --reps 3, cut to fit the time limit
 ANATOMY_ARGS = ["--length", "32", "--reps", "2"]
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
+# the decode slice: the staged ladder's largest prefill bucket, MAX_TOKENS,
+# alternated eager/graph rounds; speculation at the settings' gamma and the
+# benchmark-only acceptance rates of VERDICT.md item 4; a sequence may leave
+# greedy's only at a step whose two top f32 logits lie within NEAR_TIE; the
+# engine at the settings' defaults (32 lanes, cache 1024, segment 8)
+DECODE_BUCKET, DECODE_NEW, DECODE_ROUNDS = 512, 128, 2
+SPEC_GAMMA, INJECT_P, NEAR_TIE = 8, (0.7, 0.9), 1e-4
+ENGINE_REQUESTS, ENGINE_LANES, ENGINE_CACHE, ENGINE_SEGMENT = 16, 32, 1024, 8
 
 
 def phase(name: str, t0: float, **info) -> None:
@@ -626,13 +665,13 @@ def _post(port: int, query: str, rid: str):
         return r.status, body, time.perf_counter() - t0
 
 
-def phase_serve(paths: dict):
+def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
     from rag_inference_pipeline_tpu_torch.core.config import load_settings
     from rag_inference_pipeline_tpu_torch.ops.topk import binmax_partial_topk_int8gs
     from rag_inference_pipeline_tpu_torch.serve import runtime
 
     t0 = time.perf_counter()
-    settings = load_settings({**SERVE_ENV, **paths})
+    settings = load_settings({**SERVE_ENV, **paths, **(extra or {})})
     server = runtime.make_server(settings, port=0)
     port = server.server_address[1]
     th = threading.Thread(target=server.serve_forever, daemon=True)
@@ -691,7 +730,7 @@ def phase_serve(paths: dict):
         "concurrent8_wall_s": round(conc_wall, 4),
         "k1_launches": launches,
     }
-    phase("serve", t0, **stats)
+    phase(name, t0, **stats)
     return server.executor, launches, stats
 
 
@@ -1304,9 +1343,18 @@ def phase_k7():
     zero_launches()
     res = anatomy.main(ANATOMY_ARGS)
     out = {"launches": kv.kv_row_insert_pair.launches}
+    # the wrapper's own launches, one a layer and step: the eager calls and
+    # each capture's eager warm-up (a capture and its replays call no wrapper)
     want = res["layers"] * res["length"] * res["calls_per_variant"] * len(res["batches"])
     check(out["launches"] == want, f"the K7 pair launched {out['launches']} times, not {want}")
     check(kv.kv_row_insert.launches == 0, "the probe launched the single insert")
+    # the graphs hold the pair: one replay's K7 launches, by the device trace
+    graph_k7 = res["graph_k7_per_replay"]
+    per_replay = res["layers"] * res["length"]
+    check(sorted(graph_k7) == sorted(str(b) for b in res["batches"])
+          and all(n == per_replay for n in graph_k7.values()),
+          f"a replay of the kernel variant's graph launched K7 {graph_k7} times, "
+          f"not {per_replay} at each batch")
     # the single and pair inserts against their plain versions on the
     # probe's own B=8 caches of layer 0
     with torch.inference_mode():
@@ -1359,7 +1407,8 @@ def phase_k7():
     torch.cuda.empty_cache()
     ms_rows = {k: round(v, 3) for k, v in res["rows"].items() if not k.endswith("_agree")}
     agree = {k: v for k, v in res["rows"].items() if k.endswith("_agree")}
-    phase("k7", t0, k7_pair_launches=out["launches"], expected=want, bit_identical=True,
+    phase("k7", t0, k7_pair_launches=out["launches"], expected=want,
+          graph_k7_per_replay=json.dumps(graph_k7, separators=(",", ":")), bit_identical=True,
           pair_ms=f"{out['ms']:.5f}", pair_plain_ms=f"{out['plain_ms']:.5f}",
           two_index_copy_ms=f"{out['library_ms']:.5f}", single_ms=f"{single_ms:.5f}",
           pair_host_us=f"{pair_host:.3f}", two_index_copy_host_us=f"{copies_host:.3f}",
@@ -1367,6 +1416,342 @@ def phase_k7():
           reps=res["reps"], ms_per_step=json.dumps(ms_rows, separators=(",", ":")),
           agree=json.dumps(agree, separators=(",", ":")))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The decode slice: greedy as a CUDA graph, speculation, the decode engine
+# ---------------------------------------------------------------------------
+
+
+def _decoder(dtype: str):
+    """Qwen2.5-0.5B at full width, random weights from seed 0."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models.qwen import QwenConfig, init_qwen_params
+
+    cfg = QwenConfig.qwen25_05b()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    return cfg, init_qwen_params(cfg, generator=g, dtype=getattr(torch, dtype),
+                                 device=torch.device(DEVICE))
+
+
+def _decode_prompts(b: int, seed: int):
+    """[b, DECODE_BUCKET] right-padded prompts of 384-512 tokens."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1000, DOC_VOCAB - 1, (b, DECODE_BUCKET)).astype(np.int32)
+    lens = rng.integers(DECODE_BUCKET * 3 // 4, DECODE_BUCKET + 1, b)
+    mask = (np.arange(DECODE_BUCKET)[None] < lens[:, None]).astype(np.int32)
+    return (torch.from_numpy(ids * mask).to(DEVICE), torch.from_numpy(mask).to(DEVICE))
+
+
+def _wall(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_decode_graph():
+    """greedy_generate eager and as the step graph, alternated; a trace of
+    the B=8 step graph's replays."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
+
+    t0 = time.perf_counter()
+    cfg, params = _decoder("bfloat16")
+    n = DECODE_NEW
+    stats = {}
+    with torch.inference_mode():
+        for b in (MAIN_B, 1):
+            ids, mask = _decode_prompts(b, seed=b)
+            graphs = decode_graph.graphs_of(params)
+            before = len(graphs)
+            graph_toks, first_s = _wall(lambda: qwen.greedy_generate(
+                params, cfg, ids, mask, n, eos_token_id=-1))
+            entry = graphs.entries()[before]
+            eager_toks = qwen.greedy_generate_eager(params, cfg, ids, mask, n,
+                                                    eos_token_id=-1)
+            check(torch.equal(graph_toks, eager_toks),
+                  f"greedy at B={b}: graph and eager tokens differ")
+            walls = alternated(lambda f, _: _wall(f)[1], {
+                "eager": lambda: qwen.greedy_generate_eager(
+                    params, cfg, ids, mask, n, eos_token_id=-1),
+                "graph": lambda: qwen.greedy_generate(
+                    params, cfg, ids, mask, n, eos_token_id=-1),
+            }, 0, rounds=DECODE_ROUNDS)
+            stats[f"b{b}_eager_ms_per_token"] = f"{walls['eager'] / n * 1e3:.3f}"
+            stats[f"b{b}_graph_ms_per_token"] = f"{walls['graph'] / n * 1e3:.3f}"
+            stats[f"b{b}_first_call_s"] = f"{first_s:.3f}"
+            stats[f"b{b}_capture_s"] = f"{entry.graph.capture_s:.3f}"
+            stats[f"b{b}_pool_mb"] = f"{entry.graph.pool_bytes / 2**20:.1f}"
+            stats[f"b{b}_state_mb"] = f"{sum(t.numel() * t.element_size() for t in (entry.state.cache.k, entry.state.cache.v)) / 2**20:.1f}"
+        ids, mask = _decode_prompts(MAIN_B, seed=MAIN_B)
+        stats.update(_profile_steps(params, cfg, graphs.entries()[0], ids, mask))
+    graphs = decode_graph.graphs_of(params)
+    stats["graphs"] = len(graphs)
+    stats["graphs_pool_mb"] = f"{graphs.pool_bytes / 2**20:.1f}"
+    phase("decode_graph", t0, bit_identical=True, new_tokens=n,
+          prompt_bucket=DECODE_BUCKET, **stats)
+    return params, stats
+
+
+def _profile_steps(params, cfg, entry, ids, mask, steps: int = 8) -> dict:
+    """torch.profiler over `steps` replays of a greedy step graph: the
+    device's busy share (kernel time over the host's wall) and the kernels
+    that take most of it."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+
+    entry.state.start(params, cfg, ids, mask, -1)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            entry.graph.replay()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if busy == 0:
+        return {"b8_step_busy_share": "not measured (no device events)"}
+    top = [(name[:48], round(us / busy, 3)) for name, us in by_name.most_common(6)]
+    return {"b8_step_busy_share": f"{busy / wall_us:.3f}",
+            "b8_step_kernel_ms": f"{busy / steps / 1e3:.3f}",
+            "b8_step_kernels": sum(1 for e in prof.events()
+                                   if e.device_type == DeviceType.CUDA) // steps,
+            "b8_step_top_kernels": json.dumps(top)}
+
+
+def _top2_gaps(params, cfg, ids, mask, n: int, cache_len=None):
+    """The eager greedy loop, recording each step's gap between the two
+    top logits -> (tokens [B, n], gaps [B, n])."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    b, t = ids.shape
+    s = cache_len or t + n
+    st = qwen._GreedyState(cfg, b, s, max(s, n), params.final_ln.dtype, ids.device)
+    logits, _ = qwen.qwen_prefill(params, cfg, ids, mask, st.cache)
+    gaps = []
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    toks = [tok]
+    for i in range(n):
+        top = logits.topk(2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        if i == n - 1:
+            break
+        logits, _ = qwen.qwen_decode_step(params, cfg, tok, st.cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, 1), torch.stack(gaps, 1)
+
+
+def _hold_to_greedy(name: str, got: list, ref: list, gap_of) -> dict:
+    """Rows (token lists) equal to greedy's, or diverging first at a step
+    where greedy's two top logits lie within NEAR_TIE (f32). `gap_of(i, j)`
+    gives row i's gap at step j. -> {identical, near_ties: [(row, step, gap)]}."""
+    ties = []
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if a == r:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, r)) if x != y), min(len(a), len(r)))
+        gap = float(gap_of(i, j))
+        check(gap <= NEAR_TIE, f"{name}: row {i} diverges from greedy at step {j}, "
+              f"where its top two logits are {gap:.3g} apart (> {NEAR_TIE})")
+        ties.append((i, j, round(gap, 8)))
+    return {"identical": len(got) - len(ties), "near_ties": ties}
+
+
+def phase_spec(bf16_params):
+    """ngram_speculative_generate against greedy_generate in float32 (the
+    verify window and the single step are other GEMM shapes), then the
+    benchmark-only injected acceptance in bf16."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    t0 = time.perf_counter()
+    n, gamma = DECODE_NEW, SPEC_GAMMA
+    cfg, params = _decoder("float32")
+    stats = {}
+    with torch.inference_mode():
+        ids, mask = _decode_prompts(MAIN_B, seed=21)
+        runs = {"spec": lambda: qwen.ngram_speculative_generate(
+                    params, cfg, ids, mask, n, gamma=gamma, eos_token_id=-1),
+                "greedy": lambda: qwen.greedy_generate(
+                    params, cfg, ids, mask, n, eos_token_id=-1)}
+        firsts = {k: f() for k, f in runs.items()}  # the captures
+        (spec, mean), spec_s = _wall(runs["spec"])
+        greedy, greedy_s = _wall(runs["greedy"])
+        check(torch.equal(spec, firsts["spec"][0]) and torch.equal(greedy, firsts["greedy"]),
+              "a second replay gave other tokens than the first")
+        gaps = None
+        if not torch.equal(spec, greedy):
+            _, gaps = _top2_gaps(params, cfg, ids, mask, n)
+        held = _hold_to_greedy("spec", spec.tolist(), greedy.tolist(),
+                               lambda i, j: gaps[i, j])
+        stats.update(f32_identical_rows=held["identical"],
+                     f32_near_ties=json.dumps(held["near_ties"]),
+                     f32_commits_per_call=f"{float(mean):.4f}",
+                     f32_spec_ms_per_token=f"{spec_s / n * 1e3:.3f}",
+                     f32_greedy_ms_per_token=f"{greedy_s / n * 1e3:.3f}")
+        del params
+        torch.cuda.empty_cache()
+        # bf16: the acceptance curve (VERDICT item 4), beside greedy
+        ids, mask = _decode_prompts(MAIN_B, seed=MAIN_B)
+        _, g_s = _wall(lambda: qwen.greedy_generate(  # captured in decode_graph
+            bf16_params, cfg, ids, mask, n, eos_token_id=-1))
+        stats["bf16_greedy_ms_per_token"] = f"{g_s / n * 1e3:.3f}"
+        for p in INJECT_P:
+            run = lambda: qwen.ngram_speculative_generate(  # noqa: E731
+                bf16_params, cfg, ids, mask, n, gamma=gamma, eos_token_id=-1,
+                inject_accept_p=p)
+            run()  # capture
+            (toks, mean), s = _wall(run)
+            check(toks.shape == (MAIN_B, n), "injected speculation: token shape")
+            stats[f"bf16_p{p}_ms_per_token"] = f"{s / n * 1e3:.3f}"
+            stats[f"bf16_p{p}_commits_per_call"] = f"{float(mean):.4f}"
+    phase("spec", t0, gamma=gamma, new_tokens=n, batch=MAIN_B, **stats)
+    return stats
+
+
+def phase_engine():
+    """A DecodeEngine at full width in float32 (32 lanes, cache 1024,
+    segment 8), plain and speculative: 16 mixed prompts and budgets, each
+    held to a solo greedy_generate under the near-tie rule."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.engine.decode_engine import DecodeEngine
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    t0 = time.perf_counter()
+    cfg, params = _decoder("float32")
+    rng = np.random.default_rng(31)
+    lens = rng.integers(64, 513, ENGINE_REQUESTS)
+    budgets = rng.integers(16, 129, ENGINE_REQUESTS)
+    prompts = [rng.integers(1000, DOC_VOCAB - 1, int(k)).astype(np.int32) for k in lens]
+    eos = -1
+    refs = []
+    with torch.inference_mode():
+        for p, m in zip(prompts, budgets):
+            ids = torch.from_numpy(p[None]).to(DEVICE)
+            refs.append(qwen.greedy_generate(params, cfg, ids, torch.ones_like(ids),
+                                             int(m), eos_token_id=eos)[0].tolist())
+
+    def gap_of(i, j):
+        ids = torch.from_numpy(prompts[i][None]).to(DEVICE)
+        with torch.inference_mode():
+            _, gaps = _top2_gaps(params, cfg, ids, torch.ones_like(ids), int(budgets[i]))
+        return gaps[0, j]
+
+    stats = {}
+    for spec in (False, True):
+        eng = DecodeEngine(params, cfg, lanes=ENGINE_LANES, cache_len=ENGINE_CACHE,
+                           segment_steps=ENGINE_SEGMENT, eos_token_id=eos,
+                           admit_buckets=(1, 2, 4, 8, 16, 32),
+                           prefill_buckets=(128, 256, 512), speculative=spec,
+                           gamma=SPEC_GAMMA)
+
+        async def main():
+            await eng.start()
+            try:
+                return await asyncio.gather(*(eng.submit(p, int(m))
+                                              for p, m in zip(prompts, budgets)))
+            finally:
+                await eng.stop()
+
+        outs, wall = _wall(lambda: asyncio.new_event_loop().run_until_complete(main()))
+        tag = "spec" if spec else "plain"
+        check(all(len(o) == m for o, m in zip(outs, budgets)),
+              f"engine ({tag}): a request returned other than its budget")
+        held = _hold_to_greedy(f"engine ({tag})", outs, refs, gap_of)
+        stats.update({f"{tag}_wall_s": f"{wall:.3f}",
+                      f"{tag}_identical": held["identical"],
+                      f"{tag}_near_ties": json.dumps(held["near_ties"]),
+                      f"{tag}_segments": eng.segments,
+                      f"{tag}_tokens": eng.tokens_generated,
+                      f"{tag}_capture_s": f"{eng.graph.capture_s:.3f}",
+                      f"{tag}_pool_mb": f"{eng.graph.pool_bytes / 2**20:.1f}"})
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    phase("engine", t0, requests=ENGINE_REQUESTS, lanes=ENGINE_LANES,
+          cache_len=ENGINE_CACHE, segment=ENGINE_SEGMENT, **stats)
+    return stats
+
+
+def phase_engine_serve(ivf, db_path: str) -> dict:
+    """The staged server under the decode engine, then with speculation
+    too: a second request alone, 16 concurrent requests; K5 counted per
+    run."""
+    from rag_inference_pipeline_tpu_torch.ops.ivf import ivf_dedup_scores
+
+    t0 = time.perf_counter()
+    texts = [" ".join(["what does the corpus say about"] + [f"topic {i}"] * (1 + i % 5))
+             for i in range(18)]
+    stats = {}
+    for tag, extra in (("engine", {"USE_CONTINUOUS_BATCHING": "1"}),
+                       ("engine_spec", {"USE_CONTINUOUS_BATCHING": "1",
+                                        "USE_SPECULATIVE_DECODING": "1"})):
+        server, th = _serve({**STAGED_ENV, "DOCUMENT_DB_PATH": db_path, **extra}, ivf)
+        port = server.server_address[1]
+        try:
+            eng = server.app.components["llm"].engine
+            check(eng is not None and eng.speculative == (tag == "engine_spec"),
+                  f"{tag}: the decode engine is not running")
+            zero_launches()
+            results = [_post(port, texts[0], "e0"), _post(port, texts[1], "e1")]
+            conc = [None] * 16
+
+            def ask(i):
+                conc[i] = _post(port, texts[2 + i], f"e{2 + i}")
+
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(16)]
+            peak, running = [0], [True]
+
+            def sample():  # the most lanes the engine held at once
+                while running[0]:
+                    peak[0] = max(peak[0], eng.active_lanes)
+                    time.sleep(0.005)
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            tc = time.perf_counter()
+            sampler.start()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+                check(not t.is_alive(), f"{tag}: a concurrent /query did not finish")
+            wall = time.perf_counter() - tc
+            running[0] = False
+            sampler.join(timeout=10)
+            k5 = ivf_dedup_scores.launches
+            seg, toks, active = eng.segments, eng.tokens_generated, eng.lanes_active
+        finally:
+            _stop(server, th)
+        for i, (status, body, _) in enumerate(results + conc):
+            check(status == 200, f"{tag} /query {i}: HTTP {status}")
+            check(body["request_id"] == f"e{i}", f"{tag} /query {i}: wrong request_id")
+        check(k5 >= 1, f"{tag}: /query did not run K5")
+        stats.update({f"{tag}_second_s": round(results[1][2], 4),
+                      f"{tag}_concurrent16_wall_s": round(wall, 4),
+                      f"{tag}_segments": seg, f"{tag}_tokens": toks,
+                      f"{tag}_peak_lanes": peak[0], f"{tag}_lanes_active_after": active,
+                      f"{tag}_k5_launches": k5})
+    phase("engine_serve", t0, **stats)
+    return stats
 
 
 def main() -> int:
@@ -1398,9 +1783,14 @@ def main() -> int:
         del executor
         gc.collect()
         torch.cuda.empty_cache()
+        spec_serve = phase_serve(paths, {"USE_SPECULATIVE_DECODING": "1"}, "serve_spec")
+        del spec_serve
+        gc.collect()
+        torch.cuda.empty_cache()
         corpus, ivf, queries, db_path = phase_ivf_build(workdir)
         k45 = phase_k45(ivf, queries)
         staged = phase_serve_staged(ivf, corpus, queries, db_path)
+        phase_engine_serve(ivf, db_path)
         del ivf
         gc.collect()
         torch.cuda.empty_cache()
@@ -1418,6 +1808,14 @@ def main() -> int:
     k3 = phase_k3()
     k8 = phase_k8()
     k7 = phase_k7()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_params, _ = phase_decode_graph()
+    phase_spec(bf16_params)
+    del bf16_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_engine()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "rag_inference_pipeline_tpu" for m in sys.modules),
           "the JAX package was imported")

@@ -78,12 +78,19 @@ class Settings:
     truncate_length: int = 512
     llm_context_docs: int = 3
     llm_doc_chars: int = 200
-    # refused at load until the port carries them (W8A8, speculation, the
-    # decode engine)
+    # n-gram (prompt-lookup) speculation: token-identical to greedy
+    # (models/qwen.py::ngram_speculative_generate)
     use_speculative_decoding: bool = False
+    speculative_gamma: int = 8
+    # benchmark-only Bernoulli(p) draft acceptance; the text is then no
+    # longer greedy's. Never set it for serving.
+    speculative_inject_p: Optional[float] = None
+    # verify rounds per engine segment when the engine and speculation are
+    # both on (engine/decode_engine.py)
+    speculative_rounds: int = 2
+    # refused at load until the port carries them (W8A8)
     llm_weight_quant: str = "none"
     encoder_weight_quant: str = "none"
-    use_continuous_batching: bool = False
 
     # --- payload ---
     documents_payload_mode: PayloadMode = PayloadMode.FULL
@@ -113,8 +120,14 @@ class Settings:
     doc_tokens_path: Optional[str] = None
     fused_chunk_lanes: int = 8
 
-    # --- generation ---
+    # --- generation decode engine (engine/decode_engine.py) ---
+    use_continuous_batching: bool = False
+    decode_segment_steps: int = 8
+    decode_max_concurrency: int = 32  # engine lanes
+    # dispatch segment N+1 before reading segment N's done flags
+    decode_pipeline_segments: bool = True
     prefill_buckets: str = "128,256,512"
+    kv_cache_max_len: int = 1024
 
     def __post_init__(self) -> None:
         """The reference's `_check_pq` model validator."""
@@ -161,6 +174,9 @@ class Settings:
 
 
 def _coerce(hint, raw: str):
+    args = typing.get_args(hint)
+    if typing.get_origin(hint) is typing.Union and type(None) in args:
+        hint = next(a for a in args if a is not type(None))  # Optional[X]
     if hint is bool:
         return raw.lower() in _BOOL_TRUE
     if hint is int:

@@ -1,8 +1,11 @@
 """Device-resident RAG step: embed -> int8 scan + exact re-score ->
-doc-token gather -> greedy KV-cache decode, all on one device.
+doc-token gather -> KV-cache decode (greedy, or n-gram speculation), all
+on one device.
 
-Port of `rag_inference_pipeline_tpu/engine/device_pipeline.py` at dp=1,
-greedy, over the int8 flat index. The document token store lives on the
+Port of `rag_inference_pipeline_tpu/engine/device_pipeline.py` at dp=1
+over the int8 flat index. On CUDA the decode loop replays a captured graph
+(`models/decode_graph.py`), the port's counterpart of the reference's one
+compiled step. The document token store lives on the
 device beside the index; retrieval ids gather context tokens there and the
 decoder consumes them directly, so the host sees only final token ids.
 """
@@ -17,7 +20,7 @@ import torch
 
 from ..models.bert import BertConfig, bert_embed
 from ..models.layers import ParamTree
-from ..models.qwen import QwenConfig, greedy_generate
+from ..models.qwen import QwenConfig, greedy_generate, ngram_speculative_generate
 from ..ops.topk import (
     binmax_partial_topk_int8gs,
     fused_topk_int8gs,
@@ -42,6 +45,11 @@ class DeviceRAGPipeline:
     ctx_docs: int = 3
     max_new_tokens: int = 16
     rescore_k: int = 64
+    # n-gram self-speculation in the decode (token-identical to greedy
+    # unless the benchmark-only acceptance injection is set)
+    speculative: bool = False
+    spec_gamma: int = 8
+    inject_accept_p: Optional[float] = None
 
     def build(
         self,
@@ -116,6 +124,8 @@ class DeviceRAGPipeline:
             bert_cfg=self.bert_cfg, qwen_cfg=self.qwen_cfg, k=self.k,
             ctx_docs=self.ctx_docs, max_new_tokens=self.max_new_tokens,
             ntotal=self.ntotal, rescore_k=self.rescore_k, scan=scan,
+            speculative=self.speculative, spec_gamma=self.spec_gamma,
+            inject_accept_p=self.inject_accept_p,
         )
 
 
@@ -141,6 +151,9 @@ def _rag_step(
     ntotal: int,
     rescore_k: int = 64,
     scan=binmax_partial_topk_int8gs,
+    speculative: bool = False,
+    spec_gamma: int = 8,
+    inject_accept_p: Optional[float] = None,
 ) -> RAGStepOutput:
     # 1. embed queries
     emb = bert_embed(bert_params, bert_cfg, query_tokens, query_mask)
@@ -169,9 +182,14 @@ def _rag_step(
     prompt = torch.gather(prompt, 1, order)
     pmask = torch.gather(pmask, 1, order)
 
-    # 4. greedy decode with a KV cache
-    toks = greedy_generate(
-        qwen_params, qwen_cfg, prompt, pmask, max_new_tokens,
-        eos_token_id=-1, cache_len=prompt.shape[1] + max_new_tokens,
-    )
+    # 4. decode with a KV cache: greedy, or n-gram self-speculation
+    kw = dict(eos_token_id=-1, cache_len=prompt.shape[1] + max_new_tokens)
+    if speculative:
+        toks, _ = ngram_speculative_generate(
+            qwen_params, qwen_cfg, prompt, pmask, max_new_tokens,
+            gamma=spec_gamma, inject_accept_p=inject_accept_p, **kw,
+        )
+    else:
+        toks = greedy_generate(qwen_params, qwen_cfg, prompt, pmask,
+                               max_new_tokens, **kw)
     return RAGStepOutput(tokens=toks, doc_ids=ids, scores=scores)

@@ -1,8 +1,8 @@
 """Fused serving executor: the whole RAG hot path as one device step per
 chunk of requests, then the joint sentiment + toxicity classifier.
 
-Port of `rag_inference_pipeline_tpu/engine/fused_executor.py` (dp=1,
-greedy). Batches are cut into chunks of at most `fused_chunk_lanes` lanes,
+Port of `rag_inference_pipeline_tpu/engine/fused_executor.py` (dp=1;
+greedy, or n-gram speculation with `use_speculative_decoding`). Batches are cut into chunks of at most `fused_chunk_lanes` lanes,
 each padded to a shape bucket exactly as the reference pads it: the query's
 int8 scale is batch-wide, so padded lanes take part in it and a different
 padding would change ids. Requires a document token store
@@ -58,8 +58,6 @@ class FusedExecutor:
         s = self.settings
         if not s.doc_tokens_path:
             raise ValueError("use_fused_pipeline requires doc_tokens_path")
-        if s.use_speculative_decoding:
-            raise NotImplementedError("speculative decoding is not ported yet")
         self.doc_tokens = np.load(s.doc_tokens_path).astype(np.int32)
         # explicit validity mask written beside the tokens; `id > 0` is only
         # right for the hash tokenizer (id 0 can be a real token)
@@ -101,6 +99,9 @@ class FusedExecutor:
                 # strictly greater than k: the `rescore_k > k` gate would
                 # otherwise turn the exact re-score off for k >= 64
                 rescore_k=s.retrieval_k + 64,
+                speculative=s.use_speculative_decoding,
+                spec_gamma=s.speculative_gamma,
+                inject_accept_p=s.speculative_inject_p,
             )
             idx = self.index
             if idx._db is not None:

@@ -5,9 +5,12 @@ Port of `rag_inference_pipeline_tpu/engine/orchestrator.py` over local
 stages: queries coalesce in a `BatchScheduler`; each flushed batch splits
 into `gateway_pipeline_chunks` chunks that feed three long-lived asyncio
 workers joined by queues, so chunk N+1's retrieval overlaps chunk N's
-generation; a stage error fails every request of its chunk. A node
-without local retrieval and generation stages would need the RPC hop of
-the serving stack, which is not ported: the constructor refuses it.
+generation; a stage error fails every request of its chunk. With
+`use_continuous_batching` the generation stage awaits the service's
+`process_batch_async` (the decode engine) instead of running its batch
+path in a thread. A node without local retrieval and generation stages
+would need the RPC hop of the serving stack, which is not ported: the
+constructor refuses it.
 With a fused executor whose `is_loaded` is true, one fused step replaces
 the pipeline and completions clock the batches (`flush_on_ready`); the
 reference gates that on the executor existing (`orchestrator.py:102`).
@@ -201,6 +204,8 @@ class Orchestrator:
             else:
                 entry["doc_ids"] = ret.get("ids", [])
             payload.append(entry)
+        if self.settings.use_continuous_batching:
+            return await self.generation_service.process_batch_async(payload)
         return await asyncio.get_running_loop().run_in_executor(
             None, self.generation_service.process_batch, payload
         )

@@ -16,6 +16,7 @@ checkpoint under `MODEL_WEIGHTS_DIR` raises rather than being ignored.
 
 from __future__ import annotations
 
+import asyncio
 import hashlib
 import logging
 import os
@@ -29,7 +30,12 @@ from ..core.device import torch_dtype
 from ..utils.cache import LRUCache
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
 from .bert import BertConfig, bert_classify, bert_embed, init_bert_params
-from .qwen import QwenConfig, greedy_generate, init_qwen_params
+from .qwen import (
+    QwenConfig,
+    greedy_generate,
+    init_qwen_params,
+    ngram_speculative_generate,
+)
 from .tokenizer import make_tokenizer
 
 logger = logging.getLogger(__name__)
@@ -273,7 +279,10 @@ class ToxicityComponent(_BertBase):
 
 
 class LLMComponent:
-    """Causal LM (Qwen2 / Llama family) for greedy decode."""
+    """Causal LM (Qwen2 / Llama family): greedy decode, or n-gram
+    speculation (`use_speculative_decoding`), per bucketed batch; or,
+    with `use_continuous_batching`, one request at a time through the
+    decode engine that `start()` runs."""
 
     def __init__(self, settings: Settings, device: torch.device):
         self.settings = settings
@@ -287,6 +296,7 @@ class LLMComponent:
         self.params = None
         self.tokenizer = None
         self.random_weights = False
+        self.engine = None
 
     @property
     def is_loaded(self) -> bool:
@@ -370,14 +380,66 @@ class LLMComponent:
             ids = pad_rows(ids[:, :plen], bucket)
             mask = pad_rows(mask[:, :plen], bucket)
             mask[ce - cs :, 0] = 1
-            toks = greedy_generate(
-                self.params, self.cfg,
-                torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(mask).to(self.device),
-                max_new, eos_token_id=eos, cache_len=plen + max_new,
-            )[: ce - cs].cpu().numpy()
-            for row in toks:
+            args = (self.params, self.cfg, torch.from_numpy(ids).to(self.device),
+                    torch.from_numpy(mask).to(self.device), max_new)
+            kw = dict(eos_token_id=eos, cache_len=plen + max_new)
+            if s.use_speculative_decoding:
+                toks, _ = ngram_speculative_generate(
+                    *args, gamma=s.speculative_gamma,
+                    inject_accept_p=s.speculative_inject_p, **kw,
+                )
+            else:
+                toks = greedy_generate(*args, **kw)
+            for row in toks[: ce - cs].cpu().numpy():
                 stop = np.where(row == eos)[0]
                 end = int(stop[0]) if len(stop) else len(row)
                 out.append(self.tokenizer.decode(row[:end]))
         return out
+
+    # -- continuous-batching engine mode ------------------------------------
+    async def start(self) -> None:
+        """Start the persistent-lane decode engine when
+        `use_continuous_batching` is set (engine/decode_engine.py); with
+        speculation on too, its segments are verify rounds."""
+        s = self.settings
+        if not s.use_continuous_batching or not self.is_loaded or self.engine:
+            return
+        from ..engine.decode_engine import DecodeEngine
+
+        self.engine = DecodeEngine(
+            self.params, self.cfg,
+            lanes=s.decode_max_concurrency,
+            cache_len=s.kv_cache_max_len,
+            segment_steps=s.decode_segment_steps,
+            eos_token_id=self.tokenizer.eos_id,
+            admit_buckets=s.shape_buckets,
+            prefill_buckets=s.prefill_bucket_list,
+            pipeline_segments=s.decode_pipeline_segments,
+            speculative=s.use_speculative_decoding,
+            gamma=s.speculative_gamma,
+            spec_rounds=s.speculative_rounds,
+            inject_accept_p=s.speculative_inject_p,
+        )
+        await self.engine.start()
+
+    async def stop(self) -> None:
+        if self.engine is not None:
+            await self.engine.stop()
+            self.engine = None
+
+    async def generate_batch_engine(
+        self, queries: Sequence[str], docs_batch: Sequence[Sequence[dict]],
+        max_new_tokens: Optional[int] = None,
+    ) -> list[str]:
+        """One engine submission per request: a short answer returns as soon
+        as its lane finishes, whatever the rest of the batch does."""
+        if self.engine is None:
+            raise RuntimeError("generation not ready: the decode engine is not running")
+        s = self.settings
+        max_new = max_new_tokens or s.max_tokens
+        cap = min(s.truncate_length, self.cfg.max_len - max_new)
+        subs = []
+        for q, d in zip(queries, docs_batch):
+            ids, mask = self.tokenizer.encode(self.build_prompt(q, d), cap)
+            subs.append(self.engine.submit(ids[: int(mask.sum())], max_new))
+        return [self.tokenizer.decode(t) for t in await asyncio.gather(*subs)]

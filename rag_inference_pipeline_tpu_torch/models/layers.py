@@ -95,12 +95,24 @@ def rope_frequencies(
     return torch.cos(freqs), torch.sin(freqs)
 
 
-def apply_rope(x, cos, sin, positions):
-    """x: [B, T, H, Dh]; positions: [B, T] absolute positions."""
-    c = cos[positions][:, :, None, :]  # [B, T, 1, Dh/2]
-    s = sin[positions][:, :, None, :]
+def rope_at(cos, sin, positions):
+    """The rope tables' rows at `positions` [B, T] -> ([B, T, 1, Dh/2],
+    [B, T, 1, Dh/2]). A position past the tables reads the last row, as
+    the reference's gather clamps it (a finished decode-engine lane keeps
+    counting positions)."""
+    p = positions.clamp(max=cos.shape[0] - 1)
+    return cos[p][:, :, None, :], sin[p][:, :, None, :]
+
+
+def rotate(x, c, s):
+    """x: [B, T, H, Dh] rotated by the gathered rope rows of `rope_at`."""
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def apply_rope(x, cos, sin, positions):
+    """x: [B, T, H, Dh]; positions: [B, T] absolute positions."""
+    return rotate(x, *rope_at(cos, sin, positions))
 
 
 def attention(

@@ -120,7 +120,8 @@ def kv_row_insert(
     if b:
         _kernels.launch("ragtorch_kv_row_insert", index, ck, None, nk, None, pos,
                         b, s, row_bytes)
-        kv_row_insert.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            kv_row_insert.launches += 1
     return cache
 
 
@@ -138,9 +139,12 @@ def kv_row_insert_pair(
         return kv_row_insert_pair_plain(cache_k, cache_v, new_k, new_v, positions)
     if args[6]:
         _kernels.launch("ragtorch_kv_row_insert", *args)
-        kv_row_insert_pair.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            kv_row_insert_pair.launches += 1
     return cache_k, cache_v
 
 
-kv_row_insert.launches = 0  # kernel launches, for chip_smoke.py
+# kernel launches, for chip_smoke.py: a call under a CUDA graph capture
+# records the launch into the graph and runs nothing, so it counts nothing
+kv_row_insert.launches = 0
 kv_row_insert_pair.launches = 0

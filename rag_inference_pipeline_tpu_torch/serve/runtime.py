@@ -11,8 +11,9 @@ variables), over one of two paths:
   behind a `BatchScheduler` for the `retrieval` route, a
   `GenerationService` for `generation`, and the `Orchestrator` for
   `gateway`. One asyncio loop, on a thread of its own, runs the
-  orchestrator's workers and the schedulers; handler threads hand it their
-  work with `asyncio.run_coroutine_threadsafe`.
+  orchestrator's workers, the schedulers and, under
+  `USE_CONTINUOUS_BATCHING`, the LLM's decode engine; handler threads hand
+  it their work with `asyncio.run_coroutine_threadsafe`.
 
 Routes and wire shapes are the JAX package's (`serve/http.py`,
 `serve/schemas.py`):
@@ -73,13 +74,6 @@ def kernel_launches() -> dict[str, int]:
         "ivf_dedup": ivf_dedup_scores.launches,
         "ivfpq4_adc": ivfpq4_adc_scores.launches,
     }
-
-
-def _refuse_unported(settings: Settings) -> None:
-    if settings.use_speculative_decoding:
-        raise NotImplementedError("speculative decoding is not ported yet")
-    if settings.use_continuous_batching:
-        raise NotImplementedError("the continuous-batching decode engine is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +186,6 @@ class StagedApp:
     INDEX_PATH."""
 
     def __init__(self, settings: Settings, *, index=None) -> None:
-        _refuse_unported(settings)
         self.settings = settings
         self.profile = profile = load_role_profile(settings)
         self.device = device = resolve_device(settings.device_platform)
@@ -274,6 +267,9 @@ class StagedApp:
             )
             if self.retrieval_executor is not None else None
         )
+        llm = self.components.get("llm")
+        if llm is not None:  # the decode engine, under USE_CONTINUOUS_BATCHING
+            await llm.start()
         if self.orchestrator is not None:
             await self.orchestrator.start()
 
@@ -282,6 +278,9 @@ class StagedApp:
             await self.orchestrator.stop()
         if self.retrieval_scheduler is not None:
             await self.retrieval_scheduler.stop()
+        llm = self.components.get("llm")
+        if llm is not None:
+            await llm.stop()
 
     def _submit(self, coro) -> concurrent.futures.Future:
         return asyncio.run_coroutine_threadsafe(coro, self.loop)

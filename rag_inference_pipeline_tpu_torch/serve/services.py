@@ -11,7 +11,9 @@ Prometheus stage timers and sampled profiler):
   `id_only`) -> optional rerank.
 - `GenerationService`: the documents handed over (or fetched by id) ->
   rerank -> LLM -> sentiment -> toxicity; a toxic answer is replaced by
-  `TOXIC_PLACEHOLDER`.
+  `TOXIC_PLACEHOLDER`. `process_batch` runs the LLM per bucketed batch;
+  `process_batch_async` submits each request to the continuous-batching
+  decode engine.
 
 The `compressed` payload mode is refused by name: zstandard is not
 guaranteed on the GPU machine.
@@ -19,6 +21,7 @@ guaranteed on the GPU machine.
 
 from __future__ import annotations
 
+import asyncio
 import hashlib
 from typing import Any, Optional, Sequence
 
@@ -187,16 +190,40 @@ class GenerationService:
     def process_batch(self, items: list[dict]) -> list[dict]:
         """items: [{query, documents? | doc_ids?}] -> [{generated_response,
         sentiment, is_toxic}]."""
+        self._check_llm()
+        queries = [it.get("query", "") for it in items]
+        texts = self.llm.generate_batch(queries, self._documents(queries, items))
+        return self._finish(texts)
+
+    async def process_batch_async(self, items: list[dict]) -> list[dict]:
+        """Engine mode: documents, rerank and the classifiers run as
+        bucketed batches in executor threads; the LLM stage submits each
+        request to the decode engine. Where the reference falls back to
+        the batch path when the engine is not running, this raises, so
+        that a failed engine cannot hide behind the batch path."""
+        self._check_llm()
+        if getattr(self.llm, "engine", None) is None:
+            raise RuntimeError("generation not ready: the decode engine is not running")
+        loop = asyncio.get_running_loop()
+        queries = [it.get("query", "") for it in items]
+        docs_batch = await loop.run_in_executor(None, self._documents, queries, items)
+        texts = await self.llm.generate_batch_engine(queries, docs_batch)
+        return await loop.run_in_executor(None, self._finish, texts)
+
+    def _check_llm(self) -> None:
         if self.llm is None or not self.llm.is_loaded:
             raise RuntimeError("generation not ready: llm not loaded")
-        queries = [it.get("query", "") for it in items]
+
+    def _documents(self, queries: list[str], items: list[dict]) -> list[list[dict]]:
+        """Each item's documents, reranked (or cut) to `rerank_top_n`."""
         docs_batch = [self._prepare_documents(it) for it in items]
         top_n = self.settings.rerank_top_n
         if self.reranker is not None and self.reranker.is_loaded:
-            docs_batch = self.reranker.rerank_batch(queries, docs_batch, top_n=top_n)
-        else:
-            docs_batch = [d[:top_n] for d in docs_batch]
-        texts = self.llm.generate_batch(queries, docs_batch)
+            return self.reranker.rerank_batch(queries, docs_batch, top_n=top_n)
+        return [d[:top_n] for d in docs_batch]
+
+    def _finish(self, texts: list[str]) -> list[dict]:
+        """Sentiment and toxicity of the answers -> the response items."""
         if self.sentiment is not None and self.sentiment.is_loaded:
             sentiments = self.sentiment.analyze_batch(texts)
         else:

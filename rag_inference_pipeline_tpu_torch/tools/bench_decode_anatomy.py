@@ -21,6 +21,17 @@ agree with it (at least 0.9 of the lanes, as the reference asserts). Each
 call restores the per-layer caches from the warm prefill (2 x layers
 copies, inside the timing: well under 1% of a call).
 
+Each variant is timed twice: eagerly, every op issued from Python (row
+`bf16_b{B}_{variant}`), and as one CUDA graph of the whole call, as the
+reference times one jitted scan of `--length` steps (row
+`..._graph`). The graph is captured once per batch and variant
+(`models/decode_graph.py`), then replayed with a new start token per call;
+its tokens must equal the eager call's bit for bit (same kernels, same
+shapes). The `kernel` variant captures the K7 pair inside the graph. The
+pair's launch count holds only the launches its wrapper made (the eager
+calls and the capture's eager warm-up); the K7 launches of one replay are
+counted by name in a torch.profiler trace (`graph_k7_per_replay`).
+
     python -m rag_inference_pipeline_tpu_torch.tools.bench_decode_anatomy
     python -m rag_inference_pipeline_tpu_torch.tools.bench_decode_anatomy --smoke
 
@@ -45,6 +56,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.layers import apply_rope, attention, dense, rms_norm
+from ..models import decode_graph
 from ..models.qwen import (
     KVCache,
     QwenConfig,
@@ -62,6 +74,7 @@ OUT_DIR = os.path.join(
 )
 VARIANTS = ("real", "full", "nocache", "nohead", "noattn", "onehot", "atset", "kernel")
 INSERTS = ("onehot", "atset", "kernel")  # held to `full`'s tokens
+K7_KERNEL = "kv_row_insert_kernel"  # csrc/kv_row_insert.cu
 AGREE_BAR = 0.9
 
 
@@ -166,24 +179,81 @@ def make_loop(params, cfg: QwenConfig, variant: str, warm: KVCache, length: int)
     return call
 
 
+def graph_call(call, tok0: torch.Tensor):
+    """`call` captured as one CUDA graph -> (replay(tok) -> the call's
+    token, the graph). The start token goes through a static input. The
+    capture's warm-up runs `call` eagerly, so it counts its K7 launches;
+    the capture records them into the graph and counts none."""
+    tok_in = tok0.clone()
+    out: dict = {}
+
+    def body():
+        out["tok"] = call(tok_in)
+
+    graph = decode_graph.CapturedGraph(body, tok0.device)
+
+    def replay(tok):
+        tok_in.copy_(tok)
+        graph.replay()
+        return out["tok"]
+
+    return replay, graph
+
+
+def traced_launches(fn, kernel: str) -> int:
+    """The launches of the device kernel named `kernel` while `fn()` runs,
+    counted by name in a torch.profiler trace; -1 where the trace holds no
+    device events."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(kernel in e.name for e in events) if events else -1
+
+
+def _timed(call, tok0, reps: int, length: int, vocab: int) -> tuple[torch.Tensor, float]:
+    """The first call's tokens (a warm-up), and ms per step over `reps`
+    more calls, each from a distinct start token inside [1, V-2]."""
+    first = call(tok0).cpu()
+    t0 = time.perf_counter()
+    for r in range(reps):
+        call((tok0 + r) % (vocab - 2) + 1).cpu()
+    return first, (time.perf_counter() - t0) / (reps * length) * 1e3
+
+
 def probe(params, cfg: QwenConfig, batches, length: int, reps: int,
-          cache_len: int, t_prompt: int) -> dict:
-    """ms per step of every variant at every batch size, and the insert
-    variants' token agreement with `full`."""
+          cache_len: int, t_prompt: int, graphs: bool = False,
+          k7_graph: Optional[dict] = None) -> dict:
+    """ms per step of every variant at every batch size, eager and (with
+    `graphs`) as a replayed graph, and the insert variants' token agreement
+    with `full`. With `graphs`, `k7_graph[B]` gets the K7 launches that one
+    replay of the `kernel` variant's graph made, by the device's trace."""
     rng = np.random.default_rng(0)
     rows: dict = {}
+    k7_graph = {} if k7_graph is None else k7_graph
     for b in batches:
         warm, tok0 = warm_cache(params, cfg, b, t_prompt, cache_len, rng)
         ref_tok = None
         for variant in VARIANTS:
             call = make_loop(params, cfg, variant, warm, length)
-            first = call(tok0).cpu()  # warm-up; its tokens are compared
-            t0 = time.perf_counter()
-            for r in range(reps):
-                # a distinct start token per rep, inside [1, V-2]
-                call((tok0 + r) % (cfg.vocab_size - 2) + 1).cpu()
-            ms = (time.perf_counter() - t0) / (reps * length) * 1e3
+            first, ms = _timed(call, tok0, reps, length, cfg.vocab_size)
             rows[f"bf16_b{b}_{variant}"] = ms
+            if graphs:
+                replay, graph = graph_call(call, tok0)
+                g_first, g_ms = _timed(replay, tok0, reps, length, cfg.vocab_size)
+                if not torch.equal(g_first, first):
+                    raise RuntimeError(f"{variant} at B={b}: the graph's tokens "
+                                       "differ from the eager call's")
+                rows[f"bf16_b{b}_{variant}_graph"] = g_ms
+                rows[f"bf16_b{b}_{variant}_graph_capture_s"] = graph.capture_s
+                if variant == "kernel":
+                    # K7 nodes a replay runs, read from the device's trace
+                    k7_graph[b] = traced_launches(lambda: replay(tok0), K7_KERNEL)
+                print(f"bf16 B={b} {variant}: graph {g_ms:.3f} ms/step", flush=True)
+                del replay, graph
             if variant == "full":
                 ref_tok = first
             elif variant in INSERTS:
@@ -223,15 +293,22 @@ def main(argv: Optional[list[str]] = None) -> dict:
     t_prompt = 8 if args.smoke else 128
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device={kind} L={length}", flush=True)
+    graphs = decode_graph.uses_graphs(dev)
     with torch.inference_mode():
         cfg, params = make_model(args.smoke, dev)
+        k7_graph: dict = {}
         rows = probe(params, cfg, args.batches, length, args.reps, cache_len,
-                     t_prompt)
+                     t_prompt, graphs=graphs, k7_graph=k7_graph)
     out = {"device": kind, "length": length, "reps": args.reps,
            "cache_len": cache_len, "t_prompt": t_prompt, "layers": cfg.layers,
            "batches": args.batches, "weights": args.weights,
-           # calls of each variant per batch: one warm-up, then the reps
-           "calls_per_variant": 1 + args.reps, "rows": rows}
+           # eager calls of each variant per batch: one warm-up, then the
+           # reps, and with graphs the capture's warm-up (the capture itself
+           # and the replays call no wrapper)
+           "calls_per_variant": 1 + args.reps + (1 if graphs else 0),
+           # K7 launches of one replay of the kernel variant's graph, by B
+           "graph_k7_per_replay": {str(b): n for b, n in k7_graph.items()},
+           "rows": rows}
     path = args.out or os.path.join(OUT_DIR, "decode_anatomy.json")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:

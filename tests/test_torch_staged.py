@@ -493,3 +493,43 @@ def test_server_retrieval_profile_over_flat_bf16(served, tmp_path):
     with pytest.raises(urllib.error.HTTPError) as e:
         _req(port, "/query", {"query": "no gateway here"})
     assert e.value.code == 404
+
+
+@pytest.mark.parametrize("engine,spec", [("1", "0"), ("0", "1"), ("1", "1")])
+def test_server_serves_query_with_engine_and_speculation(served, engine, spec):
+    """USE_CONTINUOUS_BATCHING and USE_SPECULATIVE_DECODING, alone and
+    together, serve concurrent /query on the staged path with the plain
+    server's answers; with the engine on, its segments did the decoding
+    and it stops with the server."""
+    start, _ = served
+    queries = [f"question {i} about gpu kernels" for i in range(4)]
+
+    def answers(port):
+        out = [None] * len(queries)
+
+        def ask(i):
+            out[i] = _req(port, "/query", {"query": queries[i], "request_id": f"e{i}"})
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(queries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        assert all(st == 200 for st, _ in out)
+        return [b["generated_response"] for _, b in out]
+
+    plain_port, _ = start()
+    port, server = start(USE_CONTINUOUS_BATCHING=engine, USE_SPECULATIVE_DECODING=spec,
+                         SPECULATIVE_GAMMA="4", KV_CACHE_MAX_LEN="256")
+    llm = server.app.components["llm"]
+    assert answers(port) == answers(plain_port)
+    if engine == "1":
+        eng = llm.engine
+        assert eng is not None and eng.speculative == (spec == "1")
+        assert eng.segments > 0 and eng.lanes_active == 0
+        server.shutdown()
+        server.server_close()
+        assert llm.engine is None
+    else:
+        assert llm.engine is None
