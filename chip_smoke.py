@@ -143,6 +143,30 @@ and exits non-zero before the last line:
              tokens with budgets of 16-128: every sequence held to a solo
              greedy_generate under the near-tie rule; wall, segments, tokens,
              capture seconds and pool MB.
+23. w8a8   — the W8A8 kernels (ops/w8a8.py: the activation quantize and
+             the s8 GEMM with its dequant epilogue) against their plain
+             versions, bit for bit, at every shape of the int8 path
+             (Qwen2.5-0.5B's decode projections and tied head at B = 8 and
+             1, a prefill gate/up and a BERT-base FFN at 8 x 512 tokens, a
+             classifier) and on small ragged cases; per shape the kernels'
+             device times (CUDA events over replays of one captured graph of
+             many calls: an eager loop of microsecond launches times the
+             host), the plain versions' times, the bound and the share of
+             it, and, as yardsticks only, torch._int_mm where M > 16 and a
+             bf16 torch.matmul of the same shape (graph-timed alike); the
+             wrappers' host us a call. Runs after k2.
+24. serve_w8a8 — the fused server of phase 6 with LLM_WEIGHT_QUANT=int8 and
+             ENCODER_WEIGHT_QUANT=int8: 10 POST /query, 8 of them
+             concurrent; the K1, quantize and GEMM counts, zeroed just
+             before, must rise. Runs after serve_spec.
+25. decode_w8a8 — greedy_generate over Qwen2.5-0.5B with int8 weights
+             quantized at the source (seeded random bf16 draws), B = 8,
+             prompt bucket 512, 128 new tokens: the step graph against the
+             eager loop, tokens bit for bit; ms per token of each beside
+             decode_graph's bf16 figures; the GEMM and quantize launches
+             (those of the prefill and the capture's warm-up: a replay
+             counts none); the B = 8 step's busy share and kernels from 8
+             traced replays; the pool MB. Runs after spec.
 
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
@@ -240,12 +264,13 @@ def check(cond: bool, msg: str) -> None:
 
 def zero_launches() -> None:
     """Every kernel wrapper's launch count to 0, just before a path runs."""
-    from rag_inference_pipeline_tpu_torch.ops import ivf, kv, pq, stream, topk
+    from rag_inference_pipeline_tpu_torch.ops import ivf, kv, pq, stream, topk, w8a8
 
     for fn in (topk.binmax_partial_topk_int8gs, topk.binmax_partial_topk,
                topk.binmax_partial_topk_int8, ivf.ivf_scan_partial,
                ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores, kv.kv_row_insert,
-               kv.kv_row_insert_pair, stream.stream_sum):
+               kv.kv_row_insert_pair, stream.stream_sum, w8a8.quantize_rows,
+               w8a8.w8a8_gemm):
         fn.launches = 0
 
 
@@ -282,6 +307,31 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device ms per call of `fn`: `iters` calls captured as one CUDA
+    graph, replayed, timed with CUDA events. An eager loop of small
+    launches times the host's launch rate instead (tens of us a call on
+    the card's host)."""
+    import torch
+
+    fn()  # warm up: the library, the allocator's blocks
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def phase_device():
@@ -440,6 +490,103 @@ def phase_k2():
     torch.cuda.empty_cache()
     phase("k2", t0, integer_bit_identical=True, max_abs_err=out["max_abs_err"],
           main_plain_ms=f"{out['plain_ms']:.4f}", **rate("main", out))
+    return out
+
+
+# the int8 path's products (Qwen2.5-0.5B: H 896, kv 2 x 64, I 4,864, V
+# 151,936; BERT-base: H 768, I 3,072): name, M, K, N and the bias a layer
+# has there; the head's output is f32, every other one bf16
+W8A8_SHAPES = [
+    ("decode_qo_b1", 1, 896, 896, True), ("decode_qo", 8, 896, 896, True),
+    ("decode_kv", 8, 896, 128, True), ("decode_gate_up", 8, 896, 4864, False),
+    ("decode_down", 8, 4864, 896, False), ("decode_head_b1", 1, 896, 151936, False),
+    ("decode_head", 8, 896, 151936, False), ("prefill_gate_up", 4096, 896, 4864, False),
+    ("encoder_ffn_in", 4096, 768, 3072, True), ("classifier", 8, 768, 5, True),
+]
+W8A8_MAIN = "decode_gate_up"  # the kernels line's shape: 48 calls a decode step
+
+
+def phase_w8a8():
+    """The quantize and GEMM kernels against their plain versions, bit for
+    bit, at the int8 path's shapes and on small ragged ones, with times,
+    bounds and two library yardsticks."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    cases = 0
+    # ragged: tails in M, N and K, 4-byte copies at K = 36, split K
+    for m in (1, 5, 17, 300):
+        for k in (36, 896):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = (torch.randn(m, k, generator=g, device=DEVICE) * 3).to(dtype)
+                q, sc = w8a8.quantize_rows(x)
+                pq, ps = w8a8.quantize_rows_plain(x)
+                check(torch.equal(q, pq) and torch.equal(sc, ps),
+                      f"quantize_rows differs from its plain version at {m}x{k} {dtype}")
+                for n in (2, 3, 128):
+                    wq = torch.randint(-127, 128, (n, k), generator=g, device=DEVICE,
+                                       dtype=torch.int8)
+                    ws = torch.rand(n, generator=g, device=DEVICE) * 1e-2
+                    for b in (None, torch.randn(n, generator=g, device=DEVICE).to(dtype)):
+                        got = w8a8.w8a8_gemm(q, sc, wq, ws, b, out_dtype=dtype)
+                        want = w8a8.w8a8_gemm_plain(q, sc, wq, ws, b, out_dtype=dtype)
+                        check(torch.equal(got, want), f"w8a8_gemm differs from its plain "
+                              f"version at M={m} N={n} K={k} {dtype} bias={b is not None}")
+                        cases += 1
+    rows, out, host = {}, {}, {}
+    for name, m, k, n, has_bias in W8A8_SHAPES:
+        out_dtype = torch.float32 if "head" in name else torch.bfloat16
+        x = torch.randn(m, k, generator=g, device=DEVICE).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8)
+        ws = torch.rand(n, generator=g, device=DEVICE) * 1e-3
+        b = torch.randn(n, generator=g, device=DEVICE).to(out_dtype) if has_bias else None
+        q, sc = w8a8.quantize_rows(x)
+        pq, ps = w8a8.quantize_rows_plain(x)
+        got = w8a8.w8a8_gemm(q, sc, wq, ws, b, out_dtype=out_dtype)
+        want = w8a8.w8a8_gemm_plain(q, sc, wq, ws, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        check(torch.equal(q, pq) and torch.equal(sc, ps),
+              f"quantize_rows differs from its plain version at {name}")
+        check(torch.equal(got, want), f"w8a8_gemm differs from its plain version at {name}")
+        big = m * n * k > 1e10
+        it, pit = (20, 3) if big else (100, 20)
+        gm = {"ms": graph_ms(lambda: w8a8.w8a8_gemm(q, sc, wq, ws, b, out_dtype=out_dtype), it),
+              "plain_ms": cuda_ms(lambda: w8a8.w8a8_gemm_plain(q, sc, wq, ws, b,
+                                                               out_dtype=out_dtype), pit),
+              "max_abs_err": 0.0, "library_ms": None}
+        esz = 4 if out_dtype == torch.float32 else 2
+        gm.update(bound(m * k + 4 * m + n * k + 4 * n + m * n * esz + (n * esz if b is not None else 0),
+                        2.0 * m * n * k, "int8"))
+        qm = {"ms": graph_ms(lambda: w8a8.quantize_rows(x), it),
+              "plain_ms": cuda_ms(lambda: w8a8.quantize_rows_plain(x), pit),
+              "max_abs_err": 0.0, "library_ms": None}
+        qm.update(bound(2 * m * k + m * k + 4 * m, 0, "int8"))
+        # yardsticks only: the library's s8 GEMM (rows > 16, K and N
+        # multiples of 8) and a bf16 product of the same shape
+        int_mm = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            int_mm = graph_ms(lambda: torch._int_mm(q, wq.t()), it)
+        wb = torch.randn(k, n, generator=g, device=DEVICE).to(torch.bfloat16)
+        bf16_mm = graph_ms(lambda: torch.matmul(x, wb), it)
+        if name == "decode_qo":  # the wrappers' host cost, eagerly
+            host = {"gemm_host_us": round(host_us(lambda: w8a8.w8a8_gemm(
+                        q, sc, wq, ws, b, out_dtype=out_dtype), 1000), 2),
+                    "quant_host_us": round(host_us(lambda: w8a8.quantize_rows(x), 1000), 2)}
+        rows[name] = {"gemm_ms": round(gm["ms"], 5), "gemm_bound_ms": round(gm["bound_ms"], 5),
+                      "gemm_of_bound": round(gm["bound_ms"] / gm["ms"], 3),
+                      "gemm_plain_ms": round(gm["plain_ms"], 4),
+                      "int_mm_ms": None if int_mm is None else round(int_mm, 5),
+                      "bf16_matmul_ms": round(bf16_mm, 5),
+                      "quant_ms": round(qm["ms"], 5), "quant_plain_ms": round(qm["plain_ms"], 4),
+                      "quant_bound_ms": round(qm["bound_ms"], 6)}
+        if name == W8A8_MAIN:
+            out = {"gemm": gm, "quant": qm}
+        del x, wq, ws, b, q, sc, pq, ps, got, want, wb
+        torch.cuda.empty_cache()
+    phase("w8a8", t0, bit_identical=True, ragged_cases=cases, main=W8A8_MAIN, **host,
+          shapes=json.dumps(rows, separators=(",", ":")))
     return out
 
 
@@ -667,6 +814,7 @@ def _post(port: int, query: str, rid: str):
 
 def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
     from rag_inference_pipeline_tpu_torch.core.config import load_settings
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
     from rag_inference_pipeline_tpu_torch.ops.topk import binmax_partial_topk_int8gs
     from rag_inference_pipeline_tpu_torch.serve import runtime
 
@@ -700,6 +848,7 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
             check(not t.is_alive(), "a concurrent /query did not finish")
         conc_wall = time.perf_counter() - tc
         launches = binmax_partial_topk_int8gs.launches
+        w8a8_launches = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
         results += conc
         with urllib.request.urlopen(
             f"http://127.0.0.1:{port}/health", timeout=60
@@ -729,6 +878,8 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
         "max_s": round(lat[-1], 4),
         "concurrent8_wall_s": round(conc_wall, 4),
         "k1_launches": launches,
+        "w8a8_gemm_launches": w8a8_launches[0],
+        "quantize_rows_launches": w8a8_launches[1],
     }
     phase(name, t0, **stats)
     return server.executor, launches, stats
@@ -1625,6 +1776,81 @@ def phase_spec(bf16_params):
     return stats
 
 
+def phase_serve_w8a8(paths: dict) -> dict:
+    """The fused server with both W8A8 knobs on: the serve phase's requests,
+    its K1 check, and the quantize and GEMM counts rising."""
+    executor, _, stats = phase_serve(
+        paths, {"LLM_WEIGHT_QUANT": "int8", "ENCODER_WEIGHT_QUANT": "int8"}, "serve_w8a8")
+    from rag_inference_pipeline_tpu_torch.models.layers import QuantizedEmbed, QuantizedLinear
+
+    check(isinstance(executor.llm.params.embed, QuantizedEmbed)
+          and isinstance(executor.embedder.params.layers[0].q_w, QuantizedLinear)
+          and isinstance(executor.sentiment.params.classifier.w, QuantizedLinear),
+          "serve_w8a8: the served trees are not quantized")
+    check(stats["w8a8_gemm_launches"] > 0 and stats["quantize_rows_launches"] > 0,
+          f"serve_w8a8: the W8A8 kernels did not launch on /query ({stats})")
+    return stats
+
+
+def phase_decode_w8a8(bf16_stats: dict) -> dict:
+    """greedy_generate over int8 weights quantized at the source: the step
+    graph against the eager loop at B = 8, beside decode_graph's bf16."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    t0 = time.perf_counter()
+    cfg = qwen.QwenConfig.qwen25_05b()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    params = qwen.init_qwen_params(cfg, generator=g, dtype=torch.bfloat16,
+                                   device=torch.device(DEVICE), quantize=True)
+    n, b = DECODE_NEW, MAIN_B
+    stats = {}
+    with torch.inference_mode():
+        ids, mask = _decode_prompts(b, seed=b)  # decode_graph's B = 8 prompts
+        zero_launches()
+        graph_toks, first_s = _wall(lambda: qwen.greedy_generate(
+            params, cfg, ids, mask, n, eos_token_id=-1))
+        launches = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
+        # the prefill and the capture's warm-up step, eagerly: 7 GEMMs a
+        # layer and the head; 4 quantizations a layer (q/k/v and gate/up
+        # share one) and the head's. The replays count none.
+        want = (2 * (7 * cfg.layers + 1), 2 * (4 * cfg.layers + 1))
+        check(launches == want, f"decode_w8a8: (GEMM, quantize) launches {launches}, "
+              f"not {want}")
+        eager_toks = qwen.greedy_generate_eager(params, cfg, ids, mask, n, eos_token_id=-1)
+        check(torch.equal(graph_toks, eager_toks),
+              "decode_w8a8: graph and eager tokens differ")
+        walls = alternated(lambda f, _: _wall(f)[1], {
+            "eager": lambda: qwen.greedy_generate_eager(params, cfg, ids, mask, n,
+                                                        eos_token_id=-1),
+            "graph": lambda: qwen.greedy_generate(params, cfg, ids, mask, n,
+                                                  eos_token_id=-1),
+        }, 0, rounds=DECODE_ROUNDS)
+        graphs = decode_graph.graphs_of(params)
+        entry = graphs.entries()[0]
+        prof = _profile_steps(params, cfg, entry, ids, mask)
+    stats.update({
+        "int8_b8_eager_ms_per_token": f"{walls['eager'] / n * 1e3:.3f}",
+        "int8_b8_graph_ms_per_token": f"{walls['graph'] / n * 1e3:.3f}",
+        "bf16_b8_eager_ms_per_token": bf16_stats["b8_eager_ms_per_token"],
+        "bf16_b8_graph_ms_per_token": bf16_stats["b8_graph_ms_per_token"],
+        "int8_b8_first_call_s": f"{first_s:.3f}",
+        "int8_b8_capture_s": f"{entry.graph.capture_s:.3f}",
+        "int8_b8_pool_mb": f"{entry.graph.pool_bytes / 2**20:.1f}",
+        "bf16_b8_pool_mb": bf16_stats["b8_pool_mb"],
+        "gemm_launches": launches[0], "quantize_launches": launches[1],
+        "weights_mb": f"{sum(t.numel() * t.element_size() for t in params.state_dict().values()) / 2**20:.1f}",
+    })
+    stats.update({k.replace("b8_", "int8_b8_", 1): v for k, v in prof.items()})
+    del params, graphs, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("decode_w8a8", t0, bit_identical=True, new_tokens=n, batch=b,
+          prompt_bucket=DECODE_BUCKET, **stats)
+    return stats
+
+
 def phase_engine():
     """A DecodeEngine at full width in float32 (32 lanes, cache 1024,
     segment 8), plain and speculative: 16 mixed prompts and budgets, each
@@ -1774,6 +2000,7 @@ def main() -> int:
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
+    w8 = phase_w8a8()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
@@ -1785,6 +2012,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         spec_serve = phase_serve(paths, {"USE_SPECULATIVE_DECODING": "1"}, "serve_spec")
         del spec_serve
+        gc.collect()
+        torch.cuda.empty_cache()
+        w8_serve = phase_serve_w8a8(paths)
         gc.collect()
         torch.cuda.empty_cache()
         corpus, ivf, queries, db_path = phase_ivf_build(workdir)
@@ -1810,11 +2040,12 @@ def main() -> int:
     k7 = phase_k7()
     gc.collect()
     torch.cuda.empty_cache()
-    bf16_params, _ = phase_decode_graph()
+    bf16_params, bf16_stats = phase_decode_graph()
     phase_spec(bf16_params)
     del bf16_params
     gc.collect()
     torch.cuda.empty_cache()
+    phase_decode_w8a8(bf16_stats)
     phase_engine()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "rag_inference_pipeline_tpu" for m in sys.modules),
@@ -1840,6 +2071,11 @@ def main() -> int:
         entry("ivfpq4_adc", f"{jax_ops}/pq.py:432", k6_launches, k6),
         entry("kv_row_insert", "scripts/bench_decode_anatomy.py:88", k7["launches"], k7),
         entry("stream", "scripts/bench_kernel.py:171", k8["launches"], k8),
+        # no Pallas kernel: the reference's XLA _qdense and quantize_act_rows
+        entry("w8a8_gemm", "rag_inference_pipeline_tpu/models/layers.py:92",
+              w8_serve["w8a8_gemm_launches"], w8["gemm"]),
+        entry("w8a8_quant", "rag_inference_pipeline_tpu/models/layers.py:80",
+              w8_serve["quantize_rows_launches"], w8["quant"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

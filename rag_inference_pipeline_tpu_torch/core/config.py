@@ -88,7 +88,8 @@ class Settings:
     # verify rounds per engine segment when the engine and speculation are
     # both on (engine/decode_engine.py)
     speculative_rounds: int = 2
-    # refused at load until the port carries them (W8A8)
+    # W8A8-dynamic int8 weights: none | int8 (the decoder quantized at the
+    # source, the four encoders after load; ops/w8a8.py)
     llm_weight_quant: str = "none"
     encoder_weight_quant: str = "none"
 
@@ -130,7 +131,11 @@ class Settings:
     kv_cache_max_len: int = 1024
 
     def __post_init__(self) -> None:
-        """The reference's `_check_pq` model validator."""
+        """The reference's `_check_pq` model validator and its
+        `_check_weight_quant` field validator."""
+        for name in ("llm_weight_quant", "encoder_weight_quant"):
+            if getattr(self, name) not in ("none", "int8"):
+                raise ValueError(f"{name} must be 'none' or 'int8'")
         if self.index_dim % self.index_pq_m != 0:
             raise ValueError(
                 f"index_dim ({self.index_dim}) must be divisible by "

@@ -10,7 +10,15 @@ from typing import Optional
 
 import torch
 
-from .layers import ParamTree, dense, encoder_attention, gelu, layer_norm
+from .layers import (
+    ParamTree,
+    dense,
+    encoder_attention,
+    gelu,
+    layer_norm,
+    quantize_linear,
+    quantize_shared,
+)
 
 
 @dataclass(frozen=True)
@@ -124,6 +132,25 @@ def init_bert_params(
     return ParamTree(tree)
 
 
+_QUANT_KEYS = ("q_w", "k_w", "v_w", "o_w", "ffn_in_w", "ffn_out_w")
+
+
+def quantize_bert_params(params: ParamTree) -> ParamTree:
+    """The W8A8 tree of `params`, as the reference's `quantize_bert_params`
+    (`rag_inference_pipeline_tpu/models/bert.py:135-170`): the q/k/v/o and
+    FFN projections, the pooler and the classifier become
+    `QuantizedLinear`; the embedding tables, LayerNorms and biases are the
+    same tensors. `params` itself is left as it is."""
+    tree = params.to_tree()
+    tree["pooler"]["w"] = quantize_linear(tree["pooler"]["w"])
+    if "classifier" in tree:
+        tree["classifier"]["w"] = quantize_linear(tree["classifier"]["w"])
+    for lp in tree["layers"]:
+        for k in _QUANT_KEYS:
+            lp[k] = quantize_linear(lp[k])
+    return ParamTree(tree)
+
+
 def bert_encode(
     params: ParamTree,
     cfg: BertConfig,
@@ -144,9 +171,10 @@ def bert_encode(
     x = layer_norm(x, emb.ln_w, emb.ln_b, cfg.eps)
     dh = cfg.hidden // cfg.heads
     for lp in params.layers:
-        q = dense(x, lp.q_w, lp.q_b).reshape(b, t, cfg.heads, dh)
-        k = dense(x, lp.k_w, lp.k_b).reshape(b, t, cfg.heads, dh)
-        v = dense(x, lp.v_w, lp.v_b).reshape(b, t, cfg.heads, dh)
+        xq = quantize_shared(x, lp.q_w)
+        q = dense(x, lp.q_w, lp.q_b, xq=xq).reshape(b, t, cfg.heads, dh)
+        k = dense(x, lp.k_w, lp.k_b, xq=xq).reshape(b, t, cfg.heads, dh)
+        v = dense(x, lp.v_w, lp.v_b, xq=xq).reshape(b, t, cfg.heads, dh)
         a = encoder_attention(q, k, v, attn_mask).reshape(b, t, cfg.hidden)
         x = layer_norm(
             x + dense(a, lp.o_w, lp.o_b), lp.attn_ln_w, lp.attn_ln_b, cfg.eps

@@ -29,7 +29,13 @@ from ..core.config import Settings
 from ..core.device import torch_dtype
 from ..utils.cache import LRUCache
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
-from .bert import BertConfig, bert_classify, bert_embed, init_bert_params
+from .bert import (
+    BertConfig,
+    bert_classify,
+    bert_embed,
+    init_bert_params,
+    quantize_bert_params,
+)
 from .qwen import (
     QwenConfig,
     greedy_generate,
@@ -123,8 +129,6 @@ class _BertBase:
 
     def load(self) -> None:
         s = self.settings
-        if s.encoder_weight_quant != "none":
-            raise NotImplementedError("ENCODER_WEIGHT_QUANT is not ported yet")
         _check_no_checkpoint(s, self.model_name)
         logger.warning(
             "%s: no local weights for %s — random init",
@@ -134,6 +138,10 @@ class _BertBase:
             self.cfg, generator=_generator(self.device),
             dtype=torch_dtype(s.param_dtype), device=self.device,
         )
+        if s.encoder_weight_quant == "int8":
+            # W8A8-dynamic encoder, quantized after load as the reference's
+            # components do
+            self.params = quantize_bert_params(self.params)
         self.random_weights = True
         self.tokenizer = make_tokenizer(
             self.model_name, s.model_weights_dir,
@@ -304,13 +312,14 @@ class LLMComponent:
 
     def load(self) -> None:
         s = self.settings
-        if s.llm_weight_quant != "none":
-            raise NotImplementedError("LLM_WEIGHT_QUANT is not ported yet")
         _check_no_checkpoint(s, self.model_name)
         logger.warning("LLM: no local weights for %s — random init", self.model_name)
+        # W8A8-dynamic int8 at the source: each matmul leaf is quantized as
+        # it is drawn, so the full-precision tree never exists
         self.params = init_qwen_params(
             self.cfg, generator=_generator(self.device),
             dtype=torch_dtype(s.param_dtype), device=self.device,
+            quantize=s.llm_weight_quant == "int8",
         )
         self.random_weights = True
         fam_llama = self.model_name.lower().startswith("meta-llama")

@@ -8,6 +8,8 @@ softmax, attention scores) run in float32 here too.
 Parameters live in a `ParamTree`: the JAX parameter tree (nested dicts and
 lists of arrays) as an `nn.Module`, so `state_dict` keys are the tree's
 paths (`layers.3.q_w`) and the model functions read `params.layers[3].q_w`.
+A W8A8 leaf is a `QuantizedLinear` or `QuantizedEmbed` module in the tree
+(`layers.3.q_w.q`, `layers.3.q_w.s`); `dense` dispatches on it.
 """
 
 from __future__ import annotations
@@ -18,16 +20,21 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.w8a8 import int8_scale, quantize_rows, w8a8_gemm
+
 
 class ParamTree(nn.Module):
     """A JAX-style parameter tree as a module: dicts become submodules,
-    lists `nn.ModuleList`s, tensors frozen `nn.Parameter`s."""
+    lists `nn.ModuleList`s, tensors frozen `nn.Parameter`s, and a module
+    leaf (`QuantizedLinear`, `QuantizedEmbed`) stays itself."""
 
     def __init__(self, tree: dict) -> None:
         super().__init__()
         for name, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(name, ParamTree(v))
+            elif isinstance(v, nn.Module):
+                self.add_module(name, v)
             elif isinstance(v, (list, tuple)):
                 self.add_module(name, nn.ModuleList(ParamTree(x) for x in v))
             else:
@@ -38,6 +45,91 @@ class ParamTree(nn.Module):
     def get(self, name: str, default=None):
         """Optional leaf (e.g. `q_b`, present only with qkv bias)."""
         return getattr(self, name, default)
+
+    def to_tree(self) -> dict:
+        """The nested dicts and lists this tree was built from (the same
+        tensors and module leaves, not copies)."""
+        out: dict = dict(self._parameters)
+        for name, m in self._modules.items():
+            if isinstance(m, ParamTree):
+                out[name] = m.to_tree()
+            elif isinstance(m, nn.ModuleList):
+                out[name] = [x.to_tree() for x in m]
+            else:
+                out[name] = m
+        return out
+
+
+class _Int8Weight(nn.Module):
+    """An int8 `q` and its f32 scales `s`, as buffers. The scales stay
+    float32 whatever dtype the tree is moved to: `.to(torch.bfloat16)`
+    moves them, and casts nothing here (`q` is not floating point)."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+    def _apply(self, fn, recurse=True):
+        s = self.s
+        super()._apply(fn, recurse)
+        if self.s.dtype != torch.float32:  # a dtype cast: move, keep f32
+            self.s = s.to(self.s.device)
+        return self
+
+
+class QuantizedLinear(_Int8Weight):
+    """Weight-only int8 linear of the W8A8-dynamic path: w ~= q.T * s.
+
+    `q` is [out, in] int8, the TRANSPOSE of the reference's [in, out]
+    `QuantizedLinear.q` (`rag_inference_pipeline_tpu/models/layers.py:36-53`):
+    the s8 tensor-core GEMM (`ops/w8a8.py`) wants K contiguous. `s` is
+    [out] f32, one scale per output column, as in the reference."""
+
+
+class QuantizedEmbed(_Int8Weight):
+    """int8 token-embedding table: `q` [V, H] int8 with per-row scales `s`
+    [V] f32, the reference's layout (`layers.py:56-65`). The tied head
+    contracts H against it with no transpose."""
+
+
+def quantize_linear(w: torch.Tensor) -> QuantizedLinear:
+    """Symmetric per-output-column int8 quantization of an [in, out]
+    weight, as the reference's `quantize_linear` (`layers.py:64-69`): f32,
+    s = max(max|w| over in, 1e-8) / 127, q = clip(round(w / s), -127, 127)
+    (half to even, an IEEE division); q stored [out, in]."""
+    w32 = w.float()
+    s = int8_scale(w32.abs().amax(dim=0))
+    q = torch.clamp(torch.round(w32 / s[None, :]), -127, 127).to(torch.int8)
+    return QuantizedLinear(q.T.contiguous(), s)
+
+
+def quantize_embed(w: torch.Tensor) -> QuantizedEmbed:
+    """Symmetric per-row int8 quantization of a [V, H] table
+    (`layers.py:72-77`)."""
+    w32 = w.float()
+    s = int8_scale(w32.abs().amax(dim=1))
+    q = torch.clamp(torch.round(w32 / s[:, None]), -127, 127).to(torch.int8)
+    return QuantizedEmbed(q, s)
+
+
+def quantize_act_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric int8 quantization over the last axis ->
+    (q int8 of x's shape, scales f32 [..., 1]), as the reference's
+    `quantize_act_rows` (`layers.py:80-89`): the `quantize_rows` kernel on
+    CUDA tensors, its plain version on the CPU."""
+    q, s = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+    return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
+
+
+def quantize_shared(x: torch.Tensor, w) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+    """The int8 rows of x ([..., K] -> (q [M, K], s [M])) for several
+    `dense` calls over quantized weights that share x (q/k/v, gate/up): the
+    quantization is deterministic, so once serves them all. None when `w`
+    is not quantized."""
+    if not isinstance(w, QuantizedLinear):
+        return None
+    return quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-12):
@@ -54,8 +146,18 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps) * weight).to(x.dtype)
 
 
-def dense(x, w, b=None):
-    """x @ w ([in, out] weight) with f32 accumulation, in x's dtype."""
+def dense(x, w, b=None, *, xq=None):
+    """x @ w ([in, out] weight) with f32 accumulation, in x's dtype.
+
+    Over a `QuantizedLinear` this is the reference's W8A8 `dense`
+    (`layers.py:92-110`): x quantized per row (or `xq`, from
+    `quantize_shared`), the exact s8 product, (f32(acc) * xs) * s cast to
+    x's dtype, then the bias added in that dtype, all in `ops/w8a8.py`."""
+    if isinstance(w, QuantizedLinear):
+        if xq is None:
+            xq = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+        y = w8a8_gemm(*xq, w.q, w.s, b, out_dtype=x.dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b

@@ -25,7 +25,21 @@ from typing import Optional
 import torch
 
 from . import decode_graph
-from .layers import ParamTree, attention, dense, rms_norm, rope_at, rope_frequencies, rotate
+from ..ops.w8a8 import quantize_rows, w8a8_gemm
+from .layers import (
+    ParamTree,
+    QuantizedEmbed,
+    QuantizedLinear,
+    attention,
+    dense,
+    quantize_embed,
+    quantize_linear,
+    quantize_shared,
+    rms_norm,
+    rope_at,
+    rope_frequencies,
+    rotate,
+)
 
 
 @dataclass(frozen=True)
@@ -85,15 +99,26 @@ def init_qwen_params(
     generator: Optional[torch.Generator],
     dtype: torch.dtype = torch.float32,
     device=None,
+    quantize: bool = False,
 ) -> ParamTree:
     """Random init with the reference's tree layout and distributions.
-    `device="meta"` with no generator builds the bare skeleton."""
+    `device="meta"` with no generator builds the bare skeleton.
+
+    `quantize` builds the W8A8 tree at the source, as the reference's
+    `init_qwen_params_int8` (`rag_inference_pipeline_tpu/models/qwen.py:156-204`):
+    each matmul leaf is drawn in `dtype` and quantized before the next is
+    drawn, so the full-precision tree never exists; bitwise equal to
+    `quantize_qwen_params(init_qwen_params(...))` from the same generator
+    state."""
     std = 0.02
 
     def w(*shape):
         return (
             std * torch.randn(shape, generator=generator, device=device)
         ).to(dtype)
+
+    def wq(*shape):
+        return quantize_linear(w(*shape)) if quantize else w(*shape)
 
     def ones(n):
         return torch.ones(n, dtype=dtype, device=device)
@@ -104,25 +129,57 @@ def init_qwen_params(
     h = cfg.hidden
     qd = cfg.heads * cfg.head_dim
     kvd = cfg.kv_heads * cfg.head_dim
-    tree = {"embed": w(cfg.vocab_size, h), "final_ln": ones(h), "layers": []}
+    embed = w(cfg.vocab_size, h)
+    tree = {"embed": quantize_embed(embed) if quantize else embed,
+            "final_ln": ones(h), "layers": []}
+    del embed  # with `quantize`, the full-precision table goes before the layers
     if not cfg.tie_embeddings:
-        tree["lm_head"] = w(h, cfg.vocab_size)
+        tree["lm_head"] = wq(h, cfg.vocab_size)
     for _ in range(cfg.layers):
         lp = {
             "in_ln": ones(h),
-            "q_w": w(h, qd),
-            "k_w": w(h, kvd),
-            "v_w": w(h, kvd),
-            "o_w": w(qd, h),
+            "q_w": wq(h, qd),
+            "k_w": wq(h, kvd),
+            "v_w": wq(h, kvd),
+            "o_w": wq(qd, h),
             "post_ln": ones(h),
-            "gate_w": w(h, cfg.intermediate),
-            "up_w": w(h, cfg.intermediate),
-            "down_w": w(cfg.intermediate, h),
+            "gate_w": wq(h, cfg.intermediate),
+            "up_w": wq(h, cfg.intermediate),
+            "down_w": wq(cfg.intermediate, h),
         }
         if cfg.qkv_bias:
             lp.update(q_b=zeros(qd), k_b=zeros(kvd), v_b=zeros(kvd))
         tree["layers"].append(lp)
     return ParamTree(tree)
+
+
+_QUANT_KEYS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+
+
+def quantize_qwen_params(params: ParamTree) -> ParamTree:
+    """The W8A8 tree of `params`, as the reference's `quantize_qwen_params`
+    (`qwen.py:207-227`): the projections and an untied `lm_head` become
+    `QuantizedLinear`, the embedding a `QuantizedEmbed`; norms and biases
+    are the same tensors. `params` itself is left as it is."""
+    tree = params.to_tree()
+    tree["embed"] = quantize_embed(tree["embed"])
+    if "lm_head" in tree:
+        tree["lm_head"] = quantize_linear(tree["lm_head"])
+    for lp in tree["layers"]:
+        for k in _QUANT_KEYS:
+            lp[k] = quantize_linear(lp[k])
+    return ParamTree(tree)
+
+
+def _embed_rows(params: ParamTree, ids: torch.Tensor) -> torch.Tensor:
+    """Token-embedding rows; an int8 table dequantizes per row, f32(q) *
+    s, cast to the model's dtype (`final_ln`'s), as the reference's
+    `_embed_rows` (`qwen.py:235-242`)."""
+    e = params.embed
+    ids = ids.long()
+    if isinstance(e, QuantizedEmbed):
+        return (e.q[ids].float() * e.s[ids][..., None]).to(params.final_ln.dtype)
+    return e[ids]
 
 
 class KVCache:
@@ -163,9 +220,10 @@ def _block(
 ) -> torch.Tensor:
     b, t, _ = x.shape
     y = rms_norm(x, lp.in_ln, cfg.eps)
-    q = dense(y, lp.q_w, lp.get("q_b")).reshape(b, t, cfg.heads, cfg.head_dim)
-    k = dense(y, lp.k_w, lp.get("k_b")).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    v = dense(y, lp.v_w, lp.get("v_b")).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    yq = quantize_shared(y, lp.q_w)
+    q = dense(y, lp.q_w, lp.get("q_b"), xq=yq).reshape(b, t, cfg.heads, cfg.head_dim)
+    k = dense(y, lp.k_w, lp.get("k_b"), xq=yq).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    v = dense(y, lp.v_w, lp.get("v_b"), xq=yq).reshape(b, t, cfg.kv_heads, cfg.head_dim)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
     s_len = cache_k.shape[1]
@@ -195,16 +253,29 @@ def _block(
     a = attention(q, cache_k, cache_v, mask).reshape(b, t, -1)
     x = x + dense(a, lp.o_w)
     y = rms_norm(x, lp.post_ln, cfg.eps)
-    ff = torch.nn.functional.silu(dense(y, lp.gate_w)) * dense(y, lp.up_w)
+    yq = quantize_shared(y, lp.gate_w)
+    ff = (torch.nn.functional.silu(dense(y, lp.gate_w, xq=yq))
+          * dense(y, lp.up_w, xq=yq))
     return x + dense(ff, lp.down_w)
 
 
 def _logits(params: ParamTree, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits: the head product runs in float32, as in the reference."""
-    y = rms_norm(x, params.final_ln, cfg.eps).float()
+    """f32 logits: the head product runs in float32, as in the reference.
+    An int8 head (the tied `QuantizedEmbed`, or an untied `QuantizedLinear`
+    `lm_head`: both [V, H] here) is the reference's W8A8 branch
+    (`qwen.py:309-327`): the quantized rows of the normed x against it,
+    f32(acc) * ys * s, kept in f32."""
+    y = rms_norm(x, params.final_ln, cfg.eps)
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+    if (isinstance(head, QuantizedEmbed) if cfg.tie_embeddings
+            else isinstance(head, QuantizedLinear)):
+        yq, ys = quantize_rows(y.reshape(-1, y.shape[-1]).contiguous())
+        out = w8a8_gemm(yq, ys, head.q, head.s, out_dtype=torch.float32)
+        return out.reshape(*y.shape[:-1], out.shape[-1])
+    y = y.float()
     if cfg.tie_embeddings:
-        return torch.matmul(y, params.embed.float().T)
-    return torch.matmul(y, params.lm_head.float())
+        return torch.matmul(y, head.float().T)
+    return torch.matmul(y, head.float())
 
 
 def _layers(params, cfg, x, positions, cache: KVCache, mask) -> torch.Tensor:
@@ -232,7 +303,7 @@ def qwen_prefill(
     cols = torch.arange(s, device=dev)[None, :]
     causal = (cols <= rows)[None, None]
     valid_key = (cols[None] < lengths[:, None, None])[:, None]
-    x = _layers(params, cfg, params.embed[input_ids.long()], positions, cache,
+    x = _layers(params, cfg, _embed_rows(params, input_ids), positions, cache,
                 causal & valid_key)
     cache.length.copy_(lengths)
     last = x[torch.arange(b, device=dev), torch.clamp(lengths.long() - 1, min=0)]
@@ -251,7 +322,7 @@ def qwen_decode_step(
     positions = cache.length.long()[:, None]  # [B, 1]
     cols = torch.arange(s, device=tokens.device)[None, :]
     mask = (cols[None] <= positions[:, :, None])[:, None]  # [B,1,1,S]
-    x = _layers(params, cfg, params.embed[tokens.long()][:, None, :], positions,
+    x = _layers(params, cfg, _embed_rows(params, tokens)[:, None, :], positions,
                 cache, mask)
     cache.length.add_(1)
     return _logits(params, cfg, x)[:, 0], cache
@@ -276,7 +347,7 @@ def qwen_extend(
     positions = cache.length.long()[:, None] + torch.arange(t, device=dev)[None]
     cols = torch.arange(s, device=dev)[None, None, :]
     mask = (cols <= positions[:, :, None])[:, None]  # [B, 1, T, S]
-    x = _layers(params, cfg, params.embed[tokens.long()], positions, cache, mask)
+    x = _layers(params, cfg, _embed_rows(params, tokens), positions, cache, mask)
     cache.length.add_(t)
     return _logits(params, cfg, x), cache
 

@@ -150,6 +150,13 @@ def load_library() -> ctypes.CDLL:
             # lut, codes, slots, sizes, out, b_pad, m, n_slots, cap, m_store,
             # stream
             "ragtorch_ivfpq4_adc": [vp] * 5 + [i32] * 5 + [vp],
+            # xq, xs, wq, ws, bias (or null), out, part (or null), M, N, K,
+            # splits, out_kind, stream
+            "ragtorch_w8a8_gemm": [vp] * 7 + [i32] * 5 + [vp],
+            # M, N, K, SMs -> K splits (no stream: a host query)
+            "ragtorch_w8a8_splits": [i32] * 4,
+            # x, q, s, M, K, in_kind, stream
+            "ragtorch_w8a8_quantize_rows": [vp] * 3 + [i32] * 3 + [vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)

@@ -22,7 +22,7 @@ call restores the per-layer caches from the warm prefill (2 x layers
 copies, inside the timing: well under 1% of a call).
 
 Each variant is timed twice: eagerly, every op issued from Python (row
-`bf16_b{B}_{variant}`), and as one CUDA graph of the whole call, as the
+`{weights}_b{B}_{variant}`), and as one CUDA graph of the whole call, as the
 reference times one jitted scan of `--length` steps (row
 `..._graph`). The graph is captured once per batch and variant
 (`models/decode_graph.py`), then replayed with a new start token per call;
@@ -38,8 +38,10 @@ counted by name in a torch.profiler trace (`graph_k7_per_replay`).
 Without `--smoke` it runs Qwen2.5-0.5B at full width with random bf16
 weights on the card (prompt 128, cache 384) and raises without one;
 `--smoke` runs the tiny config in float32 on the CPU (host clock: no
-device number). Weights are bf16 only: the reference's int8 rows need
-the W8A8 path, which the port does not carry yet (ROADMAP Queue 1 item 5).
+device number). `--weights int8` runs the same decoder with W8A8 weights
+quantized at the source (`init_qwen_params(..., quantize=True)`): every
+projection and the tied head on the s8 GEMM of `ops/w8a8.py`, the
+reference's int8 rows (`scripts/bench_decode_anatomy.py:243`).
 Results go to `build/bench/decode_anatomy.json`, or `--out`.
 """
 
@@ -60,6 +62,7 @@ from ..models import decode_graph
 from ..models.qwen import (
     KVCache,
     QwenConfig,
+    _embed_rows,
     _logits,
     _rope_tables,
     init_qwen_params,
@@ -101,7 +104,7 @@ def step_variant(params, cfg: QwenConfig, tok: torch.Tensor, ck: list,
     in place or replaced); returns the next token [B] int32."""
     b = tok.shape[0]
     cos, sin = _rope_tables(cfg, tok.device)
-    x = params.embed[tok.long()][:, None, :]
+    x = _embed_rows(params, tok)[:, None, :]
     pos2 = positions.long()[:, None]
     s = ck[0].shape[1]
     span = torch.arange(s, device=tok.device)[None, None, None, :] <= pos2[:, :, None, None]
@@ -131,13 +134,15 @@ def step_variant(params, cfg: QwenConfig, tok: torch.Tensor, ck: list,
     return torch.argmax(_logits(params, cfg, x)[:, 0], dim=-1).to(torch.int32)
 
 
-def make_model(smoke: bool, device: torch.device):
+def make_model(smoke: bool, device: torch.device, int8: bool = False):
     """(cfg, params): the tiny config in float32, or Qwen2.5-0.5B in bf16,
-    random weights from seed 0."""
+    random weights from seed 0; with `int8`, W8A8 weights quantized at the
+    source."""
     cfg = QwenConfig.tiny() if smoke else QwenConfig.qwen25_05b()
     dtype = torch.float32 if smoke else torch.bfloat16
     g = torch.Generator(device=device).manual_seed(0)
-    return cfg, init_qwen_params(cfg, generator=g, dtype=dtype, device=device)
+    return cfg, init_qwen_params(cfg, generator=g, dtype=dtype, device=device,
+                                 quantize=int8)
 
 
 def warm_cache(params, cfg: QwenConfig, b: int, t_prompt: int, cache_len: int,
@@ -226,7 +231,7 @@ def _timed(call, tok0, reps: int, length: int, vocab: int) -> tuple[torch.Tensor
 
 def probe(params, cfg: QwenConfig, batches, length: int, reps: int,
           cache_len: int, t_prompt: int, graphs: bool = False,
-          k7_graph: Optional[dict] = None) -> dict:
+          k7_graph: Optional[dict] = None, weights: str = "bf16") -> dict:
     """ms per step of every variant at every batch size, eager and (with
     `graphs`) as a replayed graph, and the insert variants' token agreement
     with `full`. With `graphs`, `k7_graph[B]` gets the K7 launches that one
@@ -240,29 +245,30 @@ def probe(params, cfg: QwenConfig, batches, length: int, reps: int,
         for variant in VARIANTS:
             call = make_loop(params, cfg, variant, warm, length)
             first, ms = _timed(call, tok0, reps, length, cfg.vocab_size)
-            rows[f"bf16_b{b}_{variant}"] = ms
+            tag = f"{weights}_b{b}_{variant}"
+            rows[tag] = ms
             if graphs:
                 replay, graph = graph_call(call, tok0)
                 g_first, g_ms = _timed(replay, tok0, reps, length, cfg.vocab_size)
                 if not torch.equal(g_first, first):
                     raise RuntimeError(f"{variant} at B={b}: the graph's tokens "
                                        "differ from the eager call's")
-                rows[f"bf16_b{b}_{variant}_graph"] = g_ms
-                rows[f"bf16_b{b}_{variant}_graph_capture_s"] = graph.capture_s
+                rows[f"{tag}_graph"] = g_ms
+                rows[f"{tag}_graph_capture_s"] = graph.capture_s
                 if variant == "kernel":
                     # K7 nodes a replay runs, read from the device's trace
                     k7_graph[b] = traced_launches(lambda: replay(tok0), K7_KERNEL)
-                print(f"bf16 B={b} {variant}: graph {g_ms:.3f} ms/step", flush=True)
+                print(f"{weights} B={b} {variant}: graph {g_ms:.3f} ms/step", flush=True)
                 del replay, graph
             if variant == "full":
                 ref_tok = first
             elif variant in INSERTS:
                 agree = float((first == ref_tok).float().mean())
-                rows[f"bf16_b{b}_{variant}_agree"] = agree
+                rows[f"{tag}_agree"] = agree
                 if agree < AGREE_BAR:
                     raise RuntimeError(f"{variant} at B={b}: tokens agree with "
                                        f"full on {agree:.3f} of the lanes")
-            print(f"bf16 B={b} {variant}: {ms:.3f} ms/step", flush=True)
+            print(f"{weights} B={b} {variant}: {ms:.3f} ms/step", flush=True)
     return rows
 
 
@@ -281,12 +287,6 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[list[str]] = None) -> dict:
     args = parse_args(argv)
-    if args.weights != "bf16":
-        raise NotImplementedError(
-            "--weights int8 needs the W8A8 decoder (quantize_qwen_params, "
-            "_qdense, QuantizedEmbed), which the port does not carry yet: "
-            "ROADMAP Queue 1 item 5"
-        )
     dev = resolve_device("cpu" if args.smoke else None)
     length = 4 if args.smoke else args.length
     cache_len = 32 if args.smoke else args.cache_len
@@ -295,10 +295,11 @@ def main(argv: Optional[list[str]] = None) -> dict:
     print(f"device={kind} L={length}", flush=True)
     graphs = decode_graph.uses_graphs(dev)
     with torch.inference_mode():
-        cfg, params = make_model(args.smoke, dev)
+        cfg, params = make_model(args.smoke, dev, int8=args.weights == "int8")
         k7_graph: dict = {}
         rows = probe(params, cfg, args.batches, length, args.reps, cache_len,
-                     t_prompt, graphs=graphs, k7_graph=k7_graph)
+                     t_prompt, graphs=graphs, k7_graph=k7_graph,
+                     weights=args.weights)
     out = {"device": kind, "length": length, "reps": args.reps,
            "cache_len": cache_len, "t_prompt": t_prompt, "layers": cfg.layers,
            "batches": args.batches, "weights": args.weights,

@@ -167,6 +167,30 @@ def test_greedy_graph_matches_eager(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_greedy_graph_matches_eager(dtype):
+    """W8A8 weights: the step graph replays the quantize and GEMM kernels
+    the eager step launches, tokens bit for bit; the wrappers count the
+    eager launches (prefill, the capture's warm-up), none of the replays."""
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    dev = _cuda()
+    params = tqwen.quantize_qwen_params(_params(dev, dtype))
+    ids, mask = _batch(dev, seed=6)
+    w8a8.w8a8_gemm.launches = w8a8.quantize_rows.launches = 0
+    got = tqwen.greedy_generate(params, CFG, ids, mask, 10, eos_token_id=EOS)
+    # per step: 7 GEMMs a layer and the head; 4 quantizations a layer
+    # (q/k/v and gate/up share theirs) and the head's
+    per_step = (7 * CFG.layers + 1, 4 * CFG.layers + 1)
+    # prefill and the warm-up step before the capture, none of 9 replays
+    assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches) == tuple(
+        2 * n for n in per_step)
+    want = tqwen.greedy_generate_eager(params, CFG, ids, mask, 10, eos_token_id=EOS)
+    assert torch.equal(got, want)
+    assert len(decode_graph.graphs_of(params)) == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("inject", [None, 0.8])
 def test_speculative_graph_matches_eager(inject):
     """The verify round replayed as a graph, its loop condition read on the
@@ -183,6 +207,34 @@ def test_speculative_graph_matches_eager(inject):
     if inject is None:
         assert torch.equal(got, tqwen.greedy_generate(params, CFG, ids, mask, 12,
                                                       eos_token_id=EOS))
+
+
+@pytest.mark.cuda
+def test_int8_speculation_and_engine_match_greedy():
+    """Over W8A8 weights on the card: the speculative verify-round graph
+    gives the eager loop's tokens and greedy's; the engine (its segment a
+    graph) gives every request's solo greedy tokens."""
+    dev = _cuda()
+    params = tqwen.quantize_qwen_params(_params(dev, scale=1.0))
+    ids, mask = _batch(dev, seed=7)
+    ids[0, -6:] = 7
+    mask[0] = 1
+    kw = dict(gamma=4, eos_token_id=EOS)
+    got, mean = tqwen.ngram_speculative_generate(params, CFG, ids, mask, 12, **kw)
+    want, mean_e = tqwen.ngram_speculative_generate_eager(params, CFG, ids, mask, 12, **kw)
+    assert torch.equal(got, want) and float(mean) == float(mean_e)
+    assert torch.equal(got, tqwen.greedy_generate(params, CFG, ids, mask, 12,
+                                                  eos_token_id=EOS))
+    rng = np.random.default_rng(8)
+    jobs = [(rng.integers(1, CFG.vocab_size - 1, n).astype(np.int32), m)
+            for n, m in ((6, 9), (11, 4), (3, 12))]
+    eng = DecodeEngine(params, CFG, lanes=4, cache_len=64, segment_steps=4,
+                       eos_token_id=EOS, admit_buckets=(1, 2, 4), prefill_buckets=(8, 16))
+    for (p, m), out in zip(jobs, _serve(eng, jobs)):
+        t = torch.from_numpy(p[None]).to(dev)
+        ref = tqwen.greedy_generate(params, CFG, t, torch.ones_like(t), m,
+                                    eos_token_id=EOS)[0]
+        assert list(out) == ref[: len(out)].tolist() and len(out) >= 1
 
 
 @pytest.mark.cuda

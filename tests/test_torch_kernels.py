@@ -1,6 +1,7 @@
 """The kernel wrappers without the JAX package: the K1 wrapper's CPU
 dispatch and plain version and the shared launch helper here, and every
-hand-written CUDA kernel (K1 to K8) against its plain version on a card.
+hand-written CUDA kernel (K1 to K8, and the W8A8 quantize and GEMM)
+against its plain version on a card.
 
 This file imports no jax, so the card tests run on a machine without it:
 
@@ -705,3 +706,86 @@ def test_k8_kernel_matches_plain_on_card(n, d, chunk):
     strided = torch.zeros((64, d + 8), dtype=torch.int8, device="cuda")[:, 8:]
     with pytest.raises(ValueError, match="16-byte"):
         stream.stream_sum(q, strided, 8)
+
+
+def _w8a8_rows(g, m, k, dtype):
+    """Activations with a zero row and a row of exact ties (abs-max 127, so
+    the scale is 1 and k + 0.5 values round half to even)."""
+    x = torch.randn(m, k, generator=g, device="cuda") * 3
+    x[0] = 0
+    if m > 1:
+        x[1] = torch.tensor([127.0, 0.5, 1.5, -2.5, 125.5] * k, device="cuda")[:k]
+    return x.to(dtype)
+
+
+# M in {1, 5, 8, 17, 300}: one to eight 8-token n-tiles and several token
+# tiles; N in {2, 3} (the classifiers' few labels: tails in N), 128 and
+# 4,864; K 36 (4-byte copies, one ragged chunk), 896 and 4,864 (split K at
+# small M); bf16 and f32 out, with and without a bias
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 8, 17, 300])
+def test_w8a8_kernels_match_plain_on_card(m):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    for k in (36, 896, 4864):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _w8a8_rows(g, m, k, dtype)
+            before = w8a8.quantize_rows.launches
+            q, s = w8a8.quantize_rows(x)
+            pq, ps = w8a8.quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            assert w8a8.quantize_rows.launches == before + 1
+            assert torch.equal(q, pq) and torch.equal(s, ps), (m, k, dtype)
+            for n in (2, 3, 128, 4864):
+                wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                                   dtype=torch.int8)
+                ws = torch.rand(n, generator=g, device="cuda") * 1e-2
+                bias = (torch.randn(n, generator=g, device="cuda") * 0.1).to(dtype)
+                for b in (None, bias):
+                    before = w8a8.w8a8_gemm.launches
+                    got = w8a8.w8a8_gemm(q, s, wq, ws, b, out_dtype=dtype)
+                    want = w8a8.w8a8_gemm_plain(q, s, wq, ws, b, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    assert w8a8.w8a8_gemm.launches == before + 1
+                    assert torch.equal(got, want), (m, n, k, dtype, b is None)
+
+
+@pytest.mark.cuda
+def test_w8a8_gemm_exact_sums_and_unaligned_bases_on_card():
+    """Sums far past 2^24 (every product 127^2 at K = 4,864) stay exact
+    s32; an int8 base 4 bytes off a 16-byte boundary takes the 4-byte
+    copies; the tied head's shape (N = 151,936, f32 out) at B = 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    m, n, k = 8, 96, 4864
+    xq = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+    xq[1::2] = -127
+    wq = torch.full((n, k), 127, dtype=torch.int8, device="cuda")
+    ones_m, ones_n = torch.ones(m, device="cuda"), torch.ones(n, device="cuda")
+    got = w8a8.w8a8_gemm(xq, ones_m, wq, ones_n, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.full((n,), 127.0 * 127 * k, device="cuda"))
+    assert torch.equal(got, w8a8.w8a8_gemm_plain(xq, ones_m, wq, ones_n,
+                                                 out_dtype=torch.float32))
+    buf = torch.randint(-127, 128, (m * 896 + 4,), dtype=torch.int8, device="cuda")
+    xq_off = buf[4:].view(m, 896)
+    assert xq_off.data_ptr() % 16 == 4
+    g = torch.Generator(device="cuda").manual_seed(3)
+    wq = torch.randint(-127, 128, (151_936, 896), generator=g, device="cuda",
+                       dtype=torch.int8)
+    ws = torch.rand(151_936, generator=g, device="cuda") * 1e-3
+    xs = torch.rand(m, generator=g, device="cuda")
+    got = w8a8.w8a8_gemm(xq_off, xs, wq, ws, out_dtype=torch.float32)
+    want = w8a8.w8a8_gemm_plain(xq_off, xs, wq, ws, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        w8a8.w8a8_gemm(xq[:, :30].contiguous(), ones_m, wq[:, :30].contiguous(), ws,
+                       out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        w8a8.quantize_rows(torch.zeros(4, 64, device="cuda").t())

@@ -47,6 +47,7 @@ from rag_inference_pipeline_tpu_torch.index.ivf_flat import IVFFlatIndex
 from rag_inference_pipeline_tpu_torch.index.ivf_pq import IVFPQIndex
 from rag_inference_pipeline_tpu_torch.models import components as tcomp
 from rag_inference_pipeline_tpu_torch.models import qwen as tqwen
+from rag_inference_pipeline_tpu_torch.models.layers import QuantizedEmbed, QuantizedLinear
 from rag_inference_pipeline_tpu_torch.models.weights import (
     bert_params_from_jax,
     qwen_params_from_jax,
@@ -533,3 +534,42 @@ def test_server_serves_query_with_engine_and_speculation(served, engine, spec):
         assert llm.engine is None
     else:
         assert llm.engine is None
+
+
+def test_server_serves_staged_query_with_int8_weights(served):
+    """LLM_WEIGHT_QUANT=int8 and ENCODER_WEIGHT_QUANT=int8 on the staged
+    server: every model component holds a W8A8 tree, and concurrent /query
+    answer through the orchestrator, with the decode engine the same
+    answers as without it (over the same int8 weights)."""
+    start, _ = served
+    knobs = dict(LLM_WEIGHT_QUANT="int8", ENCODER_WEIGHT_QUANT="int8")
+    port, server = start(**knobs)
+    comps = server.app.components
+    assert isinstance(comps["llm"].params.embed, QuantizedEmbed)
+    assert isinstance(comps["llm"].params.layers[0].down_w, QuantizedLinear)
+    for name in ("embedder", "reranker", "sentiment", "toxicity"):
+        assert isinstance(comps[name].params.layers[0].q_w, QuantizedLinear), name
+    assert isinstance(comps["sentiment"].params.classifier.w, QuantizedLinear)
+
+    def answers(port):
+        out = [None] * 3
+
+        def ask(i):
+            out[i] = _req(port, "/query", {"query": f"int8 question {i} about gpu",
+                                           "request_id": f"w{i}"})
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        for i, (st, body) in enumerate(out):
+            assert st == 200 and body["request_id"] == f"w{i}"
+            assert set(body) == {"request_id", "generated_response", "sentiment", "is_toxic"}
+        return [b["generated_response"] for _, b in out]
+
+    eng_port, eng_server = start(**knobs, USE_CONTINUOUS_BATCHING="1",
+                                 KV_CACHE_MAX_LEN="256")
+    assert answers(eng_port) == answers(port)
+    assert eng_server.app.components["llm"].engine.segments > 0

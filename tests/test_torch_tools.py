@@ -15,8 +15,10 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from rag_inference_pipeline_tpu_torch import bench
+from rag_inference_pipeline_tpu_torch.models.layers import QuantizedLinear
 from rag_inference_pipeline_tpu_torch.ops import kv as tkv
 from rag_inference_pipeline_tpu_torch.ops import stream as tstream
+from rag_inference_pipeline_tpu_torch.ops import w8a8
 from rag_inference_pipeline_tpu_torch.tools import bench_decode_anatomy as anatomy
 from rag_inference_pipeline_tpu_torch.tools import bench_kernel as lab
 
@@ -303,9 +305,28 @@ class TestAnatomySmoke:
             for a, b in zip(caches[v][1] + caches[v][2], ref[1] + ref[2]):
                 assert torch.equal(a, b)
 
+    def test_int8_weights_run_every_variant(self, tmp_path):
+        """`--weights int8`: the tiny decoder with W8A8 weights quantized at
+        the source, every variant on the CPU (the GEMM's and the quantize's
+        plain versions), the insert variants agreeing with `full`, rows
+        named by the weights."""
+        before = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
+        out = anatomy.main(["--smoke", "--reps", "1", "--weights", "int8",
+                            "--batches", "2", "--out", str(tmp_path / "a.json")])
+        assert out["weights"] == "int8"
+        for v in anatomy.VARIANTS:
+            assert out["rows"][f"int8_b2_{v}"] > 0
+        for v in anatomy.INSERTS:
+            assert out["rows"][f"int8_b2_{v}_agree"] == 1.0
+        assert not any(k.startswith("bf16") for k in out["rows"])
+        assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches) == before
+        with torch.inference_mode():
+            cfg, params = anatomy.make_model(True, torch.device("cpu"), int8=True)
+        assert isinstance(params.layers[0].gate_w, QuantizedLinear)
+
     def test_refusals(self, monkeypatch):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            anatomy.main(["--smoke", "--weights", "int8"])
+        with pytest.raises(SystemExit):  # argparse: bf16 or int8 only
+            anatomy.main(["--smoke", "--weights", "int4"])
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             anatomy.main([])

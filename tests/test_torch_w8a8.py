@@ -1,0 +1,538 @@
+"""Port parity for W8A8-dynamic int8 weights (LLM_WEIGHT_QUANT and
+ENCODER_WEIGHT_QUANT) on the CPU, where the wrappers of `ops/w8a8.py` run
+their plain versions.
+
+Bit for bit against the JAX package's functions run op by op (as its own
+quantization tests call them): the weight and activation quantizers, the
+W8A8 `dense`, the int8 heads and every quantized leaf carried by the
+weights functions. Under `jax.jit`, XLA rewrites the division by the
+constant 127 into a multiply by its f32 reciprocal, which moves a scale
+by an ulp now and then; the port keeps the program's IEEE division (the
+reference's `layers.py:64-89` as written). So the model-level cases, whose
+JAX side is jitted, hold logits to a stated tolerance and tokens
+identical, a token allowed to differ only at a step whose top two logits
+lie within NEAR_TIE (each such step printed).
+"""
+
+import asyncio
+import dataclasses
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rag_inference_pipeline_tpu.core import make_mesh
+from rag_inference_pipeline_tpu.engine.device_pipeline import (
+    DeviceRAGPipeline as JPipeline,
+)
+from rag_inference_pipeline_tpu.models import bert as jbert
+from rag_inference_pipeline_tpu.models import layers as jlayers
+from rag_inference_pipeline_tpu.models import qwen as jqwen
+from rag_inference_pipeline_tpu_torch.core.config import Settings, load_settings
+from rag_inference_pipeline_tpu_torch.engine.decode_engine import DecodeEngine
+from rag_inference_pipeline_tpu_torch.engine.device_pipeline import (
+    DeviceRAGPipeline as TPipeline,
+)
+from rag_inference_pipeline_tpu_torch.models import bert as tbert
+from rag_inference_pipeline_tpu_torch.models import components as tcomp
+from rag_inference_pipeline_tpu_torch.models import layers as tlayers
+from rag_inference_pipeline_tpu_torch.models import qwen as tqwen
+from rag_inference_pipeline_tpu_torch.models.weights import (
+    bert_params_from_jax,
+    qwen_params_from_jax,
+)
+from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+CPU = torch.device("cpu")
+NEAR_TIE = 1e-4  # f32 logits, as the decode tests hold speculation and the engine
+DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _pair(a: np.ndarray, jdt, tdt):
+    """The same values as a JAX array of `jdt` and a tensor of `tdt`."""
+    j = jnp.asarray(a).astype(jdt)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _tied_values(rng, rows, cols, axis):
+    """Random values with planted cases along `axis` (the reduction axis of
+    the scale): an all-zero line (scale 1e-8/127), and a line whose
+    abs-max is 127 (scale exactly 1) holding k + 0.5 values, which the
+    division leaves exactly on a tie (rounds half to even)."""
+    a = rng.standard_normal((rows, cols)).astype(np.float32)
+    line = np.array([127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 125.5, -126.5], np.float32)
+    if axis == 0:
+        a[:, 1] = 0.0
+        a[: len(line), 2] = line
+        a[len(line):, 2] = 3.0
+    else:
+        a[1, :] = 0.0
+        a[2, : len(line)] = line
+        a[2, len(line):] = 3.0
+    return a
+
+
+# --- bit for bit: the quantizers, dense and the heads -----------------------
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_quantize_linear_and_embed_bit_for_bit(jdt, tdt):
+    rng = np.random.default_rng(0)
+    wj, wt = _pair(_tied_values(rng, 40, 24, axis=0), jdt, tdt)
+    jq, tq = jlayers.quantize_linear(wj), tlayers.quantize_linear(wt)
+    assert tq.q.dtype == torch.int8 and tq.q.shape == (24, 40)  # [out, in]
+    np.testing.assert_array_equal(tq.q.T.numpy(), np.asarray(jq.q))
+    np.testing.assert_array_equal(tq.s.numpy(), np.asarray(jq.s))
+    assert tq.s[1] == np.float32(1e-8) / np.float32(127) and not tq.q[1].any()
+    assert tq.s[2] == 1.0 and tq.q[2, :8].tolist() == [127, 0, 2, 2, -2, 0, 126, -126]
+    ej, et = _pair(_tied_values(rng, 30, 40, axis=1), jdt, tdt)
+    je, te = jlayers.quantize_embed(ej), tlayers.quantize_embed(et)
+    np.testing.assert_array_equal(te.q.numpy(), np.asarray(je.q))
+    np.testing.assert_array_equal(te.s.numpy(), np.asarray(je.s))
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_quantize_act_rows_bit_for_bit(jdt, tdt):
+    rng = np.random.default_rng(1)
+    a = _tied_values(rng, 12, 64, axis=1).reshape(3, 4, 64)
+    xj, xt = _pair(a, jdt, tdt)
+    jq, js = jlayers.quantize_act_rows(xj)
+    pq, ps = w8a8.quantize_rows_plain(xt)
+    for tq, ts in (tlayers.quantize_act_rows(xt), (pq, ps[..., None])):
+        assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+        assert ts.shape == (3, 4, 1)
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_dense_plain_bit_for_bit(jdt, tdt, bias):
+    """`dense` over a QuantizedLinear: quantized rows, the exact s8 sum,
+    (f32(acc) * xs) * s cast to x's dtype, then the bias in that dtype."""
+    rng = np.random.default_rng(2)
+    wj, wt = _pair(rng.standard_normal((48, 20)).astype(np.float32) * 0.05, jdt, tdt)
+    xj, xt = _pair(rng.standard_normal((2, 7, 48)).astype(np.float32), jdt, tdt)
+    bj, bt = _pair(rng.standard_normal(20).astype(np.float32), jdt, tdt)
+    jw, tw = jlayers.quantize_linear(wj), tlayers.quantize_linear(wt)
+    yj = jlayers.dense(xj, jw, bj if bias else None)
+    yt = tlayers.dense(xt, tw, bt if bias else None)
+    assert yt.dtype == tdt and yt.shape == (2, 7, 20)
+    np.testing.assert_array_equal(_np(yt), np.asarray(yj.astype(jnp.float32)))
+    # the same through a shared quantization of x
+    xq = tlayers.quantize_shared(xt, tw)
+    assert torch.equal(tlayers.dense(xt, tw, bt if bias else None, xq=xq), yt)
+
+
+def test_gemm_plain_is_exact_past_f32():
+    """K * 127^2 far past 2^24: the float64 product of the int8 values is
+    the exact s32 sum (an f32 product would not be)."""
+    k = 4864
+    xq = torch.full((2, k), 127, dtype=torch.int8)
+    xq[1, ::2] = -127
+    wq = torch.full((3, k), 127, dtype=torch.int8)
+    wq[2, 1] = 126
+    one = torch.ones(2), torch.ones(3)
+    out = w8a8.w8a8_gemm_plain(xq, one[0], wq, one[1], out_dtype=torch.float32)
+    want = (xq.long() @ wq.long().T).float()
+    assert torch.equal(out, want)
+    assert out[0, 0] == 127 * 127 * k and out[0, 2] == 127 * 127 * k - 127
+
+
+@pytest.fixture(scope="module")
+def qwen_int8():
+    """The tiny decoder, tied and untied, quantized by the JAX package, and
+    the port's trees carried from it."""
+    out = {}
+    for tied in (True, False):
+        cfg = dataclasses.replace(jqwen.QwenConfig.tiny(), tie_embeddings=tied)
+        tcfg = dataclasses.replace(tqwen.QwenConfig.tiny(), tie_embeddings=tied)
+        jp = jax.jit(partial(jqwen.init_qwen_params, cfg=cfg))(jax.random.key(4))
+        jq = jqwen.quantize_qwen_params(jp)
+        out[tied] = dict(cfg=cfg, tcfg=tcfg, jp=jp, jq=jq,
+                         tp=qwen_params_from_jax(jax.device_get(jp), tcfg),
+                         tq=qwen_params_from_jax(jax.device_get(jq), tcfg))
+    return out
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_logits_heads_bit_for_bit(qwen_int8, tied, monkeypatch):
+    """The tied int8 head (contracting H against the [V, H] table) and the
+    untied QuantizedLinear head on an identical y: f32 logits equal. The
+    final norm is taken out on both sides (its f32 mean sums in another
+    order), so y is the same input."""
+    for mod in (jqwen, tqwen):
+        monkeypatch.setattr(mod, "rms_norm", lambda x, w, eps: x)
+    m = qwen_int8[tied]
+    x = np.random.default_rng(3).standard_normal((3, 2, 64)).astype(np.float32)
+    jl = np.asarray(jqwen._logits(m["jq"], m["cfg"], jnp.asarray(x)))
+    with torch.inference_mode():
+        tl = tqwen._logits(m["tq"], m["tcfg"], torch.from_numpy(x))
+    assert tl.dtype == torch.float32 and tl.shape == (3, 2, m["cfg"].vocab_size)
+    np.testing.assert_array_equal(tl.numpy(), jl)
+    head = m["tq"].embed if tied else m["tq"].lm_head
+    assert isinstance(head, tlayers.QuantizedEmbed if tied else tlayers.QuantizedLinear)
+
+
+def test_embed_rows_dequantize_bit_for_bit(qwen_int8):
+    m = qwen_int8[True]
+    ids = np.array([[0, 5, 511], [7, 7, 2]], np.int32)
+    je = np.asarray(jqwen._embed_rows(m["jq"], jnp.asarray(ids)))
+    te = tqwen._embed_rows(m["tq"], torch.from_numpy(ids))
+    np.testing.assert_array_equal(te.numpy(), je)
+
+
+def _state(tree) -> dict:
+    return {k: v for k, v in tree.state_dict().items()}
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_qwen_leaves_carried_and_quantized_bit_for_bit(qwen_int8, tied):
+    """Every leaf of the JAX package's quantize_qwen_params, carried by
+    qwen_params_from_jax (q transposed to [out, in], s f32), equals the
+    port's own quantize_qwen_params of the carried float tree; norms and
+    biases are the float tree's own tensors, and the scales stay f32
+    after `.to(torch.bfloat16)`."""
+    m = qwen_int8[tied]
+    tq, tp = m["tq"], m["tp"]
+    mine = tqwen.quantize_qwen_params(tp)
+    got, want = _state(mine), _state(tq)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        assert torch.equal(got[name], want[name]), name
+    jl = m["jq"]["layers"][0]
+    np.testing.assert_array_equal(tq.layers[0].down_w.q.T.numpy(), np.asarray(jl["down_w"].q))
+    assert tq.layers[0].down_w.q.shape == (64, 128)
+    assert isinstance(mine.embed, tlayers.QuantizedEmbed)
+    if not tied:
+        assert isinstance(mine.lm_head, tlayers.QuantizedLinear)
+    assert mine.layers[1].in_ln is not tp.layers[1].in_ln  # a new module ...
+    assert mine.layers[1].in_ln.data_ptr() == tp.layers[1].in_ln.data_ptr()  # ... same data
+    assert mine.layers[1].q_b.data_ptr() == tp.layers[1].q_b.data_ptr()
+    assert isinstance(tp.layers[0].q_w, torch.nn.Parameter)  # the float tree untouched
+    half = mine.to(torch.bfloat16)
+    assert half.final_ln.dtype == torch.bfloat16
+    assert half.layers[0].q_w.s.dtype == torch.float32
+    assert half.embed.s.dtype == torch.float32 and half.embed.q.dtype == torch.int8
+    assert torch.equal(half.layers[0].q_w.s, tq.layers[0].q_w.s)
+
+
+def test_bert_leaves_carried_and_quantized_bit_for_bit():
+    cfg = jbert.BertConfig.tiny(num_labels=5)
+    tcfg = tbert.BertConfig.tiny(num_labels=5)
+    jp = jax.jit(partial(jbert.init_bert_params, cfg=cfg))(jax.random.key(3))
+    jq = jbert.quantize_bert_params(jp)
+    tq = bert_params_from_jax(jax.device_get(jq), tcfg)
+    tp = bert_params_from_jax(jax.device_get(jp), tcfg)
+    mine = tbert.quantize_bert_params(tp)
+    got, want = _state(mine), _state(tq)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype and torch.equal(got[name], want[name]), name
+    for lp in mine.layers:
+        for k in ("q_w", "k_w", "v_w", "o_w", "ffn_in_w", "ffn_out_w"):
+            assert isinstance(getattr(lp, k), tlayers.QuantizedLinear)
+    assert isinstance(mine.pooler.w, tlayers.QuantizedLinear)
+    assert isinstance(mine.classifier.w, tlayers.QuantizedLinear)
+    assert mine.classifier.w.q.shape == (5, 64)
+    np.testing.assert_array_equal(mine.classifier.w.q.T.numpy(),
+                                  np.asarray(jq["classifier"]["w"].q))
+    # the embedding tables, LayerNorms and biases stay float, same data
+    assert mine.embeddings.word.data_ptr() == tp.embeddings.word.data_ptr()
+    assert mine.layers[0].attn_ln_w.data_ptr() == tp.layers[0].attn_ln_w.data_ptr()
+    assert mine.embeddings.word.dtype == torch.float32
+
+
+def _tiny_llama():
+    """An unbiased, untied tiny decoder (the Llama family's shape)."""
+    return dataclasses.replace(tqwen.QwenConfig.tiny(), qkv_bias=False,
+                               tie_embeddings=False)
+
+
+@pytest.mark.parametrize("cfg", [tqwen.QwenConfig.tiny(), _tiny_llama()],
+                         ids=["qwen", "llama"])
+def test_int8_init_at_the_source_equals_quantize_init(cfg):
+    """Each leaf quantized as it is drawn == quantize_qwen_params of the
+    float init from the same generator state, leaf for leaf (as the
+    reference's test_llama_family.py:236 holds init_qwen_params_int8)."""
+    ref = tqwen.quantize_qwen_params(tqwen.init_qwen_params(
+        cfg, generator=torch.Generator().manual_seed(21), dtype=torch.bfloat16))
+    inc = tqwen.init_qwen_params(cfg, generator=torch.Generator().manual_seed(21),
+                                 dtype=torch.bfloat16, quantize=True)
+    got, want = _state(inc), _state(ref)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype and torch.equal(got[name], want[name]), name
+    assert ("lm_head.q" in got) == (not cfg.tie_embeddings)
+    assert ("layers.0.q_b" in got) == cfg.qkv_bias
+
+
+# --- within a stated tolerance, tokens identical ----------------------------
+
+
+def _gaps(tp, tcfg, ids, mask, n):
+    """The port's eager greedy loop -> the top-two logit gap [B, n] of
+    every step."""
+    b, t = ids.shape
+    cache = tqwen.KVCache.zeros(tcfg.layers, b, t + n, tcfg.kv_heads,
+                                tcfg.head_dim, dtype=torch.float32)
+    with torch.inference_mode():
+        logits, _ = tqwen.qwen_prefill(tp, tcfg, ids, mask, cache)
+        gaps = []
+        for i in range(n):
+            top = logits.topk(2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            if i < n - 1:
+                logits, _ = tqwen.qwen_decode_step(tp, tcfg, tok, cache)
+    return torch.stack(gaps, 1)
+
+
+def _hold_tokens(name, got, ref, gaps):
+    """Rows equal, or diverging first at a near-tie step (printed)."""
+    ties = []
+    for i, (a, r) in enumerate(zip(got.tolist(), ref.tolist())):
+        if a == r:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, r)) if x != y)
+        gap = float(gaps[i, j])
+        assert gap <= NEAR_TIE, f"{name}: row {i} differs at step {j}, gap {gap:.3g}"
+        ties.append((i, j, gap))
+    print(f"{name}: near-ties {ties}")
+    return ties
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_decoder_int8_against_jax(qwen_int8, tied):
+    """Prefill logits within 1e-4 of the JAX package's (f32; the int8 sums
+    are exact on both sides, the attention and norms sum in another
+    order), and greedy tokens identical to its jitted greedy_generate but
+    for printed near-ties."""
+    m = qwen_int8[tied]
+    cfg, tcfg, jq, tq = m["cfg"], m["tcfg"], m["jq"], m["tq"]
+    rng = np.random.default_rng(5)
+    ids = rng.integers(1, cfg.vocab_size, (3, 12)).astype(np.int32)
+    mask = (np.arange(12)[None] < np.array([[12], [7], [1]])).astype(np.int32)
+    ids *= mask
+    jcache = jlayers.KVCache.zeros(cfg.layers, 3, 20, cfg.kv_heads, cfg.head_dim,
+                                   dtype=jnp.float32)
+    jl, _ = jqwen.qwen_prefill(jq, cfg, jnp.asarray(ids), jnp.asarray(mask), jcache)
+    tcache = tqwen.KVCache.zeros(tcfg.layers, 3, 20, tcfg.kv_heads, tcfg.head_dim,
+                                 dtype=torch.float32)
+    tid, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
+    with torch.inference_mode():
+        tl, _ = tqwen.qwen_prefill(tq, tcfg, tid, tmask, tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+    n = 8
+    jt = np.asarray(jax.jit(partial(jqwen.greedy_generate, cfg=cfg, max_new_tokens=n))(
+        jq, input_ids=ids, attn_mask=mask))
+    tt = tqwen.greedy_generate(tq, tcfg, tid, tmask, n)
+    _hold_tokens(f"greedy tied={tied}", tt, jt, _gaps(tq, tcfg, tid, tmask, n))
+
+
+def test_bert_int8_against_jax():
+    """bert_embed (unit norm) within 1e-5 and the classifier's logits
+    within 1e-4 of the JAX package's, int8 tiny in f32 (the int8 sums are
+    exact; the attention and LayerNorms sum in another order)."""
+    cfg = jbert.BertConfig.tiny(num_labels=5)
+    tcfg = tbert.BertConfig.tiny(num_labels=5)
+    jq = jbert.quantize_bert_params(
+        jax.jit(partial(jbert.init_bert_params, cfg=cfg))(jax.random.key(6)))
+    tq = bert_params_from_jax(jax.device_get(jq), tcfg)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(1, cfg.vocab_size, (4, 16)).astype(np.int32)
+    mask = (np.arange(16)[None] < np.array([[16], [9], [3], [1]])).astype(np.int32)
+    ids *= mask
+    je = np.asarray(jbert.bert_embed(jq, cfg, jnp.asarray(ids), jnp.asarray(mask)))
+    jc = np.asarray(jbert.bert_classify(jq, cfg, jnp.asarray(ids), jnp.asarray(mask)))
+    with torch.inference_mode():
+        te = tbert.bert_embed(tq, tcfg, torch.from_numpy(ids), torch.from_numpy(mask))
+        tc = tbert.bert_classify(tq, tcfg, torch.from_numpy(ids), torch.from_numpy(mask))
+    np.testing.assert_allclose(te.numpy(), je, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tc.numpy(), jc, atol=1e-4, rtol=0)
+
+
+# --- the paths ---------------------------------------------------------------
+
+
+def test_speculation_and_engine_match_greedy_over_int8(qwen_int8):
+    """Speculation and the decode engine give greedy's tokens over the same
+    int8 params (as the reference's test_quant_llm.py:117-147 holds its
+    own)."""
+    m = qwen_int8[True]
+    tcfg, tq = m["tcfg"], m["tq"]
+    eos = tcfg.vocab_size - 1
+    rng = np.random.default_rng(9)
+    prompts = torch.from_numpy(rng.integers(1, 400, (2, 8)).astype(np.int32))
+    mask = torch.ones_like(prompts)
+    solo = tqwen.greedy_generate(tq, tcfg, prompts, mask, 10, eos_token_id=eos,
+                                 cache_len=18)
+    spec, mean = tqwen.ngram_speculative_generate(tq, tcfg, prompts, mask, 10,
+                                                  eos_token_id=eos, gamma=4)
+    assert torch.equal(spec, solo) and float(mean) >= 1.0
+
+    singles = [rng.integers(1, 400, n).astype(np.int32) for n in (5, 9)]
+
+    async def collect():
+        eng = DecodeEngine(tq, tcfg, lanes=4, cache_len=64, segment_steps=4,
+                           eos_token_id=eos, admit_buckets=(1, 2, 4),
+                           prefill_buckets=(8, 16))
+        await eng.start()
+        try:
+            return await asyncio.gather(*[eng.submit(p, 10) for p in singles])
+        finally:
+            await eng.stop()
+
+    for p, got in zip(singles, asyncio.run(collect())):
+        ids = torch.from_numpy(p[None])
+        ref = tqwen.greedy_generate(tq, tcfg, ids, torch.ones_like(ids), 10,
+                                    eos_token_id=eos, cache_len=len(p) + 10)[0]
+        n = min(len(got), len(ref))
+        assert list(got[:n]) == ref[:n].tolist()
+
+
+def test_validator_rejects_unknown_quant():
+    for name in ("llm_weight_quant", "encoder_weight_quant"):
+        with pytest.raises(ValueError, match=name):
+            Settings(**{name: "fp4"})
+        with pytest.raises(ValueError, match=name):
+            load_settings({name.upper(): "int4"})
+        assert getattr(Settings(**{name: "int8"}), name) == "int8"
+
+
+_TINY = dict(embedding_model="tiny-embed", reranker_model="tiny-rerank",
+             llm_model="tiny-llm", sentiment_model="tiny-sentiment",
+             toxicity_model="tiny-toxicity", batch_shape_buckets="2",
+             param_dtype="float32", device_platform="cpu", model_weights_dir="")
+
+
+def test_llm_component_loads_int8_and_generates(monkeypatch):
+    # the hash tokenizer's word ids start at 1000: widen the tiny vocabulary
+    tiny = tqwen.QwenConfig.tiny
+    monkeypatch.setattr(tqwen.QwenConfig, "tiny", staticmethod(
+        lambda: dataclasses.replace(tiny(), vocab_size=1024)))
+    s = Settings(**_TINY, llm_weight_quant="int8")
+    comp = tcomp.LLMComponent(s, CPU)
+    comp.load()
+    assert isinstance(comp.params.layers[0].q_w, tlayers.QuantizedLinear)
+    assert isinstance(comp.params.embed, tlayers.QuantizedEmbed)
+    out = comp.generate_batch(["hello world"], [[{"content": "doc one"}]],
+                              max_new_tokens=4)
+    assert len(out) == 1 and isinstance(out[0], str)
+    # quantized at the source: the same leaves as quantizing the float init
+    ref = tcomp.LLMComponent(Settings(**_TINY), CPU)
+    ref.load()
+    want = _state(tqwen.quantize_qwen_params(ref.params))
+    got = _state(comp.params)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_all_four_bert_components_load_quantized():
+    s = Settings(**_TINY, encoder_weight_quant="int8")
+    emb = tcomp.EmbedderComponent(s, CPU)
+    emb.load()
+    assert isinstance(emb.params.layers[0].q_w, tlayers.QuantizedLinear)
+    vecs = emb.encode(["hello", "world"])
+    assert vecs.shape == (2, emb.dim)
+    np.testing.assert_allclose(np.linalg.norm(vecs, axis=-1), 1.0, atol=1e-5)
+    rr = tcomp.RerankerComponent(s, CPU)
+    rr.load()
+    assert isinstance(rr.params.pooler.w, tlayers.QuantizedLinear)
+    ranked = rr.rerank("q", [{"id": 1, "content": "a"}, {"id": 2, "content": "b"}])
+    assert len(ranked) == 2 and "rerank_score" in ranked[0]
+    for cls in (tcomp.SentimentComponent, tcomp.ToxicityComponent):
+        c = cls(s, CPU)
+        c.load()
+        assert isinstance(c.params.classifier.w, tlayers.QuantizedLinear)
+    assert tcomp.SentimentComponent(s, CPU).cfg.num_labels == 5
+    c = tcomp.SentimentComponent(s, CPU)
+    c.load()
+    assert c.analyze_batch(["good", "bad", "fine"])
+
+
+def test_fused_step_over_int8_matches_jax():
+    """The fused RAG step over an int8 embedder and an int8 decoder at
+    dp = 1: the JAX package's doc ids, and its tokens but for printed
+    near-ties (as test_quant_llm.py:193 builds the quantized step)."""
+    rng = np.random.default_rng(11)
+    bcfg, qcfg = jbert.BertConfig.tiny(), jqwen.QwenConfig.tiny()
+    jb = jbert.quantize_bert_params(init := jax.jit(
+        partial(jbert.init_bert_params, cfg=bcfg))(jax.random.key(1)))
+    del init
+    jqp = jqwen.quantize_qwen_params(
+        jax.jit(partial(jqwen.init_qwen_params, cfg=qcfg))(jax.random.key(2)))
+    n = 300
+    db = rng.standard_normal((n, bcfg.hidden)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    toks = rng.integers(1, 400, (n, 8)).astype(np.int32)
+    kw = dict(k=5, ctx_docs=2, max_new_tokens=4, rescore_k=64)
+    jpipe = JPipeline(mesh=make_mesh(dp=1, tp=1), bert_cfg=bcfg, qwen_cfg=qcfg,
+                      index_dtype="int8", doc_tok_len=8, **kw)
+    tcfg = tqwen.QwenConfig.tiny()
+    tpipe = TPipeline(device=CPU, bert_cfg=tbert.BertConfig.tiny(), qwen_cfg=tcfg, **kw)
+    tb = bert_params_from_jax(jax.device_get(jb), tbert.BertConfig.tiny())
+    tqp = qwen_params_from_jax(jax.device_get(jqp), tcfg)
+    assert isinstance(tb.layers[0].q_w, tlayers.QuantizedLinear)
+    assert isinstance(tqp.embed, tlayers.QuantizedEmbed)
+    jpipe.build(jb, jqp, db, toks)
+    tpipe.build(tb, tqp, db, toks)
+    q = rng.integers(1, 400, (8, 10)).astype(np.int32)
+    qm = (np.arange(10)[None] < rng.integers(1, 11, (8, 1))).astype(np.int32)
+    q *= qm
+    jout = jpipe.step(q, qm)
+    tout = tpipe.step(q, qm)
+    np.testing.assert_array_equal(tout.doc_ids.numpy(), np.asarray(jout.doc_ids))
+    np.testing.assert_allclose(tout.scores.numpy(), np.asarray(jout.scores),
+                               rtol=1e-5, atol=1e-5)
+    jt = np.asarray(jout.tokens)
+    if not np.array_equal(tout.tokens.numpy(), jt):
+        # the decoder's prompt, rebuilt as _rag_step builds it, for the gaps
+        ctx = toks[tout.doc_ids.numpy()[:, :2]].reshape(8, -1)
+        pm = np.concatenate([(ctx > 0).astype(np.int32), qm], 1)
+        order = np.argsort(1 - pm, axis=1, kind="stable")
+        prompt = np.take_along_axis(np.concatenate([ctx, q], 1), order, 1)
+        pm = np.take_along_axis(pm, order, 1)
+        _hold_tokens("fused step", tout.tokens, jt,
+                     _gaps(tqp, tcfg, torch.from_numpy(prompt), torch.from_numpy(pm), 4))
+
+
+# --- the wrappers on the CPU --------------------------------------------------
+
+
+def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((5, 36)).astype(np.float32))
+    w = tlayers.quantize_linear(torch.from_numpy(rng.standard_normal((36, 3)).astype(np.float32)))
+    before = (w8a8.quantize_rows.launches, w8a8.w8a8_gemm.launches)
+    q, s = w8a8.quantize_rows(x)
+    pq, ps = w8a8.quantize_rows_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    y = w8a8.w8a8_gemm(q, s, w.q, w.s, out_dtype=torch.bfloat16)
+    assert torch.equal(y, w8a8.w8a8_gemm_plain(q, s, w.q, w.s, out_dtype=torch.bfloat16))
+    assert (w8a8.quantize_rows.launches, w8a8.w8a8_gemm.launches) == before
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros((4, 8), dtype=torch.int8)
+    s = torch.ones(4)
+    with pytest.raises(ValueError, match="\\[M, K\\]"):
+        w8a8.quantize_rows(torch.zeros(2, 3, 4))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        w8a8.quantize_rows(torch.zeros(2, 4, dtype=torch.float16))
+    with pytest.raises(ValueError, match="must be"):
+        w8a8.w8a8_gemm(q, s, torch.zeros((3, 9), dtype=torch.int8), torch.ones(3),
+                       out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="int8"):
+        w8a8.w8a8_gemm(q.float(), s, q, s, out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="out_dtype"):
+        w8a8.w8a8_gemm(q, s, q, s, out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="out_dtype"):
+        w8a8.w8a8_gemm(q, s, q, s, torch.zeros(4), out_dtype=torch.bfloat16)
