@@ -168,6 +168,23 @@ and exits non-zero before the last line:
              counts none); the B = 8 step's busy share and kernels from 8
              traced replays; the pool MB. Runs after spec.
 
+26. checkpoint — runs after step, on phase serve's corpus and trees: the
+             four served models (BGE-base, Qwen2.5-0.5B in BF16 with its
+             tied head omitted and its layers in two shards, the two
+             BERT-base classifiers under `bert.`) written under HF names
+             with the port's safetensors writer, no tokenizer.json. Each
+             read back through the loader alone (load s, GB, GB/s, the
+             rise of the host's RSS, sampled every ms); Qwen quantized on
+             load on the card, bit for bit against quantize_qwen_params of
+             the bf16 tree, with its device peak beside the bf16 tree's
+             size; then the fused server with
+             MODEL_WEIGHTS_DIR and ALLOW_RANDOM_WEIGHTS=0 (phase line
+             checkpoint_serve): /health shows no random weights and each
+             model's checkpoint dir, every served leaf equals its source
+             bit for bit, the 10 /query bodies equal phase serve's, K1's
+             count rises, and one 8-lane fused step gives the same doc ids,
+             scores and tokens as phase serve's executor.
+
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
 PyTorch call computing the same function where there is one), and last the
@@ -882,13 +899,24 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
         "quantize_rows_launches": w8a8_launches[1],
     }
     phase(name, t0, **stats)
-    return server.executor, launches, stats
+    return server.executor, launches, stats, [r[1] for r in results], health
+
+
+def _step_inputs(executor):
+    """The fused pipeline of `executor` and the token arrays of MAIN_B
+    queries for one step of it."""
+    from rag_inference_pipeline_tpu_torch.engine.fused_executor import pad_rows
+
+    queries = [f"smoke query number {i} on retrieval" for i in range(MAIN_B)]
+    qlen = executor._query_len()
+    ids, mask = executor.embedder.tokenizer.encode_batch(queries, qlen)
+    lm_ids, lm_mask = executor.llm.tokenizer.encode_batch(queries, qlen)
+    return executor._get_pipe(), [pad_rows(a, MAIN_B) for a in (ids, mask, lm_ids, lm_mask)]
 
 
 def phase_step(executor):
     import numpy as np
     import torch
-    from rag_inference_pipeline_tpu_torch.engine.fused_executor import pad_rows
     from rag_inference_pipeline_tpu_torch.models.bert import bert_embed
     from rag_inference_pipeline_tpu_torch.ops.topk import (
         binmax_partial_topk_int8gs_plain,
@@ -896,12 +924,7 @@ def phase_step(executor):
     )
 
     t0 = time.perf_counter()
-    pipe = executor._get_pipe()
-    queries = [f"smoke query number {i} on retrieval" for i in range(MAIN_B)]
-    qlen = executor._query_len()
-    ids, mask = executor.embedder.tokenizer.encode_batch(queries, qlen)
-    lm_ids, lm_mask = executor.llm.tokenizer.encode_batch(queries, qlen)
-    ids, mask, lm_ids, lm_mask = (pad_rows(a, MAIN_B) for a in (ids, mask, lm_ids, lm_mask))
+    pipe, (ids, mask, lm_ids, lm_mask) = _step_inputs(executor)
     t_k = time.perf_counter()
     out_k = pipe.step(ids, mask, lm_ids, lm_mask)
     torch.cuda.synchronize()
@@ -931,6 +954,195 @@ def phase_step(executor):
           recall_at_k=f"{recall:.4f}", kernel_step_s=f"{t_k:.4f}",
           plain_step_s=f"{t_p:.4f}")
     return {"recall": recall, "step_s": t_k, "plain_step_s": t_p}
+
+
+def _hf(t):
+    """A tree leaf as HF stores it: a linear weight [in, out] -> [out, in]."""
+    return t.t() if t.dim() == 2 else t
+
+
+def bert_to_hf(params, prefix: str) -> dict:
+    """A BERT tree under HF names (the inverse of `bert_params_from_hf`):
+    `prefix` (`bert.` for the published classifiers, none for BGE) on the
+    backbone, the pooler as `pooler.dense`, the head as `classifier`."""
+    from rag_inference_pipeline_tpu_torch.models.weights import BERT_EMBED_HF, BERT_LAYER_HF
+
+    sd = params.state_dict()
+    out = {f"{prefix}embeddings.{hf}": sd[f"embeddings.{k}"] for k, hf in BERT_EMBED_HF.items()}
+    for i in range(len(params.layers)):
+        for k, hf in BERT_LAYER_HF.items():
+            out[f"{prefix}encoder.layer.{i}.{hf}"] = _hf(sd[f"layers.{i}.{k}"])
+    out[f"{prefix}pooler.dense.weight"] = _hf(sd["pooler.w"])
+    out[f"{prefix}pooler.dense.bias"] = sd["pooler.b"]
+    if "classifier.w" in sd:
+        out["classifier.weight"] = _hf(sd["classifier.w"])
+        out["classifier.bias"] = sd["classifier.b"]
+    return out
+
+
+def qwen_to_hf(params) -> list[dict]:
+    """A decoder tree under HF names (`model.` prefix, no `lm_head`: the
+    head is tied), in two shards of layers as a sharded checkpoint ships:
+    the inverse of `qwen_params_from_hf`."""
+    from rag_inference_pipeline_tpu_torch.models.weights import QWEN_LAYER_HF
+
+    sd = params.state_dict()
+    n = len(params.layers)
+    shards = [{"model.embed_tokens.weight": sd["embed"]},
+              {"model.norm.weight": sd["final_ln"]}]
+    for i in range(n):
+        for k, hf in QWEN_LAYER_HF.items():
+            if f"layers.{i}.{k}" in sd:
+                shards[2 * i // n][f"model.layers.{i}.{hf}"] = _hf(sd[f"layers.{i}.{k}"])
+    return shards
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _trees_equal(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(_bits_equal(sa[k], sb[k]) for k in sa)
+
+
+def _rss_mb() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+class RssPeak:
+    """The process's resident set sampled every millisecond on a thread:
+    `rise_mb` is its peak over its size at entry."""
+
+    def __enter__(self) -> "RssPeak":
+        self.base = self.peak = _rss_mb()
+        self._done = threading.Event()
+        self._th = threading.Thread(target=self._sample, daemon=True)
+        self._th.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._done.wait(0.001):
+            self.peak = max(self.peak, _rss_mb())
+
+    def __exit__(self, *exc) -> None:
+        self._done.set()
+        self._th.join(timeout=10)
+        self.peak = max(self.peak, _rss_mb())
+
+    @property
+    def rise_mb(self) -> float:
+        return self.peak - self.base
+
+
+def phase_checkpoint(executor, paths: dict, serve_bodies: list, workdir: str, smi: str):
+    """The serve phase's own trees written as HF safetensors and served
+    back through MODEL_WEIGHTS_DIR: the same leaves, the same answers."""
+    import resource
+
+    import torch
+    from rag_inference_pipeline_tpu_torch.models.qwen import quantize_qwen_params
+    from rag_inference_pipeline_tpu_torch.models.safetensors import (
+        load_safetensors_dict,
+        save_safetensors,
+    )
+    from rag_inference_pipeline_tpu_torch.models.weights import (
+        bert_params_from_hf,
+        qwen_params_from_hf,
+    )
+
+    t0 = time.perf_counter()
+    wdir = os.path.join(workdir, "weights")
+    ex = executor
+    models = {  # component -> (the component, its HF files)
+        "embedder": (ex.embedder, [bert_to_hf(ex.embedder.params, "")]),
+        "llm": (ex.llm, qwen_to_hf(ex.llm.params)),
+        "sentiment": (ex.sentiment, [bert_to_hf(ex.sentiment.params, "bert.")]),
+        "toxicity": (ex.toxicity, [bert_to_hf(ex.toxicity.params, "bert.")]),
+    }
+    dirs, info = {}, {}
+    t_w, written = time.perf_counter(), 0
+    for name, (comp, shards) in models.items():
+        d = dirs[name] = os.path.join(wdir, comp.model_name.replace("/", "__"))
+        os.makedirs(d)
+        for i, shard in enumerate(shards):
+            fname = (f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+                     if len(shards) > 1 else "model.safetensors")
+            written += save_safetensors(shard, os.path.join(d, fname))
+    info["write_s"] = f"{time.perf_counter() - t_w:.3f}"
+    info["written_gb"] = f"{written / 1e9:.3f}"
+    check(ex.llm.params.embed.dtype == torch.bfloat16, "the served decoder is not bf16")
+
+    # each model through the loader alone (its file in the page cache, just
+    # written): seconds, bytes, rate, the rise of the host's RSS
+    for name, (comp, _) in models.items():
+        mapper = qwen_params_from_hf if name == "llm" else bert_params_from_hf
+        torch.cuda.synchronize()
+        tl = time.perf_counter()
+        with RssPeak() as rss, load_safetensors_dict(dirs[name]) as raw:
+            loaded = mapper(raw, comp.cfg, device=torch.device(DEVICE), dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            nbytes = raw.nbytes
+        dt = time.perf_counter() - tl
+        check(_trees_equal(loaded, comp.params), f"checkpoint: {name} leaves differ")
+        del loaded
+        info[f"{name}_load_s"] = f"{dt:.4f}"
+        info[f"{name}_gb"] = f"{nbytes / 1e9:.3f}"
+        info[f"{name}_gb_per_s"] = f"{nbytes / dt / 1e9:.3f}"
+        info[f"{name}_rss_rise_mb"] = f"{rss.rise_mb:.1f}"
+
+    # quantize-on-load on the card, against quantize_qwen_params of the
+    # loaded bf16 tree; the device peak against the bf16 tree's size
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tl = time.perf_counter()
+    with load_safetensors_dict(dirs["llm"]) as raw:
+        q = qwen_params_from_hf(raw, ex.llm.cfg, device=torch.device(DEVICE),
+                                dtype=torch.bfloat16, quantize=True)
+        bf16_bytes = raw.nbytes
+    torch.cuda.synchronize()
+    info["int8_load_s"] = f"{time.perf_counter() - tl:.4f}"
+    info["int8_load_peak_mb"] = f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f}"
+    info["bf16_tree_mb"] = f"{bf16_bytes / 2**20:.1f}"
+    check(_trees_equal(q, quantize_qwen_params(ex.llm.params)),
+          "checkpoint: quantize-on-load differs from quantize_qwen_params")
+    del q
+    info["ru_maxrss_mb"] = f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024:.1f}"
+
+    # the fused server from the checkpoints: no random weights, the same
+    # leaves, the same answers, K1 launched (phase_serve checks the count)
+    served, _, stats, bodies, health = phase_serve(
+        paths, {"MODEL_WEIGHTS_DIR": wdir, "ALLOW_RANDOM_WEIGHTS": "0"}, "checkpoint_serve")
+    check(health["random_weights"] == [], f"checkpoint: random weights {health}")
+    for name, d in dirs.items():
+        w = health["weights"][name]
+        check(w == {"random_weights": False, "checkpoint_dir": d},
+              f"checkpoint: /health says {name} loaded {w}")
+        check(_trees_equal(getattr(served, name).params, models[name][0].params),
+              f"checkpoint: the served {name} leaves differ from the source tree")
+    check(bodies == serve_bodies, "checkpoint: /query answers differ from phase serve's")
+    # random toxicity heads may filter every answer: hold the step's doc ids,
+    # scores and generated tokens themselves
+    pipe, args = _step_inputs(ex)
+    pipe2, args2 = _step_inputs(served)
+    a, b = pipe.step(*args), pipe2.step(*args2)
+    check(all(_bits_equal(getattr(a, f), getattr(b, f))
+              for f in ("doc_ids", "scores", "tokens")),
+          "checkpoint: the fused step's ids, scores or tokens differ")
+    del served, pipe2
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("checkpoint", t0, leaves_bit_identical=True, responses_identical=True,
+          step_bit_identical=True, int8_bit_identical=True, k1_launches=stats["k1_launches"],
+          serve_load_s=stats["load_s"], second_s=stats["second_s"],
+          card=f'"{smi}"', **info)
 
 
 def _get_health(port: int) -> dict:
@@ -1779,7 +1991,7 @@ def phase_spec(bf16_params):
 def phase_serve_w8a8(paths: dict) -> dict:
     """The fused server with both W8A8 knobs on: the serve phase's requests,
     its K1 check, and the quantize and GEMM counts rising."""
-    executor, _, stats = phase_serve(
+    executor, _, stats, _, _ = phase_serve(
         paths, {"LLM_WEIGHT_QUANT": "int8", "ENCODER_WEIGHT_QUANT": "int8"}, "serve_w8a8")
     from rag_inference_pipeline_tpu_torch.models.layers import QuantizedEmbed, QuantizedLinear
 
@@ -1996,7 +2208,7 @@ def main() -> int:
           f"{PKG} imported from outside this checkout: {pkg.__file__}")
 
     t_all = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
@@ -2005,8 +2217,9 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         paths = phase_corpus(workdir)
-        executor, k1_launches, _ = phase_serve(paths)
+        executor, k1_launches, _, bodies, _ = phase_serve(paths)
         phase_step(executor)
+        phase_checkpoint(executor, paths, bodies, workdir, smi)
         del executor
         gc.collect()
         torch.cuda.empty_cache()

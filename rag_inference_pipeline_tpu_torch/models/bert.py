@@ -91,6 +91,8 @@ def init_bert_params(
     std = 0.02
 
     def w(*shape):
+        if generator is None:  # the skeleton: no draw (a meta draw is slow)
+            return torch.empty(shape, dtype=dtype, device=device)
         return (
             std * torch.randn(shape, generator=generator, device=device)
         ).to(dtype)

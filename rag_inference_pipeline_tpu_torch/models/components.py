@@ -1,6 +1,7 @@
 """Model components: embedder, reranker, LLM, sentiment and toxicity —
-load (random init when no weights are given), tokenizer, params on the
-port's device, and the batch APIs of the staged path.
+load (an HF safetensors checkpoint under `MODEL_WEIGHTS_DIR/<org__name>/`,
+else random init when `ALLOW_RANDOM_WEIGHTS` allows it), tokenizer, params
+on the port's device, and the batch APIs of the staged path.
 
 Port of `rag_inference_pipeline_tpu/models/components.py`: the embedder's
 SHA-256-keyed cache, the reranker's sigmoid relevance sorted descending,
@@ -9,9 +10,7 @@ prefill buckets, the 5-star sentiment labels and the 0.5 toxicity
 threshold. Every forward runs over row chunks padded to the shape buckets,
 as the reference pads them. PyTorch runs eagerly, so there is no
 per-bucket compile warmup to port, and the LLM's ladder is the configured
-one (the reference clamps it to a 16 GB TPU's memory). Loading safetensors
-checkpoints comes with a later port of the weights converter; until then a
-checkpoint under `MODEL_WEIGHTS_DIR` raises rather than being ignored.
+one (the reference clamps it to a 16 GB TPU's memory).
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import logging
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,7 +40,9 @@ from .qwen import (
     init_qwen_params,
     ngram_speculative_generate,
 )
+from .safetensors import load_safetensors_dict
 from .tokenizer import make_tokenizer
+from .weights import bert_params_from_hf, qwen_params_from_hf, resolve_model_dir
 
 logger = logging.getLogger(__name__)
 
@@ -96,15 +96,15 @@ def _generator(device: torch.device, seed: int = 0) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _check_no_checkpoint(settings: Settings, model_name: str) -> None:
-    wdir = settings.model_weights_dir
-    if wdir and os.path.isdir(os.path.join(wdir, model_name.replace("/", "__"))):
-        raise NotImplementedError(
-            f"{model_name}: checkpoint loading is not ported yet; unset "
-            "MODEL_WEIGHTS_DIR to serve random weights"
+def _checkpoint_dir(settings: Settings, model_name: str) -> Optional[str]:
+    """The model's checkpoint directory, or None for random weights; with
+    neither a checkpoint nor `allow_random_weights`, FileNotFoundError."""
+    mdir = resolve_model_dir(settings.model_weights_dir, model_name)
+    if mdir is None and not settings.allow_random_weights:
+        raise FileNotFoundError(
+            f"no weights for {model_name} under {settings.model_weights_dir}"
         )
-    if not settings.allow_random_weights:
-        raise FileNotFoundError(f"no weights for {model_name} under {wdir}")
+    return mdir
 
 
 class _BertBase:
@@ -122,6 +122,7 @@ class _BertBase:
         self.params = None
         self.tokenizer = None
         self.random_weights = False
+        self.checkpoint_dir: Optional[str] = None
 
     @property
     def is_loaded(self) -> bool:
@@ -129,20 +130,28 @@ class _BertBase:
 
     def load(self) -> None:
         s = self.settings
-        _check_no_checkpoint(s, self.model_name)
-        logger.warning(
-            "%s: no local weights for %s — random init",
-            type(self).__name__, self.model_name,
-        )
-        self.params = init_bert_params(
-            self.cfg, generator=_generator(self.device),
-            dtype=torch_dtype(s.param_dtype), device=self.device,
-        )
+        mdir = _checkpoint_dir(s, self.model_name)
+        dtype = torch_dtype(s.param_dtype)
+        if mdir:
+            with load_safetensors_dict(mdir) as raw:
+                self.params = bert_params_from_hf(
+                    raw, self.cfg, device=self.device, dtype=dtype,
+                )
+        else:
+            logger.warning(
+                "%s: no local weights for %s — random init",
+                type(self).__name__, self.model_name,
+            )
+            self.params = init_bert_params(
+                self.cfg, generator=_generator(self.device), dtype=dtype,
+                device=self.device,
+            )
         if s.encoder_weight_quant == "int8":
             # W8A8-dynamic encoder, quantized after load as the reference's
             # components do
             self.params = quantize_bert_params(self.params)
-        self.random_weights = True
+        self.random_weights = mdir is None
+        self.checkpoint_dir = mdir
         self.tokenizer = make_tokenizer(
             self.model_name, s.model_weights_dir,
             vocab_size=self.cfg.vocab_size, pad_id=self.cfg.pad_token_id,
@@ -304,6 +313,7 @@ class LLMComponent:
         self.params = None
         self.tokenizer = None
         self.random_weights = False
+        self.checkpoint_dir: Optional[str] = None
         self.engine = None
 
     @property
@@ -312,16 +322,24 @@ class LLMComponent:
 
     def load(self) -> None:
         s = self.settings
-        _check_no_checkpoint(s, self.model_name)
-        logger.warning("LLM: no local weights for %s — random init", self.model_name)
+        mdir = _checkpoint_dir(s, self.model_name)
+        dtype = torch_dtype(s.param_dtype)
         # W8A8-dynamic int8 at the source: each matmul leaf is quantized as
-        # it is drawn, so the full-precision tree never exists
-        self.params = init_qwen_params(
-            self.cfg, generator=_generator(self.device),
-            dtype=torch_dtype(s.param_dtype), device=self.device,
-            quantize=s.llm_weight_quant == "int8",
-        )
-        self.random_weights = True
+        # it is read (or drawn), so the full-precision tree never exists
+        quantize = s.llm_weight_quant == "int8"
+        if mdir:
+            with load_safetensors_dict(mdir) as raw:
+                self.params = qwen_params_from_hf(
+                    raw, self.cfg, device=self.device, dtype=dtype, quantize=quantize,
+                )
+        else:
+            logger.warning("LLM: no local weights for %s — random init", self.model_name)
+            self.params = init_qwen_params(
+                self.cfg, generator=_generator(self.device), dtype=dtype,
+                device=self.device, quantize=quantize,
+            )
+        self.random_weights = mdir is None
+        self.checkpoint_dir = mdir
         fam_llama = self.model_name.lower().startswith("meta-llama")
         if self.is_instruct:
             eos_token = "<|eot_id|>" if fam_llama else "<|im_end|>"

@@ -1,5 +1,8 @@
 """Tokenization: HF fast tokenizers when a local tokenizer.json exists,
-deterministic hash tokenizer otherwise (air-gapped fallback).
+deterministic hash tokenizer otherwise (air-gapped fallback). The
+`tokenizers` package is needed only for a tokenizer.json: without it,
+`HFTokenizer` (which `make_tokenizer` picks) refuses the file by name
+rather than fall back to the hash tokenizer, whose ids are other ids.
 
 Port of `rag_inference_pipeline_tpu/models/tokenizer.py`; `encode_batch`
 and `encode_pair_batch` give the same ids, masks and token types as the JAX
@@ -103,7 +106,14 @@ class HFTokenizer:
         eos_id: int = 0,
         eos_token: Optional[str] = None,
     ):
-        from tokenizers import Tokenizer
+        try:
+            from tokenizers import Tokenizer
+        except ImportError as e:
+            raise ImportError(
+                f"{tokenizer_file} needs the `tokenizers` package, which is not "
+                "installed; install it, or remove the file to select the hash "
+                "tokenizer (other token ids)"
+            ) from e
 
         self.tk = Tokenizer.from_file(tokenizer_file)
         self.pad_id = pad_id

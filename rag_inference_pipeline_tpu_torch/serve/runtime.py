@@ -23,8 +23,10 @@ Routes and wire shapes are the JAX package's (`serve/http.py`,
 - `POST /retrieve` `{"items": [{"query"?, "embedding"?, "k"?}], "rerank"?,
   "k"?}` -> `{"results": [{"ids", "scores", "documents"?}]}` (the binary
   `embeddings_b64` / `response_format="b64"` wire is not ported);
-- `GET /health` -> the loaded components, whether their weights are
-  random, and the launch count of each hand-written kernel.
+- `GET /health` -> the loaded components, those whose weights are random
+  (`random_weights`, the JAX package's field), each model's weights
+  (`weights`: `random_weights` and the `checkpoint_dir` it loaded from),
+  and the launch count of each hand-written kernel.
 """
 
 from __future__ import annotations
@@ -63,6 +65,15 @@ from ..utils.docstore import DocumentStore
 from .services import GenerationService, RetrievalExecutor
 
 logger = logging.getLogger(__name__)
+
+
+def weights_health(named: dict[str, Any]) -> dict[str, dict]:
+    """Each model component's weights: random, or the checkpoint directory
+    they were loaded from."""
+    return {
+        k: {"random_weights": c.random_weights, "checkpoint_dir": c.checkpoint_dir}
+        for k, c in named.items() if hasattr(c, "checkpoint_dir")
+    }
 
 
 def kernel_launches() -> dict[str, int]:
@@ -142,6 +153,7 @@ class FusedApp:
             "random_weights": [
                 k for k, c in comps.items() if getattr(c, "random_weights", False)
             ],
+            "weights": weights_health(comps),
             "kernel_launches": kernel_launches(),
         }
 
@@ -312,6 +324,7 @@ class StagedApp:
             "random_weights": [
                 k for k, c in named.items() if getattr(c, "random_weights", False)
             ],
+            "weights": weights_health(named),
             "kernel_launches": kernel_launches(),
         }
 
