@@ -143,30 +143,37 @@ and exits non-zero before the last line:
              tokens with budgets of 16-128: every sequence held to a solo
              greedy_generate under the near-tie rule; wall, segments, tokens,
              capture seconds and pool MB.
-23. w8a8   — the W8A8 kernels (ops/w8a8.py: the activation quantize and
-             the s8 GEMM with its dequant epilogue) against their plain
-             versions, bit for bit, at every shape of the int8 path
-             (Qwen2.5-0.5B's decode projections and tied head at B = 8 and
-             1, a prefill gate/up and a BERT-base FFN at 8 x 512 tokens, a
-             classifier) and on small ragged cases; per shape the kernels'
-             device times (CUDA events over replays of one captured graph of
-             many calls: an eager loop of microsecond launches times the
-             host), the plain versions' times, the bound and the share of
-             it, and, as yardsticks only, torch._int_mm where M > 16 and a
-             bf16 torch.matmul of the same shape (graph-timed alike); the
-             wrappers' host us a call. Runs after k2.
+23. w8a8   — the W8A8 kernels (ops/w8a8.py) against their plain versions,
+             bit for bit: the small-row quantize-and-GEMM (csrc/w8a8_gemm.cu),
+             the large-row wgmma GEMM (csrc/w8a8_wgmma.cu) and the
+             activation quantize (csrc/w8a8_quant.cu), each called directly
+             on ragged cases (M 1, 5, 17, M* and M* + 1, 64, 65, 72, 300; K
+             36, 896, 4,864; the wgmma GEMM where K % 16 == 0), then
+             `w8a8_dense` at every shape of the int8 path (Qwen2.5-0.5B's
+             decode groups q/k/v and gate/up, o, down and the tied head at
+             B = 8 and 1, a verify round's q/o and head at 72 rows, prefill
+             q/k/v, gate/up and down at 8 x 512 tokens, a BERT-base FFN at
+             8 x 512, a classifier) on the route `_route` picks, each kernel
+             there against its plain version; per shape the route, each
+             kernel's device time (CUDA events over replays of one captured
+             graph of many calls: an eager loop of microsecond launches
+             times the host), the plain version's time, the bound and the
+             share of it, and, as a yardstick only, torch._int_mm where
+             M > 16; the wrapper's host us a call. Runs after k2.
 24. serve_w8a8 — the fused server of phase 6 with LLM_WEIGHT_QUANT=int8 and
              ENCODER_WEIGHT_QUANT=int8: 10 POST /query, 8 of them
-             concurrent; the K1, quantize and GEMM counts, zeroed just
-             before, must rise. Runs after serve_spec.
+             concurrent; the K1 count and each W8A8 kernel's (small-row,
+             wgmma, quantize), zeroed just before, must rise. Runs after
+             serve_spec.
 25. decode_w8a8 — greedy_generate over Qwen2.5-0.5B with int8 weights
              quantized at the source (seeded random bf16 draws), B = 8,
              prompt bucket 512, 128 new tokens: the step graph against the
              eager loop, tokens bit for bit; ms per token of each beside
-             decode_graph's bf16 figures; the GEMM and quantize launches
-             (those of the prefill and the capture's warm-up: a replay
-             counts none); the B = 8 step's busy share and kernels from 8
-             traced replays; the pool MB. Runs after spec.
+             decode_graph's bf16 figures; each W8A8 kernel's launches (the
+             prefill's and the capture's warm-up: a replay counts none),
+             exactly those the route rule gives; the B = 8 step's busy
+             share, kernels and W8A8 kernels from 8 traced replays; the pool
+             MB. Runs after spec.
 
 26. checkpoint — runs after step, on phase serve's corpus and trees: the
              four served models (BGE-base, Qwen2.5-0.5B in BF16 with its
@@ -287,7 +294,7 @@ def zero_launches() -> None:
                topk.binmax_partial_topk_int8, ivf.ivf_scan_partial,
                ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores, kv.kv_row_insert,
                kv.kv_row_insert_pair, stream.stream_sum, w8a8.quantize_rows,
-               w8a8.w8a8_gemm):
+               w8a8.w8a8_gemm, w8a8.w8a8_qgemm):
         fn.launches = 0
 
 
@@ -511,98 +518,142 @@ def phase_k2():
 
 
 # the int8 path's products (Qwen2.5-0.5B: H 896, kv 2 x 64, I 4,864, V
-# 151,936; BERT-base: H 768, I 3,072): name, M, K, N and the bias a layer
-# has there; the head's output is f32, every other one bf16
+# 151,936; BERT-base: H 768, I 3,072): name, M, K, the N of each weight
+# sharing x, a bias on each; the head's output is f32, every other one bf16
 W8A8_SHAPES = [
-    ("decode_qo_b1", 1, 896, 896, True), ("decode_qo", 8, 896, 896, True),
-    ("decode_kv", 8, 896, 128, True), ("decode_gate_up", 8, 896, 4864, False),
-    ("decode_down", 8, 4864, 896, False), ("decode_head_b1", 1, 896, 151936, False),
-    ("decode_head", 8, 896, 151936, False), ("prefill_gate_up", 4096, 896, 4864, False),
-    ("encoder_ffn_in", 4096, 768, 3072, True), ("classifier", 8, 768, 5, True),
+    ("decode_qkv", 8, 896, (896, 128, 128), True), ("decode_qo_b1", 1, 896, (896,), True),
+    ("decode_o", 8, 896, (896,), False), ("decode_gate_up", 8, 896, (4864, 4864), False),
+    ("decode_down", 8, 4864, (896,), False), ("decode_head_b1", 1, 896, (151936,), False),
+    ("decode_head", 8, 896, (151936,), False), ("verify_qo", 72, 896, (896,), True),
+    ("verify_head", 72, 896, (151936,), False),
+    ("prefill_qkv", 4096, 896, (896, 128, 128), True),
+    ("prefill_gate_up", 4096, 896, (4864, 4864), False),
+    ("prefill_down", 4096, 4864, (896,), False),
+    ("encoder_ffn_in", 4096, 768, (3072,), True), ("classifier", 8, 768, (5,), True),
 ]
-W8A8_MAIN = "decode_gate_up"  # the kernels line's shape: 48 calls a decode step
+# the kernels line's shape of each kernel: the decode step's gate/up group
+# (24 launches a step), the prefill's gate/up and its activation quantize
+W8A8_MAIN = {"small": "decode_gate_up", "wgmma": "prefill_gate_up",
+             "quant": "prefill_gate_up"}
+
+
+def _w8a8_weights(g, k, ns, has_bias, out_dtype):
+    import torch
+
+    weights = [(torch.randint(-127, 128, (n, k), generator=g, device=DEVICE,
+                              dtype=torch.int8),
+                torch.rand(n, generator=g, device=DEVICE) * 1e-3) for n in ns]
+    biases = [torch.randn(n, generator=g, device=DEVICE).to(out_dtype) if has_bias else None
+              for n in ns]
+    return weights, biases
 
 
 def phase_w8a8():
-    """The quantize and GEMM kernels against their plain versions, bit for
-    bit, at the int8 path's shapes and on small ragged ones, with times,
-    bounds and two library yardsticks."""
+    """The small-row, wgmma and quantize kernels against their plain
+    versions, bit for bit, on ragged cases and at the int8 path's shapes on
+    the route each takes, with times, bounds and `torch._int_mm`."""
     import torch
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     t0 = time.perf_counter()
     g = torch.Generator(device=DEVICE).manual_seed(23)
     cases = 0
-    # ragged: tails in M, N and K, 4-byte copies at K = 36, split K
-    for m in (1, 5, 17, 300):
-        for k in (36, 896):
+    # ragged: tails in M, N and K, 4-byte copies at K = 36, m tiles of 8 to
+    # 64 rows and several of them, 1 to 3 row tiles of the wgmma GEMM
+    for m in sorted({1, 5, 17, w8a8.M_STAR, w8a8.M_STAR + 1, 64, 65, 72, 300}):
+        for k in (36, 896, 4864):
             for dtype in (torch.bfloat16, torch.float32):
                 x = (torch.randn(m, k, generator=g, device=DEVICE) * 3).to(dtype)
                 q, sc = w8a8.quantize_rows(x)
                 pq, ps = w8a8.quantize_rows_plain(x)
                 check(torch.equal(q, pq) and torch.equal(sc, ps),
                       f"quantize_rows differs from its plain version at {m}x{k} {dtype}")
-                for n in (2, 3, 128):
-                    wq = torch.randint(-127, 128, (n, k), generator=g, device=DEVICE,
-                                       dtype=torch.int8)
-                    ws = torch.rand(n, generator=g, device=DEVICE) * 1e-2
-                    for b in (None, torch.randn(n, generator=g, device=DEVICE).to(dtype)):
-                        got = w8a8.w8a8_gemm(q, sc, wq, ws, b, out_dtype=dtype)
-                        want = w8a8.w8a8_gemm_plain(q, sc, wq, ws, b, out_dtype=dtype)
-                        check(torch.equal(got, want), f"w8a8_gemm differs from its plain "
-                              f"version at M={m} N={n} K={k} {dtype} bias={b is not None}")
-                        cases += 1
+                weights, _ = _w8a8_weights(g, k, (3, 128), False, dtype)
+                biases = [torch.randn(n, generator=g, device=DEVICE).to(dtype)
+                          for n in (3, 128)]
+                for bs in (None, biases):
+                    want = w8a8.w8a8_dense_plain(x, weights, bs, out_dtype=dtype)
+                    got = w8a8.w8a8_qgemm(x, weights, bs, out_dtype=dtype)
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"the small-row kernel differs from its plain version at M={m} "
+                          f"K={k} {dtype} bias={bs is not None}")
+                    cases += 1
+                    if k % 16 == 0:
+                        for (wq, ws), b, w in zip(weights, bs or (None, None), want):
+                            got = w8a8.w8a8_gemm(q, sc, wq, ws, b, out_dtype=dtype)
+                            check(torch.equal(got, w), f"the wgmma GEMM differs from its "
+                                  f"plain version at M={m} N={wq.shape[0]} K={k} {dtype}")
+                            cases += 1
     rows, out, host = {}, {}, {}
-    for name, m, k, n, has_bias in W8A8_SHAPES:
+    for name, m, k, ns, has_bias in W8A8_SHAPES:
         out_dtype = torch.float32 if "head" in name else torch.bfloat16
         x = torch.randn(m, k, generator=g, device=DEVICE).to(torch.bfloat16)
-        wq = torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8)
-        ws = torch.rand(n, generator=g, device=DEVICE) * 1e-3
-        b = torch.randn(n, generator=g, device=DEVICE).to(out_dtype) if has_bias else None
-        q, sc = w8a8.quantize_rows(x)
-        pq, ps = w8a8.quantize_rows_plain(x)
-        got = w8a8.w8a8_gemm(q, sc, wq, ws, b, out_dtype=out_dtype)
-        want = w8a8.w8a8_gemm_plain(q, sc, wq, ws, b, out_dtype=out_dtype)
-        torch.cuda.synchronize()
-        check(torch.equal(q, pq) and torch.equal(sc, ps),
-              f"quantize_rows differs from its plain version at {name}")
-        check(torch.equal(got, want), f"w8a8_gemm differs from its plain version at {name}")
-        big = m * n * k > 1e10
+        weights, biases = _w8a8_weights(g, k, ns, has_bias, out_dtype)
+        route = w8a8._route(m, k, True)
+        big = m * sum(ns) * k > 1e10
         it, pit = (20, 3) if big else (100, 20)
-        gm = {"ms": graph_ms(lambda: w8a8.w8a8_gemm(q, sc, wq, ws, b, out_dtype=out_dtype), it),
-              "plain_ms": cuda_ms(lambda: w8a8.w8a8_gemm_plain(q, sc, wq, ws, b,
-                                                               out_dtype=out_dtype), pit),
-              "max_abs_err": 0.0, "library_ms": None}
+        q, sc = w8a8.quantize_rows_plain(x)
+        want = w8a8.w8a8_dense_plain(x, weights, biases, out_dtype=out_dtype)
+        got = w8a8.w8a8_dense(x, weights, biases, out_dtype=out_dtype)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"w8a8_dense differs from its plain version at {name}")
         esz = 4 if out_dtype == torch.float32 else 2
-        gm.update(bound(m * k + 4 * m + n * k + 4 * n + m * n * esz + (n * esz if b is not None else 0),
-                        2.0 * m * n * k, "int8"))
-        qm = {"ms": graph_ms(lambda: w8a8.quantize_rows(x), it),
-              "plain_ms": cuda_ms(lambda: w8a8.quantize_rows_plain(x), pit),
-              "max_abs_err": 0.0, "library_ms": None}
-        qm.update(bound(2 * m * k + m * k + 4 * m, 0, "int8"))
-        # yardsticks only: the library's s8 GEMM (rows > 16, K and N
-        # multiples of 8) and a bf16 product of the same shape
-        int_mm = None
-        if m > 16 and k % 8 == 0 and n % 8 == 0:
-            int_mm = graph_ms(lambda: torch._int_mm(q, wq.t()), it)
-        wb = torch.randn(k, n, generator=g, device=DEVICE).to(torch.bfloat16)
-        bf16_mm = graph_ms(lambda: torch.matmul(x, wb), it)
-        if name == "decode_qo":  # the wrappers' host cost, eagerly
-            host = {"gemm_host_us": round(host_us(lambda: w8a8.w8a8_gemm(
-                        q, sc, wq, ws, b, out_dtype=out_dtype), 1000), 2),
-                    "quant_host_us": round(host_us(lambda: w8a8.quantize_rows(x), 1000), 2)}
-        rows[name] = {"gemm_ms": round(gm["ms"], 5), "gemm_bound_ms": round(gm["bound_ms"], 5),
-                      "gemm_of_bound": round(gm["bound_ms"] / gm["ms"], 3),
-                      "gemm_plain_ms": round(gm["plain_ms"], 4),
-                      "int_mm_ms": None if int_mm is None else round(int_mm, 5),
-                      "bf16_matmul_ms": round(bf16_mm, 5),
-                      "quant_ms": round(qm["ms"], 5), "quant_plain_ms": round(qm["plain_ms"], 4),
-                      "quant_bound_ms": round(qm["bound_ms"], 6)}
-        if name == W8A8_MAIN:
-            out = {"gemm": gm, "quant": qm}
-        del x, wq, ws, b, q, sc, pq, ps, got, want, wb
+        nbytes = sum(n * k + 4 * n + m * n * esz + (n * esz if has_bias else 0) for n in ns)
+        ops = 2.0 * m * k * sum(ns)
+        row = {"route": route}
+        if route == "qgemm":
+            km = {"ms": graph_ms(lambda: w8a8.w8a8_qgemm(x, weights, biases,
+                                                         out_dtype=out_dtype), it),
+                  "plain_ms": cuda_ms(lambda: w8a8.w8a8_dense_plain(
+                      x, weights, biases, out_dtype=out_dtype), pit),
+                  "max_abs_err": 0.0, "library_ms": None}
+            km.update(bound(m * k * 2 + nbytes, ops, "int8"))
+            row.update({"small_ms": round(km["ms"], 5), "small_bound_ms": round(km["bound_ms"], 5),
+                        "small_of_bound": round(km["bound_ms"] / km["ms"], 3),
+                        "small_plain_ms": round(km["plain_ms"], 4)})
+            if name == W8A8_MAIN["small"]:
+                out["small"] = km
+        else:
+            xq, xs = w8a8.quantize_rows(x)
+            check(torch.equal(xq, q) and torch.equal(xs, sc),
+                  f"quantize_rows differs from its plain version at {name}")
+            (wq, ws), b = weights[0], biases[0]
+            check(torch.equal(w8a8.w8a8_gemm(xq, xs, wq, ws, b, out_dtype=out_dtype), want[0]),
+                  f"the wgmma GEMM differs from its plain version at {name}")
+            n = ns[0]
+            gm = {"ms": graph_ms(lambda: w8a8.w8a8_gemm(xq, xs, wq, ws, b,
+                                                        out_dtype=out_dtype), it),
+                  "plain_ms": cuda_ms(lambda: w8a8.w8a8_gemm_plain(xq, xs, wq, ws, b,
+                                                                   out_dtype=out_dtype), pit),
+                  "max_abs_err": 0.0,
+                  # yardstick only: the library's s8 GEMM (int32 out, no epilogue)
+                  "library_ms": graph_ms(lambda: torch._int_mm(xq, wq.t()), it)}
+            gm.update(bound(m * k + 4 * m + n * k + 4 * n + m * n * esz
+                            + (n * esz if has_bias else 0), 2.0 * m * n * k, "int8"))
+            qm = {"ms": graph_ms(lambda: w8a8.quantize_rows(x), it),
+                  "plain_ms": cuda_ms(lambda: w8a8.quantize_rows_plain(x), pit),
+                  "max_abs_err": 0.0, "library_ms": None}
+            qm.update(bound(2 * m * k + m * k + 4 * m, 0, "int8"))
+            row.update({"wgmma_ms": round(gm["ms"], 5), "wgmma_bound_ms": round(gm["bound_ms"], 5),
+                        "wgmma_of_bound": round(gm["bound_ms"] / gm["ms"], 3),
+                        "wgmma_plain_ms": round(gm["plain_ms"], 4),
+                        "int_mm_ms": round(gm["library_ms"], 5),
+                        "quant_ms": round(qm["ms"], 5), "quant_bound_ms": round(qm["bound_ms"], 5),
+                        "quant_of_bound": round(qm["bound_ms"] / qm["ms"], 3),
+                        "quant_plain_ms": round(qm["plain_ms"], 4)})
+            if name == W8A8_MAIN["wgmma"]:
+                out["wgmma"], out["quant"] = gm, qm
+        # the product as the model runs it, on its route
+        row["dense_ms"] = round(graph_ms(lambda: w8a8.w8a8_dense(
+            x, weights, biases, out_dtype=out_dtype), it), 5)
+        if name == "decode_qkv":  # the wrapper's host cost, eagerly
+            host = {"dense_host_us": round(host_us(lambda: w8a8.w8a8_dense(
+                x, weights, biases, out_dtype=out_dtype), 1000), 2)}
+        rows[name] = row
+        del x, weights, biases, q, sc, want, got
         torch.cuda.empty_cache()
-    phase("w8a8", t0, bit_identical=True, ragged_cases=cases, main=W8A8_MAIN, **host,
+    phase("w8a8", t0, bit_identical=True, ragged_cases=cases, m_star=w8a8.M_STAR,
+          main=json.dumps(W8A8_MAIN, separators=(",", ":")), **host,
           shapes=json.dumps(rows, separators=(",", ":")))
     return out
 
@@ -865,7 +916,8 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
             check(not t.is_alive(), "a concurrent /query did not finish")
         conc_wall = time.perf_counter() - tc
         launches = binmax_partial_topk_int8gs.launches
-        w8a8_launches = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
+        w8a8_launches = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
+                         w8a8.quantize_rows.launches)
         results += conc
         with urllib.request.urlopen(
             f"http://127.0.0.1:{port}/health", timeout=60
@@ -895,8 +947,9 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
         "max_s": round(lat[-1], 4),
         "concurrent8_wall_s": round(conc_wall, 4),
         "k1_launches": launches,
-        "w8a8_gemm_launches": w8a8_launches[0],
-        "quantize_rows_launches": w8a8_launches[1],
+        "w8a8_small_launches": w8a8_launches[0],
+        "w8a8_wgmma_launches": w8a8_launches[1],
+        "quantize_rows_launches": w8a8_launches[2],
     }
     phase(name, t0, **stats)
     return server.executor, launches, stats, [r[1] for r in results], health
@@ -1889,10 +1942,11 @@ def _profile_steps(params, cfg, entry, ids, mask, steps: int = 8) -> dict:
     if busy == 0:
         return {"b8_step_busy_share": "not measured (no device events)"}
     top = [(name[:48], round(us / busy, 3)) for name, us in by_name.most_common(6)]
+    cuda_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     return {"b8_step_busy_share": f"{busy / wall_us:.3f}",
             "b8_step_kernel_ms": f"{busy / steps / 1e3:.3f}",
-            "b8_step_kernels": sum(1 for e in prof.events()
-                                   if e.device_type == DeviceType.CUDA) // steps,
+            "b8_step_kernels": len(cuda_events) // steps,
+            "b8_step_w8a8_kernels": sum(1 for e in cuda_events if "w8a8" in e.name) // steps,
             "b8_step_top_kernels": json.dumps(top)}
 
 
@@ -1999,9 +2053,29 @@ def phase_serve_w8a8(paths: dict) -> dict:
           and isinstance(executor.embedder.params.layers[0].q_w, QuantizedLinear)
           and isinstance(executor.sentiment.params.classifier.w, QuantizedLinear),
           "serve_w8a8: the served trees are not quantized")
-    check(stats["w8a8_gemm_launches"] > 0 and stats["quantize_rows_launches"] > 0,
-          f"serve_w8a8: the W8A8 kernels did not launch on /query ({stats})")
+    check(stats["w8a8_small_launches"] > 0 and stats["w8a8_wgmma_launches"] > 0
+          and stats["quantize_rows_launches"] > 0,
+          f"serve_w8a8: a W8A8 kernel did not launch on /query ({stats})")
     return stats
+
+
+def w8a8_launches(cfg, rows: int, head_rows: int) -> tuple[int, int, int]:
+    """(small-row, wgmma, quantize) launches of one Qwen forward pass over
+    `rows` token rows whose head sees `head_rows`, by ops/w8a8.py's route
+    rule: a small-row product is one launch a group (q/k/v, o, gate/up,
+    down, the head); a wgmma one quantizes x once and launches a GEMM a
+    weight."""
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    small = wgmma = quant = 0
+    layer = [(rows, cfg.hidden, 3), (rows, cfg.heads * cfg.head_dim, 1),
+             (rows, cfg.hidden, 2), (rows, cfg.intermediate, 1)]
+    for m, k, members in layer * cfg.layers + [(head_rows, cfg.hidden, 1)]:
+        if w8a8._route(m, k, True) == "wgmma":
+            wgmma, quant = wgmma + members, quant + 1
+        else:
+            small += 1
+    return small, wgmma, quant
 
 
 def phase_decode_w8a8(bf16_stats: dict) -> dict:
@@ -2023,13 +2097,14 @@ def phase_decode_w8a8(bf16_stats: dict) -> dict:
         zero_launches()
         graph_toks, first_s = _wall(lambda: qwen.greedy_generate(
             params, cfg, ids, mask, n, eos_token_id=-1))
-        launches = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
-        # the prefill and the capture's warm-up step, eagerly: 7 GEMMs a
-        # layer and the head; 4 quantizations a layer (q/k/v and gate/up
-        # share one) and the head's. The replays count none.
-        want = (2 * (7 * cfg.layers + 1), 2 * (4 * cfg.layers + 1))
-        check(launches == want, f"decode_w8a8: (GEMM, quantize) launches {launches}, "
-              f"not {want}")
+        launches = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
+                    w8a8.quantize_rows.launches)
+        # the prefill (B x bucket rows, the head on B) and the capture's
+        # warm-up step (B rows), eagerly; the replays count none
+        step = w8a8_launches(cfg, b, b)
+        want = tuple(p + s for p, s in zip(w8a8_launches(cfg, b * DECODE_BUCKET, b), step))
+        check(launches == want, f"decode_w8a8: (small-row, wgmma, quantize) launches "
+              f"{launches}, not {want}")
         eager_toks = qwen.greedy_generate_eager(params, cfg, ids, mask, n, eos_token_id=-1)
         check(torch.equal(graph_toks, eager_toks),
               "decode_w8a8: graph and eager tokens differ")
@@ -2042,6 +2117,10 @@ def phase_decode_w8a8(bf16_stats: dict) -> dict:
         graphs = decode_graph.graphs_of(params)
         entry = graphs.entries()[0]
         prof = _profile_steps(params, cfg, entry, ids, mask)
+    if "b8_step_w8a8_kernels" in prof:
+        check(prof["b8_step_w8a8_kernels"] == sum(step),
+              f"decode_w8a8: a step replays {prof['b8_step_w8a8_kernels']} W8A8 kernels, "
+              f"not {sum(step)}")
     stats.update({
         "int8_b8_eager_ms_per_token": f"{walls['eager'] / n * 1e3:.3f}",
         "int8_b8_graph_ms_per_token": f"{walls['graph'] / n * 1e3:.3f}",
@@ -2051,7 +2130,8 @@ def phase_decode_w8a8(bf16_stats: dict) -> dict:
         "int8_b8_capture_s": f"{entry.graph.capture_s:.3f}",
         "int8_b8_pool_mb": f"{entry.graph.pool_bytes / 2**20:.1f}",
         "bf16_b8_pool_mb": bf16_stats["b8_pool_mb"],
-        "gemm_launches": launches[0], "quantize_launches": launches[1],
+        "small_launches": launches[0], "wgmma_launches": launches[1],
+        "quantize_launches": launches[2], "w8a8_kernels_a_step_by_rule": sum(step),
         "weights_mb": f"{sum(t.numel() * t.element_size() for t in params.state_dict().values()) / 2**20:.1f}",
     })
     stats.update({k.replace("b8_", "int8_b8_", 1): v for k, v in prof.items()})
@@ -2264,9 +2344,9 @@ def main() -> int:
     check(not any(m.split(".")[0] == "rag_inference_pipeline_tpu" for m in sys.modules),
           "the JAX package was imported")
 
-    def entry(name, replaces, launches, m):
+    def entry(name, replaces, launches, m, source=None):
         return {
-            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{source or name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
@@ -2284,9 +2364,12 @@ def main() -> int:
         entry("ivfpq4_adc", f"{jax_ops}/pq.py:432", k6_launches, k6),
         entry("kv_row_insert", "scripts/bench_decode_anatomy.py:88", k7["launches"], k7),
         entry("stream", "scripts/bench_kernel.py:171", k8["launches"], k8),
-        # no Pallas kernel: the reference's XLA _qdense and quantize_act_rows
-        entry("w8a8_gemm", "rag_inference_pipeline_tpu/models/layers.py:92",
-              w8_serve["w8a8_gemm_launches"], w8["gemm"]),
+        # no Pallas kernel: the reference's XLA _qdense and quantize_act_rows;
+        # the GEMM on its two routes (small rows: the quantize folded in)
+        entry("w8a8_gemm_small_rows", "rag_inference_pipeline_tpu/models/layers.py:92",
+              w8_serve["w8a8_small_launches"], w8["small"], "w8a8_gemm"),
+        entry("w8a8_gemm_wgmma", "rag_inference_pipeline_tpu/models/layers.py:92",
+              w8_serve["w8a8_wgmma_launches"], w8["wgmma"], "w8a8_wgmma"),
         entry("w8a8_quant", "rag_inference_pipeline_tpu/models/layers.py:80",
               w8_serve["quantize_rows_launches"], w8["quant"]),
     ]}), flush=True)

@@ -13,11 +13,11 @@ import torch
 from .layers import (
     ParamTree,
     dense,
+    dense_group,
     encoder_attention,
     gelu,
     layer_norm,
     quantize_linear,
-    quantize_shared,
 )
 
 
@@ -173,10 +173,8 @@ def bert_encode(
     x = layer_norm(x, emb.ln_w, emb.ln_b, cfg.eps)
     dh = cfg.hidden // cfg.heads
     for lp in params.layers:
-        xq = quantize_shared(x, lp.q_w)
-        q = dense(x, lp.q_w, lp.q_b, xq=xq).reshape(b, t, cfg.heads, dh)
-        k = dense(x, lp.k_w, lp.k_b, xq=xq).reshape(b, t, cfg.heads, dh)
-        v = dense(x, lp.v_w, lp.v_b, xq=xq).reshape(b, t, cfg.heads, dh)
+        q, k, v = (y.reshape(b, t, cfg.heads, dh) for y in dense_group(
+            x, (lp.q_w, lp.k_w, lp.v_w), (lp.q_b, lp.k_b, lp.v_b)))
         a = encoder_attention(q, k, v, attn_mask).reshape(b, t, cfg.hidden)
         x = layer_norm(
             x + dense(a, lp.o_w, lp.o_b), lp.attn_ln_w, lp.attn_ln_b, cfg.eps

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.w8a8 import int8_scale, quantize_rows, w8a8_gemm
+from ..ops.w8a8 import int8_scale, quantize_rows, w8a8_dense
 
 
 class ParamTree(nn.Module):
@@ -122,16 +122,6 @@ def quantize_act_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
 
 
-def quantize_shared(x: torch.Tensor, w) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
-    """The int8 rows of x ([..., K] -> (q [M, K], s [M])) for several
-    `dense` calls over quantized weights that share x (q/k/v, gate/up): the
-    quantization is deterministic, so once serves them all. None when `w`
-    is not quantized."""
-    if not isinstance(w, QuantizedLinear):
-        return None
-    return quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
-
-
 def layer_norm(x, weight, bias, eps: float = 1e-12):
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
@@ -146,22 +136,35 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps) * weight).to(x.dtype)
 
 
-def dense(x, w, b=None, *, xq=None):
+def dense(x, w, b=None):
     """x @ w ([in, out] weight) with f32 accumulation, in x's dtype.
 
     Over a `QuantizedLinear` this is the reference's W8A8 `dense`
-    (`layers.py:92-110`): x quantized per row (or `xq`, from
-    `quantize_shared`), the exact s8 product, (f32(acc) * xs) * s cast to
-    x's dtype, then the bias added in that dtype, all in `ops/w8a8.py`."""
-    if isinstance(w, QuantizedLinear):
-        if xq is None:
-            xq = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
-        y = w8a8_gemm(*xq, w.q, w.s, b, out_dtype=x.dtype)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    y = torch.matmul(x, w)
-    if b is not None:
-        y = y + b
-    return y
+    (`layers.py:92-110`): x quantized per row, the exact s8 product,
+    (f32(acc) * xs) * s cast to x's dtype, then the bias added in that
+    dtype, all in `ops/w8a8.py::w8a8_dense`."""
+    return dense_group(x, (w,), (b,))[0]
+
+
+def dense_group(x, ws, bs=None) -> list:
+    """`dense` of each weight in `ws` (1 to 3) over the same x, with the
+    biases `bs` (None, or one bias or None a weight).
+
+    Over `QuantizedLinear` weights (all of them, as a quantized tree has
+    them: q/k/v, gate/up) the group is one `w8a8_dense` call: x quantized
+    once, and on the card one launch for the group where the rows are few.
+    Other weights run `torch.matmul` each, as `dense` always has."""
+    bs = bs if bs is not None else (None,) * len(ws)
+    if isinstance(ws[0], QuantizedLinear):
+        lead = x.shape[:-1]
+        ys = w8a8_dense(x.reshape(-1, x.shape[-1]).contiguous(),
+                        [(w.q, w.s) for w in ws], bs, out_dtype=x.dtype)
+        return [y.reshape(*lead, y.shape[-1]) for y in ys]
+    out = []
+    for w, b in zip(ws, bs):
+        y = torch.matmul(x, w)
+        out.append(y if b is None else y + b)
+    return out
 
 
 def gelu(x):

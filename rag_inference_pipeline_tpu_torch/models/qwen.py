@@ -25,16 +25,16 @@ from typing import Optional
 import torch
 
 from . import decode_graph
-from ..ops.w8a8 import quantize_rows, w8a8_gemm
+from ..ops.w8a8 import w8a8_dense
 from .layers import (
     ParamTree,
     QuantizedEmbed,
     QuantizedLinear,
     attention,
     dense,
+    dense_group,
     quantize_embed,
     quantize_linear,
-    quantize_shared,
     rms_norm,
     rope_at,
     rope_frequencies,
@@ -222,10 +222,11 @@ def _block(
 ) -> torch.Tensor:
     b, t, _ = x.shape
     y = rms_norm(x, lp.in_ln, cfg.eps)
-    yq = quantize_shared(y, lp.q_w)
-    q = dense(y, lp.q_w, lp.get("q_b"), xq=yq).reshape(b, t, cfg.heads, cfg.head_dim)
-    k = dense(y, lp.k_w, lp.get("k_b"), xq=yq).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    v = dense(y, lp.v_w, lp.get("v_b"), xq=yq).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    q, k, v = dense_group(y, (lp.q_w, lp.k_w, lp.v_w),
+                          (lp.get("q_b"), lp.get("k_b"), lp.get("v_b")))
+    q = q.reshape(b, t, cfg.heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
     s_len = cache_k.shape[1]
@@ -255,9 +256,8 @@ def _block(
     a = attention(q, cache_k, cache_v, mask).reshape(b, t, -1)
     x = x + dense(a, lp.o_w)
     y = rms_norm(x, lp.post_ln, cfg.eps)
-    yq = quantize_shared(y, lp.gate_w)
-    ff = (torch.nn.functional.silu(dense(y, lp.gate_w, xq=yq))
-          * dense(y, lp.up_w, xq=yq))
+    gate, up = dense_group(y, (lp.gate_w, lp.up_w))
+    ff = torch.nn.functional.silu(gate) * up
     return x + dense(ff, lp.down_w)
 
 
@@ -271,8 +271,8 @@ def _logits(params: ParamTree, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor
     head = params.embed if cfg.tie_embeddings else params.lm_head
     if (isinstance(head, QuantizedEmbed) if cfg.tie_embeddings
             else isinstance(head, QuantizedLinear)):
-        yq, ys = quantize_rows(y.reshape(-1, y.shape[-1]).contiguous())
-        out = w8a8_gemm(yq, ys, head.q, head.s, out_dtype=torch.float32)
+        out = w8a8_dense(y.reshape(-1, y.shape[-1]).contiguous(), [(head.q, head.s)],
+                         out_dtype=torch.float32)[0]
         return out.reshape(*y.shape[:-1], out.shape[-1])
     y = y.float()
     if cfg.tie_embeddings:

@@ -150,11 +150,14 @@ def load_library() -> ctypes.CDLL:
             # lut, codes, slots, sizes, out, b_pad, m, n_slots, cap, m_store,
             # stream
             "ragtorch_ivfpq4_adc": [vp] * 5 + [i32] * 5 + [vp],
-            # xq, xs, wq, ws, bias (or null), out, part (or null), M, N, K,
-            # splits, out_kind, stream
-            "ragtorch_w8a8_gemm": [vp] * 7 + [i32] * 5 + [vp],
-            # M, N, K, SMs -> K splits (no stream: a host query)
-            "ragtorch_w8a8_splits": [i32] * 4,
+            # xq, xs, wq, ws, bias (or null), out, M, N, K, out_kind, stream
+            "ragtorch_w8a8_gemm_wgmma": [vp] * 6 + [i32] * 4 + [vp],
+            # x, wq[3], ws[3], bias[3], out[3], N[3], nmem, M, K, in_kind,
+            # out_kind, mt, nt8, grid_x, cluster, stream
+            "ragtorch_w8a8_qgemm": [vp] + [ctypes.POINTER(vp)] * 4
+            + [ctypes.POINTER(i32)] + [i32] * 9 + [vp],
+            # mt, K -> a block's shared memory (no stream: a host query)
+            "ragtorch_w8a8_qgemm_smem": [i32] * 2,
             # x, q, s, M, K, in_kind, stream
             "ragtorch_w8a8_quantize_rows": [vp] * 3 + [i32] * 3 + [vp],
         }

@@ -166,28 +166,51 @@ def test_greedy_graph_matches_eager(dtype):
     assert len(cache) == 1 and cache.pool_bytes >= 0 and cache.capture_s > 0
 
 
+def _w8a8_counts(rows: int, head_rows: int) -> tuple[int, int, int]:
+    """(small-row, wgmma, quantize) launches of one forward pass of the tiny
+    decoder over `rows` token rows whose head sees `head_rows`, by the
+    route rule: a product of the small-row route is one launch a group
+    (q/k/v, o, gate/up, down); one of the wgmma route quantizes once and
+    launches a GEMM a weight."""
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    small = wgmma = quant = 0
+    products = [(rows, CFG.hidden, 3), (rows, CFG.heads * CFG.head_dim, 1),
+                (rows, CFG.hidden, 2), (rows, CFG.intermediate, 1)] * CFG.layers
+    for m, k, members in products + [(head_rows, CFG.hidden, 1)]:
+        if w8a8._route(m, k, True) == "wgmma":
+            wgmma, quant = wgmma + members, quant + 1
+        else:
+            small += 1
+    return small, wgmma, quant
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_greedy_graph_matches_eager(dtype):
-    """W8A8 weights: the step graph replays the quantize and GEMM kernels
-    the eager step launches, tokens bit for bit; the wrappers count the
-    eager launches (prefill, the capture's warm-up), none of the replays."""
+    """W8A8 weights: the step graph replays the W8A8 kernels the eager step
+    launches, tokens bit for bit; the wrappers count the eager launches
+    (prefill, the capture's warm-up), none of the replays, route by route.
+    Prefill takes the small-row route at 2 x 12 rows and the wgmma route at
+    8 x 12; a step (2 or 8 rows) the small-row route."""
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     dev = _cuda()
     params = tqwen.quantize_qwen_params(_params(dev, dtype))
-    ids, mask = _batch(dev, seed=6)
-    w8a8.w8a8_gemm.launches = w8a8.quantize_rows.launches = 0
-    got = tqwen.greedy_generate(params, CFG, ids, mask, 10, eos_token_id=EOS)
-    # per step: 7 GEMMs a layer and the head; 4 quantizations a layer
-    # (q/k/v and gate/up share theirs) and the head's
-    per_step = (7 * CFG.layers + 1, 4 * CFG.layers + 1)
-    # prefill and the warm-up step before the capture, none of 9 replays
-    assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches) == tuple(
-        2 * n for n in per_step)
-    want = tqwen.greedy_generate_eager(params, CFG, ids, mask, 10, eos_token_id=EOS)
-    assert torch.equal(got, want)
-    assert len(decode_graph.graphs_of(params)) == 1
+    for b in (2, 8):
+        ids, mask = _batch(dev, b=b, seed=6)
+        w8a8.w8a8_qgemm.launches = w8a8.w8a8_gemm.launches = 0
+        w8a8.quantize_rows.launches = 0
+        got = tqwen.greedy_generate(params, CFG, ids, mask, 10, eos_token_id=EOS)
+        # prefill and the warm-up step before the capture, none of 9 replays
+        want = [p + s for p, s in zip(_w8a8_counts(b * ids.shape[1], b),
+                                      _w8a8_counts(b, b))]
+        assert [w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
+                w8a8.quantize_rows.launches] == want
+        assert want[1] == (7 * CFG.layers if b == 8 else 0)
+        eager = tqwen.greedy_generate_eager(params, CFG, ids, mask, 10, eos_token_id=EOS)
+        assert torch.equal(got, eager)
+    assert len(decode_graph.graphs_of(params)) == 2
 
 
 @pytest.mark.cuda

@@ -718,12 +718,14 @@ def _w8a8_rows(g, m, k, dtype):
     return x.to(dtype)
 
 
-# M in {1, 5, 8, 17, 300}: one to eight 8-token n-tiles and several token
-# tiles; N in {2, 3} (the classifiers' few labels: tails in N), 128 and
-# 4,864; K 36 (4-byte copies, one ragged chunk), 896 and 4,864 (split K at
-# small M); bf16 and f32 out, with and without a bias
+# M in {1, 5, 8, 17, 32, 33, 64, 65, 72, 300} (32 is M_STAR): one m tile of 8
+# rows, tiles of 16 to 64 rows and several of them (the small-row kernel),
+# one to three 128-row tiles (wgmma); N in {2, 3} (the classifiers' few labels: tails in N), 128
+# and 4,864; K 36 (4-byte copies, a ragged 64-byte K block; no wgmma), 896
+# and 4,864; bf16 and f32 in and out, with and without a bias. Each kernel
+# is called directly, whatever the route would pick.
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 5, 8, 17, 300])
+@pytest.mark.parametrize("m", [1, 5, 8, 17, 32, 33, 64, 65, 72, 300])
 def test_w8a8_kernels_match_plain_on_card(m):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
@@ -745,47 +747,219 @@ def test_w8a8_kernels_match_plain_on_card(m):
                 ws = torch.rand(n, generator=g, device="cuda") * 1e-2
                 bias = (torch.randn(n, generator=g, device="cuda") * 0.1).to(dtype)
                 for b in (None, bias):
+                    want = w8a8.w8a8_gemm_plain(pq, ps, wq, ws, b, out_dtype=dtype)
+                    before = w8a8.w8a8_qgemm.launches
+                    (got,) = w8a8.w8a8_qgemm(x, [(wq, ws)], [b], out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    assert w8a8.w8a8_qgemm.launches == before + 1
+                    assert torch.equal(got, want), ("qgemm", m, n, k, dtype, b is None)
+                    if k % 16:
+                        continue
                     before = w8a8.w8a8_gemm.launches
                     got = w8a8.w8a8_gemm(q, s, wq, ws, b, out_dtype=dtype)
-                    want = w8a8.w8a8_gemm_plain(q, s, wq, ws, b, out_dtype=dtype)
                     torch.cuda.synchronize()
                     assert w8a8.w8a8_gemm.launches == before + 1
-                    assert torch.equal(got, want), (m, n, k, dtype, b is None)
+                    assert torch.equal(got, want), ("wgmma", m, n, k, dtype, b is None)
 
 
 @pytest.mark.cuda
-def test_w8a8_gemm_exact_sums_and_unaligned_bases_on_card():
-    """Sums far past 2^24 (every product 127^2 at K = 4,864) stay exact
-    s32; an int8 base 4 bytes off a 16-byte boundary takes the 4-byte
-    copies; the tied head's shape (N = 151,936, f32 out) at B = 8."""
+@pytest.mark.parametrize("m", [1, 8, 32, 33, 64, 300])
+def test_w8a8_groups_match_plain_on_card(m):
+    """Groups of 1-3 weights over one x, with mixed biases, through the
+    route (`w8a8_dense`) and through the small-row kernel: each output
+    equals the plain version; the small-row kernel launches once a group."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
-    m, n, k = 8, 96, 4864
-    xq = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
-    xq[1::2] = -127
+    g = torch.Generator(device="cuda").manual_seed(100 + m)
+    for k, ns in ((896, (896, 128, 128)), (896, (4864, 4864)), (768, (5,)),
+                  (4864, (896,)), (64, (3, 200, 17))):
+        x = _w8a8_rows(g, m, k, torch.bfloat16)
+        weights = [(torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                                  dtype=torch.int8),
+                    torch.rand(n, generator=g, device="cuda") * 1e-2) for n in ns]
+        biases = [None if i % 2 else torch.randn(n, generator=g, device="cuda")
+                  .to(torch.bfloat16) for i, n in enumerate(ns)]
+        want = w8a8.w8a8_dense_plain(x, weights, biases, out_dtype=torch.bfloat16)
+        before = w8a8.w8a8_qgemm.launches
+        got = w8a8.w8a8_qgemm(x, weights, biases, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert w8a8.w8a8_qgemm.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (m, k, ns)
+        got = w8a8.w8a8_dense(x, weights, biases, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), ("dense", m, k, ns)
+
+
+@pytest.mark.cuda
+def test_w8a8_gemm_exact_sums_and_unaligned_bases_on_card():
+    """Sums far past 2^24 (every product 127^2 at K = 4,864) stay exact s32
+    on both routes; a weight 4 bytes off a 16-byte boundary takes the small
+    kernel's 4-byte copies (and `w8a8_dense` routes it there at any M), an
+    x off its 4-element boundary is copied first; the tied head's shape
+    (N = 151,936, f32 out) at B = 8 and at the verify round's 72 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    n, k = 96, 4864
     wq = torch.full((n, k), 127, dtype=torch.int8, device="cuda")
-    ones_m, ones_n = torch.ones(m, device="cuda"), torch.ones(n, device="cuda")
-    got = w8a8.w8a8_gemm(xq, ones_m, wq, ones_n, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], torch.full((n,), 127.0 * 127 * k, device="cuda"))
-    assert torch.equal(got, w8a8.w8a8_gemm_plain(xq, ones_m, wq, ones_n,
-                                                 out_dtype=torch.float32))
-    buf = torch.randint(-127, 128, (m * 896 + 4,), dtype=torch.int8, device="cuda")
-    xq_off = buf[4:].view(m, 896)
-    assert xq_off.data_ptr() % 16 == 4
+    ones_n = torch.ones(n, device="cuda")
+    for m in (8, 130):
+        x = torch.full((m, k), 127.0, device="cuda")  # scale 1: q = x
+        x[1::2] = -127.0
+        want = torch.full((m, n), 127.0 * 127 * k, device="cuda")
+        want[1::2] *= -1
+        (got,) = w8a8.w8a8_qgemm(x, [(wq, ones_n)], out_dtype=torch.float32)
+        xq, xs = w8a8.quantize_rows(x)
+        got2 = w8a8.w8a8_gemm(xq, xs, wq, ones_n, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got2, want)
     g = torch.Generator(device="cuda").manual_seed(3)
+    buf = torch.randint(-127, 128, (64 * 896 + 4,), generator=g, device="cuda",
+                        dtype=torch.int8)
+    w_off = buf[4:].view(64, 896)
+    assert w_off.data_ptr() % 16 == 4
+    ws = torch.rand(64, generator=g, device="cuda") * 1e-3
+    xbuf = torch.randn(300 * 896 + 2, generator=g, device="cuda").to(torch.bfloat16)
+    x_off = xbuf[2:].view(300, 896)
+    assert x_off.data_ptr() % 8 == 4
+    before = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches)
+    for x in (x_off, x_off[:8]):
+        want = w8a8.w8a8_dense_plain(x, [(w_off, ws)], out_dtype=torch.bfloat16)[0]
+        got = w8a8.w8a8_dense(x, [(w_off, ws)], out_dtype=torch.bfloat16)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches) == (before[0] + 2, before[1])
     wq = torch.randint(-127, 128, (151_936, 896), generator=g, device="cuda",
                        dtype=torch.int8)
     ws = torch.rand(151_936, generator=g, device="cuda") * 1e-3
-    xs = torch.rand(m, generator=g, device="cuda")
-    got = w8a8.w8a8_gemm(xq_off, xs, wq, ws, out_dtype=torch.float32)
-    want = w8a8.w8a8_gemm_plain(xq_off, xs, wq, ws, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    for m in (8, 72):
+        x = torch.randn(m, 896, generator=g, device="cuda").to(torch.bfloat16)
+        want = w8a8.w8a8_dense_plain(x, [(wq, ws)], out_dtype=torch.float32)[0]
+        got = w8a8.w8a8_dense(x, [(wq, ws)], out_dtype=torch.float32)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), m
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a8.w8a8_gemm(torch.zeros((8, 36), dtype=torch.int8, device="cuda"),
+                       torch.ones(8, device="cuda"), wq[:4, :36].contiguous(),
+                       ws[:4].contiguous(), out_dtype=torch.float32)
     with pytest.raises(ValueError, match="multiple of 4"):
-        w8a8.w8a8_gemm(xq[:, :30].contiguous(), ones_m, wq[:, :30].contiguous(), ws,
-                       out_dtype=torch.float32)
+        w8a8.w8a8_qgemm(torch.zeros((8, 30), device="cuda"),
+                        [(wq[:4, :30].contiguous(), ws[:4].contiguous())],
+                        out_dtype=torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         w8a8.quantize_rows(torch.zeros(4, 64, device="cuda").t())
+
+
+def _near_ties(g, m, k, device):
+    """Rows whose every x / s lies within a few ulps of a half-integer (and
+    some exactly on one): each row's abs-max is 127 s for an awkward s, the
+    others (j + 0.5) s nudged by a relative 0, +-2^-23 or +-2^-22."""
+    s = torch.rand(m, 1, generator=g, device=device) * 10 + 1e-3
+    j = torch.randint(-127, 127, (m, k), generator=g, device=device).float()
+    nudge = torch.tensor([0.0, 2.0**-23, -(2.0**-23), 2.0**-22, -(2.0**-22)], device=device)
+    pick = torch.randint(0, 5, (m, k), generator=g, device=device)
+    x = (j + 0.5) * s * (1 + nudge[pick])
+    x[:, 0] = 127 * s[:, 0]
+    return x
+
+
+@pytest.mark.cuda
+def test_w8a8_quantize_near_ties_on_card():
+    """x / s near and on half-integers: the quantizing kernels (the
+    activation quantize and the small-row kernel's prologue) round as the
+    IEEE quotient does, bit for bit with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for m, k in ((8, 896), (300, 4864), (64, 36)):
+        x = _near_ties(g, m, k, "cuda")
+        pq, ps = w8a8.quantize_rows_plain(x)
+        assert ((x / ps[:, None] - pq.float()).abs() > 0.49).float().mean() > 0.5
+        q, s = w8a8.quantize_rows(x)
+        torch.cuda.synchronize()
+        assert torch.equal(q, pq) and torch.equal(s, ps), (m, k)
+        w = torch.eye(k, device="cuda", dtype=torch.int8)[: min(k, 128)].contiguous()
+        ones = torch.ones(w.shape[0], device="cuda")
+        (got,) = w8a8.w8a8_qgemm(x, [(w, ones)], out_dtype=torch.float32)
+        want = w8a8.w8a8_gemm_plain(pq, ps, w, ones, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, k)
+
+
+@pytest.mark.cuda
+def test_w8a8_small_kernel_on_two_streams_on_card():
+    """Two streams run the small-row kernel at once, many times over: no
+    state is shared between launches, so each stream's outputs equal its
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    jobs = []
+    for k, n in ((4864, 896), (896, 4864)):
+        x = torch.randn(8, k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                           dtype=torch.int8), torch.rand(n, generator=g, device="cuda"))
+        jobs.append((x, w, w8a8.w8a8_dense_plain(x, [w], out_dtype=torch.bfloat16)[0]))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for s, (x, w, _), o in zip(streams, jobs, outs):
+            with torch.cuda.stream(s):
+                o.append(w8a8.w8a8_qgemm(x, [w], out_dtype=torch.bfloat16)[0])
+    torch.cuda.synchronize()
+    for (_, _, want), o in zip(jobs, outs):
+        assert all(torch.equal(y, want) for y in o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 130])
+def test_w8a8_routes_replay_in_a_graph_on_card(m):
+    """`w8a8_dense` captured in a CUDA graph (the small-row route at 8 rows,
+    quantize_rows + wgmma at 130) and replayed over new x: the plain
+    version's outputs; the capture counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(m, 896, generator=g, device="cuda").to(torch.bfloat16)
+    weights = [(torch.randint(-127, 128, (n, 896), generator=g, device="cuda",
+                              dtype=torch.int8),
+                torch.rand(n, generator=g, device="cuda") * 1e-2) for n in (896, 128)]
+    w8a8.w8a8_dense(x, weights, out_dtype=torch.bfloat16)  # warm up: the library
+    torch.cuda.synchronize()
+    counts = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
+              w8a8.quantize_rows.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = w8a8.w8a8_dense(x, weights, out_dtype=torch.bfloat16)
+    assert (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
+            w8a8.quantize_rows.launches) == counts
+    for seed in (1, 2):
+        x.copy_(torch.randn(m, 896, generator=g, device="cuda").to(torch.bfloat16) * seed)
+        graph.replay()
+        want = w8a8.w8a8_dense_plain(x, weights, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ys, want)), seed
+
+
+@pytest.mark.cuda
+def test_w8a8_plan_smem_matches_the_library_on_card():
+    """The wrapper's shared-memory arithmetic (which picks the m tile and
+    the blocks an SM) is the kernel's own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import _kernels, w8a8
+
+    lib = _kernels.load_library()
+    for mt in (8, 16, 32, 48, 64):
+        for k in (4, 36, 64, 768, 896, 4864, 14336):
+            assert lib.ragtorch_w8a8_qgemm_smem(mt, k) == w8a8._qgemm_smem(mt, k)

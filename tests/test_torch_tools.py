@@ -310,7 +310,8 @@ class TestAnatomySmoke:
         the source, every variant on the CPU (the GEMM's and the quantize's
         plain versions), the insert variants agreeing with `full`, rows
         named by the weights."""
-        before = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
+        before = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches,
+                  w8a8.w8a8_qgemm.launches)
         out = anatomy.main(["--smoke", "--reps", "1", "--weights", "int8",
                             "--batches", "2", "--out", str(tmp_path / "a.json")])
         assert out["weights"] == "int8"
@@ -319,7 +320,8 @@ class TestAnatomySmoke:
         for v in anatomy.INSERTS:
             assert out["rows"][f"int8_b2_{v}_agree"] == 1.0
         assert not any(k.startswith("bf16") for k in out["rows"])
-        assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches) == before
+        assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches,
+                w8a8.w8a8_qgemm.launches) == before
         with torch.inference_mode():
             cfg, params = anatomy.make_model(True, torch.device("cpu"), int8=True)
         assert isinstance(params.layers[0].gate_w, QuantizedLinear)

@@ -126,9 +126,11 @@ def test_dense_plain_bit_for_bit(jdt, tdt, bias):
     yt = tlayers.dense(xt, tw, bt if bias else None)
     assert yt.dtype == tdt and yt.shape == (2, 7, 20)
     np.testing.assert_array_equal(_np(yt), np.asarray(yj.astype(jnp.float32)))
-    # the same through a shared quantization of x
-    xq = tlayers.quantize_shared(xt, tw)
-    assert torch.equal(tlayers.dense(xt, tw, bt if bias else None, xq=xq), yt)
+    # the same as the first member of a group that shares x
+    other = tlayers.quantize_linear(wt * 2)
+    got = tlayers.dense_group(xt, (tw, other), (bt if bias else None, None))
+    assert torch.equal(got[0], yt)
+    assert torch.equal(got[1], tlayers.dense(xt, other))
 
 
 def test_gemm_plain_is_exact_past_f32():
@@ -144,6 +146,201 @@ def test_gemm_plain_is_exact_past_f32():
     want = (xq.long() @ wq.long().T).float()
     assert torch.equal(out, want)
     assert out[0, 0] == 127 * 127 * k and out[0, 2] == 127 * 127 * k - 127
+
+
+# --- the route, the small-row plan and the grouped entry ---------------------
+
+
+@pytest.mark.parametrize("m,k,aligned,want", [
+    (1, 896, True, "qgemm"), (8, 896, True, "qgemm"),
+    (w8a8.M_STAR, 896, True, "qgemm"), (w8a8.M_STAR + 1, 896, True, "wgmma"),
+    (72, 896, True, "wgmma"), (4096, 4864, True, "wgmma"),
+    (4096, 36, True, "qgemm"),  # K % 16 != 0: only the small-row kernel takes it
+    (4096, 896, False, "qgemm"),  # weights off a 16-byte boundary: no TMA
+    (8, 14336, True, "qgemm"),  # Llama-3.1-8B's down: 8 rows fit a block
+    (17, 14336, True, "wgmma"),  # 16 rows of it do not: any M takes the wgmma
+])
+def test_route_rule(m, k, aligned, want):
+    assert w8a8._route(m, k, aligned) == want
+
+
+@pytest.mark.parametrize("m,k", [(5, 38), (17, 14340), (4096, 4866)])
+def test_route_refuses_what_no_kernel_takes(m, k):
+    with pytest.raises(ValueError, match="no kernel takes"):
+        w8a8._route(m, k, True)
+
+
+# Qwen2.5-0.5B's decode groups at B = 8 on 132 SMs, and the row tiles that
+# K leaves room for: (M, K, N of each weight) -> (mt, nt8, grid_x, cluster);
+# clusters of 8 share the quantize where each block takes two tiles at most
+@pytest.mark.parametrize("m,k,ns,want", [
+    (8, 896, (896, 128, 128), (8, 1, 144, 8)),  # q/k/v: 144 tiles of 8 rows
+    (8, 896, (896,), (8, 1, 112, 8)),  # o: 112 tiles of 8, K split 8 ways
+    (8, 896, (4864, 4864), (8, 8, 152, 8)),  # gate/up: 152 tiles of 64 rows
+    (8, 4864, (896,), (8, 1, 112, 8)),  # down
+    (8, 896, (151936,), (8, 8, 264, 1)),  # the tied head: 2,374 tiles of 64 rows
+    (1, 768, (5,), (8, 1, 8, 8)),  # a classifier: one tile, one cluster
+    (17, 896, (896,), (32, 1, 112, 8)),
+    (64, 896, (896,), (64, 1, 112, 8)),
+    (64, 896, (896, 128, 128), (64, 1, 128, 8)),  # one block an SM: 144 tiles
+    (64, 4864, (896,), (32, 1, 112, 8)),  # K holds 32 rows a block, one a SM
+])
+def test_qgemm_plan(m, k, ns, want):
+    assert w8a8._qgemm_plan(m, k, ns, 132) == want
+    mt = want[0]
+    assert w8a8._qgemm_smem(mt, k) <= w8a8._BLOCK_SMEM
+    assert w8a8._qgemm_stride(k) % 128 == 64 and w8a8._qgemm_stride(k) >= k
+
+
+def _group(rng, k, ns, jdt, tdt, bias):
+    """JAX-quantized weights [in, out] and the port's [out, in] from the
+    same values, with biases of the working type or None."""
+    out = []
+    for n in ns:
+        wj, wt = _pair(rng.standard_normal((k, n)).astype(np.float32) * 0.05, jdt, tdt)
+        bj, bt = _pair(rng.standard_normal(n).astype(np.float32), jdt, tdt)
+        out.append((jlayers.quantize_linear(wj), tlayers.quantize_linear(wt),
+                    bj if bias else None, bt if bias else None))
+    return out
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("ns", [(20,), (24, 8), (16, 4, 4)])
+def test_grouped_plain_bit_for_bit(ns, jdt, tdt, bias):
+    """`w8a8_dense` over a group of 1-3 weights (the plain version on the
+    CPU, as `w8a8_qgemm` and `dense_group` run it) equals a separate JAX
+    `dense` (`_qdense`) of each weight, op by op."""
+    rng = np.random.default_rng(len(ns) + 10 * bias)
+    xj, xt = _pair(_tied_values(rng, 9, 48, axis=1), jdt, tdt)
+    group = _group(rng, 48, ns, jdt, tdt, bias)
+    weights = [(tw.q, tw.s) for _, tw, _, _ in group]
+    biases = [bt for _, _, _, bt in group]
+    got = w8a8.w8a8_dense(xt, weights, biases, out_dtype=tdt)
+    assert [tuple(y.shape) for y in got] == [(9, n) for n in ns]
+    for y, (jw, _, bj, _) in zip(got, group):
+        assert y.dtype == tdt
+        np.testing.assert_array_equal(_np(y), np.asarray(jlayers.dense(xj, jw, bj)
+                                                         .astype(jnp.float32)))
+    for other in (w8a8.w8a8_qgemm(xt, weights, biases, out_dtype=tdt),
+                  w8a8.w8a8_dense_plain(xt, weights, biases, out_dtype=tdt),
+                  tlayers.dense_group(xt, [tw for _, tw, _, _ in group], biases)):
+        assert all(torch.equal(a, b) for a, b in zip(other, got))
+
+
+def test_wrappers_refuse_mismatched_groups():
+    x = torch.zeros((4, 8))
+    w = (torch.zeros((3, 8), dtype=torch.int8), torch.ones(3))
+    for fn in (w8a8.w8a8_dense, w8a8.w8a8_qgemm):
+        with pytest.raises(ValueError, match="K = 8"):  # mismatched K
+            fn(x, [w, (torch.zeros((3, 9), dtype=torch.int8), torch.ones(3))],
+               out_dtype=torch.float32)
+        with pytest.raises(ValueError, match="must be \\[3\\]"):  # scales' N
+            fn(x, [(w[0], torch.ones(4))], out_dtype=torch.float32)
+        with pytest.raises(ValueError, match="a bias \\[3\\]"):  # bias' N
+            fn(x, [w], [torch.zeros(2)], out_dtype=torch.float32)
+        with pytest.raises(ValueError, match="1 to 3"):
+            fn(x, [w] * 4, out_dtype=torch.float32)
+        with pytest.raises(ValueError, match="1 to 3"):
+            fn(x, [w, w], [None], out_dtype=torch.float32)
+        with pytest.raises(TypeError, match="int8 with float32"):
+            fn(x, [(w[0].float(), w[1])], out_dtype=torch.float32)
+        with pytest.raises(TypeError, match="int8 with float32"):
+            fn(x, [(w[0], w[1].double())], out_dtype=torch.float32)
+        with pytest.raises(TypeError, match="bias of that type"):
+            fn(x, [w], [torch.zeros(3)], out_dtype=torch.bfloat16)
+        with pytest.raises(TypeError, match="bf16 or f32"):
+            fn(x.half(), [w], out_dtype=torch.float32)
+        with pytest.raises(TypeError, match="out_dtype"):
+            fn(x, [w], out_dtype=torch.float16)
+        with pytest.raises(ValueError, match="\\[M, K\\]"):
+            fn(x[None], [w], out_dtype=torch.float32)
+
+
+class _FakeCard:
+    """The wrappers' card side on the CPU: `_off_card` says no, the library
+    records each launch, 132 SMs, no capture."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(w8a8, "_off_card", lambda what, tensors: False)
+        monkeypatch.setattr(w8a8, "_sms", lambda index: 132)
+        monkeypatch.setattr(w8a8._kernels, "launch",
+                            lambda name, index, *args: self.calls.append((name, args)))
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+
+    def names(self):
+        return [name for name, _ in self.calls]
+
+
+def _int8_weights(ns, k, offset=0):
+    out = []
+    for n in ns:
+        buf = torch.zeros(n * k + offset, dtype=torch.int8)
+        out.append((buf[offset:].view(n, k), torch.ones(n)))
+    return out
+
+
+def test_dense_launches_one_kernel_per_small_group(monkeypatch):
+    card = _FakeCard(monkeypatch)
+    before = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
+              w8a8.quantize_rows.launches)
+    weights = _int8_weights((896, 128, 128), 896)
+    ys = w8a8.w8a8_dense(torch.zeros(8, 896, dtype=torch.bfloat16), weights,
+                         out_dtype=torch.bfloat16)
+    assert [tuple(y.shape) for y in ys] == [(8, 896), (8, 128), (8, 128)]
+    assert card.names() == ["ragtorch_w8a8_qgemm"]
+    args = card.calls[0][1]
+    assert list(args[5]) == [896, 128, 128]  # N of each member
+    assert args[6:] == (3, 8, 896, 1, 1, 8, 1, 144, 8)  # nmem, M, K, kinds, plan
+    assert list(args[3]) == [None, None, None]  # no biases
+    assert (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
+            w8a8.quantize_rows.launches) == (before[0] + 1, before[1], before[2])
+
+
+def test_dense_takes_the_wgmma_route_for_many_rows(monkeypatch):
+    card = _FakeCard(monkeypatch)
+    before = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
+    weights = _int8_weights((4864, 4864), 896)
+    w8a8.w8a8_dense(torch.zeros(w8a8.M_STAR + 1, 896), weights,
+                    out_dtype=torch.float32)
+    assert card.names() == ["ragtorch_w8a8_quantize_rows"] + ["ragtorch_w8a8_gemm_wgmma"] * 2
+    m, n, k, kind = card.calls[1][1][-4:]
+    assert (m, n, k, kind) == (w8a8.M_STAR + 1, 4864, 896, 0)
+    assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches) == (
+        before[0] + 2, before[1] + 1)
+    # a weight off a 16-byte boundary, or K % 16 != 0: the small-row kernel
+    card.calls.clear()
+    w8a8.w8a8_dense(torch.zeros(300, 896), _int8_weights((64,), 896, offset=4),
+                    out_dtype=torch.float32)
+    w8a8.w8a8_dense(torch.zeros(300, 36), _int8_weights((64,), 36),
+                    out_dtype=torch.float32)
+    assert card.names() == ["ragtorch_w8a8_qgemm"] * 2
+    assert card.calls[0][1][-4:] == (64, 1, 8, 8)  # m tiles of 64 rows, one cluster
+
+
+def test_card_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch):
+    _FakeCard(monkeypatch)
+    xq, xs = torch.zeros((8, 36), dtype=torch.int8), torch.ones(8)
+    (wq, ws), = _int8_weights((16,), 36)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a8.w8a8_gemm(xq, xs, wq, ws, out_dtype=torch.float32)
+    (wq, ws), = _int8_weights((16,), 896, offset=4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        w8a8.w8a8_gemm(torch.zeros((8, 896), dtype=torch.int8), xs, wq, ws,
+                       out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        w8a8.w8a8_qgemm(torch.zeros(8, 38), _int8_weights((16,), 38),
+                        out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        w8a8.w8a8_qgemm(torch.zeros(8, 896), _int8_weights((16,), 896, offset=2),
+                        out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="no room"):
+        w8a8.w8a8_qgemm(torch.zeros(17, 14336), _int8_weights((16,), 14336),
+                        out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        w8a8.w8a8_qgemm(torch.zeros(896, 8).t(), _int8_weights((16,), 896),
+                        out_dtype=torch.float32)
 
 
 @pytest.fixture(scope="module")
