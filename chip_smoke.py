@@ -192,6 +192,24 @@ and exits non-zero before the last line:
              count rises, and one 8-lane fused step gives the same doc ids,
              scores and tokens as phase serve's executor.
 
+27. serve_3node — runs after serve_staged, over its 1M IVF-Flat index (saved
+             to the workdir as .npz) and its sqlite docs: three node
+             processes through tools/start_pipeline.py (TOTAL_NODES=3, the
+             built-in gateway_default, retrieval_default and
+             generation_default profiles, NODE_*_IP=127.0.0.1, a free
+             BASE_PORT, serve_staged's INDEX_KIND, nprobe,
+             RETRIEVAL_BATCH_SIZE=64 and MAX_TOKENS=128; models at full
+             width, random seeded weights; COMPRESSION_ALGORITHM zstd where
+             zstandard imports, else none). Through the gateway: the two
+             sequential /query of serve_staged, whose bodies must be
+             identical to serve_staged's, then 8 concurrent /query, then
+             /clear_cache, whose reply must list the cascade to both peers.
+             On node 1: the 64-item /retrieve as one embeddings_b64 block,
+             whose ids must equal serve_staged's /retrieve ids. Node 1's
+             /health must show K5 launched by the /query calls and K4 by
+             the /retrieve. Every node must still run, and then exit 0
+             within 60 s of SIGTERM. Times beside serve_staged's.
+
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
 PyTorch call computing the same function where there is one), and last the
@@ -1304,6 +1322,143 @@ def phase_serve_staged(ivf, corpus, queries, db_path: str):
         "k5_launches": k5_query, "k4_launches": k4_retrieve,
     }
     phase("serve_staged", t0, **stats)
+    return {**stats, "bodies": [r[1] for r in results[:2]],
+            "retrieve_ids": [r["ids"] for r in res]}
+
+
+def _free_base(n: int = 3) -> int:
+    """A base port with `n` consecutive ports free just now."""
+    import random
+    import socket
+
+    for _ in range(100):
+        base = random.randrange(20000, 60000 - n)
+        socks = []
+        try:
+            for p in range(base, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("0.0.0.0", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise RuntimeError("no three consecutive free ports")
+
+
+def _post_json(port: int, path: str, body: dict) -> tuple[dict, float]:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        check(r.status == 200, f"{path}: HTTP {r.status}")
+        return json.loads(r.read()), time.perf_counter() - t0
+
+
+def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
+    import base64
+
+    import numpy as np
+    from rag_inference_pipeline_tpu_torch.core.config import load_settings
+    from rag_inference_pipeline_tpu_torch.tools import start_pipeline
+
+    t0 = time.perf_counter()
+    index_path = os.path.join(workdir, "ivf.npz")
+    ivf.save(index_path)
+    save_s = time.perf_counter() - t0
+    base = _free_base()
+    env = {**STAGED_ENV, "TOTAL_NODES": "3", "BASE_PORT": str(base),
+           "NODE_0_IP": "127.0.0.1", "NODE_1_IP": "127.0.0.1", "NODE_2_IP": "127.0.0.1",
+           "INDEX_PATH": index_path, "INDEX_NPROBE": str(ivf.nprobe),
+           "DOCUMENT_DB_PATH": db_path,
+           "COMPRESSION_ALGORITHM": os.environ["COMPRESSION_ALGORITHM"]}
+    settings = load_settings(env)
+    gw, n1 = base, base + 1
+    tl = time.perf_counter()
+    nodes = start_pipeline.start_nodes(3, env, os.path.join(workdir, "nodes"))
+    try:
+        start_pipeline.wait_healthy(settings, nodes, 600)
+        load_s = time.perf_counter() - tl
+        healths = [_get_health(base + n) for n in range(3)]
+        for n, h in enumerate(healths):
+            want = (n, ("gateway", "retrieval", "generation")[n],
+                    ("gateway_default", "retrieval_default", "generation_default")[n])
+            check((h["node"], h["role"], h["profile"]) == want, f"node {n}: {h}")
+            check(h["status"] == "ok" and h["device"].startswith("cuda"), f"node {n}: {h}")
+        before = healths[1]["kernel_launches"]
+        texts = [f"what does the corpus say about topic {i}?" for i in range(10)]
+        results = [_post(gw, texts[0], "s0"), _post(gw, texts[1], "s1")]
+        conc = [None] * 8
+
+        def ask(i):
+            conc[i] = _post(gw, texts[2 + i], f"s{2 + i}")
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        tc = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+            check(not t.is_alive(), "a concurrent /query did not finish")
+        conc_wall = time.perf_counter() - tc
+        results += conc
+        mid = _get_health(n1)["kernel_launches"]
+        rows = queries.float().cpu().numpy().astype("<f4")
+        ret, retrieve_s = _post_json(
+            n1, "/retrieve", {"embeddings_b64": base64.b64encode(rows.tobytes()).decode()})
+        end = _get_health(n1)["kernel_launches"]
+        cleared, _ = _post_json(gw, "/clear_cache", {})
+        for node in nodes:
+            check(node.proc.poll() is None,
+                  f"node {node.number} died ({node.proc.returncode}):\n{node.log_tail()}")
+    finally:
+        ts = time.perf_counter()
+        codes = start_pipeline.stop_nodes(nodes, 60)
+        stop_s = time.perf_counter() - ts
+        os.remove(index_path)
+    for node, code in zip(nodes, codes):
+        check(code == 0, f"node {node.number} exited with {code}:\n{node.log_tail()}")
+    keys = {"request_id", "generated_response", "sentiment", "is_toxic"}
+    for i, (status, body, _) in enumerate(results):
+        check(status == 200, f"/query {i}: HTTP {status}")
+        check(set(body) == keys, f"/query {i}: keys {sorted(body)}")
+        check(body["request_id"] == f"s{i}", f"/query {i}: wrong request_id")
+    for i, want in enumerate(staged["bodies"]):
+        got = results[i][1]
+        if json.dumps(got) != json.dumps(want):
+            print(f"[serve_3node] /query {i} three nodes: {json.dumps(got)}", flush=True)
+            print(f"[serve_3node] /query {i} serve_staged: {json.dumps(want)}", flush=True)
+            check(False, f"/query {i}: the three nodes answer otherwise than serve_staged")
+    k5 = mid["ivf_dedup"] - before["ivf_dedup"]
+    k4_query = mid["ivf_scan"] - before["ivf_scan"]
+    k4 = end["ivf_scan"] - mid["ivf_scan"]
+    check(k5 >= 1 and k4_query == 0, f"node 1: /query ran K5 {k5} and K4 {k4_query} times")
+    check(k4 >= 1, "node 1: the 64-item /retrieve did not run K4")
+    res = ret["results"]
+    check([r["ids"] for r in res] == staged["retrieve_ids"],
+          "node 1: /retrieve ids differ from serve_staged's")
+    check(all(r["documents"][0]["title"] == f"doc {r['ids'][0]}" for r in res),
+          "node 1: /retrieve documents do not match their ids")
+    check(cleared == {"cleared": ["query"],
+                      "cascade": {"retrieval": True, "generation": True}},
+          f"/clear_cache: {cleared}")
+    lat = sorted(r[2] for r in results)
+    stats = {
+        "nodes": 3, "compression": env["COMPRESSION_ALGORITHM"],
+        "save_s": round(save_s, 3), "load_s": round(load_s, 3),
+        "first_s": round(results[0][2], 4), "second_s": round(results[1][2], 4),
+        "p50_s": round(statistics.median(lat), 4), "max_s": round(lat[-1], 4),
+        "concurrent8_wall_s": round(conc_wall, 4), "retrieve64_s": round(retrieve_s, 4),
+        "stop_s": round(stop_s, 3), "k5_launches": k5, "k4_launches": k4,
+        "bodies_identical": True, "retrieve_ids_identical": True,
+    }
+    stats.update({f"staged_{k}": staged[k] for k in (
+        "load_s", "first_s", "second_s", "p50_s", "concurrent8_wall_s", "retrieve64_s")})
+    phase("serve_3node", t0, **stats)
     return stats
 
 
@@ -2287,6 +2442,16 @@ def main() -> int:
     check(os.path.dirname(os.path.abspath(pkg.__file__)) == os.path.join(ROOT, PKG),
           f"{PKG} imported from outside this checkout: {pkg.__file__}")
 
+    # every server of the run, in process or not, compresses with zstd where
+    # the package imports; a node refuses COMPRESSION_ALGORITHM=zstd without it
+    try:
+        import zstandard  # noqa: F401
+
+        os.environ["COMPRESSION_ALGORITHM"] = "zstd"
+    except ImportError:
+        os.environ["COMPRESSION_ALGORITHM"] = "none"
+    print(f"[compression] COMPRESSION_ALGORITHM={os.environ['COMPRESSION_ALGORITHM']}",
+          flush=True)
     t_all = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -2313,6 +2478,7 @@ def main() -> int:
         corpus, ivf, queries, db_path = phase_ivf_build(workdir)
         k45 = phase_k45(ivf, queries)
         staged = phase_serve_staged(ivf, corpus, queries, db_path)
+        phase_serve_3node(ivf, queries, db_path, workdir, staged)
         phase_engine_serve(ivf, db_path)
         del ivf
         gc.collect()

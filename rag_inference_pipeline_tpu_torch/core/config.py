@@ -14,7 +14,7 @@ import typing
 from dataclasses import dataclass
 from typing import Optional
 
-from .enums import IndexKind, PayloadMode
+from .enums import IndexKind, NodeRole, PayloadMode, derive_node_role
 
 _BOOL_TRUE = {"1", "true", "yes", "on"}
 
@@ -25,9 +25,14 @@ class Settings:
 
     # --- node topology ---
     node_number: int = 0
-    total_nodes: int = 1  # the port serves one node: 1 is the only value
+    total_nodes: int = 1
+    node_0_ip: str = "127.0.0.1"
+    node_1_ip: str = "127.0.0.1"
+    node_2_ip: str = "127.0.0.1"
     base_port: int = 8000
     pipeline_role_profile: Optional[str] = None
+    # refused by name (core/profiles.py): the card does not guarantee yaml
+    role_profile_override_path: Optional[str] = None
 
     # --- device ---
     device_platform: Optional[str] = None  # None = cuda (core/device.py)
@@ -38,6 +43,8 @@ class Settings:
     gateway_batch_timeout_ms: float = 50.0
     retrieval_batch_size: int = 32
     retrieval_batch_timeout_ms: float = 20.0
+    generation_batch_size: int = 8
+    generation_batch_timeout_ms: float = 50.0
     gateway_pipeline_chunks: int = 4
     adaptive_batching: bool = True
     adaptive_min_delay_ms: float = 5.0
@@ -93,8 +100,11 @@ class Settings:
     llm_weight_quant: str = "none"
     encoder_weight_quant: str = "none"
 
-    # --- payload ---
+    # --- payload / compression (serve/compression.py) ---
     documents_payload_mode: PayloadMode = PayloadMode.FULL
+    compression_algorithm: str = "zstd"  # zstd | none
+    compression_level: int = 3
+    compression_min_bytes: int = 512
 
     # --- model names ---
     embedding_model: str = "BAAI/bge-base-en-v1.5"
@@ -110,8 +120,11 @@ class Settings:
     doc_store_backend: str = "native"  # sqlite | memory; native is refused
     doc_store_in_memory: bool = False
 
-    # --- serving ---
+    # --- serving / rpc (serve/rpc.py) ---
     request_timeout_s: float = 120.0
+    rpc_retries: int = 3
+    rpc_backoff_base_s: float = 0.1
+    http_max_connections: int = 100
 
     # --- telemetry ---
     log_level: str = "INFO"
@@ -131,8 +144,14 @@ class Settings:
     kv_cache_max_len: int = 1024
 
     def __post_init__(self) -> None:
-        """The reference's `_check_pq` model validator and its
-        `_check_weight_quant` field validator."""
+        """The reference's `_check_total_nodes`, `_check_node_number`,
+        `_check_weight_quant` and `_check_pq` validators."""
+        if not 1 <= self.total_nodes <= 3:
+            raise ValueError("total_nodes must be 1..3 (1 = single-process mode)")
+        if self.node_number not in (0, 1, 2):
+            raise ValueError("node_number must be 0, 1 or 2")
+        if self.compression_algorithm not in ("zstd", "none"):
+            raise ValueError("compression_algorithm must be 'zstd' or 'none'")
         for name in ("llm_weight_quant", "encoder_weight_quant"):
             if getattr(self, name) not in ("none", "int8"):
                 raise ValueError(f"{name} must be 'none' or 'int8'")
@@ -160,6 +179,23 @@ class Settings:
                 "index_pq_rescore_kind must be 'exact', 'int4', 'pq8', "
                 "'host_int8' or 'host_f16'"
             )
+
+    @property
+    def node_role(self) -> NodeRole:
+        return derive_node_role(self.node_number)
+
+    def node_url(self, node: int) -> str:
+        ip = getattr(self, f"node_{node}_ip")
+        return f"http://{ip}:{self.base_port + node}"
+
+    @property
+    def retrieval_url(self) -> str:
+        return self.node_url(1 if self.total_nodes > 1 else 0)
+
+    @property
+    def generation_url(self) -> str:
+        """Node 2 with three nodes; with two, generation stays on node 0."""
+        return self.node_url(2 if self.total_nodes > 2 else 0)
 
     @property
     def listen_port(self) -> int:

@@ -1,16 +1,20 @@
 """Gateway orchestrator: query cache + batch scheduler + a three-stage
 asyncio pipeline (retrieval -> generation -> postproc).
 
-Port of `rag_inference_pipeline_tpu/engine/orchestrator.py` over local
-stages: queries coalesce in a `BatchScheduler`; each flushed batch splits
-into `gateway_pipeline_chunks` chunks that feed three long-lived asyncio
+Port of `rag_inference_pipeline_tpu/engine/orchestrator.py`: queries
+coalesce in a `BatchScheduler`; each flushed batch splits into
+`gateway_pipeline_chunks` chunks that feed three long-lived asyncio
 workers joined by queues, so chunk N+1's retrieval overlaps chunk N's
-generation; a stage error fails every request of its chunk. With
-`use_continuous_batching` the generation stage awaits the service's
-`process_batch_async` (the decode engine) instead of running its batch
-path in a thread. A node without local retrieval and generation stages
-would need the RPC hop of the serving stack, which is not ported: the
-constructor refuses it.
+generation; a stage error fails every request of its chunk, and only its
+chunk. Each stage runs locally when this node hosts it, else over the RPC
+hop (`serve/rpc.py`): `POST {retrieval_url}/retrieve` with the items
+(and, when this node embeds, their rows as `embeddings_b64`, little-endian
+f32), then `POST {generation_url}/generate` with each item's `documents`,
+`compressed_docs` or `doc_ids`, as the retrieval stage returned them; a
+peer that answers with another number of results than it was sent fails
+the chunk. With `use_continuous_batching` a local generation stage awaits
+the service's `process_batch_async` (the decode engine) instead of
+running its batch path in a thread.
 With a fused executor whose `is_loaded` is true, one fused step replaces
 the pipeline and completions clock the batches (`flush_on_ready`); the
 reference gates that on the executor existing (`orchestrator.py:102`).
@@ -19,11 +23,15 @@ reference gates that on the executor existing (`orchestrator.py:102`).
 from __future__ import annotations
 
 import asyncio
+import base64
 import logging
 import re
 from typing import Any, Optional
 
+import numpy as np
+
 from ..core.config import Settings
+from ..serve.rpc import RPCClient
 from ..utils.cache import LRUCache
 from .batcher import BatchScheduler
 
@@ -61,20 +69,19 @@ class Orchestrator:
         self,
         settings: Settings,
         *,
-        retrieval_executor=None,
-        generation_service=None,
+        retrieval_executor=None,  # local RetrievalExecutor, if co-located
+        generation_service=None,  # local GenerationService, if co-located
+        embedder=None,  # local embedder for gateway-side encoding
         fused_executor=None,
+        rpc: Optional[RPCClient] = None,
     ) -> None:
         fused = fused_executor is not None and fused_executor.is_loaded
-        if not fused and (retrieval_executor is None or generation_service is None):
-            raise NotImplementedError(
-                "the orchestrator needs local retrieval and generation stages: "
-                "the RPC hop to other nodes is not ported yet (ROADMAP.md)"
-            )
         self.settings = settings
         self.retrieval_executor = retrieval_executor
         self.generation_service = generation_service
+        self.embedder = embedder
         self.fused_executor = fused_executor
+        self.rpc = rpc or RPCClient(settings)
         self.query_cache = LRUCache(
             settings.query_cache_capacity, ttl_s=settings.query_cache_ttl_s
         )
@@ -107,12 +114,17 @@ class Orchestrator:
             ]
 
     async def stop(self) -> None:
-        """Flush the scheduler, then a None sentinel through the queues."""
+        """Flush the scheduler, then a None sentinel through the queues;
+        close the RPC client."""
         await self.scheduler.stop()
         if self._workers:
             await self._retrieval_q.put(None)
             await asyncio.gather(*self._workers, return_exceptions=True)
             self._workers = []
+        await self.rpc.close()
+
+    def clear_cache(self) -> None:
+        self.query_cache.clear()
 
     async def process_query(self, query: str, request_id: str, k=None) -> dict:
         key = (
@@ -189,9 +201,29 @@ class Orchestrator:
 
     async def _do_retrieval(self, items: list[dict]) -> list[dict]:
         payload = [{"query": it["query"], "k": it.get("k")} for it in items]
-        return await asyncio.get_running_loop().run_in_executor(
-            None, self.retrieval_executor.process_batch, payload
+        loop = asyncio.get_running_loop()
+        embs = None
+        if self.embedder is not None and self.embedder.is_loaded:
+            embs = await loop.run_in_executor(
+                None, self.embedder.encode, [it["query"] for it in items]
+            )
+        if self.retrieval_executor is not None:
+            if embs is not None:
+                for p, e in zip(payload, embs):
+                    p["embedding"] = np.asarray(e, np.float32)
+            return await loop.run_in_executor(
+                None, self.retrieval_executor.process_batch, payload
+            )
+        body: dict[str, Any] = {"items": payload}
+        if embs is not None:
+            # one base64 block of little-endian f32 rows, not JSON float lists
+            body["embeddings_b64"] = base64.b64encode(
+                np.ascontiguousarray(np.asarray(embs, "<f4")).tobytes()
+            ).decode()
+        resp = await self.rpc.post(
+            f"{self.settings.retrieval_url}/retrieve", body, target="retrieval"
         )
+        return _check_count(resp["results"], len(payload), "retrieval")
 
     async def _do_generation(
         self, items: list[dict], retrieval: list[dict]
@@ -199,13 +231,31 @@ class Orchestrator:
         payload = []
         for it, ret in zip(items, retrieval):
             entry: dict[str, Any] = {"query": it["query"]}
-            if ret.get("documents") is not None:
+            if ret.get("compressed_docs"):
+                entry["compressed_docs"] = ret["compressed_docs"]
+            elif ret.get("documents") is not None:
                 entry["documents"] = ret["documents"]
             else:
                 entry["doc_ids"] = ret.get("ids", [])
             payload.append(entry)
-        if self.settings.use_continuous_batching:
-            return await self.generation_service.process_batch_async(payload)
-        return await asyncio.get_running_loop().run_in_executor(
-            None, self.generation_service.process_batch, payload
+        if self.generation_service is not None:
+            if self.settings.use_continuous_batching:
+                return await self.generation_service.process_batch_async(payload)
+            return await asyncio.get_running_loop().run_in_executor(
+                None, self.generation_service.process_batch, payload
+            )
+        resp = await self.rpc.post(
+            f"{self.settings.generation_url}/generate", {"items": payload},
+            target="generation",
         )
+        return _check_count(resp["results"], len(payload), "generation")
+
+
+def _check_count(results: list, sent: int, peer: str) -> list:
+    """A peer's results, one per item sent: a short list would leave
+    requests waiting forever."""
+    if len(results) != sent:
+        raise RuntimeError(
+            f"{peer} peer returned {len(results)} results for {sent} items"
+        )
+    return results

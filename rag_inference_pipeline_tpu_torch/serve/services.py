@@ -7,16 +7,14 @@ Prometheus stage timers and sampled profiler):
 - `RetrievalExecutor`: embed (a provided embedding, else the embedder) ->
   index search behind a search cache keyed by the SHA-256 of the embedding
   and k, with k bucketed up a ladder and batches cut and padded to the
-  shape buckets -> doc fetch by payload mode (`full` documents or
-  `id_only`) -> optional rerank.
-- `GenerationService`: the documents handed over (or fetched by id) ->
-  rerank -> LLM -> sentiment -> toxicity; a toxic answer is replaced by
-  `TOXIC_PLACEHOLDER`. `process_batch` runs the LLM per bucketed batch;
-  `process_batch_async` submits each request to the continuous-batching
-  decode engine.
-
-The `compressed` payload mode is refused by name: zstandard is not
-guaranteed on the GPU machine.
+  shape buckets -> doc fetch by payload mode (`full` documents, `id_only`
+  ids and scores, or `compressed`: the documents as `compressed_docs`,
+  base64 of zstd of their JSON) -> optional rerank.
+- `GenerationService`: the documents handed over (unpacked, or fetched by
+  id from this node's doc store) -> rerank -> LLM -> sentiment ->
+  toxicity; a toxic answer is replaced by `TOXIC_PLACEHOLDER`.
+  `process_batch` runs the LLM per bucketed batch; `process_batch_async`
+  submits each request to the continuous-batching decode engine.
 """
 
 from __future__ import annotations
@@ -32,14 +30,7 @@ from ..core.enums import PayloadMode
 from ..engine.fused_executor import TOXIC_PLACEHOLDER
 from ..utils.cache import LRUCache
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
-
-
-def _refuse_compressed(settings: Settings) -> None:
-    if settings.documents_payload_mode is PayloadMode.COMPRESSED:
-        raise NotImplementedError(
-            "DOCUMENTS_PAYLOAD_MODE='compressed' (zstd blobs) is not ported: "
-            "use 'full' or 'id_only'"
-        )
+from .compression import pack_docs, unpack_docs
 
 
 class RetrievalExecutor:
@@ -49,7 +40,6 @@ class RetrievalExecutor:
         self, settings: Settings, *, index, embedder=None, doc_store=None,
         reranker=None,
     ) -> None:
-        _refuse_compressed(settings)
         self.settings = settings
         self.index = index
         self.embedder = embedder
@@ -143,23 +133,29 @@ class RetrievalExecutor:
     def _build_results(
         self, items: Sequence[dict], ids: list[list[int]], scores: list[list[float]]
     ) -> list[dict]:
-        id_only = self.settings.documents_payload_mode is PayloadMode.ID_ONLY
+        mode = self.settings.documents_payload_mode
         results = []
         for i, it in enumerate(items):
             res: dict[str, Any] = {"ids": ids[i], "scores": scores[i]}
-            if not id_only:
-                if self.doc_store is not None and self.doc_store.is_loaded:
-                    docs = self.doc_store.fetch_documents_batch(
-                        ids[i], truncate_length=self.settings.truncate_length
-                    )
-                else:  # stub docs, as the reference
-                    docs = [{"id": d, "title": f"doc_{d}", "content": ""} for d in ids[i]]
-                for d, sc in zip(docs, scores[i]):
-                    d["score"] = sc
-                if it.get("rerank") and self.reranker is not None:
-                    docs = self.reranker.rerank(it.get("query", ""), docs, top_n=len(docs))
-                res["documents"] = docs
             results.append(res)
+            if mode is PayloadMode.ID_ONLY:
+                continue
+            if self.doc_store is not None and self.doc_store.is_loaded:
+                docs = self.doc_store.fetch_documents_batch(
+                    ids[i], truncate_length=self.settings.truncate_length
+                )
+            else:  # stub docs, as the reference
+                docs = [{"id": d, "title": f"doc_{d}", "content": ""} for d in ids[i]]
+            for d, sc in zip(docs, scores[i]):
+                d["score"] = sc
+            if it.get("rerank") and self.reranker is not None:
+                docs = self.reranker.rerank(it.get("query", ""), docs, top_n=len(docs))
+            if mode is PayloadMode.COMPRESSED:
+                res["compressed_docs"] = pack_docs(
+                    docs, level=self.settings.compression_level
+                )
+            else:
+                res["documents"] = docs
         return results
 
 
@@ -170,7 +166,6 @@ class GenerationService:
         self, settings: Settings, *, llm, reranker=None, sentiment=None,
         toxicity=None, doc_store=None,
     ) -> None:
-        _refuse_compressed(settings)
         if settings.documents_payload_mode is PayloadMode.ID_ONLY and doc_store is None:
             raise ValueError(
                 "documents_payload_mode=id_only requires a doc store on the "
@@ -242,6 +237,9 @@ class GenerationService:
         ]
 
     def _prepare_documents(self, item: dict) -> list[dict]:
+        """Unpack, copy or fetch by id the documents handed over."""
+        if item.get("compressed_docs"):
+            return unpack_docs(item["compressed_docs"])
         if item.get("documents") is not None:
             return [dict(d) for d in item["documents"]]
         if item.get("doc_ids") is not None:

@@ -735,3 +735,14 @@ def test_port_imports_none_of_the_hf_stack():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_event_loop_policy():
+    """asyncio.run leaves the main thread's event loop policy with its loop
+    set to None; a later file on the same xdist worker whose
+    asyncio.get_event_loop() expects a loop then raises
+    (tests/test_core.py::TestRegistry::test_lifecycle). Hand the next file
+    a fresh policy."""
+    yield
+    asyncio.set_event_loop_policy(None)

@@ -53,6 +53,7 @@ from rag_inference_pipeline_tpu_torch.models.weights import (
     qwen_params_from_jax,
 )
 from rag_inference_pipeline_tpu_torch.serve import runtime
+from rag_inference_pipeline_tpu_torch.serve.rpc import RPCClient
 from rag_inference_pipeline_tpu_torch.serve.services import (
     GenerationService,
     RetrievalExecutor,
@@ -275,8 +276,8 @@ def test_orchestrator_query_matches_jax(world, kind):
 
 def test_orchestrator_flush_on_ready_follows_is_loaded(world):
     """Completion clocking is on only with a fused executor that is loaded
-    (the reference checks that one exists); a node without local stages is
-    refused until the RPC hop is ported."""
+    (the reference checks that one exists); a node without local stages
+    sends them over its RPC client."""
 
     class Fused:
         def __init__(self, loaded):
@@ -290,10 +291,10 @@ def test_orchestrator_flush_on_ready_follows_is_loaded(world):
     assert on.scheduler.flush_on_ready
     out = asyncio.run(on.process_query("hello", "r1"))
     assert out["generated_response"] == "hello"
-    with pytest.raises(NotImplementedError, match="RPC"):
-        Orchestrator(world["ts"], fused_executor=Fused(False))
-    with pytest.raises(NotImplementedError, match="RPC"):
-        Orchestrator(world["ts"], retrieval_executor=object())
+    off = Orchestrator(world["ts"], fused_executor=Fused(False))
+    assert not off.scheduler.flush_on_ready and isinstance(off.rpc, RPCClient)
+    remote = Orchestrator(world["ts"], retrieval_executor=object())
+    assert remote.generation_service is None and isinstance(remote.rpc, RPCClient)
 
 
 def test_batch_scheduler_batches_and_stops_its_timer():
@@ -344,21 +345,16 @@ def test_refusals_name_what_is_not_ported(tmp_path):
     s = Settings(**_TINY, device_platform="cpu")
     with pytest.raises(NotImplementedError, match="native"):
         DocumentStore(s).load()
-    comp = dataclasses.replace(s, documents_payload_mode=PayloadMode.COMPRESSED)
-    with pytest.raises(NotImplementedError, match="compressed"):
-        RetrievalExecutor(comp, index=None)
-    with pytest.raises(NotImplementedError, match="compressed"):
-        GenerationService(comp, llm=None)
     host = load_settings({"INDEX_KIND": "ivf_pq", "INDEX_RESCORE_STORE": "host"})
     with pytest.raises(NotImplementedError, match="INDEX_RESCORE_STORE"):
         make_index(host, CPU)
     np.savez(tmp_path / "odd.npz", kind="hnsw", dim=8)
     with pytest.raises(ValueError, match="hnsw"):
         load_index(str(tmp_path / "odd.npz"), CPU)
-    with pytest.raises(NotImplementedError, match="RPC"):
-        load_role_profile(Settings(total_nodes=3))
+    with pytest.raises(NotImplementedError, match="ROLE_PROFILE_OVERRIDE_PATH"):
+        load_role_profile(Settings(role_profile_override_path=str(tmp_path / "p.yaml")))
     with pytest.raises(ValueError, match="carries"):
-        load_role_profile(Settings(pipeline_role_profile="gateway_fat"))
+        load_role_profile(Settings(pipeline_role_profile="no_such_profile"))
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +444,7 @@ def test_server_serves_staged_query_and_retrieve(served):
         "binmax_int8gs", "binmax_bf16", "ivf_scan", "ivf_dedup", "ivfpq4_adc"}
     assert sum(health["kernel_launches"].values()) == 0  # the CPU: plain versions
     for bad in ({"items": [{"embedding": [1.0, 2.0]}]}, {"items": "x"},
-                {"items": [], "response_format": "b64"}):
+                {"items": [{"query": "x"}], "response_format": "b64"}):
         with pytest.raises(urllib.error.HTTPError) as e:
             _req(port, "/retrieve", bad)
         assert e.value.code == 400
@@ -573,3 +569,14 @@ def test_server_serves_staged_query_with_int8_weights(served):
                                  KV_CACHE_MAX_LEN="256")
     assert answers(eng_port) == answers(port)
     assert eng_server.app.components["llm"].engine.segments > 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_event_loop_policy():
+    """asyncio.run leaves the main thread's event loop policy with its loop
+    set to None; a later file on the same xdist worker whose
+    asyncio.get_event_loop() expects a loop then raises
+    (tests/test_core.py::TestRegistry::test_lifecycle). Hand the next file
+    a fresh policy."""
+    yield
+    asyncio.set_event_loop_policy(None)

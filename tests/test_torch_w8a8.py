@@ -733,3 +733,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         w8a8.w8a8_gemm(q, s, q, s, out_dtype=torch.float16)
     with pytest.raises(TypeError, match="out_dtype"):
         w8a8.w8a8_gemm(q, s, q, s, torch.zeros(4), out_dtype=torch.bfloat16)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_event_loop_policy():
+    """asyncio.run leaves the main thread's event loop policy with its loop
+    set to None; a later file on the same xdist worker whose
+    asyncio.get_event_loop() expects a loop then raises
+    (tests/test_core.py::TestRegistry::test_lifecycle). Hand the next file
+    a fresh policy."""
+    yield
+    asyncio.set_event_loop_policy(None)
