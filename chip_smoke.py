@@ -210,6 +210,20 @@ and exits non-zero before the last line:
              the /retrieve. Every node must still run, and then exit 0
              within 60 s of SIGTERM. Times beside serve_staged's.
 
+28. flash  — runs after k2: the encoder flash kernel (csrc/
+             flash_attention.cu) against its plain version at B=4 over
+             the four mask kinds (a full row, 70% valid, one valid token,
+             none): bge-base's heads (H 12, Dh 64) in bf16 at T 1024, 2048
+             and 4096, Dh 128 (H 6) and Dh 256 (H 3) at T 1024, f16 and f32
+             at T 1024; each case's max abs error, kernel, plain and SDPA
+             ms (SDPA with the boolean segment-equality mask, timed only)
+             and bound. Then bert_embed at bge-base width (12 layers,
+             random seeded bf16 weights, max_positions 2048) at B=4 and T
+             1024 and 2048, and once with int8 weights at T 1024: the kernel
+             count, zeroed just before, must rise by exactly 12 a forward;
+             the CLS embeddings against the same forward through the plain
+             version (max abs error, min cosine); ms a forward.
+
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
 PyTorch call computing the same function where there is one), and last the
@@ -283,7 +297,8 @@ PQ_RECALL_BAR = {"pq4": 0.95, "pq4_host": 0.9, "pq8": 0.95}
 HBM_BYTES_PER_S = 3.35e12
 # the anatomy probe's --length 128 and --reps 3, cut to fit the time limit
 ANATOMY_ARGS = ["--length", "32", "--reps", "2"]
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2,
+                  "f32_fma": 67e12}
 # the decode slice: the staged ladder's largest prefill bucket, MAX_TOKENS,
 # alternated eager/graph rounds; speculation at the settings' gamma and the
 # benchmark-only acceptance rates of VERDICT.md item 4; a sequence may leave
@@ -292,6 +307,26 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
 DECODE_BUCKET, DECODE_NEW, DECODE_ROUNDS = 512, 128, 2
 SPEC_GAMMA, INJECT_P, NEAR_TIE = 8, (0.7, 0.9), 1e-4
 ENGINE_REQUESTS, ENGINE_LANES, ENGINE_CACHE, ENGINE_SEGMENT = 16, 32, 1024, 8
+# the encoder's flash kernel: bge-base's heads (12 x 64) at three lengths,
+# its width as 6 x 128 and 3 x 256 heads, and the other two dtypes, at B=4
+# over the four mask kinds; the long-context path (bert_embed at bge-base
+# width, max_positions 2048) at two lengths
+FLASH_B = 4
+FLASH_CASES = [
+    (1024, 12, 64, "bfloat16"), (2048, 12, 64, "bfloat16"), (4096, 12, 64, "bfloat16"),
+    (1024, 6, 128, "bfloat16"), (1024, 3, 256, "bfloat16"),
+    (1024, 12, 64, "float16"), (1024, 12, 64, "float32"),
+]
+FLASH_PATH_T = (1024, 2048)
+# kernel against plain version (atol, rtol): the q.k and p.v sums in f32
+# in another order move a score by ~1e-7 of its size; in bf16 and f16 that
+# can round a p to its neighbour before p.v and flip the output's last bit
+FLASH_TOL = {"bfloat16": (1e-3, 2**-7), "float16": (2.5e-4, 2**-10),
+             "float32": (1e-5, 1e-5)}
+# the path's CLS embeddings (unit norm, bf16 weights, 12 layers) through the
+# kernel against the same forward through the plain version: last-bit
+# differences of the attention carried through 12 post-LN layers
+FLASH_PATH_MIN_COS = 0.999
 
 
 def phase(name: str, t0: float, **info) -> None:
@@ -306,13 +341,15 @@ def check(cond: bool, msg: str) -> None:
 
 def zero_launches() -> None:
     """Every kernel wrapper's launch count to 0, just before a path runs."""
-    from rag_inference_pipeline_tpu_torch.ops import ivf, kv, pq, stream, topk, w8a8
+    from rag_inference_pipeline_tpu_torch.ops import (
+        flash_attention, ivf, kv, pq, stream, topk, w8a8)
 
     for fn in (topk.binmax_partial_topk_int8gs, topk.binmax_partial_topk,
                topk.binmax_partial_topk_int8, ivf.ivf_scan_partial,
                ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores, kv.kv_row_insert,
                kv.kv_row_insert_pair, stream.stream_sum, w8a8.quantize_rows,
-               w8a8.w8a8_gemm, w8a8.w8a8_qgemm):
+               w8a8.w8a8_gemm, w8a8.w8a8_qgemm,
+               flash_attention.flash_encoder_attention):
         fn.launches = 0
 
 
@@ -533,6 +570,121 @@ def phase_k2():
     phase("k2", t0, integer_bit_identical=True, max_abs_err=out["max_abs_err"],
           main_plain_ms=f"{out['plain_ms']:.4f}", **rate("main", out))
     return out
+
+
+def flash_masks(b: int, t: int):
+    """[B, T] int32 rows cycling through the four mask kinds: every token
+    valid, the first 70%, one token, none."""
+    import torch
+
+    valid = torch.tensor([t, int(0.7 * t), 1, 0] * (b // 4 + 1), device=DEVICE)[:b]
+    return (torch.arange(t, device=DEVICE)[None, :] < valid[:, None]).int()
+
+
+def phase_flash():
+    """The encoder flash kernel against its plain version at every case of
+    FLASH_CASES, with its time, the plain version's, SDPA's and the bound;
+    then bert_embed at bge-base width through it at FLASH_PATH_T (and once
+    with int8 weights), 12 launches a forward, against the same forward
+    through the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from rag_inference_pipeline_tpu_torch.models import bert as tbert
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    b, cases, main = FLASH_B, {}, None
+    for t, h, dh, dtype_name in FLASH_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.randn((b, t, h, dh), generator=g, device=DEVICE).to(dtype)
+                   for _ in range(3))
+        seg = flash_masks(b, t)
+        out = fa.flash_encoder_attention(q, k, v, seg, seg)
+        ref = fa.flash_encoder_attention_plain(q, k, v, seg, seg).float()
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs()
+        atol, rtol = FLASH_TOL[dtype_name]
+        check(bool((err <= atol + rtol * ref.abs()).all()),
+              f"flash kernel differs from its plain version at T={t} H={h} Dh={dh} "
+              f"{dtype_name}: max abs err {err.max().item():.3e}")
+        m = {"max_abs_err": err.max().item(),
+             "ms": cuda_ms(lambda: fa.flash_encoder_attention(q, k, v, seg, seg), 20),
+             "plain_ms": cuda_ms(lambda: fa.flash_encoder_attention_plain(
+                 q, k, v, seg, seg), 3)}
+        # yardstick only: SDPA over [B, H, T, Dh] views with the boolean
+        # segment-equality mask (every query sees itself, so no row is empty)
+        allowed = seg[:, None, :, None] == seg[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        m["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed), 20)
+        m.update(bound(4 * b * t * h * dh * q.element_size() + 2 * b * t * 4,
+                       4.0 * b * h * t * t * dh,
+                       "f32_fma" if dtype == torch.float32 else "bf16"))
+        name = f"t{t}_h{h}_d{dh}_{dtype_name}"
+        cases[name] = {"max_abs_err": m["max_abs_err"], "ms": round(m["ms"], 5),
+                       "plain_ms": round(m["plain_ms"], 3),
+                       "library_ms": round(m["library_ms"], 5),
+                       "bound_ms": round(m["bound_ms"], 5),
+                       "of_bound": round(m["bound_ms"] / m["ms"], 3),
+                       "bound_by": m["bound_by"]}
+        if main is None:  # bge-base heads, bf16, the gate's first length
+            main = m
+        del q, k, v, out, ref, err, allowed, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # the path: bert_embed at bge-base width (random seeded bf16 weights),
+    # max_positions 2048, through encoder_attention's flash branch
+    cfg = tbert.BertConfig(max_positions=max(FLASH_PATH_T))
+    params = tbert.init_bert_params(cfg, generator=g, dtype=torch.bfloat16, device=DEVICE)
+    qparams = tbert.quantize_bert_params(params)
+    inputs = {}
+    for t in FLASH_PATH_T:
+        mask = flash_masks(b, t)
+        ids = torch.randint(1, cfg.vocab_size, (b, t), generator=g, device=DEVICE)
+        inputs[t] = (ids * mask, mask)
+    t_int8 = FLASH_PATH_T[0]
+    runs = [(f"t{t}", params, t) for t in FLASH_PATH_T] + [
+        (f"int8_t{t_int8}", qparams, t_int8)]
+    embs, per_forward = {}, {}
+    zero_launches()
+    with torch.inference_mode():
+        for name, p, t in runs:
+            before = fa.flash_encoder_attention.launches
+            embs[name] = tbert.bert_embed(p, cfg, *inputs[t])
+            torch.cuda.synchronize()
+            per_forward[name] = fa.flash_encoder_attention.launches - before
+    launches = fa.flash_encoder_attention.launches
+    check(all(n == cfg.layers for n in per_forward.values()),
+          f"flash launches a forward {per_forward}, not {cfg.layers}")
+    stats = {"launches": launches}
+    flash_attn = tbert.encoder_attention
+    try:  # the same forwards with the plain version in the kernel's place
+        tbert.encoder_attention = (
+            lambda q, k, v, m: fa.flash_encoder_attention_plain(q, k, v, m, m))
+        with torch.inference_mode():
+            for name, p, t in runs:
+                ref = tbert.bert_embed(p, cfg, *inputs[t])
+                err = (embs[name] - ref).abs().max().item()
+                cos = F.cosine_similarity(embs[name], ref, dim=-1).min().item()
+                check(bool(torch.isfinite(embs[name]).all()) and cos >= FLASH_PATH_MIN_COS,
+                      f"bert_embed {name} through the kernel: min cosine {cos:.6f} "
+                      f"to the plain version's")
+                stats[f"{name}_max_abs_err"] = f"{err:.3e}"
+                stats[f"{name}_min_cos"] = f"{cos:.6f}"
+    finally:
+        tbert.encoder_attention = flash_attn
+    with torch.inference_mode():
+        for name, p, t in runs:
+            ms = cuda_ms(lambda: tbert.bert_embed(p, cfg, *inputs[t]), 3)
+            stats[f"{name}_forward_ms"] = f"{ms:.3f}"
+    del params, qparams, inputs, embs
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("flash", t0, launches_per_forward=cfg.layers, **stats,
+          cases=json.dumps(cases, separators=(",", ":")))
+    main["launches"] = launches
+    return main
 
 
 # the int8 path's products (Qwen2.5-0.5B: H 896, kv 2 x 64, I 4,864, V
@@ -2457,6 +2609,7 @@ def main() -> int:
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
+    flash = phase_flash()
     w8 = phase_w8a8()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
@@ -2538,6 +2691,8 @@ def main() -> int:
               w8_serve["w8a8_wgmma_launches"], w8["wgmma"], "w8a8_wgmma"),
         entry("w8a8_quant", "rag_inference_pipeline_tpu/models/layers.py:80",
               w8_serve["quantize_rows_launches"], w8["quant"]),
+        entry("flash_attention", "rag_inference_pipeline_tpu/models/layers.py:205",
+              flash["launches"], flash),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 // PTX helpers of the tensor-core kernels (sm_90a): asynchronous
-// global-to-shared copies with their commit and wait groups, ldmatrix,
-// mma.sync on bf16 and on s8; and, for the W8A8 wgmma GEMM, mbarriers, 2-D
-// TMA tile loads and the warpgroup s8 product with its fence, commit and
-// wait.
+// global-to-shared copies with their commit and wait groups, ldmatrix
+// (plain and transposed), mma.sync on bf16, f16 and s8; and, for the W8A8
+// wgmma GEMM, mbarriers, 2-D TMA tile loads and the warpgroup s8 product
+// with its fence, commit and wait.
 //
 // Every helper is `asm volatile` with a "memory" clobber where it touches
 // memory, so the compiler keeps a copy, its wait and the reads of what it
@@ -66,11 +66,32 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
                : "memory");
 }
 
+// four 8x8 b16 matrices, each transposed on the way: lane l receives the
+// elements (2(l%4), l/4) and (2(l%4)+1, l/4) of its matrix, the B fragment
+// of a k-major tile
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // d += a (16x16, row) * b (16x8, col): bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x16, row) * b (16x8, col): f16 in, f32 accumulate
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

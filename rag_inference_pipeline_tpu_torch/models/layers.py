@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.flash_attention import flash_encoder_attention
 from ..ops.w8a8 import int8_scale, quantize_rows, w8a8_dense
 
 
@@ -249,8 +250,20 @@ def make_padding_mask(attn_mask: torch.Tensor) -> torch.Tensor:
     return (attn_mask > 0)[:, None, None, :]
 
 
+def _use_flash(q) -> bool:
+    """The reference's gate for its flash branch (`layers.py:198-203`),
+    with "the backend is a TPU" read as "q lies on a CUDA card"."""
+    _, t, _, dh = q.shape
+    return q.is_cuda and t % 128 == 0 and t >= 1024 and dh in (64, 128, 256)
+
+
 def encoder_attention(q, k, v, attn_mask):
-    """Bidirectional self-attention with key padding. The reference's TPU
-    flash-attention branch (T >= 1024 on a TPU) is not ported yet; this is
-    the masked path it takes everywhere else."""
+    """Bidirectional self-attention over [B, T, H, Dh], as the reference's
+    `encoder_attention`. Where its gate holds (on the card, T % 128 == 0,
+    T >= 1024, Dh in 64/128/256) this is the flash kernel with the mask as
+    segment ids for q and kv (`ops/flash_attention.py`): a padded query
+    attends the padded keys there, as the reference's does on a TPU.
+    Everywhere else, the CPU included, it is the key-padding path."""
+    if _use_flash(q):
+        return flash_encoder_attention(q, k, v, attn_mask, attn_mask)
     return attention(q, k, v, make_padding_mask(attn_mask))

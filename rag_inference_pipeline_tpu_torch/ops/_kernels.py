@@ -160,6 +160,9 @@ def load_library() -> ctypes.CDLL:
             "ragtorch_w8a8_qgemm_smem": [i32] * 2,
             # x, q, s, M, K, in_kind, stream
             "ragtorch_w8a8_quantize_rows": [vp] * 3 + [i32] * 3 + [vp],
+            # q, k, v, seg_q, seg_kv, out, B, T, H, dh, the (b, t, h)
+            # element strides of q, k and v, kind, stream
+            "ragtorch_flash_attention": [vp] * 6 + [i32] * 4 + [i64] * 9 + [i32, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)

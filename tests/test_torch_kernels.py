@@ -1,7 +1,7 @@
 """The kernel wrappers without the JAX package: the K1 wrapper's CPU
 dispatch and plain version and the shared launch helper here, and every
-hand-written CUDA kernel (K1 to K8, and the W8A8 quantize and GEMM)
-against its plain version on a card.
+hand-written CUDA kernel (K1 to K8, the W8A8 quantize and GEMM, and the
+encoder flash attention) against its plain version on a card.
 
 This file imports no jax, so the card tests run on a machine without it:
 
@@ -963,3 +963,175 @@ def test_w8a8_plan_smem_matches_the_library_on_card():
     for mt in (8, 16, 32, 48, 64):
         for k in (4, 36, 64, 768, 896, 4864, 14336):
             assert lib.ragtorch_w8a8_qgemm_smem(mt, k) == w8a8._qgemm_smem(mt, k)
+
+
+# kernel against plain version on the card: both sum q.k and p.v in f32 in
+# another order, which moves a score by ~1e-7 of its size; in bf16 and f16
+# that can round a p to its neighbour before p.v and flip the output's last
+# bit, so the bound is one ulp of the output (rtol) plus a little (atol)
+FLASH_TOL = {
+    torch.bfloat16: dict(atol=1e-3, rtol=2**-7),
+    torch.float16: dict(atol=2.5e-4, rtol=2**-10),
+    torch.float32: dict(atol=1e-5, rtol=1e-5),
+}
+
+
+def _flash_masks(b, t, device="cuda"):
+    """Rows cycling through the four mask kinds: every token valid, the
+    first 70%, one token, none."""
+    valid = torch.tensor([t, int(0.7 * t), 1, 0] * (b // 4 + 1), device=device)[:b]
+    return (torch.arange(t, device=device)[None, :] < valid[:, None]).int()
+
+
+def _flash_inputs(seed, b, t, h, dh, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, t, h, dh), generator=g, device="cuda").to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_flash_kernel_matches_plain_on_card(t, dh, dtype):
+    """The encoder flash kernel against its plain version at bge-base's
+    width (H * Dh = 768) over the four mask kinds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_inputs(t + dh, 4, t, 768 // dh, dh, dtype)
+    seg = _flash_masks(4, t)
+    before = fa.flash_encoder_attention.launches
+    out = fa.flash_encoder_attention(q, k, v, seg, seg)
+    ref = fa.flash_encoder_attention_plain(q, k, v, seg, seg)
+    torch.cuda.synchronize()
+    assert fa.flash_encoder_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_heads_on_card():
+    """q, k, v as views of one fused [B, T, 3, H, Dh] projection, and int64
+    segment ids: the kernel reads the strides, no copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    (qkv,) = _flash_inputs(7, 3 * 2, 1024, 6, 128, torch.bfloat16)[:1]
+    qkv = qkv.view(2, 3, 1024, 6, 128).transpose(1, 2)  # [B, T, 3, H, Dh]
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    seg = _flash_masks(2, 1024).long()
+    out = fa.flash_encoder_attention(q, k, v, seg, seg)
+    ref = fa.flash_encoder_attention_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(), seg, seg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,dh,flash", [
+    (1024, 64, True), (2048, 128, True), (1024, 256, True), (1152, 64, True),
+    (896, 64, False), (1000, 64, False), (1152, 96, False), (2048, 32, False),
+])
+def test_encoder_attention_takes_flash_at_the_gate_on_card(t, dh, flash):
+    """On CUDA tensors `encoder_attention` launches the kernel exactly once
+    where the reference's gate picks flash, with segment-id semantics, and
+    never elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.models import layers as tlayers
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_inputs(t * dh, 4, t, 2, dh, torch.bfloat16)
+    mask = _flash_masks(4, t)
+    before = fa.flash_encoder_attention.launches
+    out = tlayers.encoder_attention(q, k, v, mask)
+    if flash:
+        want = fa.flash_encoder_attention_plain(q, k, v, mask, mask)
+    else:
+        want = tlayers.attention(q, k, v, tlayers.make_padding_mask(mask))
+    torch.cuda.synchronize()
+    assert fa.flash_encoder_attention.launches == before + int(flash)
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_raises_and_never_falls_back_on_card(monkeypatch):
+    """A refused launch and a failed build raise; the wrapper never returns
+    the plain version's answer for CUDA tensors; it refuses what the kernel
+    cannot take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_inputs(3, 2, 1024, 2, 64, torch.bfloat16)
+    seg = _flash_masks(2, 1024)
+    fa.flash_encoder_attention(q, k, v, seg, seg)  # the library is built
+    before = fa.flash_encoder_attention.launches
+    with monkeypatch.context() as m:  # a dtype code the entry point refuses
+        m.setattr(fa, "_KINDS", {**fa._KINDS, torch.bfloat16: 7})
+        with pytest.raises(RuntimeError, match="ragtorch_flash_attention launch failed"):
+            fa.flash_encoder_attention(q, k, v, seg, seg)
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    with monkeypatch.context() as m:
+        m.setattr(_kernels, "_lib", None)
+        m.setattr(_kernels, "load_library", no_build)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fa.flash_encoder_attention(q, k, v, seg, seg)
+    assert fa.flash_encoder_attention.launches == before
+    with pytest.raises(ValueError, match="multiple of the 128"):
+        fa.flash_encoder_attention(q[:, :1000], k[:, :1000], v[:, :1000],
+                                   seg[:, :1000], seg[:, :1000])
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_encoder_attention(q[..., :32], k[..., :32], v[..., :32], seg, seg)
+    with pytest.raises(TypeError):
+        fa.flash_encoder_attention(q, k.float(), v, seg, seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_encoder_attention(q, k, v.cpu(), seg, seg)
+    with pytest.raises(ValueError, match="16-byte"):
+        odd = torch.empty((2, 1024, 2, 72), dtype=torch.bfloat16, device="cuda")[..., 4:68]
+        fa.flash_encoder_attention(odd, k, v, seg, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("t", [1024, 2048, 4096])
+def test_long_encoder_runs_through_flash_on_card(monkeypatch, t, quantized):
+    """`bert_embed` and `bert_classify` at bge-base width (random bf16
+    weights, and their W8A8 tree) with `max_positions` T: 12 kernel
+    launches a forward, and the same answers as the forward whose
+    attention runs the plain version. Last-bit differences of the
+    attention pass through 12 post-LN layers in bf16, hence a cosine for
+    the unit-norm embeddings and an absolute bound for the logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.models import bert as tbert
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    cfg = tbert.BertConfig(max_positions=t, num_labels=5)
+    g = torch.Generator(device="cuda").manual_seed(t)
+    params = tbert.init_bert_params(cfg, generator=g, dtype=torch.bfloat16, device="cuda")
+    if quantized:
+        params = tbert.quantize_bert_params(params)
+    mask = _flash_masks(2, t)
+    ids = torch.randint(1, cfg.vocab_size, (2, t), generator=g, device="cuda") * mask
+    with torch.inference_mode():
+        before = fa.flash_encoder_attention.launches
+        emb = tbert.bert_embed(params, cfg, ids, mask)
+        logits = tbert.bert_classify(params, cfg, ids, mask)
+        torch.cuda.synchronize()
+        assert fa.flash_encoder_attention.launches == before + 2 * cfg.layers
+        monkeypatch.setattr(tbert, "encoder_attention",
+                            lambda q, k, v, m: fa.flash_encoder_attention_plain(q, k, v, m, m))
+        ref_emb = tbert.bert_embed(params, cfg, ids, mask)
+        ref_logits = tbert.bert_classify(params, cfg, ids, mask)
+    assert emb.shape == (2, cfg.hidden) and logits.shape == (2, 5)
+    assert torch.isfinite(emb).all() and torch.isfinite(logits).all()
+    assert torch.nn.functional.cosine_similarity(emb, ref_emb, dim=-1).min() >= 0.999
+    torch.testing.assert_close(logits, ref_logits, atol=0.1, rtol=0)
