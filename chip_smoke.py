@@ -216,10 +216,13 @@ and exits non-zero before the last line:
              none): bge-base's heads (H 12, Dh 64) in bf16 at T 1024, 2048
              and 4096, Dh 128 (H 6) and Dh 256 (H 3) at T 1024, f16 and f32
              at T 1024; each case's max abs error, kernel, plain and SDPA
-             ms (SDPA with the boolean segment-equality mask, timed only)
-             and bound. Then bert_embed at bge-base width (12 layers,
-             random seeded bf16 weights, max_positions 2048) at B=4 and T
-             1024 and 2048, and once with int8 weights at T 1024: the kernel
+             ms (SDPA with the boolean segment-equality mask, timed only),
+             SDPA over the kernel, the bound and, in bf16 and f16, the
+             CUDA-core floor (tools/bench_flash.py's count from the SASS;
+             null where it fails: no figure fails the phase). Then
+             bert_embed at bge-base width (12 layers, random seeded bf16
+             weights, max_positions 2048) at B=4 and T 1024 and 2048, and
+             once with int8 weights at T 1024: the kernel
              count, zeroed just before, must rise by exactly 12 a forward;
              the CLS embeddings against the same forward through the plain
              version (max abs error, min cosine); ms a forward.
@@ -581,9 +584,43 @@ def flash_masks(b: int, t: int):
     return (torch.arange(t, device=DEVICE)[None, :] < valid[:, None]).int()
 
 
+def flash_floors():
+    """(b, h, t, dh, dtype name) -> the 16-bit kernel's CUDA-core floor in
+    ms (tools/bench_flash.py: its main loop's FP32-pipe and MUFU
+    instructions a score from the built library's SASS, at the SM clock
+    nvidia-smi reports), or None for f32 or where the count fails: a
+    figure that never fails the phase."""
+    from rag_inference_pipeline_tpu_torch.ops import _kernels
+    from rag_inference_pipeline_tpu_torch.tools import bench_flash
+
+    try:
+        sass, clock = bench_flash.flash_sass(_kernels.build()), bench_flash.sm_clock_mhz()
+    except (OSError, RuntimeError, ValueError, subprocess.SubprocessError) as err:
+        print(f"[flash] no CUDA-core floor: {err!r}", flush=True)
+        return lambda *case: None
+    counts = {}
+
+    def floor(b, h, t, dh, dtype_name):
+        if dtype_name == "float32":
+            return None
+        if (dtype_name, dh) not in counts:
+            try:
+                counts[dtype_name, dh] = bench_flash.per_score(sass, dtype_name, dh)
+            except ValueError as err:
+                print(f"[flash] no CUDA-core floor at {dtype_name} Dh {dh}: {err!r}",
+                      flush=True)
+                counts[dtype_name, dh] = None
+        c = counts[dtype_name, dh]
+        return None if c is None else bench_flash.cuda_core_floor_ms(
+            b, h, t, c["fp32_per_score"], c["mufu_per_score"], clock)
+
+    return floor
+
+
 def phase_flash():
     """The encoder flash kernel against its plain version at every case of
-    FLASH_CASES, with its time, the plain version's, SDPA's and the bound;
+    FLASH_CASES, with its time, the plain version's, SDPA's (and SDPA over
+    the kernel), the bound and, in bf16 and f16, the CUDA-core floor;
     then bert_embed at bge-base width through it at FLASH_PATH_T (and once
     with int8 weights), 12 launches a forward, against the same forward
     through the plain version."""
@@ -595,6 +632,7 @@ def phase_flash():
     t0 = time.perf_counter()
     g = torch.Generator(device=DEVICE).manual_seed(14)
     b, cases, main = FLASH_B, {}, None
+    floors = flash_floors()
     for t, h, dh, dtype_name in FLASH_CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v = (torch.randn((b, t, h, dh), generator=g, device=DEVICE).to(dtype)
@@ -622,12 +660,15 @@ def phase_flash():
                        4.0 * b * h * t * t * dh,
                        "f32_fma" if dtype == torch.float32 else "bf16"))
         name = f"t{t}_h{h}_d{dh}_{dtype_name}"
+        floor = floors(b, h, t, dh, dtype_name)
         cases[name] = {"max_abs_err": m["max_abs_err"], "ms": round(m["ms"], 5),
                        "plain_ms": round(m["plain_ms"], 3),
                        "library_ms": round(m["library_ms"], 5),
+                       "library_over_kernel": round(m["library_ms"] / m["ms"], 3),
                        "bound_ms": round(m["bound_ms"], 5),
                        "of_bound": round(m["bound_ms"] / m["ms"], 3),
-                       "bound_by": m["bound_by"]}
+                       "bound_by": m["bound_by"],
+                       "cuda_core_floor_ms": None if floor is None else round(floor, 5)}
         if main is None:  # bge-base heads, bf16, the gate's first length
             main = m
         del q, k, v, out, ref, err, allowed, qt, kt, vt

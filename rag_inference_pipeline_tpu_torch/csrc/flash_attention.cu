@@ -14,35 +14,75 @@
 //   acc   = acc * (alpha l * inv) + (p cast to v's dtype . v, f32) * inv
 // and out = acc cast to q's dtype: the accumulator is normalised as it
 // goes, with no division at the end. Every product and sum of that update
-// is rounded as in the plain version (ops/flash_attention.py), so only the
-// sums of the two products run in another order.
+// is rounded as in the plain version (ops/flash_attention.py: __fmul_rn,
+// __fadd_rn, the IEEE 1 / l', the accurate expf), and p . v goes into a
+// fresh accumulator each block before the update, so only the sums of the
+// two matrix products and the row sums of p run in another order.
 //
 // q, k, v are [B, T, H, Dh] read through their strides (the head row
-// contiguous, 16-byte aligned), seg_q and seg_kv [B, T] int32, out
-// [B, T, H, Dh] contiguous. Dh is 64, 128 or 256 and T a multiple of 128.
+// contiguous, 16-byte aligned), seg_q and seg_kv [B, T] int32 (seg_kv on
+// 16 bytes), out [B, T, H, Dh] contiguous. Dh is 64, 128 or 256 and T a
+// multiple of 128.
 //
-// Bound on the H100: 4 B H T^2 Dh operations (the two products) against the
-// bytes of q, k, v, out and the ids once. At bge-base width (H 12, Dh 64),
-// B 4, T 1024 that is 12.9 GFLOP, 13 us at 989 TFLOP/s, against 25 MB,
-// 7.5 us at 3.35 TB/s: the tensor cores set it, and more so at longer T.
+// Floors on the H100 (tools/bench_flash.py prints both a case):
+// - tensor: the two products, 4 B H T^2 Dh operations at 989 TFLOP/s; bge-
+//   base heads (H 12, Dh 64), B 4: 0.0130 ms at T 1024, 0.208 at T 4096
+//   (the bytes of q, k, v, out and the ids once take 0.0075 ms at T 1024);
+// - CUDA cores: the FP32-pipe instructions a score of the main loop (the
+//   scale, the mask where a block needs it, the max, the subtraction, the
+//   accurate expf's six, the sum, half a pack, and the update's three an
+//   output element a block) over 132 SMs x 128 lanes, and its MUFU.EX2 (one
+//   a score) over 132 x 16, at the SM clock: bench_flash.py counts them in
+//   this kernel's SASS. At Dh 64 this floor is the larger; at Dh 128 and
+//   256 the tensor floor is.
 //
-// Design (a first kernel that is right; wgmma, TMA and warp specialisation
-// are later work):
-// - One block per (b, h, tile of query rows), all tiles independent: the
-//   TPU's sequential kv grid axis becomes a loop inside the block, which
-//   carries m, l and the accumulator in registers.
-// - bf16 and f16: mma.sync m16n8k16 with f32 accumulation for both
-//   products. A warp owns 16 query rows: the Q tile stays in shared memory
-//   and feeds ldmatrix; the 16 x 128 scores sit in 64 f32 registers a thread,
-//   are scaled, masked and exponentiated there, and become the A fragments
-//   of P . V after the cast to the value dtype (the C layout of two n-tiles
-//   is the A layout of one k-step). At Dh 256 two warps share 16 rows, each
-//   computing the scores and owning half of the output columns, so the
-//   accumulator stays at 64 registers.
-// - K and V blocks stream through one shared buffer each with cp.async: K
-//   of the next block loads while this block's softmax and P . V run, V of
-//   the next block while its Q . K^T runs. Shared rows are padded by 16
-//   bytes so ldmatrix reads are free of bank conflicts.
+// Design of the bf16 and f16 kernel, against what held the mma.sync kernel
+// it replaces back:
+// - wgmma, not mma.sync: S = Q K^T is m64n128k16 with Q and K both K-major
+//   in shared memory (SS); P V is m64nNk16 with P from registers (RS: the
+//   f32 accumulator layout of S, cast to v's dtype, is the A fragment of
+//   the k16 steps, no shuffle) and V as an MN-major B in shared memory (the
+//   transpose bit). A warpgroup reads each K and V tile once for its 64
+//   rows, where each mma.sync warp re-read the whole tile through ldmatrix
+//   for its 16.
+// - TMA, not cp.async: one producer thread loads Q once and then K_0, V_0,
+//   K_1, V_1, ... (with each K tile the block's 128 key ids, a bulk copy)
+//   into a ring of kSlots tiles, each guarded by a full mbarrier (the
+//   bytes) and an empty one (one arrival a consumer warp once its products
+//   and id reads are done). The maps are 4-D over (Dh, and H, T, B in
+//   rising stride), built on the host from the wrapper's strides, with
+//   64-element boxes along Dh and the 128-byte swizzle: any view the
+//   wrapper takes (16-byte strides, the head row contiguous) loads as a
+//   contiguous one would. The ring holds 4 key blocks ahead at Dh 64, 2.5
+//   at Dh 128 and 1 at Dh 256 (two 64 KB tiles), where the mma.sync kernel
+//   held one K and one V buffer behind four __syncthreads a block.
+// - Warp specialisation and ping-pong: a block takes 128 query rows, two
+//   consumer warpgroups of 64 and one producer warpgroup (setmaxnreg: 24
+//   registers for the producer, 240 for the consumers).
+//   Named barriers 1 and 2 let the consumers issue their products in
+//   turns, so that one's softmax runs on the CUDA cores while the other's
+//   products run on the tensor cores, rather than both waiting on the
+//   same products.
+// - At Dh 64 a turn issues S_{j+1} and P_j V_j together: softmax_{j+1}
+//   runs while P_j V_j is in flight, and P_j V_j is folded in after it
+//   (registers: s 64, o 32, acc 32, p 32 a thread). p is packed only after
+//   the wait, and 1 / l' is reciprocal()'s, with no call: ptxas serializes
+//   every wgmma of a kernel where a wgmma's A registers are written, or a
+//   call (__fdiv_rn's slow path) is made, while it runs.
+// - Dh 256: Q takes 64 KB and a K or V tile 64 KB, so the ring has two
+//   tiles (192 KB in all); acc is 128 registers a thread, s and o are
+//   never live together. On an H100 (tools/bench_flash.py) this tile took
+//   0.043-0.050 ms at B 4, H 3, T 1024 against 0.055-0.059 for one
+//   consumer warpgroup of 64 rows with a ring of three.
+// - P V runs in output-column chunks (n64 at Dh 64 and 256, n128 at Dh
+//   128), each into a fresh accumulator that the update then folds in, so
+//   that it never holds more than 64 registers a thread.
+// - Exact shortcuts only: a key block whose 128 ids equal every id of a
+//   warp's rows skips the mask add (adding +0.0 changes no exp, no max
+//   that matters and no output bit); a block whose ids are all one value
+//   adds one constant a row; only mixed blocks read their ids key by key.
+//   The row max is a tree (a max is exact in any order); the row sum is
+//   four partial sums a row, 8 deep, not one chain of 32.
 // - f32: CUDA-core FMAs (no TF32, which would round the inputs). A block
 //   of 128 threads owns 64 query rows (32 at Dh 256); K and V stream in
 //   32-key chunks, the 128-key scores and p sit in shared memory, and each
@@ -50,13 +90,17 @@
 // Blocks are independent, there are no atomics, and the result is
 // deterministic.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "ptx.cuh"
+#include "tma.cuh"
 
 namespace ragtorch {
 namespace {
@@ -68,6 +112,19 @@ constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e38);
 struct Strides {
   long long qb, qt, qh, kb, kt, kh, vb, vt, vh;
 };
+
+// 1 / l', the IEEE quotient: __fdiv_rn(1, l)'s fast path without its
+// check and slow-path call (a call while a wgmma is in flight makes ptxas
+// serialize every wgmma of the kernel). The check passes for every l' a
+// block gives: l' >= 1, since the row's max contributes exp(0) = 1, and l'
+// <= T. 1 where l' is 0, as the plain version writes it.
+__device__ __forceinline__ float reciprocal(float l) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(l));
+  r = __fmaf_rn(r, __fmaf_rn(-l, r, 1.0f), r);
+  r = __fmaf_rn(r, __fmaf_rn(-l, r, 1.0f), r);
+  return l == 0.0f ? 1.0f : r;
+}
 
 // the online-softmax update of one accumulator element, rounded as the
 // plain version rounds it: acc * (l_corr * inv) + o * inv
@@ -94,220 +151,378 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs, in
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and f16: mma.sync
+// bf16 and f16: wgmma, TMA, warp specialisation
 // ---------------------------------------------------------------------------
 
 template <typename T>
-struct Mma;
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
 
 template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    ptx::mma_bf16(d, a, b0, b1);
-  }
-};
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    ptx::mma_f16(d, a, b0, b1);
-  }
-};
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-// kWarps warps; kSplit warps share 16 query rows, each owning kDh / kSplit
-// output columns
 template <int kDh>
-struct MmaShape {
-  static constexpr int kWarps = kDh == 256 ? 8 : 4;
-  static constexpr int kSplit = kDh == 256 ? 2 : 1;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kRows = 16 * kWarps / kSplit;  // query rows a block
-  static constexpr int kLd = kDh + 8;                 // shared row, elements
-  static constexpr int kCols = kDh / kSplit;          // output columns a warp
-  static constexpr int kNtO = kCols / 8;              // their n-tiles
-  template <typename T>
-  static constexpr int smem() {
-    return (kRows + 2 * kBlockK) * kLd * (int)sizeof(T) + kBlockK * (int)sizeof(int);
-  }
+struct WgShape {
+  static constexpr int kConsumers = 2;                    // warpgroups of 64 rows
+  static constexpr int kRows = 64 * kConsumers;           // query rows a block
+  static constexpr int kThreads = 128 * (kConsumers + 1); // + the producer's
+  static constexpr int kPanels = kDh / 64;                // 128-byte column panels
+  static constexpr int kPanel = kBlockK * 128;            // a K or V tile's panel
+  static constexpr int kTile = kPanels * kPanel;          // one K or V tile
+  static constexpr int kQPanel = kRows * 128;
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kSlots = kDh == 64 ? 8 : kDh == 128 ? 5 : 2;
+  static constexpr int kChunk = kDh == 128 ? 128 : 64;    // P V output columns
+  // S_{j+1} and P_j V_j in flight together (registers: s 64, p twice 32,
+  // o 32, acc 32 a thread)
+  static constexpr bool kOverlap = kDh == 64;
+  // 1 KB to align the tiles on the swizzle's 1,024 bytes, Q, the ring, its
+  // key ids, the full and empty barriers and Q's
+  static constexpr int kSmem =
+      1024 + kQBytes + kSlots * kTile + kSlots * kBlockK * 4 + (2 * kSlots + 1) * 8;
+  static_assert(kSmem <= 232448, "over the 227 KB a block can have");
 };
+
+// the box at Dh column `col` of head h, row t, batch row b: the map's
+// dimensions 1-3 are H, T and B in rising stride, and `perm` holds the
+// dimension of each (2 bits: H, then T, then B)
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, int perm,
+                                         int col, int h, int t, int b, uint64_t* bar) {
+  const int ph = perm & 3, pt = (perm >> 2) & 3;
+  const int c1 = ph == 1 ? h : pt == 1 ? t : b;
+  const int c2 = ph == 2 ? h : pt == 2 ? t : b;
+  const int c3 = ph == 3 ? h : pt == 3 ? t : b;
+  ptx::tma_load_4d(dst, map, col, c1, c2, c3, bar);
+}
+
+// S = Q K^T for a warpgroup's 64 rows and a 128-key tile: kDh / 16 k16
+// steps of 32 bytes through the 128-byte panels
+template <bool kBf16, int kDh, int kQPanel, int kPanel>
+__device__ __forceinline__ void issue_s(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    const int off = (kk % 4) * 2;
+    ptx::wgmma_m64n128k16_ss<kBf16>(s, ptx::wgmma_desc_sw128(q_addr + (kk / 4) * kQPanel) + off,
+                                    ptx::wgmma_desc_sw128(k_addr + (kk / 4) * kPanel) + off,
+                                    kk > 0);
+  }
+}
+
+// o (a fresh accumulator) = P . V for output columns [c0, c0 + kN) of a
+// 128-key V tile: 8 k16 steps of 16 key rows (2,048 bytes)
+template <bool kBf16, int kN, int kPanel>
+__device__ __forceinline__ void issue_pv(float (&o)[kN / 2], const uint32_t (&pa)[8][4],
+                                         uint32_t v_addr, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    ptx::wgmma_m64k16_rs<kBf16, kN>(
+        o, pa[kk], ptx::wgmma_desc_sw128_mn(v_addr + (c0 / 64) * kPanel + kk * 2048, kPanel),
+        kk > 0);
+}
+
+// The online-softmax step of one key block on the scores s of a thread's
+// rows (s[4n + 2r + e]: row + 8r, key 8n + 2tq + e): scale and mask (block-
+// uniform ids take the short forms), then release the K tile and its ids
+// (`release`), the row statistics (m and l of each row), p = exp(s - m')
+// in s, and the update's factors of each row: sc = alpha l * inv and
+// inv = 1 / l'.
+__device__ __forceinline__ void softmax_block(float (&s)[64], const int* kid, uint64_t* release,
+                                              int seg0, int seg1, float sm_scale, float (&m)[2],
+                                              float (&l)[2], float (&sc)[2], float (&inv)[2]) {
+  float corr[2];
+  const int lane = threadIdx.x % 32, tq = lane % 4;
+  const int4 four = *reinterpret_cast<const int4*>(kid + 4 * lane);
+  const int first = kid[0];
+  const bool uniform = __all_sync(0xffffffffu, four.x == first && four.y == first &&
+                                                   four.z == first && four.w == first);
+  if (uniform && __all_sync(0xffffffffu, seg0 == first && seg1 == first)) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = __fmul_rn(s[i], sm_scale);
+  } else if (uniform) {
+    const float c0 = seg0 == first ? 0.0f : kMaskValue;
+    const float c1 = seg1 == first ? 0.0f : kMaskValue;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * n + e] = __fadd_rn(__fmul_rn(s[4 * n + e], sm_scale), c0);
+        s[4 * n + 2 + e] = __fadd_rn(__fmul_rn(s[4 * n + 2 + e], sm_scale), c1);
+      }
+  } else {
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int2 id = *reinterpret_cast<const int2*>(kid + 8 * n + 2 * tq);
+      s[4 * n] = score(s[4 * n], sm_scale, id.x == seg0);
+      s[4 * n + 1] = score(s[4 * n + 1], sm_scale, id.y == seg0);
+      s[4 * n + 2] = score(s[4 * n + 2], sm_scale, id.x == seg1);
+      s[4 * n + 3] = score(s[4 * n + 3], sm_scale, id.y == seg1);
+    }
+  }
+  __syncwarp();
+  if (lane == 0) ptx::mbar_arrive(release);
+
+  // the row max as a tree (a max is exact in any order), then over the quad
+  // that holds the row
+  float mx[2][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      mx[r][i] = fmaxf(fmaxf(s[8 * i + 2 * r], s[8 * i + 2 * r + 1]),
+                       fmaxf(s[8 * i + 4 + 2 * r], s[8 * i + 5 + 2 * r]));
+#pragma unroll
+  for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mx[r][i] = fmaxf(mx[r][i], mx[r][i + w]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2)
+      mx[r][0] = fmaxf(mx[r][0], __shfl_xor_sync(0xffffffffu, mx[r][0], off));
+    mx[r][0] = fmaxf(m[r], mx[r][0]);
+  }
+  // the row sums in four partial sums a row (the plain version's sum has
+  // its own order too), each 8 deep rather than one chain of 32
+  float sum[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * n + 2 * r + e];
+        x = expf(x - mx[r][0]);
+        sum[r][(n % 2) * 2 + e] += x;
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float total = (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]);
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) total += __shfl_xor_sync(0xffffffffu, total, off);
+    corr[r] = __fmul_rn(expf(m[r] - mx[r][0]), l[r]);
+    l[r] = __fadd_rn(total, corr[r]);
+    m[r] = mx[r][0];
+    inv[r] = reciprocal(l[r]);
+    sc[r] = __fmul_rn(corr[r], inv[r]);
+  }
+}
+
+// p in v's dtype: the A fragments of the 8 k16 steps of P . V (the f32
+// accumulator layout of two n8 tiles is the A layout of one k16 step)
+template <typename T>
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack2<T>(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+    ptx::fence_regs(pa[kk]);
+  }
+}
+
+// acc[i] (output columns of o's chunk) folded with o: acc * sc + o * inv
+template <int kN>
+__device__ __forceinline__ void update_chunk(float* acc, const float (&o)[kN], const float (&sc)[2],
+                                             const float (&inv)[2]) {
+#pragma unroll
+  for (int i = 0; i < kN; i += 4) {
+    acc[i] = update(acc[i], sc[0], o[i], inv[0]);
+    acc[i + 1] = update(acc[i + 1], sc[0], o[i + 1], inv[0]);
+    acc[i + 2] = update(acc[i + 2], sc[1], o[i + 2], inv[1]);
+    acc[i + 3] = update(acc[i + 3], sc[1], o[i + 3], inv[1]);
+  }
+}
 
 template <typename T, int kDh>
-__global__ void __launch_bounds__(MmaShape<kDh>::kThreads)
-    flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ seg_q,
-                     const int* __restrict__ seg_kv, T* __restrict__ out, int t_len,
-                     int heads, Strides st, float sm_scale) {
-  using S = MmaShape<kDh>;
-  constexpr int kLd = S::kLd, kThreads = S::kThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + S::kRows * kLd;
-  T* sv = sk + kBlockK * kLd;
-  int* sseg = reinterpret_cast<int*>(sv + kBlockK * kLd);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tq = lane % 4;
+__global__ void __launch_bounds__(WgShape<kDh>::kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_kv, T* __restrict__ out, int t_len,
+                       int heads, int perms, float sm_scale) {
+  using S = WgShape<kDh>;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (ptx::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = smem;
+  uint8_t* tiles = sq + S::kQBytes;
+  int* ids = reinterpret_cast<int*>(tiles + S::kSlots * S::kTile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ids + S::kSlots * kBlockK);
+  uint64_t* empty = full + S::kSlots;
+  uint64_t* qbar = empty + S::kSlots;
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * S::kRows;
-  const T* qg = q + b * st.qb + h * st.qh + row0 * st.qt;
-  const T* kg = k + b * st.kb + h * st.kh;
-  const T* vg = v + b * st.vb + h * st.vh;
-  const int* skv = seg_kv + (long long)b * t_len;
+  const int nb = t_len / kBlockK;
 
-  // group: Q, K0 and its ids; group: V0
-  load_rows<T, kDh, kLd, S::kRows, kThreads>(sq, qg, st.qt, tid);
-  load_rows<T, kDh, kLd, kBlockK, kThreads>(sk, kg, st.kt, tid);
-  if (tid < kBlockK) ptx::cp_async<4>(ptx::smem_addr(sseg + tid), skv + tid, 4);
-  ptx::cp_async_commit();
-  load_rows<T, kDh, kLd, kBlockK, kThreads>(sv, vg, st.vt, tid);
-  ptx::cp_async_commit();
-
-  const int rw = (warp / S::kSplit) * 16;  // the warp's rows in the tile
-  const int c0 = (warp % S::kSplit) * S::kCols;
-  const int* sqg = seg_q + (long long)b * t_len + row0 + rw + g;
-  const int seg0 = __ldg(sqg), seg1 = __ldg(sqg + 8);  // rows g and g + 8
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-  float acc[S::kNtO][4];
-#pragma unroll
-  for (int n = 0; n < S::kNtO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  const uint32_t q_addr = ptx::smem_addr(sq + (rw + lane % 16) * kLd + (lane / 16) * 8);
-  const uint32_t k_addr =
-      ptx::smem_addr(sk + ((lane % 8) + (lane / 16) * 8) * kLd + ((lane / 8) % 2) * 8);
-  const uint32_t v_addr =
-      ptx::smem_addr(sv + ((lane % 8) + ((lane / 8) % 2) * 8) * kLd + c0 + (lane / 16) * 8);
-  const int nblocks = t_len / kBlockK;
-  for (int j = 0; j < nblocks; ++j) {
-    ptx::cp_async_wait<1>();  // Q, K_j and its ids have landed
-    __syncthreads();
-    // s: C fragments of 16 n-tiles; s[n][e] is row g (+8 for e >= 2), key
-    // 8n + 2tq (+1 for odd e)
-    float s[16][4];
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      uint32_t a[4];
-      ptx::ldmatrix_x4(a, q_addr + kk * 32);
-#pragma unroll
-      for (int n = 0; n < 16; n += 2) {
-        uint32_t bf[4];
-        ptx::ldmatrix_x4(bf, k_addr + (n * 8 * kLd + kk * 16) * (int)sizeof(T));
-        Mma<T>::mma(s[n], a, bf[0], bf[1]);
-        Mma<T>::mma(s[n + 1], a, bf[2], bf[3]);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kSlots; ++s) {
+      ptx::mbar_init(&full[s], 1);
+      ptx::mbar_init(&empty[s], 4 * S::kConsumers);
     }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int seg = sseg[n * 8 + 2 * tq + e];
-        s[n][e] = score(s[n][e], sm_scale, seg == seg0);
-        s[n][e + 2] = score(s[n][e + 2], sm_scale, seg == seg1);
-        mx0 = fmaxf(mx0, s[n][e]);
-        mx1 = fmaxf(mx1, s[n][e + 2]);
-      }
-    __syncthreads();  // every warp is done with K_j and its ids
-    if (j + 1 < nblocks) {
-      load_rows<T, kDh, kLd, kBlockK, kThreads>(sk, kg + (j + 1) * kBlockK * st.kt,
-                                                st.kt, tid);
-      if (tid < kBlockK)
-        ptx::cp_async<4>(ptx::smem_addr(sseg + tid), skv + (j + 1) * kBlockK + tid, 4);
-    }
-    ptx::cp_async_commit();
-
-    // the row statistics over the quad that holds a row
-#pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[n][e] = expf(s[n][e] - mn0);
-        s[n][e + 2] = expf(s[n][e + 2] - mn1);
-        sum0 += s[n][e];
-        sum1 += s[n][e + 2];
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    const float corr0 = __fmul_rn(expf(m0 - mn0), l0);
-    const float corr1 = __fmul_rn(expf(m1 - mn1), l1);
-    l0 = __fadd_rn(sum0, corr0);
-    l1 = __fadd_rn(sum1, corr1);
-    m0 = mn0;
-    m1 = mn1;
-    const float inv0 = l0 == 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
-    const float inv1 = l1 == 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
-    const float sc0 = __fmul_rn(corr0, inv0), sc1 = __fmul_rn(corr1, inv1);
-
-    // p in the value dtype: the A fragments of 8 k-steps of 16 keys
-    uint32_t pa[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      pa[kk][0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-
-    ptx::cp_async_wait<1>();  // V_j has landed (K_{j+1} may be in flight)
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < S::kNtO; n += 2) {
-      float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        uint32_t bf[4];
-        ptx::ldmatrix_x4_trans(bf, v_addr + (kk * 16 * kLd + n * 8) * (int)sizeof(T));
-        Mma<T>::mma(o[0], pa[kk], bf[0], bf[1]);
-        Mma<T>::mma(o[1], pa[kk], bf[2], bf[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        acc[n + i][0] = update(acc[n + i][0], sc0, o[i][0], inv0);
-        acc[n + i][1] = update(acc[n + i][1], sc0, o[i][1], inv0);
-        acc[n + i][2] = update(acc[n + i][2], sc1, o[i][2], inv1);
-        acc[n + i][3] = update(acc[n + i][3], sc1, o[i][3], inv1);
-      }
-    }
-    __syncthreads();  // every warp is done with V_j
-    if (j + 1 < nblocks)
-      load_rows<T, kDh, kLd, kBlockK, kThreads>(sv, vg + (j + 1) * kBlockK * st.vt,
-                                                st.vt, tid);
-    ptx::cp_async_commit();
+    ptx::mbar_init(qbar, 1);
+    ptx::fence_barrier_init();
   }
-  ptx::cp_async_wait<0>();
+  __syncthreads();
 
-  // out rows row0 + rw + g (+8), two adjacent columns a store
-  const long long orow = (long long)heads * kDh;
-  T* og = out + ((long long)b * t_len + row0 + rw + g) * orow + (long long)h * kDh + c0 +
-          2 * tq;
+  const int wg = threadIdx.x / 128;
+  if (wg == S::kConsumers) {  // the producer warpgroup: one thread loads
+    ptx::setmaxnreg_dec<24>();
+    if (threadIdx.x == S::kConsumers * 128) {
+      ptx::mbar_arrive_expect_tx(qbar, S::kQBytes);
 #pragma unroll
-  for (int n = 0; n < S::kNtO; ++n) {
-    *reinterpret_cast<uint32_t*>(og + n * 8) = Mma<T>::pack(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(og + 8 * orow + n * 8) = Mma<T>::pack(acc[n][2], acc[n][3]);
+      for (int p = 0; p < S::kPanels; ++p)
+        load_box(sq + p * S::kQPanel, &map_q, perms & 63, 64 * p, h, row0, b, qbar);
+      const int* kid = seg_kv + (long long)b * t_len;
+      for (int i = 0; i < 2 * nb; ++i) {  // K_0, V_0, K_1, V_1, ...
+        const int s = i % S::kSlots, j = i / 2;
+        if (i >= S::kSlots) ptx::mbar_wait(&empty[s], (i / S::kSlots - 1) & 1);
+        uint8_t* dst = tiles + s * S::kTile;
+        if (i % 2 == 0) {
+          ptx::mbar_arrive_expect_tx(&full[s], S::kTile + kBlockK * 4);
+#pragma unroll
+          for (int p = 0; p < S::kPanels; ++p)
+            load_box(dst + p * S::kPanel, &map_k, (perms >> 6) & 63, 64 * p, h, j * kBlockK, b,
+                     &full[s]);
+          ptx::bulk_load(ids + s * kBlockK, kid + j * kBlockK, kBlockK * 4, &full[s]);
+        } else {
+          ptx::mbar_arrive_expect_tx(&full[s], S::kTile);
+#pragma unroll
+          for (int p = 0; p < S::kPanels; ++p)
+            load_box(dst + p * S::kPanel, &map_v, (perms >> 12) & 63, 64 * p, h, j * kBlockK, b,
+                     &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  ptx::setmaxnreg_inc<240>();
+
+  // thread (warp, g, tq) of the warpgroup holds rows 16 warp + g and + 8 of
+  // its 64: s[4n + 2r + e] is row + 8r, key 8n + 2tq + e; acc[4n + 2r + e]
+  // the same rows at output column 8n + 2tq + e
+  const int t = threadIdx.x % 128, lane = t % 32, tq = lane % 4;
+  const int row = row0 + wg * 64 + (t / 32) * 16 + lane / 4;
+  const int* sqg = seg_q + (long long)b * t_len + row;
+  const int seg0 = __ldg(sqg), seg1 = __ldg(sqg + 8);
+  float acc[kDh / 2];
+#pragma unroll
+  for (int i = 0; i < kDh / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, sc[2], inv[2];
+  uint32_t pa[8][4];
+  float s[64];
+  const uint32_t q_addr = ptx::smem_addr(sq) + wg * 64 * 128;
+  const uint32_t tiles_addr = ptx::smem_addr(tiles);
+  // tile i (K_j at i = 2j, V_j at 2j + 1) sits in slot i % kSlots, in its
+  // (i / kSlots)-th use
+  auto wait_full = [&](int i) { ptx::mbar_wait(&full[i % S::kSlots], (i / S::kSlots) & 1); };
+  auto tile = [&](int i) { return tiles_addr + (i % S::kSlots) * S::kTile; };
+  auto slot_ids = [&](int i) { return ids + (i % S::kSlots) * kBlockK; };
+  // ping-pong: consumer w issues its products after barrier 1 + w, then
+  // lets the other go; consumer 0 goes first
+  if (wg == 0) ptx::bar_arrive(1, 256);
+  ptx::mbar_wait(qbar, 0);
+
+  if constexpr (S::kOverlap) {
+    // S_0 and its softmax; then each turn issues S_{j+1} and P_j V_j
+    // together, runs softmax_{j+1} while P_j V_j is in flight, and folds
+    // P_j V_j into acc with block j's factors
+    wait_full(0);
+    ptx::bar_sync(1 + wg, 256);
+    ptx::wgmma_fence();
+    issue_s<kBf16, kDh, S::kQPanel, S::kPanel>(s, q_addr, tile(0));
+    ptx::wgmma_commit();
+    ptx::bar_arrive(2 - wg, 256);
+    ptx::wgmma_wait<0>();
+    ptx::fence_regs(s);
+    softmax_block(s, slot_ids(0), &empty[0], seg0, seg1, sm_scale, m, l, sc, inv);
+    pack_p<T>(s, pa);
+    for (int j = 0; j + 1 < nb; ++j) {
+      wait_full(2 * j + 1);
+      wait_full(2 * j + 2);
+      float o[kDh / 2];
+      ptx::bar_sync(1 + wg, 256);
+      ptx::wgmma_fence();
+      issue_s<kBf16, kDh, S::kQPanel, S::kPanel>(s, q_addr, tile(2 * j + 2));
+      ptx::wgmma_commit();
+      issue_pv<kBf16, kDh, S::kPanel>(o, pa, tile(2 * j + 1), 0);
+      ptx::wgmma_commit();
+      ptx::bar_arrive(2 - wg, 256);
+      const float sc_j[2] = {sc[0], sc[1]}, inv_j[2] = {inv[0], inv[1]};
+      ptx::wgmma_wait<1>();  // S_{j+1}; P_j V_j may still run
+      ptx::fence_regs(s);
+      softmax_block(s, slot_ids(2 * j + 2), &empty[(2 * j + 2) % S::kSlots], seg0, seg1,
+                    sm_scale, m, l, sc, inv);
+      ptx::wgmma_wait<0>();
+      ptx::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) ptx::fence_regs(pa[kk]);  // read until here
+      update_chunk<kDh / 2>(acc, o, sc_j, inv_j);
+      __syncwarp();
+      if (lane == 0) ptx::mbar_arrive(&empty[(2 * j + 1) % S::kSlots]);  // V_j is read
+      pack_p<T>(s, pa);  // only now: a wgmma's A registers change outside its stage
+    }
+    {  // the last block: P V alone
+      const int j = nb - 1;
+      wait_full(2 * j + 1);
+      float o[kDh / 2];
+      ptx::bar_sync(1 + wg, 256);
+      ptx::wgmma_fence();
+      issue_pv<kBf16, kDh, S::kPanel>(o, pa, tile(2 * j + 1), 0);
+      ptx::wgmma_commit();
+      ptx::bar_arrive(2 - wg, 256);
+      ptx::wgmma_wait<0>();
+      ptx::fence_regs(o);
+      update_chunk<kDh / 2>(acc, o, sc, inv);
+    }
+  } else {
+    for (int j = 0; j < nb; ++j) {
+      wait_full(2 * j);
+      ptx::bar_sync(1 + wg, 256);
+      ptx::wgmma_fence();
+      issue_s<kBf16, kDh, S::kQPanel, S::kPanel>(s, q_addr, tile(2 * j));
+      ptx::wgmma_commit();
+      ptx::bar_arrive(2 - wg, 256);
+      ptx::wgmma_wait<0>();
+      ptx::fence_regs(s);
+      softmax_block(s, slot_ids(2 * j), &empty[(2 * j) % S::kSlots], seg0, seg1, sm_scale, m,
+                    l, sc, inv);
+      pack_p<T>(s, pa);
+      wait_full(2 * j + 1);
+#pragma unroll
+      for (int c = 0; c < kDh / S::kChunk; ++c) {
+        float o[S::kChunk / 2];
+        ptx::wgmma_fence();
+        issue_pv<kBf16, S::kChunk, S::kPanel>(o, pa, tile(2 * j + 1), c * S::kChunk);
+        ptx::wgmma_commit();
+        ptx::wgmma_wait<0>();
+        ptx::fence_regs(o);
+        update_chunk<S::kChunk / 2>(acc + c * S::kChunk / 2, o, sc, inv);
+      }
+      __syncwarp();
+      if (lane == 0) ptx::mbar_arrive(&empty[(2 * j + 1) % S::kSlots]);  // V_j is read
+    }
+  }
+  // the other consumer's last turn, so that no arrival outlives the block
+  if (wg == 0) ptx::bar_sync(1, 256);
+
+  // out rows `row` and row + 8, two adjacent columns a store
+  const long long orow = (long long)heads * kDh;
+  T* og = out + ((long long)b * t_len + row) * orow + (long long)h * kDh + 2 * tq;
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(og + n * 8) = pack2<T>(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<uint32_t*>(og + 8 * orow + n * 8) =
+        pack2<T>(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
@@ -523,28 +738,75 @@ __global__ void __launch_bounds__(F32Shape<kDh>::kThreads)
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, int threads, int rows, int smem, const void* q, const void* k,
-           const void* v, const int* seg_q, const int* seg_kv, void* out, int batch,
-           int t_len, int heads, const Strides& st, float sm_scale, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(t_len / rows, heads, batch);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg_q,
-      seg_kv, static_cast<T*>(out), t_len, heads, st, sm_scale);
-  return (int)cudaGetLastError();
+// A [B, T, H, Dh] view of 16-bit elements with element strides (sb, st, sh)
+// as a 4-D tensor map: Dh innermost, then H, T and B in rising stride (a
+// dimension of size 1 never steps: it goes last), in boxes of 64 x 1 x
+// `rows` (along T) x 1 with the 128-byte swizzle. `perm` gets the map
+// dimension of H, T and B, 2 bits each.
+bool encode_heads(CUtensorMap* map, const void* base, bool bf16, int batch, int t_len,
+                  int heads, int dh, long long sb, long long st, long long sh, int rows,
+                  int* perm) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  struct Dim {
+    long long size, stride;
+    int which;  // 0 H, 1 T, 2 B
+  } d[3] = {{heads, sh, 0}, {t_len, st, 1}, {batch, sb, 2}};
+  long long span = 1;
+  for (const Dim& x : d) span = x.stride * x.size > span ? x.stride * x.size : span;
+  for (Dim& x : d)
+    if (x.size == 1) x.stride = span;
+  for (int i = 1; i < 3; ++i)  // insertion sort by stride, stable
+    for (int k = i; k > 0 && d[k].stride < d[k - 1].stride; --k) {
+      const Dim tmp = d[k];
+      d[k] = d[k - 1];
+      d[k - 1] = tmp;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)dh, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  int pos[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (cuuint64_t)d[i].size;
+    strides[i] = (cuuint64_t)(d[i].stride * 2);
+    if (d[i].which == 1) box[i + 1] = (cuuint32_t)rows;
+    pos[d[i].which] = i + 1;
+  }
+  *perm = pos[0] | pos[1] << 2 | pos[2] << 4;
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+            4, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int kDh>
-int launch_mma(const void* q, const void* k, const void* v, const int* seg_q,
-               const int* seg_kv, void* out, int batch, int t_len, int heads,
-               const Strides& st, float sm_scale, cudaStream_t stream) {
-  using S = MmaShape<kDh>;
-  return launch<T>(flash_mma_kernel<T, kDh>, S::kThreads, S::kRows,
-                   S::template smem<T>(), q, k, v, seg_q, seg_kv, out, batch, t_len,
-                   heads, st, sm_scale, stream);
+int launch_wgmma(const void* q, const void* k, const void* v, const int* seg_q,
+                 const int* seg_kv, void* out, int batch, int t_len, int heads,
+                 const Strides& st, float sm_scale, cudaStream_t stream) {
+  using S = WgShape<kDh>;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap mq, mk, mv;
+  int pq, pk, pv;
+  if (reinterpret_cast<uintptr_t>(seg_kv) % 16 != 0 ||
+      !encode_heads(&mq, q, kBf16, batch, t_len, heads, kDh, st.qb, st.qt, st.qh, S::kRows,
+                    &pq) ||
+      !encode_heads(&mk, k, kBf16, batch, t_len, heads, kDh, st.kb, st.kt, st.kh, kBlockK,
+                    &pk) ||
+      !encode_heads(&mv, v, kBf16, batch, t_len, heads, kDh, st.vb, st.vt, st.vh, kBlockK,
+                    &pv))
+    return (int)cudaErrorInvalidValue;
+  // once a process: a launch captured in a CUDA graph makes no such call
+  // after its warm-up
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<T, kDh>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(t_len / S::kRows, heads, batch);
+  flash_wgmma_kernel<T, kDh><<<grid, S::kThreads, S::kSmem, stream>>>(
+      mq, mk, mv, seg_q, seg_kv, static_cast<T*>(out), t_len, heads,
+      pq | pk << 6 | pv << 12, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 template <int kDh>
@@ -552,8 +814,16 @@ int launch_f32(const void* q, const void* k, const void* v, const int* seg_q,
                const int* seg_kv, void* out, int batch, int t_len, int heads,
                const Strides& st, float sm_scale, cudaStream_t stream) {
   using S = F32Shape<kDh>;
-  return launch<float>(flash_f32_kernel<kDh>, S::kThreads, S::kRows, S::smem(), q, k, v,
-                       seg_q, seg_kv, out, batch, t_len, heads, st, sm_scale, stream);
+  const int smem = S::smem();
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<kDh>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(t_len / S::kRows, heads, batch);
+  flash_f32_kernel<kDh><<<grid, S::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg_q, seg_kv, static_cast<float*>(out), t_len, heads,
+      st, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 template <int kDh>
@@ -565,11 +835,11 @@ int dispatch(int kind, const void* q, const void* k, const void* v, const int* s
       return launch_f32<kDh>(q, k, v, seg_q, seg_kv, out, batch, t_len, heads, st,
                              sm_scale, stream);
     case 1:
-      return launch_mma<__nv_bfloat16, kDh>(q, k, v, seg_q, seg_kv, out, batch, t_len,
-                                            heads, st, sm_scale, stream);
+      return launch_wgmma<__nv_bfloat16, kDh>(q, k, v, seg_q, seg_kv, out, batch, t_len,
+                                              heads, st, sm_scale, stream);
     case 2:
-      return launch_mma<__half, kDh>(q, k, v, seg_q, seg_kv, out, batch, t_len, heads,
-                                     st, sm_scale, stream);
+      return launch_wgmma<__half, kDh>(q, k, v, seg_q, seg_kv, out, batch, t_len, heads,
+                                       st, sm_scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -580,9 +850,9 @@ int dispatch(int kind, const void* q, const void* k, const void* v, const int* s
 
 // q, k, v: [B, T, H, dh] of `kind` (0 f32, 1 bf16, 2 f16) with element
 // strides (b, t, h) each, the head row contiguous; seg_q, seg_kv: [B, T]
-// int32; out: [B, T, H, dh] contiguous. Needs T % 128 == 0, dh in {64, 128,
-// 256}, 16-byte aligned bases and strides that keep every head row on 16
-// bytes.
+// int32 (seg_kv on 16 bytes for bf16 and f16); out: [B, T, H, dh]
+// contiguous. Needs T % 128 == 0, dh in {64, 128, 256}, 16-byte aligned
+// bases and strides that keep every head row on 16 bytes.
 extern "C" int ragtorch_flash_attention(const void* q, const void* k, const void* v,
                                         const void* seg_q, const void* seg_kv, void* out,
                                         int batch, int t_len, int heads, int dh,

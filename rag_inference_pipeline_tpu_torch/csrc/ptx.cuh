@@ -1,8 +1,11 @@
 // PTX helpers of the tensor-core kernels (sm_90a): asynchronous
-// global-to-shared copies with their commit and wait groups, ldmatrix
-// (plain and transposed), mma.sync on bf16, f16 and s8; and, for the W8A8
-// wgmma GEMM, mbarriers, 2-D TMA tile loads and the warpgroup s8 product
-// with its fence, commit and wait.
+// global-to-shared copies with their commit and wait groups, ldmatrix,
+// mma.sync on bf16 and s8; and, for the wgmma kernels (the W8A8 GEMM and
+// the encoder flash attention), mbarriers, 2-D and 4-D TMA tile loads and
+// bulk copies, named barriers, setmaxnreg, shared-memory matrix
+// descriptors (K-major and MN-major) and the warpgroup products (s8, and
+// bf16/f16 with A from shared memory or registers) with their fence,
+// commit and wait.
 //
 // Every helper is `asm volatile` with a "memory" clobber where it touches
 // memory, so the compiler keeps a copy, its wait and the reads of what it
@@ -66,32 +69,11 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
                : "memory");
 }
 
-// four 8x8 b16 matrices, each transposed on the way: lane l receives the
-// elements (2(l%4), l/4) and (2(l%4)+1, l/4) of its matrix, the B fragment
-// of a k-major tile
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
 // d += a (16x16, row) * b (16x8, col): bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x16, row) * b (16x8, col): f16 in, f32 accumulate
-__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -164,6 +146,54 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0,
       : "memory");
 }
 
+// the 4-D tile of `map` at (c0, c1, c2, c3), innermost first, into shared
+// `dst`; completion reported to `bar` as for tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0,
+                                            int c1, int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global `src` to shared
+// `dst`, both on 16 bytes; completion reported to `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// --- named barriers and register reallocation ------------------------------
+
+// waits until `threads` threads (a multiple of 32) have arrived at barrier
+// `id` (1-15: 0 is __syncthreads'), counting this warp
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrives at barrier `id` without waiting
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// the warpgroup's registers a thread, raised or lowered to kRegs (a
+// multiple of 8 in [24, 256]); every warp of the warpgroup executes it
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
 // --- wgmma ---------------------------------------------------------------
 
 // A shared-memory matrix descriptor for a K-major tile written by TMA with
@@ -171,9 +201,23 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0,
 // (stride byte offset), the leading byte offset unused, layout 1 (128B).
 // The tile starts on a 1,024-byte boundary; a k step inside the 128-byte
 // row adds its byte offset / 16 to the start address.
-__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile) {
-  const uint64_t addr = smem_addr(tile);
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile) {
+  return wgmma_desc_sw128(smem_addr(tile));
+}
+
+// The descriptor of an MN-major tile (the N index contiguous; 16-bit types
+// only, read with the transpose bit) written by TMA with the 128-byte
+// swizzle: each K row holds 64 N elements in 128 bytes, 8 K rows make a
+// 1,024-byte atom. The stride byte offset steps 8 K rows (1,024 bytes);
+// the leading byte offset `lbo` steps 64 N elements, to the next panel of
+// the tile. A k16 step adds 2,048 bytes / 16 to the start address.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -209,6 +253,97 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
+
+// keeps the compiler from moving reads or writes of `r` across this point:
+// around an asynchronous wgmma, whose registers the compiler believes
+// written when the instruction issues
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define RAGTORCH_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define RAGTORCH_F16(d, i) \
+  RAGTORCH_F4(d, i), RAGTORCH_F4(d, i + 4), RAGTORCH_F4(d, i + 8), RAGTORCH_F4(d, i + 12)
+#define RAGTORCH_F32(d, i) RAGTORCH_F16(d, i), RAGTORCH_F16(d, i + 16)
+#define RAGTORCH_F64(d) RAGTORCH_F32(d, 0), RAGTORCH_F32(d, 32)
+#define RAGTORCH_D32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define RAGTORCH_D64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128 f32 of the warpgroup: 64 registers a thread) = (scale_d ? d :
+// 0) + a (64 x 16, K-major, shared) . b (16 x 128, K-major, shared); bf16
+// (kBf16) or f16 inputs
+template <bool kBf16>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  if constexpr (kBf16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RAGTORCH_D64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : RAGTORCH_F64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " RAGTORCH_D64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : RAGTORCH_F64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// d (64 x kN f32: kN / 2 registers a thread) = (scale_d ? d : 0) + a (64 x
+// 16 in registers, the mma.sync A fragment of each warp's 16 rows) . b (16 x
+// kN, MN-major in shared memory: the transpose bit); kN 64 or 128
+template <bool kBf16, int kN>
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[kN / 2], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  static_assert(kN == 64 || kN == 128, "wgmma_m64k16_rs takes n64 or n128");
+  if constexpr (kN == 64 && kBf16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RAGTORCH_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : RAGTORCH_F32(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (kN == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " RAGTORCH_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : RAGTORCH_F32(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (kBf16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RAGTORCH_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : RAGTORCH_F64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " RAGTORCH_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : RAGTORCH_F64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+}
+
+#undef RAGTORCH_F4
+#undef RAGTORCH_F16
+#undef RAGTORCH_F32
+#undef RAGTORCH_F64
+#undef RAGTORCH_D32
+#undef RAGTORCH_D64
 
 }  // namespace ptx
 }  // namespace ragtorch

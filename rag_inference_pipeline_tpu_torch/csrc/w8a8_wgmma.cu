@@ -41,7 +41,7 @@
 //   order, 16 bytes a store where the output rows are 16-byte multiples;
 //   masked to M and N.
 // - Tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
-//   found through cudaGetDriverEntryPoint: no -lcuda) and passed by value as
+//   found through tma.cuh's lookup: no -lcuda) and passed by value as
 //   __grid_constant__ parameters, so a launch captured in a CUDA graph
 //   carries its own maps.
 // - Exact s32 sums: |acc| <= K * 127^2 < 2^31 for K < 133,000.
@@ -52,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "ptx.cuh"
+#include "tma.cuh"
 #include "w8a8_epilogue.cuh"
 
 namespace {
@@ -217,32 +218,10 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda entry point), looked up once through
-// the runtime
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // a [rows, K] int8 matrix (K contiguous) in tiles of box_rows x kBK bytes,
 // 128-byte swizzle, zeros past the edges
 bool encode(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
+  const ragtorch::EncodeTiled fn = ragtorch::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)K};

@@ -140,6 +140,8 @@ def flash_encoder_attention(
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     sq = seg_q.to(torch.int32).contiguous()
     skv = sq if seg_kv is seg_q else seg_kv.to(torch.int32).contiguous()
+    if skv.data_ptr() % 16:  # the bf16/f16 kernel bulk-copies key ids from 16 bytes
+        skv = skv.clone()
     if out.numel():
         _kernels.launch(
             "ragtorch_flash_attention", index, q.data_ptr(), k.data_ptr(),

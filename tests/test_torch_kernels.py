@@ -992,10 +992,11 @@ def _flash_inputs(seed, b, t, h, dh, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("dh", [64, 128, 256])
-@pytest.mark.parametrize("t", [1024, 2048])
+@pytest.mark.parametrize("t", [128, 256, 1024, 2048])
 def test_flash_kernel_matches_plain_on_card(t, dh, dtype):
     """The encoder flash kernel against its plain version at bge-base's
-    width (H * Dh = 768) over the four mask kinds."""
+    width (H * Dh = 768) over the four mask kinds; T 128 and 256 are one
+    and two key blocks (the TMA ring's first uses)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
     from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
@@ -1029,6 +1030,77 @@ def test_flash_kernel_reads_strided_heads_on_card():
         q.contiguous(), k.contiguous(), v.contiguous(), seg, seg)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_kernel_places_each_key_on_card(dh, dtype):
+    """q = k = 0, so every key of a row's segment weighs alike, and v one-hot
+    by key: out[b, i, h, d] is the mean over the row's segment of the keys j
+    with j % Dh == d, weighted 1 + j // Dh + h. A key or a column landing
+    in the wrong place shows as a wrong entry, not as a small error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    b, t, h = 4, 512, 768 // dh
+    keys = torch.arange(t, device="cuda")
+    weight = (1 + keys // dh)[:, None] + torch.arange(h, device="cuda")[None, :]  # [T, H]
+    onehot = torch.nn.functional.one_hot(keys % dh, dh).float()  # [T, Dh]
+    v = (weight[:, :, None] * onehot[:, None, :]).expand(b, t, h, dh).to(dtype).contiguous()
+    q = torch.zeros((b, t, h, dh), dtype=dtype, device="cuda")
+    seg = _flash_masks(b, t)
+    out = fa.flash_encoder_attention(q, q, v, seg, seg)
+    same = (seg[:, :, None] == seg[:, None, :]).double()  # [B, Tq, Tk]
+    want = torch.einsum("bqk,bkhd->bqhd", same / same.sum(-1, keepdim=True), v.double())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.double(), want, atol=1e-2, rtol=2**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_is_deterministic_on_card(dtype):
+    """Two calls on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    for dh in (64, 128, 256):
+        q, k, v = _flash_inputs(dh, 4, 1024, 768 // dh, dh, dtype)
+        seg = _flash_masks(4, 1024)
+        first = fa.flash_encoder_attention(q, k, v, seg, seg)
+        second = fa.flash_encoder_attention(q, k, v, seg, seg)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_kernel_reads_any_stride_order_on_card(dh):
+    """Views whose strides a 4-D tensor map must carry in another order:
+    q from [B, H, T, Dh] (heads apart by more than rows), k from [T, B, H,
+    Dh] (batch rows closest), v with padded head rows, B 1 for a dimension
+    of one; and segment ids off 16 bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    t, h = 1024, 768 // dh
+    for b in (3, 1):
+        g = torch.Generator(device="cuda").manual_seed(dh + b)
+        q = torch.randn((b, h, t, dh), generator=g, device="cuda").bfloat16().transpose(1, 2)
+        k = torch.randn((t, b, h, dh), generator=g, device="cuda").bfloat16().permute(1, 0, 2, 3)
+        v = torch.randn((b, t, h, dh + 8), generator=g, device="cuda").bfloat16()[..., :dh]
+        ids = torch.zeros(b * t + 1, dtype=torch.int32, device="cuda")
+        seg = ids[1:].view(b, t)  # 4 bytes off the allocation
+        seg.copy_(_flash_masks(4, t)[:b])
+        assert seg.data_ptr() % 16
+        out = fa.flash_encoder_attention(q, k, v, seg, seg)
+        ref = fa.flash_encoder_attention_plain(
+            q.contiguous(), k.contiguous(), v.contiguous(), seg, seg)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Port parity of the tooling path: the KV row insert (kernel K7) and the
 stream kernel (K8) against the reference scripts' Pallas kernels, rebuilt
 here as the scripts launch them and run in interpret mode; the port's
-timing helpers; and both tools' `--smoke` runs end to end on the CPU.
+timing helpers; the tools' `--smoke` runs end to end on the CPU; and the
+flash bench's floors and SASS loop count.
 """
 
 import json
@@ -20,6 +21,7 @@ from rag_inference_pipeline_tpu_torch.ops import kv as tkv
 from rag_inference_pipeline_tpu_torch.ops import stream as tstream
 from rag_inference_pipeline_tpu_torch.ops import w8a8
 from rag_inference_pipeline_tpu_torch.tools import bench_decode_anatomy as anatomy
+from rag_inference_pipeline_tpu_torch.tools import bench_flash
 from rag_inference_pipeline_tpu_torch.tools import bench_kernel as lab
 
 
@@ -332,3 +334,68 @@ class TestAnatomySmoke:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             anatomy.main([])
+
+
+def _sass(body):
+    """SASS lines as cuobjdump prints them: /*address*/ opcode operands ;"""
+    return [f"        /*{16 * i:04x}*/   {inst} ;   /* 0x0 */" for i, inst in enumerate(body)]
+
+
+class TestBenchFlash:
+    def test_tensor_bound(self):
+        # 4 B H T^2 Dh at 989 TFLOP/s: bge-base heads, B 4, T 1024
+        assert bench_flash.tensor_bound_ms(4, 12, 1024, 64) == pytest.approx(0.01303, abs=5e-6)
+        assert bench_flash.tensor_bound_ms(4, 12, 4096, 64) == pytest.approx(0.20845, abs=5e-6)
+        assert bench_flash.tensor_bound_ms(4, 12, 1024, 64, f32=True) == pytest.approx(
+            0.19231, abs=5e-6)
+
+    def test_cuda_core_floor(self):
+        scores = 4 * 12 * 1024 * 1024
+        fp32 = scores * 12.5 / (132 * 128 * 1980e6) * 1e3
+        assert bench_flash.cuda_core_floor_ms(4, 12, 1024, 12.5, 1.0, 1980) == pytest.approx(fp32)
+        # 16 MUFU lanes an SM: more than 8 MUFU for each FP32 instruction
+        # makes the MUFU the floor
+        mufu = scores * 3.0 / (132 * 16 * 1980e6) * 1e3
+        assert bench_flash.cuda_core_floor_ms(4, 12, 1024, 12.5, 3.0, 1980) == pytest.approx(mufu)
+        assert bench_flash.cuda_core_floor_ms(4, 12, 2048, 12.5, 1.0, 1980) == pytest.approx(
+            4 * fp32)
+
+    def test_loop_count_takes_the_short_alternative(self):
+        """The loop is the predicated backward branch over the products; of
+        an if / else-if / else, only the shortest block counts."""
+        body = ["MOV R1, R2", "FADD R0, R1, R2",                  # 0x00: before the loop
+                "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ",      # 0x20: the loop
+                "@P0 BRA 0x70",
+                "FMUL R3, R3, R4", "FADD R3, R3, R5", "BRA 0xc0",    # 0x40: if
+                "@P1 BRA 0xb0",                                      # 0x70
+                "FMUL R3, R3, R4", "FSEL R3, R3, R5, P1", "BRA 0xc0",  # 0x80: else if
+                "FMUL R3, R3, R4",                                   # 0xb0: else
+                "MUFU.EX2 R5, R3", "FFMA R6, R5, R5, R5",            # 0xc0: the join
+                "@!P2 BRA 0x20", "EXIT"]
+        lines = _sass(body)
+        counts = bench_flash.main_loop_counts(lines)
+        # counted: the products, the else's FMUL, the join's MUFU and FFMA
+        assert counts["fp32"] == 2 and counts["mufu"] == 1
+        assert counts["skipped_alternatives"] == 2
+
+    def test_loop_count_needs_a_product_loop(self):
+        with pytest.raises(ValueError, match="no loop"):
+            bench_flash.main_loop_counts(_sass(["FADD R0, R1, R2", "@P0 BRA 0x0", "EXIT"]))
+
+    def test_smoke_runs_end_to_end(self, tmp_path):
+        path = tmp_path / "flash.json"
+        out = bench_flash.main(["--smoke", "--out", str(path)])
+        assert json.loads(path.read_text()) == json.loads(json.dumps(out))
+        assert out["card"] is None and out["sm_clock_mhz"] is None
+        cases = out["cases"]
+        assert set(cases) == {f"t{t}_h{h}_d{d}_{n}" for t, h, d, n in bench_flash.SMOKE_CASES}
+        for (t, h, d, n), row in zip(bench_flash.SMOKE_CASES, cases.values()):
+            assert row["finite"] and "ms" not in row  # nothing timed on the CPU
+            assert row["tensor_bound_ms"] == bench_flash.tensor_bound_ms(
+                4, h, t, d, n == "float32")
+        assert out["bert_embed"] == {"t256": {"finite": True}}
+
+    def test_without_smoke_needs_a_card(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_flash.main(["--out", str(tmp_path / "x.json")])
