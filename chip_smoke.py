@@ -29,9 +29,13 @@ and exits non-zero before the last line:
              the port's FlatIndex.save and np.save.
 6. serve   — the fused path: serve.runtime over that corpus with the
              default models at full width and random weights (BGE-base,
-             Qwen2.5-0.5B, two BERT-base classifiers), MAX_TOKENS=128; 10
-             POST /query, 8 of them concurrent. The K1 launch count, zeroed
-             just before, must rise.
+             Qwen2.5-0.5B, two BERT-base classifiers), MAX_TOKENS=128, with
+             WARMUP_BUCKETS=1: the executor must warm exactly the buckets
+             it dispatches (1, 2, 4, 8); then 10 POST /query, 8 of them
+             concurrent. The K1 launch count, zeroed after /health (warm-up
+             launches K1 too), must rise; no decode graph may be captured
+             after warm-up. Warm-up seconds and first_s printed. Every
+             other in-process server phase sets WARMUP_BUCKETS=0.
 7. step    — one 8-lane fused step with the kernel and with the plain scan:
              identical doc ids; retrieval recall@10 against the exact scan
              of the bf16 rescore copy.
@@ -208,7 +212,21 @@ and exits non-zero before the last line:
              whose ids must equal serve_staged's /retrieve ids. Node 1's
              /health must show K5 launched by the /query calls and K4 by
              the /retrieve. Every node must still run, and then exit 0
-             within 60 s of SIGTERM. Times beside serve_staged's.
+             within 60 s of SIGTERM. Times beside serve_staged's. The
+             nodes take the serving default, warm-up on: each node's load
+             seconds; node 2's decode graphs (4 batch buckets x 3 prefill
+             buckets) and their pool MB, the same before the first /query
+             and after the last. After the 10 /query, /metrics on each
+             node: all 16 metrics with HELP and TYPE, the gateway's ok
+             count equal to the requests, RPC times to both peers, node 1's
+             embed, search and fetch stages, node 2's rerank, llm,
+             sentiment and toxicity (the breakdown printed). A
+             /profile/start on nodes 1 and 2 (a second start 409), one more
+             /query, /profile/stop (a second stop 409): node 1's trace must
+             name K5's kernel, node 2's a kernel of a replayed decode
+             graph. A CORS preflight to the gateway answers 204 with the
+             Origin echoed; the 64-item /retrieve sent again with
+             Accept-Encoding: gzip decodes to the same reply.
 
 28. flash  — runs after k2: the encoder flash kernel (csrc/
              flash_attention.cu) against its plain version at B=4 over
@@ -238,6 +256,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -260,19 +279,34 @@ LAB_B = 128  # the kernel lab's scan batch (BASELINE.json's in-program QPS)
 # B ~ 40 at nprobe 64 and cap 640 (the 1 GB gate of index/ivf_flat.py)
 K5_WIDE_B = 32
 # the served configuration: default model names at full width, random
-# weights, the int8 flat index, 128 new tokens
+# weights, the int8 flat index, 128 new tokens; no warm-up (phase serve and
+# the three node processes of serve_3node turn it on), so that every other
+# server phase's figures compare with earlier runs'
 SERVE_ENV = {
     "USE_FUSED_PIPELINE": "1", "INDEX_DTYPE": "int8", "MAX_TOKENS": "128",
-    "DEVICE_PLATFORM": DEVICE, "MODEL_WEIGHTS_DIR": "",
+    "DEVICE_PLATFORM": DEVICE, "MODEL_WEIGHTS_DIR": "", "WARMUP_BUCKETS": "0",
 }
 # the staged configuration: one node, IVF-Flat at the reference's defaults
 # (nlist 4096, nprobe 64, cap factor 2.5, bf16 buckets), a sqlite doc store,
 # 64-item retrieval batches (the size at which the K4 route is taken)
 STAGED_ENV = {
     "TOTAL_NODES": "1", "INDEX_KIND": "ivf_flat", "MAX_TOKENS": "128",
-    "DEVICE_PLATFORM": DEVICE, "MODEL_WEIGHTS_DIR": "",
+    "DEVICE_PLATFORM": DEVICE, "MODEL_WEIGHTS_DIR": "", "WARMUP_BUCKETS": "0",
     "DOC_STORE_BACKEND": "sqlite", "RETRIEVAL_BATCH_SIZE": "64",
 }
+# the fused executor's dispatched buckets at FUSED_CHUNK_LANES=8, which
+# phase serve warms
+FUSED_WARM_BUCKETS = (1, 2, 4, 8)
+# the 16 metrics of telemetry/metrics.py, as /metrics names them
+METRIC_NAMES = (
+    "pipeline_requests_total", "pipeline_request_latency_seconds",
+    "pipeline_stage_duration_seconds", "pipeline_batch_size", "pipeline_batch_flush_total",
+    "pipeline_batch_wait_seconds", "pipeline_queue_depth", "pipeline_cache_events_total",
+    "pipeline_rpc_duration_seconds", "pipeline_errors_total", "pipeline_compression_ratio",
+    "pipeline_memory_rss_bytes", "pipeline_device_memory_bytes",
+    "pipeline_tokens_generated_total", "pipeline_engine_lanes_active",
+    "pipeline_engine_segments_total",
+)
 NLIST, NPROBE = 4096, 64
 # the repo's 1M "realistic" IVF oracle corpus (artifacts/round3/
 # ivf_oracle_1m_realistic_cap25.json): 2048 topics, relative spread 0.7,
@@ -1110,7 +1144,9 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
         ) as r:
             health = json.loads(r.read())
         check(all(health["components"].values()), f"not loaded: {health}")
+        graphs_before = health["decode_graphs"]
         queries = [f"what does the corpus say about topic {i}?" for i in range(10)]
+        # warm-up launched the kernels too: the counts start after /health
         zero_launches()
         results = [_post(port, queries[0], "q0"), _post(port, queries[1], "q1")]
         conc = [None] * 8
@@ -1162,6 +1198,17 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
         "w8a8_wgmma_launches": w8a8_launches[1],
         "quantize_rows_launches": w8a8_launches[2],
     }
+    ex = server.executor
+    if settings.warmup_buckets:
+        check(ex.warmed_buckets == FUSED_WARM_BUCKETS,
+              f"warmed buckets {ex.warmed_buckets}, not {FUSED_WARM_BUCKETS}")
+        check(health["decode_graphs"]["count"] == graphs_before["count"],
+              f"decode graphs captured after warm-up: {graphs_before} -> "
+              f"{health['decode_graphs']}")
+        stats.update({"warmup_s": round(ex.warmup_s, 3),
+                      "warmed_buckets": ",".join(map(str, ex.warmed_buckets)),
+                      "decode_graphs": health["decode_graphs"]["count"],
+                      "graph_pool_mb": health["decode_graphs"]["pool_mb"]})
     phase(name, t0, **stats)
     return server.executor, launches, stats, [r[1] for r in results], health
 
@@ -1552,10 +1599,84 @@ def _post_json(port: int, path: str, body: dict) -> tuple[dict, float]:
         return json.loads(r.read()), time.perf_counter() - t0
 
 
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _scrape(port: int) -> tuple[str, list]:
+    """/metrics of a node: the text and its samples [(name, labels, value)]
+    (the exposition format read without prometheus_client, which the card
+    need not have)."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+        check(r.headers["Content-Type"] == "text/plain; version=0.0.4; charset=utf-8",
+              f"/metrics content type {r.headers['Content-Type']}")
+        text = r.read().decode()
+    samples = []
+    for line in text.splitlines():
+        m = _SAMPLE.match(line)
+        if m and not line.startswith("#"):
+            samples.append((m[1], dict(_LABEL.findall(m[2] or "")), float(m[3])))
+    return text, samples
+
+
+def _total(samples, name: str, **labels) -> float:
+    return sum(v for n, lab, v in samples
+               if n == name and all(lab.get(k) == w for k, w in labels.items()))
+
+
+def _trace_kernels(path: str) -> tuple[list, list]:
+    """The kernel names in a torch.profiler Chrome trace: all of them, and
+    those a replayed CUDA graph launched (correlated with a
+    cudaGraphLaunch call)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    graph_calls = {e.get("args", {}).get("correlation") for e in events
+                   if e.get("name") == "cudaGraphLaunch"}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return ([k["name"] for k in kernels],
+            [k["name"] for k in kernels if k.get("args", {}).get("correlation") in graph_calls])
+
+
+def _request(port: int, method: str, path: str, body=None, headers=None):
+    """(status, headers, raw body) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={
+            **({"Content-Type": "application/json"} if data else {}), **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def _wait_each(settings, nodes, t0: float, timeout_s: float) -> list:
+    """Seconds from t0 until each node's /health first answers 200."""
+    ready = [None] * len(nodes)
+    while None in ready:
+        for i, node in enumerate(nodes):
+            if ready[i] is not None:
+                continue
+            check(node.proc.poll() is None,
+                  f"node {node.number} exited ({node.proc.returncode}):\n{node.log_tail()}")
+            try:
+                with urllib.request.urlopen(
+                        f"{settings.node_url(node.number)}/health", timeout=2.0) as r:
+                    if r.status == 200:
+                        ready[i] = time.perf_counter() - t0
+            except OSError:
+                pass  # not listening yet, or not loaded (503)
+        check(time.perf_counter() - t0 < timeout_s, f"nodes not healthy within {timeout_s} s")
+        time.sleep(0.2)
+    return ready
+
+
 def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
     import base64
+    import gzip
 
-    import numpy as np
     from rag_inference_pipeline_tpu_torch.core.config import load_settings
     from rag_inference_pipeline_tpu_torch.tools import start_pipeline
 
@@ -1564,17 +1685,20 @@ def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
     ivf.save(index_path)
     save_s = time.perf_counter() - t0
     base = _free_base()
-    env = {**STAGED_ENV, "TOTAL_NODES": "3", "BASE_PORT": str(base),
-           "NODE_0_IP": "127.0.0.1", "NODE_1_IP": "127.0.0.1", "NODE_2_IP": "127.0.0.1",
-           "INDEX_PATH": index_path, "INDEX_NPROBE": str(ivf.nprobe),
-           "DOCUMENT_DB_PATH": db_path,
-           "COMPRESSION_ALGORITHM": os.environ["COMPRESSION_ALGORITHM"]}
+    # the nodes take the serving default: WARMUP_BUCKETS unset is on
+    env = {k: v for k, v in STAGED_ENV.items() if k != "WARMUP_BUCKETS"}
+    env.update({"TOTAL_NODES": "3", "BASE_PORT": str(base),
+                "NODE_0_IP": "127.0.0.1", "NODE_1_IP": "127.0.0.1", "NODE_2_IP": "127.0.0.1",
+                "INDEX_PATH": index_path, "INDEX_NPROBE": str(ivf.nprobe),
+                "DOCUMENT_DB_PATH": db_path,
+                "COMPRESSION_ALGORITHM": os.environ["COMPRESSION_ALGORITHM"]})
     settings = load_settings(env)
-    gw, n1 = base, base + 1
+    gw, n1, n2 = base, base + 1, base + 2
     tl = time.perf_counter()
     nodes = start_pipeline.start_nodes(3, env, os.path.join(workdir, "nodes"))
+    traces = []
     try:
-        start_pipeline.wait_healthy(settings, nodes, 600)
+        node_load_s = _wait_each(settings, nodes, tl, 600)
         load_s = time.perf_counter() - tl
         healths = [_get_health(base + n) for n in range(3)]
         for n, h in enumerate(healths):
@@ -1582,6 +1706,9 @@ def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
                     ("gateway_default", "retrieval_default", "generation_default")[n])
             check((h["node"], h["role"], h["profile"]) == want, f"node {n}: {h}")
             check(h["status"] == "ok" and h["device"].startswith("cuda"), f"node {n}: {h}")
+        # warm-up: {1, 2, 4, 8} (GENERATION_BATCH_SIZE=8) x prefill {128, 256, 512}
+        graphs_before = healths[2]["decode_graphs"]
+        check(graphs_before["count"] == 4 * 3, f"node 2 warmed {graphs_before}")
         before = healths[1]["kernel_launches"]
         texts = [f"what does the corpus say about topic {i}?" for i in range(10)]
         results = [_post(gw, texts[0], "s0"), _post(gw, texts[1], "s1")]
@@ -1600,10 +1727,30 @@ def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
         conc_wall = time.perf_counter() - tc
         results += conc
         mid = _get_health(n1)["kernel_launches"]
+        scraped = [_scrape(base + n) for n in range(3)]
+        # a device trace on nodes 1 and 2 over one more /query
+        tt = time.perf_counter()
+        for port in (n1, n2):
+            status, _, body = _request(port, "POST", "/profile/start")
+            check(status == 200 and json.loads(body)["status"] == "tracing", f"{port}: {body}")
+        check(_request(n2, "POST", "/profile/start")[0] == 409, "a second trace started")
+        check(_post(gw, "what does the corpus say about tracing?", "t0")[0] == 200,
+              "the traced /query failed")
+        for port in (n1, n2):
+            status, _, body = _request(port, "POST", "/profile/stop")
+            check(status == 200, f"/profile/stop on {port}: {body}")
+            traces.append(json.loads(body)["trace"])
+        check(_request(n2, "POST", "/profile/stop")[0] == 409, "a stop with no trace")
+        trace_s = time.perf_counter() - tt
+        graphs_after = _get_health(n2)["decode_graphs"]
         rows = queries.float().cpu().numpy().astype("<f4")
-        ret, retrieve_s = _post_json(
-            n1, "/retrieve", {"embeddings_b64": base64.b64encode(rows.tobytes()).decode()})
+        b64 = {"embeddings_b64": base64.b64encode(rows.tobytes()).decode()}
+        ret, retrieve_s = _post_json(n1, "/retrieve", b64)
         end = _get_health(n1)["kernel_launches"]
+        # the reference's outer middleware: a CORS preflight, gzip
+        status, pre, _ = _request(gw, "OPTIONS", "/query", headers={
+            "Origin": "https://ui.example", "Access-Control-Request-Method": "POST"})
+        status_gz, gz_h, gz = _request(n1, "POST", "/retrieve", b64, {"Accept-Encoding": "gzip"})
         cleared, _ = _post_json(gw, "/clear_cache", {})
         for node in nodes:
             check(node.proc.poll() is None,
@@ -1616,8 +1763,8 @@ def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
     for node, code in zip(nodes, codes):
         check(code == 0, f"node {node.number} exited with {code}:\n{node.log_tail()}")
     keys = {"request_id", "generated_response", "sentiment", "is_toxic"}
-    for i, (status, body, _) in enumerate(results):
-        check(status == 200, f"/query {i}: HTTP {status}")
+    for i, (status_q, body, _) in enumerate(results):
+        check(status_q == 200, f"/query {i}: HTTP {status_q}")
         check(set(body) == keys, f"/query {i}: keys {sorted(body)}")
         check(body["request_id"] == f"s{i}", f"/query {i}: wrong request_id")
     for i, want in enumerate(staged["bodies"]):
@@ -1626,6 +1773,8 @@ def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
             print(f"[serve_3node] /query {i} three nodes: {json.dumps(got)}", flush=True)
             print(f"[serve_3node] /query {i} serve_staged: {json.dumps(want)}", flush=True)
             check(False, f"/query {i}: the three nodes answer otherwise than serve_staged")
+    check(graphs_after == graphs_before,
+          f"node 2 captured decode graphs after warm-up: {graphs_before} -> {graphs_after}")
     k5 = mid["ivf_dedup"] - before["ivf_dedup"]
     k4_query = mid["ivf_scan"] - before["ivf_scan"]
     k4 = end["ivf_scan"] - mid["ivf_scan"]
@@ -1639,15 +1788,62 @@ def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
     check(cleared == {"cleared": ["query"],
                       "cascade": {"retrieval": True, "generation": True}},
           f"/clear_cache: {cleared}")
+    # /metrics after the 10 /query
+    for n, (text, _) in enumerate(scraped):
+        for name in METRIC_NAMES:
+            check(f"# HELP {name} " in text and f"# TYPE {name} " in text,
+                  f"node {n}: /metrics lacks {name}")
+    gw_s, n1_s, n2_s = (smp for _, smp in scraped)
+    ok = _total(gw_s, "pipeline_requests_total", node="0", service="gateway", status="ok")
+    check(ok == len(results), f"gateway counted {ok} ok requests of {len(results)}")
+    for target in ("retrieval", "generation"):
+        check(_total(gw_s, "pipeline_rpc_duration_seconds_count", target=target) >= 1,
+              f"gateway: no RPC timed to {target}")
+    breakdown = {}
+    for node, smp, service, stages in (
+            (1, n1_s, "retrieval", ("embed", "search", "fetch")),
+            (2, n2_s, "generation", ("rerank", "llm", "sentiment", "toxicity"))):
+        for stage in stages:
+            lab = dict(node=str(node), service=service, stage=stage)
+            count = _total(smp, "pipeline_stage_duration_seconds_count", **lab)
+            check(count >= 1, f"node {node}: no {stage} stage timed")
+            breakdown[f"{service}/{stage}"] = {
+                "count": count,
+                "sum_s": round(_total(smp, "pipeline_stage_duration_seconds_sum", **lab), 4)}
+    rpc = {t: {"count": _total(gw_s, "pipeline_rpc_duration_seconds_count", target=t),
+               "sum_s": round(_total(gw_s, "pipeline_rpc_duration_seconds_sum", target=t), 4)}
+           for t in ("retrieval", "generation")}
+    print(f"[serve_3node] stages {json.dumps({'stages': breakdown, 'rpc': rpc})}", flush=True)
+    # the device traces
+    tr = time.perf_counter()
+    (n1_all, _), (n2_all, n2_graph) = (_trace_kernels(p) for p in traces)
+    trace_read_s = time.perf_counter() - tr
+    for p in traces:
+        os.remove(p)
+    check(any("ivf_dedup" in k for k in n1_all),
+          f"node 1's trace names no K5 kernel: {sorted(set(n1_all))[:10]}")
+    check(len(n2_graph) >= 1, "node 2's trace names no kernel of a replayed decode "
+          f"graph: {sorted(set(n2_all))[:10]}")
+    top = statistics.multimode(n2_graph)[0][:60] if n2_graph else ""
+    # CORS and gzip
+    check(status == 204 and pre.get("access-control-allow-origin") == "https://ui.example"
+          and pre.get("vary") == "Origin", f"preflight: {status} {pre}")
+    check(status_gz == 200 and gz_h.get("content-encoding") == "gzip"
+          and json.loads(gzip.decompress(gz)) == ret, "/retrieve with gzip")
     lat = sorted(r[2] for r in results)
     stats = {
         "nodes": 3, "compression": env["COMPRESSION_ALGORITHM"],
         "save_s": round(save_s, 3), "load_s": round(load_s, 3),
+        "node_load_s": ",".join(f"{x:.3f}" for x in node_load_s),
         "first_s": round(results[0][2], 4), "second_s": round(results[1][2], 4),
         "p50_s": round(statistics.median(lat), 4), "max_s": round(lat[-1], 4),
         "concurrent8_wall_s": round(conc_wall, 4), "retrieve64_s": round(retrieve_s, 4),
         "stop_s": round(stop_s, 3), "k5_launches": k5, "k4_launches": k4,
-        "bodies_identical": True, "retrieve_ids_identical": True,
+        "decode_graphs": graphs_after["count"], "graph_pool_mb": graphs_after["pool_mb"],
+        "trace_s": round(trace_s, 3), "trace_read_s": round(trace_read_s, 3),
+        "trace_kernels_n1": len(n1_all), "trace_kernels_n2": len(n2_all),
+        "trace_graph_kernels_n2": len(n2_graph), "trace_top_graph_kernel": repr(top),
+        "gzip_bytes": len(gz), "bodies_identical": True, "retrieve_ids_identical": True,
     }
     stats.update({f"staged_{k}": staged[k] for k in (
         "load_s", "first_s", "second_s", "p50_s", "concurrent8_wall_s", "retrieve64_s")})
@@ -2656,7 +2852,7 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
     try:
         paths = phase_corpus(workdir)
-        executor, k1_launches, _, bodies, _ = phase_serve(paths)
+        executor, k1_launches, _, bodies, _ = phase_serve(paths, {"WARMUP_BUCKETS": "1"})
         phase_step(executor)
         phase_checkpoint(executor, paths, bodies, workdir, smi)
         del executor

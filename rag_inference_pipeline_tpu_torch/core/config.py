@@ -17,6 +17,10 @@ from typing import Optional
 from .enums import IndexKind, NodeRole, PayloadMode, derive_node_role
 
 _BOOL_TRUE = {"1", "true", "yes", "on"}
+# pydantic's strings for a bool: the reference parses a tri-state
+# (Optional[bool]) field with them and refuses any other
+_TRI_TRUE = {"1", "on", "t", "true", "y", "yes"}
+_TRI_FALSE = {"0", "off", "f", "false", "n", "no"}
 
 
 @dataclass(frozen=True)
@@ -126,8 +130,18 @@ class Settings:
     rpc_backoff_base_s: float = 0.1
     http_max_connections: int = 100
 
-    # --- telemetry ---
+    # --- telemetry (telemetry/*.py) ---
+    enable_tracing: bool = False
+    otlp_endpoint: str = "http://localhost:4317"
+    enable_profiling: bool = False
+    profiling_sample_rate: float = 0.2
+    enable_metrics: bool = True  # read nowhere, as in the reference
+    # warm every dispatched bucket at load so that no request pays a graph
+    # capture; None = on under the serving entry point
+    # (serve/runtime.py::resolve_serving_settings), off for library use
+    warmup_buckets: Optional[bool] = None
     log_level: str = "INFO"
+    run_id: str = "dev"
 
     # --- fused device pipeline ---
     use_fused_pipeline: bool = False
@@ -218,6 +232,11 @@ def _coerce(hint, raw: str):
     args = typing.get_args(hint)
     if typing.get_origin(hint) is typing.Union and type(None) in args:
         hint = next(a for a in args if a is not type(None))  # Optional[X]
+        if hint is bool:
+            low = raw.lower()
+            if low in _TRI_TRUE or low in _TRI_FALSE:
+                return low in _TRI_TRUE
+            raise ValueError(f"not a boolean: {raw!r}")
     if hint is bool:
         return raw.lower() in _BOOL_TRUE
     if hint is int:

@@ -1,7 +1,9 @@
 """Opportunistic batch scheduler with an adaptive flush delay.
 
-Port of `rag_inference_pipeline_tpu/engine/batcher.py` without its
-Prometheus metrics: `enqueue` returns an awaited future; the pending batch
+Port of `rag_inference_pipeline_tpu/engine/batcher.py`, with its metrics
+(reference `:31`, `:136-140`): `BATCH_SIZE`, `QUEUE_DEPTH`, `BATCH_WAIT`
+and `BATCH_FLUSH` by reason, labelled (run_id, node, name). `enqueue`
+returns an awaited future; the pending batch
 flushes when full or when its timer fires; the adaptive policy shortens
 the delay as an EWMA of recent queue depths grows; a failed batch fails
 every future in it, a per-item exception only its own; with
@@ -19,6 +21,8 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
+
+from ..telemetry.metrics import BATCH_FLUSH, BATCH_SIZE, BATCH_WAIT, QUEUE_DEPTH
 
 logger = logging.getLogger(__name__)
 
@@ -87,6 +91,8 @@ class BatchScheduler:
         adaptive: bool = True,
         min_delay_s: float = 0.005,
         flush_on_ready: bool = True,
+        run_id: str = "dev",
+        node: str = "0",
     ) -> None:
         self.process_fn = process_fn
         self.batch_size = batch_size
@@ -105,6 +111,11 @@ class BatchScheduler:
         self._tasks: set[asyncio.Task] = set()
         self._closed = False
         self.flushes = {r: 0 for r in ("full", "timeout", "ready", "shutdown")}
+        labels = (run_id, node, name)
+        self._m_size = BATCH_SIZE.labels(*labels)
+        self._m_depth = QUEUE_DEPTH.labels(*labels)
+        self._m_wait = BATCH_WAIT.labels(*labels)
+        self._m_flush = {r: BATCH_FLUSH.labels(*labels, r) for r in self.flushes}
 
     async def enqueue(self, item: Any) -> Any:
         return (await self.enqueue_many([item]))[0]
@@ -124,7 +135,9 @@ class BatchScheduler:
                 self._batch.futures.append(fut)
                 if len(self._batch.items) >= self.batch_size:
                     self._flush_locked("full")
-            self.policy.observe(len(self._batch.items))
+            depth = len(self._batch.items)
+            self.policy.observe(depth)
+            self._m_depth.set(depth)
             if self._batch.items and self._timer is None:
                 self._timer = asyncio.create_task(self._timer_task())
         return list(await asyncio.gather(*futs))
@@ -154,11 +167,15 @@ class BatchScheduler:
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
+        wait_s = time.monotonic() - batch.created
         self.flushes[reason] += 1
+        self._m_flush[reason].inc()
+        self._m_size.observe(len(batch.items))
+        self._m_wait.observe(wait_s)
+        self._m_depth.set(0)
         logger.debug(
             'batch_flush {"name": "%s", "reason": "%s", "size": %d, "wait_ms": %.1f}',
-            self.name, reason, len(batch.items),
-            (time.monotonic() - batch.created) * 1e3,
+            self.name, reason, len(batch.items), wait_s * 1e3,
         )
         task = asyncio.create_task(self._run_batch(batch))
         self._tasks.add(task)

@@ -33,8 +33,9 @@ have been processed. Completion detection may lag one segment; the tokens
 are exact.
 
 `submit(prompt_ids, max_new_tokens)` returns the generated ids (eos
-excluded). The reference's Prometheus gauges (lanes active, segments,
-tokens generated) are plain integer attributes here.
+excluded). The reference's Prometheus series (`ENGINE_LANES_ACTIVE`,
+`ENGINE_SEGMENTS`, `TOKENS_GENERATED`, reference `:334-344`, `:575`,
+`:605`, `:613`) are kept, and the same figures as integer attributes.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from ..models.qwen import (
     qwen_prefill,
     spec_verify_round,
 )
+from ..telemetry.metrics import ENGINE_LANES_ACTIVE, ENGINE_SEGMENTS, TOKENS_GENERATED
 from ..utils.shapes import pick_bucket
 
 logger = logging.getLogger(__name__)
@@ -122,6 +124,8 @@ class DecodeEngine:
         gamma: int = 8,
         spec_rounds: int = 2,
         inject_accept_p: Optional[float] = None,  # benchmark-only
+        run_id: str = "dev",
+        node: str = "0",
     ) -> None:
         self.params = params
         self.cfg = cfg
@@ -137,10 +141,14 @@ class DecodeEngine:
         self.spec_rounds = spec_rounds
         self.inject_accept_p = inject_accept_p
         self.device = dev = params.final_ln.device
-        # integer counters in place of the reference's Prometheus gauges
+        # the reference's Prometheus series (`decode_engine.py:334-344`),
+        # and the same figures as integers for in-process readers
         self.lanes_active = 0
         self.segments = 0
         self.tokens_generated = 0
+        self._m_lanes = ENGINE_LANES_ACTIVE.labels(run_id, node)
+        self._m_segments = ENGINE_SEGMENTS.labels(run_id, node)
+        self._m_tokens = TOKENS_GENERATED.labels(run_id, node)
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -384,6 +392,7 @@ class DecodeEngine:
         else:
             self._segment_body()
         self.segments += 1
+        self._m_segments.inc()
         snapshot = [(lane, r) for lane, r in enumerate(self._lane_req) if r is not None]
         slot = self._ring[self._n_dispatched % 2]
         self._n_dispatched += 1
@@ -404,6 +413,7 @@ class DecodeEngine:
             if done[lane] or written >= req.max_new_tokens:
                 toks = self._collect(emit[lane], req, written)
                 self.tokens_generated += len(toks)
+                self._m_tokens.inc(len(toks))
                 if not req.future.done():
                     req.future.get_loop().call_soon_threadsafe(
                         lambda f=req.future, t=toks: (
@@ -412,3 +422,4 @@ class DecodeEngine:
                     )
                 self._lane_req[lane] = None
         self.lanes_active = self.active_lanes
+        self._m_lanes.set(self.lanes_active)

@@ -7,18 +7,34 @@ each padded to a shape bucket exactly as the reference pads it: the query's
 int8 scale is batch-wide, so padded lanes take part in it and a different
 padding would change ids. Requires a document token store
 (`doc_tokens.npy`, decoder token space) beside the int8 flat index.
+
+Warm-up (`warmup_buckets`, reference `fused_executor.py:123-142`) runs one
+chunk of each bucket that `process_batch` can dispatch: the buckets up to
+the one that holds `fused_chunk_lanes` lanes ({1, 2, 4, 8} by default),
+not the whole ladder, which the reference warms although chunking never
+dispatches past that bucket. A chunk is the fused step, its tokens read
+back and the joint classifier, so each bucket's decode graph is captured
+before the first request.
+
+The sampled profiler tracks the reference's stages (`:231-272`):
+`device_dispatch` and `classify_dispatch` time the launches only (CUDA
+runs them asynchronously); `device_step` ends when a chunk's tokens reach
+the host, `classify` when the classifiers' logits do; `sentiment` and
+`toxicity` replace the last two when only one classifier is loaded.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.config import Settings
+from ..telemetry.profiling import NULL_PROFILE, SampledStageProfiler
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
 from .device_pipeline import DeviceRAGPipeline, RAGStepOutput
 
@@ -49,6 +65,9 @@ class FusedExecutor:
         self.toxicity = toxicity
         self._pipe: Optional[DeviceRAGPipeline] = None
         self.doc_tokens: Optional[np.ndarray] = None
+        self.profiler = SampledStageProfiler(settings, "fused")
+        self.warmed_buckets: tuple[int, ...] = ()
+        self.warmup_s = 0.0
 
     @property
     def is_loaded(self) -> bool:
@@ -85,6 +104,32 @@ class FusedExecutor:
             n, self.doc_tokens.shape[1],
             " (device-array reuse)" if idx._db is not None else "",
         )
+        if s.warmup_buckets:
+            self.warmup()
+
+    def _max_chunk(self) -> int:
+        s = self.settings
+        max_chunk = max(s.shape_buckets)
+        if s.fused_chunk_lanes > 0:
+            max_chunk = min(max_chunk, s.fused_chunk_lanes)
+        return max_chunk
+
+    def dispatched_buckets(self) -> tuple[int, ...]:
+        """The buckets a chunk of `process_batch` can be padded to."""
+        buckets = self.settings.shape_buckets
+        top = pick_bucket(self._max_chunk(), buckets)
+        return tuple(b for b in sorted(buckets) if b <= top)
+
+    def warmup(self) -> None:
+        """One chunk of every dispatched bucket, answers discarded."""
+        t0 = time.perf_counter()
+        for b in self.dispatched_buckets():
+            self._process([{"query": f"warmup {i}"} for i in range(b)], NULL_PROFILE)
+            logger.info("fused warmup: bucket=%d done", b)
+        self.warmed_buckets = self.dispatched_buckets()
+        self.warmup_s = time.perf_counter() - t0
+        logger.info("fused warmup: buckets %s in %.2fs", list(self.warmed_buckets),
+                    self.warmup_s)
 
     def _get_pipe(self) -> DeviceRAGPipeline:
         if self._pipe is None:
@@ -142,24 +187,42 @@ class FusedExecutor:
         fused step each -> texts -> joint classify per chunk."""
         if not items:
             return []
-        s = self.settings
-        buckets = s.shape_buckets
-        max_chunk = max(buckets)
-        if s.fused_chunk_lanes > 0:
-            max_chunk = min(max_chunk, s.fused_chunk_lanes)
-        spans = chunk_spans(len(items), max_chunk)
+        return self._process(items, self.profiler.maybe_start())
+
+    def _process(self, items: Sequence[dict], prof) -> list[dict]:
+        buckets = self.settings.shape_buckets
+        spans = chunk_spans(len(items), self._max_chunk())
+        sent, tox_c = self.sentiment, self.toxicity
+        sent_on = sent is not None and sent.is_loaded
+        tox_on = tox_c is not None and tox_c.is_loaded
         # CUDA launches are asynchronous: every chunk's step is queued on
-        # the device before the first chunk's tokens are fetched
-        pend = [self._dispatch_chunk(items[a:b], buckets) for a, b in spans]
+        # the device before the first chunk's tokens are fetched, and each
+        # chunk's classifiers before the next chunk's tokens
+        with prof.track("device_dispatch"):
+            pend = [self._dispatch_chunk(items[a:b], buckets) for a, b in spans]
         texts: list[str] = []
         sentiments: list[str] = []
         tox: list[tuple[bool, float]] = []
+        cls_pend = []
         for (a, b), out in zip(spans, pend):
-            chunk_texts = self._fetch_texts(out, b - a)
-            labels, verdicts = self._classify_joint(chunk_texts)
+            with prof.track("device_step"):
+                chunk_texts = self._fetch_texts(out, b - a)
             texts.extend(chunk_texts)
-            sentiments.extend(labels)
-            tox.extend(verdicts)
+            if sent_on and tox_on:
+                with prof.track("classify_dispatch"):
+                    cls_pend.append((sent.dispatch(chunk_texts), tox_c.dispatch(chunk_texts)))
+                continue
+            n = len(chunk_texts)
+            with prof.track("sentiment"):
+                sentiments += sent.analyze_batch(chunk_texts) if sent_on else ["neutral"] * n
+            with prof.track("toxicity"):
+                tox += tox_c.check_batch(chunk_texts) if tox_on else [(False, 0.0)] * n
+        if cls_pend:
+            with prof.track("classify"):
+                for sp, tp in cls_pend:
+                    sentiments += sent.labels(sp)
+                    tox += tox_c.verdicts(tp)
+        prof.finish()
         return [
             {
                 "generated_response": TOXIC_PLACEHOLDER if t else text,
@@ -168,25 +231,6 @@ class FusedExecutor:
             }
             for text, sent, (t, _) in zip(texts, sentiments, tox)
         ]
-
-    def _classify_joint(
-        self, texts: Sequence[str]
-    ) -> tuple[list[str], list[tuple[bool, float]]]:
-        """Sentiment (argmax 5-star label) and toxicity (largest sigmoid vs
-        0.5) over the same texts, each chunked and padded to the shape
-        buckets. A classifier that is not loaded answers "neutral" / not
-        toxic."""
-        sent, tox = self.sentiment, self.toxicity
-        n = len(texts)
-        labels = (
-            sent.analyze_batch(texts) if sent is not None and sent.is_loaded
-            else ["neutral"] * n
-        )
-        verdicts = (
-            tox.check_batch(texts) if tox is not None and tox.is_loaded
-            else [(False, 0.0)] * n
-        )
-        return labels, verdicts
 
     def _dispatch_chunk(self, items: Sequence[dict], buckets) -> RAGStepOutput:
         """Tokenize one chunk, pad it to its bucket, run its fused step."""

@@ -18,6 +18,13 @@ running its batch path in a thread.
 With a fused executor whose `is_loaded` is true, one fused step replaces
 the pipeline and completions clock the batches (`flush_on_ready`); the
 reference gates that on the executor existing (`orchestrator.py:102`).
+
+Metrics, as the reference's (`:114-163`, `:335`): `REQUESTS_TOTAL` with
+status `ok` or `cache_hit`, `REQUEST_LATENCY` from enqueue to result, and
+`ERRORS_TOTAL` by the stage that failed (`retrieval`, `generation`,
+`postproc`). A request that fails is also counted under status `error`,
+which the reference never writes and the repo's dashboards read
+(`monitoring/`).
 """
 
 from __future__ import annotations
@@ -26,12 +33,14 @@ import asyncio
 import base64
 import logging
 import re
+import time
 from typing import Any, Optional
 
 import numpy as np
 
 from ..core.config import Settings
 from ..serve.rpc import RPCClient
+from ..telemetry.metrics import ERRORS_TOTAL, REQUEST_LATENCY, REQUESTS_TOTAL
 from ..utils.cache import LRUCache
 from .batcher import BatchScheduler
 
@@ -83,7 +92,8 @@ class Orchestrator:
         self.fused_executor = fused_executor
         self.rpc = rpc or RPCClient(settings)
         self.query_cache = LRUCache(
-            settings.query_cache_capacity, ttl_s=settings.query_cache_ttl_s
+            settings.query_cache_capacity, ttl_s=settings.query_cache_ttl_s,
+            name="query", run_id=settings.run_id, node=str(settings.node_number),
         )
         self.scheduler = BatchScheduler(
             self._process_batch,
@@ -94,12 +104,14 @@ class Orchestrator:
             # completion clocking fits a serial downstream (one fused step);
             # the staged pipeline wants overlapping batches in flight
             flush_on_ready=settings.batch_flush_on_ready and fused,
-            name="gateway",
+            name="gateway", run_id=settings.run_id, node=str(settings.node_number),
         )
         self._retrieval_q: asyncio.Queue = asyncio.Queue()
         self._generation_q: asyncio.Queue = asyncio.Queue()
         self._postproc_q: asyncio.Queue = asyncio.Queue()
         self._workers: list[asyncio.Task] = []
+        self._labels = (settings.run_id, str(settings.node_number))
+        self._m_lat = REQUEST_LATENCY.labels(*self._labels, "gateway")
 
     @property
     def is_loaded(self) -> bool:
@@ -134,10 +146,21 @@ class Orchestrator:
         )
         cached = self.query_cache.get(key)
         if cached is not None:
+            REQUESTS_TOTAL.labels(*self._labels, "gateway", "cache_hit").inc()
             return {**cached, "request_id": request_id}
-        result = await self.scheduler.enqueue({"query": query, "k": k})
+        t0 = time.monotonic()
+        try:
+            result = await self.scheduler.enqueue({"query": query, "k": k})
+        except Exception:
+            REQUESTS_TOTAL.labels(*self._labels, "gateway", "error").inc()
+            raise
+        self._m_lat.observe(time.monotonic() - t0)
+        REQUESTS_TOTAL.labels(*self._labels, "gateway", "ok").inc()
         self.query_cache.put(key, dict(result))
         return {**result, "request_id": request_id}
+
+    def _count_error(self, service: str, exc: Exception) -> None:
+        ERRORS_TOTAL.labels(*self._labels, service, type(exc).__name__).inc()
 
     async def _process_batch(self, items: list[dict]) -> list[Any]:
         loop = asyncio.get_running_loop()
@@ -169,6 +192,7 @@ class Orchestrator:
                 await self._generation_q.put(chunk)
             except Exception as exc:  # noqa: BLE001 — fail this chunk only
                 logger.exception("retrieval stage failed")
+                self._count_error("retrieval", exc)
                 chunk.fail(exc)
 
     async def _generation_worker(self) -> None:
@@ -184,6 +208,7 @@ class Orchestrator:
                 await self._postproc_q.put(chunk)
             except Exception as exc:  # noqa: BLE001 — fail this chunk only
                 logger.exception("generation stage failed")
+                self._count_error("generation", exc)
                 chunk.fail(exc)
 
     async def _postproc_worker(self) -> None:
@@ -191,13 +216,17 @@ class Orchestrator:
             chunk = await self._postproc_q.get()
             if chunk is None:
                 return
-            for fut, gen in zip(chunk.futures, chunk.generation):
-                if not fut.done():
-                    fut.set_result({
-                        "generated_response": gen["generated_response"],
-                        "sentiment": gen.get("sentiment", "neutral"),
-                        "is_toxic": bool(gen.get("is_toxic", False)),
-                    })
+            try:
+                for fut, gen in zip(chunk.futures, chunk.generation):
+                    if not fut.done():
+                        fut.set_result({
+                            "generated_response": gen["generated_response"],
+                            "sentiment": gen.get("sentiment", "neutral"),
+                            "is_toxic": bool(gen.get("is_toxic", False)),
+                        })
+            except Exception as exc:  # noqa: BLE001 — fail this chunk only
+                self._count_error("postproc", exc)
+                chunk.fail(exc)
 
     async def _do_retrieval(self, items: list[dict]) -> list[dict]:
         payload = [{"query": it["query"], "k": it.get("k")} for it in items]

@@ -8,9 +8,25 @@ SHA-256-keyed cache, the reranker's sigmoid relevance sorted descending,
 the LLM's chat prompt from the top docs (`llm_doc_chars` each) with
 prefill buckets, the 5-star sentiment labels and the 0.5 toxicity
 threshold. Every forward runs over row chunks padded to the shape buckets,
-as the reference pads them. PyTorch runs eagerly, so there is no
-per-bucket compile warmup to port, and the LLM's ladder is the configured
-one (the reference clamps it to a 16 GB TPU's memory).
+as the reference pads them; the LLM's ladder is the configured one (the
+reference clamps it to a 16 GB TPU's memory).
+
+Warm-up (`warmup_buckets`, reference `:175-183`, `:228-236`, `:412-430`):
+the four encoders run one forward of each shape bucket (eager: nothing is
+captured, but the first forward of a shape pays cuBLAS's set-up; the
+classifiers not under the fused pipeline, whose executor warms them), the
+embedder straight through its forward, so that no warm-up text lands in
+the embedding cache. The LLM runs its per-chunk decode over dummy prompts
+of each (batch bucket, prefill bucket) it can be handed, so that each
+decode graph a request will replay (the greedy step graph, or
+speculation's verify round) is captured before the first request. Its
+batch buckets are the ladder up to the one that holds
+GENERATION_BATCH_SIZE rows, the most its scheduler hands it: {1, 2, 4, 8}
+x {128, 256, 512} by default, 12 graphs, where the reference warms its
+whole (memory-clamped) ladder. Under USE_CONTINUOUS_BATCHING the engine
+captures its segment graph when it starts, so the warm-up runs the eager
+prefill only; with the fused pipeline the LLM warms nothing (the fused
+executor warms its own buckets).
 """
 
 from __future__ import annotations
@@ -35,10 +51,12 @@ from .bert import (
     quantize_bert_params,
 )
 from .qwen import (
+    KVCache,
     QwenConfig,
     greedy_generate,
     init_qwen_params,
     ngram_speculative_generate,
+    qwen_prefill,
 )
 from .safetensors import load_safetensors_dict
 from .tokenizer import make_tokenizer
@@ -80,16 +98,22 @@ def _qwen_config_for(name: str) -> QwenConfig:
 
 
 @torch.inference_mode()
-def _bucketed_forward(fwd, arrays: Sequence[np.ndarray], buckets, device) -> np.ndarray:
-    """`fwd` over row chunks of at most the largest bucket, each padded to
-    its bucket; returns the real rows' outputs as float32 numpy."""
+def _bucketed_dispatch(fwd, arrays: Sequence[np.ndarray], buckets, device) -> list:
+    """`fwd` launched over row chunks of at most the largest bucket, each
+    padded to its bucket -> [(output on the device, real rows)]."""
     n = arrays[0].shape[0]
     outs = []
     for s, e in chunk_spans(n, max(buckets)):
         bucket = pick_bucket(e - s, buckets)
         padded = [torch.from_numpy(pad_rows(a[s:e], bucket)).to(device) for a in arrays]
-        outs.append(fwd(*padded)[: e - s].float().cpu().numpy())
-    return np.concatenate(outs)
+        outs.append((fwd(*padded), e - s))
+    return outs
+
+
+@torch.inference_mode()
+def _gather(pending: list) -> np.ndarray:
+    """The real rows of dispatched chunks as float32 numpy."""
+    return np.concatenate([out[:n].float().cpu().numpy() for out, n in pending])
 
 
 def _generator(device: torch.device, seed: int = 0) -> torch.Generator:
@@ -110,6 +134,8 @@ def _checkpoint_dir(settings: Settings, model_name: str) -> Optional[str]:
 class _BertBase:
     """Shared load for BERT-backed components."""
 
+    CLASSIFIER = False
+
     def __init__(
         self, settings: Settings, model_name: str, device: torch.device,
         num_labels: int = 0,
@@ -123,12 +149,31 @@ class _BertBase:
         self.tokenizer = None
         self.random_weights = False
         self.checkpoint_dir: Optional[str] = None
+        self.warmed_buckets: tuple[int, ...] = ()
 
     @property
     def is_loaded(self) -> bool:
         return self.params is not None
 
     def load(self) -> None:
+        self._load()
+        s = self.settings
+        # the fused executor runs (and warms) the classifiers itself
+        if s.warmup_buckets and not (s.use_fused_pipeline and self.CLASSIFIER):
+            self.warmup()
+
+    def warmup(self) -> None:
+        """One forward of each shape bucket, outputs discarded."""
+        for b in self.settings.shape_buckets:
+            self._warm(b)
+        self.warmed_buckets = tuple(self.settings.shape_buckets)
+        logger.info("%s warmup: buckets %s done", type(self).__name__,
+                    list(self.warmed_buckets))
+
+    def _warm(self, b: int) -> None:
+        raise NotImplementedError
+
+    def _load(self) -> None:
         s = self.settings
         mdir = _checkpoint_dir(s, self.model_name)
         dtype = torch_dtype(s.param_dtype)
@@ -157,11 +202,14 @@ class _BertBase:
             vocab_size=self.cfg.vocab_size, pad_id=self.cfg.pad_token_id,
         )
 
-    def _forward(self, fwd, arrays: Sequence[np.ndarray]) -> np.ndarray:
-        return _bucketed_forward(
+    def _dispatch(self, fwd, arrays: Sequence[np.ndarray]) -> list:
+        return _bucketed_dispatch(
             lambda *t: fwd(self.params, self.cfg, *t), arrays,
             self.settings.shape_buckets, self.device,
         )
+
+    def _forward(self, fwd, arrays: Sequence[np.ndarray]) -> np.ndarray:
+        return _gather(self._dispatch(fwd, arrays))
 
 
 class EmbedderComponent(_BertBase):
@@ -171,11 +219,18 @@ class EmbedderComponent(_BertBase):
 
     def __init__(self, settings: Settings, device: torch.device):
         super().__init__(settings, settings.embedding_model, device)
-        self.cache = LRUCache(settings.embedding_cache_capacity)
+        self.cache = LRUCache(
+            settings.embedding_cache_capacity, name="embedding",
+            run_id=settings.run_id, node=str(settings.node_number),
+        )
 
     @property
     def dim(self) -> int:
         return self.cfg.hidden
+
+    def _warm(self, b: int) -> None:
+        ids, mask = self.tokenizer.encode_batch([f"warmup {i}" for i in range(b)], self.max_len)
+        self._forward(bert_embed, (ids, mask))
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         if not self.is_loaded:
@@ -213,6 +268,9 @@ class RerankerComponent(_BertBase):
     def __init__(self, settings: Settings, device: torch.device):
         super().__init__(settings, settings.reranker_model, device, num_labels=1)
         self.max_len = min(settings.truncate_length, self.cfg.max_positions - 2)
+
+    def _warm(self, b: int) -> None:
+        self.score_pairs([("warmup", f"doc {i}") for i in range(b)])
 
     def score_pairs(self, pairs: Sequence[tuple[str, str]]) -> np.ndarray:
         if not self.is_loaded:
@@ -264,35 +322,62 @@ class RerankerComponent(_BertBase):
 class SentimentComponent(_BertBase):
     """5-star sentiment head; labels in `_SENTIMENT_LABELS`."""
 
+    CLASSIFIER = True
+
     def __init__(self, settings: Settings, device: torch.device):
         super().__init__(settings, settings.sentiment_model, device, num_labels=5)
 
-    def analyze_batch(self, texts: Sequence[str]) -> list[str]:
+    def _warm(self, b: int) -> None:
+        self.analyze_batch([f"warmup {i}" for i in range(b)])
+
+    def dispatch(self, texts: Sequence[str]) -> list:
+        """The head launched over `texts`; `labels` reads it back."""
         if not self.is_loaded:
             raise RuntimeError("sentiment not loaded")
         if not texts:
             return []
         ids, mask = self.tokenizer.encode_batch([t[:512] for t in texts], self.max_len)
-        logits = self._forward(bert_classify, (ids, mask))
-        return [_SENTIMENT_LABELS[int(i)] for i in logits.argmax(axis=1)]
+        return self._dispatch(bert_classify, (ids, mask))
+
+    @staticmethod
+    def labels(pending: list) -> list[str]:
+        if not pending:
+            return []
+        return [_SENTIMENT_LABELS[int(i)] for i in _gather(pending).argmax(axis=1)]
+
+    def analyze_batch(self, texts: Sequence[str]) -> list[str]:
+        return self.labels(self.dispatch(texts))
 
 
 class ToxicityComponent(_BertBase):
     """Multi-label toxicity head: toxic when the largest sigmoid >= 0.5."""
 
+    CLASSIFIER = True
     THRESHOLD = 0.5
 
     def __init__(self, settings: Settings, device: torch.device):
         super().__init__(settings, settings.toxicity_model, device, num_labels=6)
 
-    def check_batch(self, texts: Sequence[str]) -> list[tuple[bool, float]]:
+    def _warm(self, b: int) -> None:
+        self.check_batch([f"warmup {i}" for i in range(b)])
+
+    def dispatch(self, texts: Sequence[str]) -> list:
+        """The head launched over `texts`; `verdicts` reads it back."""
         if not self.is_loaded:
             raise RuntimeError("toxicity not loaded")
         if not texts:
             return []
         ids, mask = self.tokenizer.encode_batch([t[:512] for t in texts], self.max_len)
-        worst = _sigmoid(self._forward(bert_classify, (ids, mask))).max(axis=1)
+        return self._dispatch(bert_classify, (ids, mask))
+
+    def verdicts(self, pending: list) -> list[tuple[bool, float]]:
+        if not pending:
+            return []
+        worst = _sigmoid(_gather(pending)).max(axis=1)
         return [(bool(w >= self.THRESHOLD), float(w)) for w in worst]
+
+    def check_batch(self, texts: Sequence[str]) -> list[tuple[bool, float]]:
+        return self.verdicts(self.dispatch(texts))
 
 
 class LLMComponent:
@@ -315,12 +400,18 @@ class LLMComponent:
         self.random_weights = False
         self.checkpoint_dir: Optional[str] = None
         self.engine = None
+        self.warmed: tuple[tuple[int, int], ...] = ()
 
     @property
     def is_loaded(self) -> bool:
         return self.params is not None
 
     def load(self) -> None:
+        self._load()
+        if self.settings.warmup_buckets:
+            self.warmup()
+
+    def _load(self) -> None:
         s = self.settings
         mdir = _checkpoint_dir(s, self.model_name)
         dtype = torch_dtype(s.param_dtype)
@@ -394,10 +485,9 @@ class LLMComponent:
         s = self.settings
         max_new = max_new_tokens or s.max_tokens
         prompts = [self.build_prompt(q, d) for q, d in zip(queries, docs_batch)]
-        plen_cap = min(s.truncate_length, self.cfg.max_len - max_new)
+        plen_cap = self._prompt_cap(max_new)
         all_ids, all_mask = self.tokenizer.encode_batch(prompts, plen_cap)
         ladder = s.shape_buckets
-        eos = self.tokenizer.eos_id
         out: list[str] = []
         for cs, ce in chunk_spans(len(prompts), max(ladder)):
             ids, mask = all_ids[cs:ce], all_mask[cs:ce]
@@ -407,21 +497,78 @@ class LLMComponent:
             ids = pad_rows(ids[:, :plen], bucket)
             mask = pad_rows(mask[:, :plen], bucket)
             mask[ce - cs :, 0] = 1
-            args = (self.params, self.cfg, torch.from_numpy(ids).to(self.device),
-                    torch.from_numpy(mask).to(self.device), max_new)
-            kw = dict(eos_token_id=eos, cache_len=plen + max_new)
-            if s.use_speculative_decoding:
-                toks, _ = ngram_speculative_generate(
-                    *args, gamma=s.speculative_gamma,
-                    inject_accept_p=s.speculative_inject_p, **kw,
-                )
-            else:
-                toks = greedy_generate(*args, **kw)
-            for row in toks[: ce - cs].cpu().numpy():
-                stop = np.where(row == eos)[0]
-                end = int(stop[0]) if len(stop) else len(row)
-                out.append(self.tokenizer.decode(row[:end]))
+            out.extend(self._decode(ids, mask, ce - cs, max_new))
         return out
+
+    def _prompt_cap(self, max_new: int) -> int:
+        return min(self.settings.truncate_length, self.cfg.max_len - max_new)
+
+    def _decode(self, ids: np.ndarray, mask: np.ndarray, n: int, max_new: int) -> list[str]:
+        """One padded chunk through the decode loop: the answers of its
+        first `n` rows, each cut at the first eos."""
+        s = self.settings
+        eos = self.tokenizer.eos_id
+        args = (self.params, self.cfg, torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(mask).to(self.device), max_new)
+        kw = dict(eos_token_id=eos, cache_len=ids.shape[1] + max_new)
+        if s.use_speculative_decoding:
+            toks, _ = ngram_speculative_generate(
+                *args, gamma=s.speculative_gamma,
+                inject_accept_p=s.speculative_inject_p, **kw,
+            )
+        else:
+            toks = greedy_generate(*args, **kw)
+        out = []
+        for row in toks[:n].cpu().numpy():
+            stop = np.where(row == eos)[0]
+            end = int(stop[0]) if len(stop) else len(row)
+            out.append(self.tokenizer.decode(row[:end]))
+        return out
+
+    def dispatched_buckets(self) -> tuple[int, ...]:
+        """The batch buckets the generation scheduler can hand this LLM:
+        the ladder up to the one that holds GENERATION_BATCH_SIZE rows."""
+        ladder = self.settings.shape_buckets
+        top = pick_bucket(self.settings.generation_batch_size, ladder)
+        return tuple(b for b in sorted(ladder) if b <= top)
+
+    def prefill_lengths(self, max_new: int) -> tuple[int, ...]:
+        """Every prompt length `generate_batch` can pad a chunk to."""
+        cap = self._prompt_cap(max_new)
+        return tuple(sorted({min(p, cap) for p in self.settings.prefill_bucket_list + (cap,)}))
+
+    def warmup(self) -> None:
+        """Each (dispatched batch bucket, prefill length) once over dummy
+        prompts: the decode loop (greedy or speculative, capturing its
+        graph), or under USE_CONTINUOUS_BATCHING the eager prefill only."""
+        s = self.settings
+        if s.use_fused_pipeline:
+            logger.info("llm warmup skipped: the fused pipeline owns decode")
+            return
+        max_new = s.max_tokens
+        warmed = []
+        for b in self.dispatched_buckets():
+            for p in self.prefill_lengths(max_new):
+                ids = np.ones((b, p), np.int32)
+                if s.use_continuous_batching:
+                    self._prefill(ids)
+                else:
+                    self._decode(ids, ids.copy(), b, max_new)
+                warmed.append((b, p))
+                logger.info("llm warmup: bucket=%d prefill=%d done", b, p)
+        self.warmed = tuple(warmed)
+
+    @torch.inference_mode()
+    def _prefill(self, ids: np.ndarray) -> None:
+        """The decode engine's admission prefill over `ids`, discarded."""
+        s, cfg = self.settings, self.cfg
+        dtype = torch.bfloat16 if self.params.final_ln.dtype == torch.bfloat16 else torch.float32
+        s_alloc = s.kv_cache_max_len + (s.speculative_gamma + 1 if s.use_speculative_decoding else 0)
+        cache = KVCache.zeros(cfg.layers, ids.shape[0], s_alloc, cfg.kv_heads, cfg.head_dim,
+                              dtype=dtype, device=self.device)
+        t = torch.from_numpy(ids).to(self.device)
+        logits, _ = qwen_prefill(self.params, cfg, t, t, cache)
+        logits.cpu()
 
     # -- continuous-batching engine mode ------------------------------------
     async def start(self) -> None:
@@ -446,6 +593,8 @@ class LLMComponent:
             gamma=s.speculative_gamma,
             spec_rounds=s.speculative_rounds,
             inject_accept_p=s.speculative_inject_p,
+            run_id=s.run_id,
+            node=str(s.node_number),
         )
         await self.engine.start()
 

@@ -5,7 +5,9 @@ wire: a body is compressed with zstd only at `min_bytes` or more and kept
 compressed only when it shrinks; `decompress` sniffs the zstd magic and
 passes anything else through; the `compressed` payload mode carries
 documents as base64 of zstd of their JSON (`pack_docs` / `unpack_docs`).
-Without its Prometheus ratio histogram.
+A body kept compressed observes its ratio in `COMPRESSION_RATIO` (reference
+`:59`), `direction` "out" for a request and "in" for a reply, as the
+reference labels them.
 
 `zstandard` is imported inside the functions: the GPU machine does not
 guarantee it. A node whose settings ask for zstd checks for it at start
@@ -20,6 +22,7 @@ import json
 import threading
 
 from ..core.enums import PayloadMode
+from ..telemetry.metrics import COMPRESSION_RATIO
 
 ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
@@ -49,13 +52,17 @@ def _decompressor():
     return d
 
 
-def compress(data: bytes, *, level: int = 3, min_bytes: int = 512) -> tuple[bytes, bool]:
+def compress(
+    data: bytes, *, level: int = 3, min_bytes: int = 512, run_id: str = "dev",
+    node: str = "0", direction: str = "out",
+) -> tuple[bytes, bool]:
     """Compress if worthwhile. Returns (payload, was_compressed)."""
     if len(data) < min_bytes:
         return data, False
     out = _compressor(level).compress(data)
     if len(out) >= len(data):
         return data, False
+    COMPRESSION_RATIO.labels(run_id, node, direction).observe(len(data) / max(1, len(out)))
     return out, True
 
 

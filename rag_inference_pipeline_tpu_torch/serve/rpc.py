@@ -14,6 +14,9 @@ One difference from the reference: a node asks for zstd replies
 COMPRESSION_ALGORITHM=none may lack `zstandard`, so it must not be sent
 zstd bodies.
 
+Each attempt that gets a reply is timed into `RPC_DURATION` by the peer's
+role (`target`), as the reference times it (`rpc.py:85`).
+
 Connections: a pool of keep-alive `http.client.HTTPConnection`s per peer,
 at most `http_max_connections` in use at once. Every request runs on the
 event loop's default executor, never on the loop itself. An idle
@@ -28,10 +31,12 @@ import http.client
 import json
 import select
 import threading
+import time
 import urllib.parse
 from typing import Optional
 
 from ..core.config import Settings
+from ..telemetry.metrics import RPC_DURATION
 from .compression import compress, decompress
 
 ENCODING_HEADER = "X-Ragtpu-Encoding"
@@ -147,14 +152,18 @@ class RPCClient:
         if s.compression_algorithm == "zstd":
             headers[ACCEPT_HEADER] = "zstd"
             body, was = compress(
-                body, level=s.compression_level, min_bytes=s.compression_min_bytes
+                body, level=s.compression_level, min_bytes=s.compression_min_bytes,
+                run_id=s.run_id, node=str(s.node_number), direction="out",
             )
             if was:
                 headers[ENCODING_HEADER] = "zstd"
         last_exc: Optional[RPCError] = None
+        m_dur = RPC_DURATION.labels(s.run_id, str(s.node_number), target)
         for attempt in range(s.rpc_retries):
             try:
+                t0 = time.monotonic()
                 status, data = await self._roundtrip("POST", url, body, headers)
+                m_dur.observe(time.monotonic() - t0)
                 if 200 <= status < 300:
                     return json.loads(decompress(data))
                 detail = decompress(data)[:500].decode(errors="replace")

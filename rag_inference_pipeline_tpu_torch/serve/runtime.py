@@ -42,17 +42,38 @@ Routes and wire shapes are the JAX package's (`serve/http.py`,
 - `POST /clear_cache` -> `{"cleared": [...]}` (the caches of this node); a
   gateway whose stages are remote also clears its peers', and says which
   answered under `cascade`;
-- `GET /health` -> the node and its role, the loaded components, those
-  whose weights are random (`random_weights`, the JAX package's field),
-  each model's weights (`weights`: `random_weights` and the
-  `checkpoint_dir` it loaded from), and the launch count of each
-  hand-written kernel in this process.
+- `GET /health` -> the node and its role, the loaded components (from the
+  component registry), those whose weights are random (`random_weights`,
+  the JAX package's field), each model's weights (`weights`:
+  `random_weights` and the `checkpoint_dir` it loaded from), and, fields
+  of the port only, the launch count of each hand-written kernel in this
+  process and, on a node with an LLM, its captured decode graphs
+  (`decode_graphs`: `count` and the MB of their shared pool);
+- `GET /metrics` -> the reference's 16 Prometheus metrics
+  (`telemetry/metrics.py`) as `text/plain; version=0.0.4`;
+- `POST /profile/start` -> `{"status": "tracing", "log_dir"}` (409 while a
+  trace runs) and `POST /profile/stop` -> `{"status": "stopped", "log_dir",
+  "trace"}` (409 with none running): a `torch.profiler` trace of the
+  process, written as a Chrome trace (`telemetry/profiling.py`).
 
 A body sent with `X-Ragtpu-Encoding: zstd` is decompressed; a reply to a
 request with `X-Ragtpu-Accept-Encoding: zstd` is compressed when the
 node's COMPRESSION_ALGORITHM is zstd and compressing shrinks it. A
 malformed request answers 400, a failed peer (`RPCError`) or a stage that
-is not ready 503, a timeout 504.
+is not ready 503, a timeout 504; each such error counts in
+`ERRORS_TOTAL` (service `http`, the exception's type). The reference's
+outer middleware (`serve/http.py:85-128`) is here too: every reply carries
+the CORS headers (`cors_headers`), a preflight `OPTIONS` (one with
+`Access-Control-Request-Method`) answers 204, and a reply of at least
+`GZIP_MIN_SIZE` bytes is gzipped when the request accepts gzip and the
+reply is not zstd-framed. `/query` refreshes the RSS and device-memory
+gauges at most every 5 s.
+
+The serving entry point builds its app with `make_server`, which turns
+WARMUP_BUCKETS on where it is unset (`resolve_serving_settings`, the
+reference's `serve/runtime.py:35-43`): every component warms the buckets
+it will dispatch before `/health` answers. Library use (`StagedApp`,
+`build_executor`) leaves it off unless set.
 """
 
 from __future__ import annotations
@@ -60,11 +81,14 @@ from __future__ import annotations
 import asyncio
 import base64
 import concurrent.futures
+import dataclasses
+import gzip
 import json
 import logging
 import signal
 import socket
 import threading
+import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
@@ -76,6 +100,7 @@ from ..core.config import Settings, load_settings, replace_settings
 from ..core.device import resolve_device
 from ..core.enums import ComponentType
 from ..core.profiles import load_role_profile
+from ..core.registry import ComponentRegistry
 from ..engine.batcher import BatchScheduler
 from ..engine.fused_executor import FusedExecutor
 from ..engine.orchestrator import Orchestrator
@@ -88,9 +113,18 @@ from ..models.components import (
     SentimentComponent,
     ToxicityComponent,
 )
+from ..models.decode_graph import graphs_of
 from ..ops.ivf import ivf_dedup_scores, ivf_scan_partial
 from ..ops.pq import ivfpq4_adc_scores
 from ..ops.topk import binmax_partial_topk, binmax_partial_topk_int8gs
+from ..telemetry.metrics import (
+    CONTENT_TYPE_LATEST,
+    ERRORS_TOTAL,
+    render_metrics,
+    update_resource_gauges,
+)
+from ..telemetry.profiling import DeviceTraceCapture
+from ..telemetry.tracing import setup_tracing
 from ..utils.docstore import DocumentStore
 from .compression import compress, decompress, require_codec
 from .rpc import ACCEPT_HEADER, ENCODING_HEADER, RPCError
@@ -100,6 +134,30 @@ logger = logging.getLogger(__name__)
 
 # an idle keep-alive connection is closed after this long
 KEEPALIVE_TIMEOUT_S = 30.0
+GZIP_MIN_SIZE = 1000  # the reference's GZipMiddleware(minimum_size=1000)
+GAUGE_PERIOD_S = 5.0  # /query refreshes the resource gauges at most this often
+
+
+def resolve_serving_settings(settings: Settings) -> Settings:
+    """The serving entry's defaults for the tri-state knobs: WARMUP_BUCKETS
+    unset means on (WARMUP_BUCKETS=0 opts out)."""
+    if settings.warmup_buckets is None:
+        logger.info("WARMUP_BUCKETS unset: on for serving")
+        settings = dataclasses.replace(settings, warmup_buckets=True)
+    return settings
+
+
+def cors_headers(origin: Optional[str]) -> dict[str, str]:
+    """The reference's `_cors_headers` (`serve/http.py:85-99`): any origin,
+    method and header with credentials, so the request's Origin is echoed
+    (with `Vary: Origin`) where one is sent."""
+    return {
+        "Access-Control-Allow-Origin": origin or "*",
+        "Access-Control-Allow-Credentials": "true",
+        "Access-Control-Allow-Methods": "*",
+        "Access-Control-Allow-Headers": "*",
+        **({"Vary": "Origin"} if origin else {}),
+    }
 
 
 def node_health(settings: Settings) -> dict:
@@ -114,6 +172,17 @@ def weights_health(named: dict[str, Any]) -> dict[str, dict]:
         k: {"random_weights": c.random_weights, "checkpoint_dir": c.checkpoint_dir}
         for k, c in named.items() if hasattr(c, "checkpoint_dir")
     }
+
+
+def decode_graph_health(llm) -> dict:
+    """The LLM's captured decode graphs: how many, and the MB of the pool
+    they share (the decode engine's segment graph included)."""
+    cache = graphs_of(llm.params)
+    count, pool = len(cache), cache.pool_bytes
+    graph = getattr(llm.engine, "graph", None)
+    if graph is not None:
+        count, pool = count + 1, pool + graph.pool_bytes
+    return {"count": count, "pool_mb": round(pool / 2**20, 3)}
 
 
 def kernel_launches() -> dict[str, int]:
@@ -132,8 +201,12 @@ def kernel_launches() -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def build_executor(settings: Settings) -> FusedExecutor:
-    """Load every component named by `settings` and the fused executor."""
+def build_executor(
+    settings: Settings, registry: Optional[ComponentRegistry] = None
+) -> FusedExecutor:
+    """Load every component named by `settings` and the fused executor,
+    each registered (and so loaded, and warmed where WARMUP_BUCKETS is on)
+    in `registry`, in the order the reference's profile places them."""
     if not settings.use_fused_pipeline:
         raise ValueError("build_executor builds the fused pipeline: set USE_FUSED_PIPELINE=1")
     if settings.index_dtype != "int8":
@@ -143,32 +216,40 @@ def build_executor(settings: Settings) -> FusedExecutor:
     if not settings.doc_tokens_path:
         raise ValueError("the fused pipeline needs DOC_TOKENS_PATH")
     device = resolve_device(settings.device_platform)
-    embedder = EmbedderComponent(settings, device)
-    llm = LLMComponent(settings, device)
-    sentiment = SentimentComponent(settings, device)
-    toxicity = ToxicityComponent(settings, device)
-    for comp in (embedder, llm, sentiment, toxicity):
-        comp.load()
-    index = load_index(settings.index_path, device)
+    reg = ComponentRegistry() if registry is None else registry
+    embedder = reg.register("embedder", EmbedderComponent(settings, device))
+    # the fused step scans the index itself: nothing searches it to warm
+    index = reg.register("index", load_index(settings.index_path, device), load=False)
     if index.dim != embedder.dim:
         raise ValueError(
             f"index dim {index.dim} != embedder width {embedder.dim}"
         )
-    ex = FusedExecutor(
+    llm = reg.register("llm", LLMComponent(settings, device))
+    sentiment = reg.register("sentiment", SentimentComponent(settings, device))
+    toxicity = reg.register("toxicity", ToxicityComponent(settings, device))
+    return reg.register("fused_executor", FusedExecutor(
         settings, device=device, embedder=embedder, index=index, llm=llm,
         sentiment=sentiment, toxicity=toxicity,
-    )
-    ex.load()
-    return ex
+    ))
 
 
 class FusedApp:
     """The fused executor behind one device lock: each request is its own
-    batch."""
+    batch. `registry` holds the components `build_executor` registered;
+    without one, the executor's parts are registered as they are."""
 
-    def __init__(self, executor: FusedExecutor) -> None:
-        self.executor = executor
+    def __init__(
+        self, executor: FusedExecutor, registry: Optional[ComponentRegistry] = None
+    ) -> None:
+        self.executor = ex = executor
         self.settings = executor.settings
+        if registry is None:
+            registry = ComponentRegistry()
+            for name in ("embedder", "index", "llm", "sentiment", "toxicity"):
+                if getattr(ex, name) is not None:
+                    registry.register(name, getattr(ex, name), load=False)
+            registry.register("fused_executor", ex, load=False)
+        self.registry = registry
         self.routes = {"/query": self.query, "/clear_cache": self.clear_cache}
         self._device_lock = threading.Lock()
 
@@ -183,28 +264,25 @@ class FusedApp:
         return {"cleared": ["embedder"]}
 
     def health(self) -> tuple[int, dict]:
-        ex = self.executor
-        comps = {
-            "embedder": ex.embedder, "llm": ex.llm, "index": ex.index,
-            "sentiment": ex.sentiment, "toxicity": ex.toxicity,
-            "fused_executor": ex,
-        }
+        reg = self.registry
+        named = {k: reg.get(k) for k in reg.names}
         return 200, {
             "status": "ok",
             **node_health(self.settings),
-            "device": str(ex.device),
-            "components": {
-                k: bool(c is not None and c.is_loaded) for k, c in comps.items()
-            },
+            "device": str(self.executor.device),
+            "components": reg.health(),
             "random_weights": [
-                k for k, c in comps.items() if getattr(c, "random_weights", False)
+                k for k, c in named.items() if getattr(c, "random_weights", False)
             ],
-            "weights": weights_health(comps),
+            "weights": weights_health(named),
             "kernel_launches": kernel_launches(),
+            "decode_graphs": decode_graph_health(self.executor.llm),
         }
 
     def close(self) -> None:
-        pass
+        """Unload in reverse order (the fused app starts nothing, so there
+        is nothing to stop)."""
+        self.registry.unload_all()
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +315,76 @@ def _index_settings(settings: Settings, config: dict) -> Settings:
     )
 
 
+class IndexComponent:
+    """A staged node's index (the reference's `serve/factory.py::
+    IndexComponent`): a built index handed in, else INDEX_PATH's artifact
+    with the deployment's nprobe, else an empty index of the configured
+    kind. With WARMUP_BUCKETS on, `load()` runs one search at RETRIEVAL_K
+    (reference `index/base.py:80-88`) and one of every shape bucket at
+    every k of the retrieval executor's ladder that the index holds
+    (`serve/factory.py:100-115`), on seeded unit queries; results are read
+    back and dropped, and no cache sees them. `unload()` drops only an
+    index it loaded itself."""
+
+    def __init__(self, settings: Settings, device: torch.device, index=None) -> None:
+        self.settings = settings
+        self.device = device
+        self._given = index
+        self.index = None
+        self.warmed: tuple[tuple[int, int], ...] = ()
+
+    @property
+    def is_loaded(self) -> bool:
+        return self.index is not None and self.index.is_loaded
+
+    def load(self) -> None:
+        s, index = self.settings, self._given
+        if index is None and s.index_path:
+            index = load_index(s.index_path, self.device)
+            if hasattr(index, "nprobe"):
+                index.nprobe = s.index_nprobe
+        if index is None:
+            logger.warning("index: no INDEX_PATH — starting empty (not loaded)")
+            self.index = make_index(s, self.device)
+            return
+        if index.dim != s.index_dim:
+            raise ValueError(f"index dim {index.dim} != INDEX_DIM {s.index_dim}")
+        self.index = index
+        if s.warmup_buckets:
+            self.warmup()
+
+    def warmup(self) -> None:
+        s, index = self.settings, self.index
+        t0 = time.perf_counter()
+        ks = [k for k in sorted({s.retrieval_k, 16, 32, 64, 128}) if k <= index.ntotal]
+        searches = [(1, s.retrieval_k)] if s.retrieval_k <= index.ntotal else []
+        searches += [(b, k) for b in s.shape_buckets for k in ks]
+        g = torch.Generator().manual_seed(0)
+        for b, k in searches:
+            q = torch.randn(b, index.dim, generator=g)
+            scores, ids = index.search((q / q.norm(dim=1, keepdim=True)).numpy(), k)
+            scores.cpu(), ids.cpu()
+        self.warmed = tuple(searches)
+        logger.info("index warmup: %d searches in %.2fs", len(searches),
+                    time.perf_counter() - t0)
+
+    def unload(self) -> None:
+        if self.index is not None and self._given is None:
+            unload = getattr(self.index, "unload", None)
+            if unload is not None:
+                unload()
+        self.index = None
+
+
 class StagedApp:
     """Components, services, schedulers and the asyncio loop of the staged
-    path, as the reference's serve/factory.py wires them from a profile.
-    `index` (optional) is a built index that takes the place of
+    path, as the reference's serve/factory.py wires them from a profile,
+    held in one `ComponentRegistry`: each component is loaded (and warmed)
+    as it is registered, started in order, stopped and unloaded in reverse
+    order. `index` (optional) is a built index that takes the place of
     INDEX_PATH."""
+
+    _SERVICES = ("retrieval_executor", "generation_service", "orchestrator")
 
     def __init__(self, settings: Settings, *, index=None) -> None:
         self.profile = profile = load_role_profile(settings)
@@ -249,13 +392,13 @@ class StagedApp:
             settings = replace_settings(settings, **profile.batch_overrides)
         self.settings = settings
         self.device = device = resolve_device(settings.device_platform)
-        self.components: dict[str, Any] = {}
+        self.registry = reg = ComponentRegistry()
         for spec in profile.components:
             t = spec.type
             if t is ComponentType.EMBEDDER:
                 comp = EmbedderComponent(settings, device)
             elif t is ComponentType.INDEX:
-                comp = self._make_index(_index_settings(settings, spec.config), index)
+                comp = IndexComponent(_index_settings(settings, spec.config), device, index)
             elif t is ComponentType.DOC_STORE:
                 comp = DocumentStore(settings)
             elif t is ComponentType.RERANKER:
@@ -268,29 +411,29 @@ class StagedApp:
                 comp = ToxicityComponent(settings, device)
             else:  # mesh: one device, nothing to hold; orchestrator: below
                 continue
-            if t is not ComponentType.INDEX:
-                comp.load()
-            self.components[t.value] = comp
+            reg.register(spec.name, comp)
+            if spec.name != t.value and t.value not in reg:
+                reg.alias(t.value, spec.name)
         get = self.components.get
         self.retrieval_executor = self.generation_service = self.orchestrator = None
         if "retrieval" in profile.routes:
-            self.retrieval_executor = RetrievalExecutor(
+            self.retrieval_executor = reg.register("retrieval_executor", RetrievalExecutor(
                 settings, index=get("index"), embedder=get("embedder"),
                 doc_store=get("doc_store"), reranker=get("reranker"),
-            )
+            ), load=False)
         if "generation" in profile.routes:
-            self.generation_service = GenerationService(
+            self.generation_service = reg.register("generation_service", GenerationService(
                 settings, llm=get("llm"), reranker=get("reranker"),
                 sentiment=get("sentiment"), toxicity=get("toxicity"),
                 doc_store=get("doc_store"),
-            )
+            ), load=False)
         self.routes = {"/clear_cache": self.clear_cache}
         if "gateway" in profile.routes:
-            self.orchestrator = Orchestrator(
+            self.orchestrator = reg.register("orchestrator", Orchestrator(
                 settings, retrieval_executor=self.retrieval_executor,
                 generation_service=self.generation_service,
                 embedder=get("embedder") if self.retrieval_executor is None else None,
-            )
+            ), load=False)
             self.routes["/query"] = self.query
         if self.retrieval_executor is not None:
             self.routes["/retrieve"] = self.retrieve
@@ -303,19 +446,15 @@ class StagedApp:
         self._thread.start()
         self._submit(self._start()).result(timeout=60)
 
-    def _make_index(self, s: Settings, index):
-        """The given index, else INDEX_PATH's artifact (with the
-        deployment's nprobe), else an empty index of the configured kind."""
-        if index is None and s.index_path:
-            index = load_index(s.index_path, self.device)
-            if hasattr(index, "nprobe"):
-                index.nprobe = s.index_nprobe
-        if index is None:
-            logger.warning("index: no INDEX_PATH — starting empty (not loaded)")
-            return make_index(s, self.device)
-        if index.dim != s.index_dim:
-            raise ValueError(f"index dim {index.dim} != INDEX_DIM {s.index_dim}")
-        return index
+    @property
+    def components(self) -> dict[str, Any]:
+        """The profile's components by type name (the index itself, not its
+        holder)."""
+        reg = self.registry
+        return {
+            t.value: getattr(reg.get(t.value), "index", reg.get(t.value))
+            for t in ComponentType if t.value in reg and t.value not in self._SERVICES
+        }
 
     async def _start(self) -> None:
         s = self.settings
@@ -326,7 +465,7 @@ class StagedApp:
                 timeout_s=s.retrieval_batch_timeout_ms / 1e3,
                 adaptive=s.adaptive_batching,
                 flush_on_ready=s.batch_flush_on_ready,
-                name="retrieval",
+                name="retrieval", run_id=s.run_id, node=str(s.node_number),
             )
             if self.retrieval_executor is not None else None
         )
@@ -341,25 +480,24 @@ class StagedApp:
                 # the engine interleaves many batches in one decode loop:
                 # completion clocking would serialize its feed
                 flush_on_ready=s.batch_flush_on_ready and not s.use_continuous_batching,
-                name="generation",
+                name="generation", run_id=s.run_id, node=str(s.node_number),
             )
             if gen is not None else None
         )
-        llm = self.components.get("llm")
-        if llm is not None:  # the decode engine, under USE_CONTINUOUS_BATCHING
-            await llm.start()
-        if self.orchestrator is not None:
-            await self.orchestrator.start()
+        # the LLM's decode engine (under USE_CONTINUOUS_BATCHING), then the
+        # orchestrator's workers
+        await self.registry.start_all()
 
     async def _stop(self) -> None:
+        """The gateway drains into the schedulers, the schedulers flush,
+        then every component stops in reverse order (the orchestrator's
+        second stop finds nothing to do)."""
         if self.orchestrator is not None:
             await self.orchestrator.stop()
         for sched in (self.retrieval_scheduler, self.generation_scheduler):
             if sched is not None:
                 await sched.stop()
-        llm = self.components.get("llm")
-        if llm is not None:
-            await llm.stop()
+        await self.registry.stop_all()
 
     def _submit(self, coro) -> concurrent.futures.Future:
         return asyncio.run_coroutine_threadsafe(coro, self.loop)
@@ -418,13 +556,11 @@ class StagedApp:
         return {"cleared": cleared, **({"cascade": cascade} if cascade else {})}
 
     def health(self) -> tuple[int, dict]:
-        named = dict(self.components)
-        for name in ("retrieval_executor", "generation_service", "orchestrator"):
-            if getattr(self, name) is not None:
-                named[name] = getattr(self, name)
-        comps = {k: bool(c.is_loaded) for k, c in named.items()}
+        reg = self.registry
+        named = {k: reg.get(k) for k in reg.names}
+        comps = reg.health()
         ok = all(comps.values())
-        return (200 if ok else 503), {
+        body = {
             "status": "ok" if ok else "degraded",
             **node_health(self.settings),
             "profile": self.profile.name,
@@ -436,14 +572,20 @@ class StagedApp:
             "weights": weights_health(named),
             "kernel_launches": kernel_launches(),
         }
+        llm = self.components.get("llm")
+        if llm is not None and llm.is_loaded:
+            body["decode_graphs"] = decode_graph_health(llm)
+        return (200 if ok else 503), body
 
     def close(self) -> None:
-        """Flush the schedulers, stop the orchestrator and the loop."""
+        """Flush the schedulers, stop every component and the loop, then
+        unload the components in reverse order."""
         if not self.loop.is_closed():
             self._submit(self._stop()).result(timeout=self.settings.request_timeout_s)
             self.loop.call_soon_threadsafe(self.loop.stop)
             self._thread.join(timeout=60)
             self.loop.close()
+            self.registry.unload_all()
 
 
 # ---------------------------------------------------------------------------
@@ -668,54 +810,109 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(503, {"error": "the server is shutting down", "error_type": "unavailable"})
         return True
 
-    def _send(self, code: int, body: dict, *, route: bool = False) -> None:
-        """A JSON reply; a route's reply (not an error) is compressed as
-        the reference's compression middleware compresses it."""
-        data = json.dumps(body).encode()
+    def _reply(self, code: int, data: bytes, content_type: str = "application/json",
+               *, route: bool = False) -> None:
+        """A reply with the CORS headers. A route's reply (not an error) is
+        compressed as the reference's compression middleware compresses
+        it; then any reply of GZIP_MIN_SIZE bytes or more that is not
+        zstd-framed is gzipped for a client that accepts gzip."""
         s = self.server.app.settings
-        encoded = False
+        headers = cors_headers(self.headers.get("Origin"))
         if (route and s.compression_algorithm == "zstd"
                 and "zstd" in self.headers.get(ACCEPT_HEADER, "")):
             data, encoded = compress(
-                data, level=s.compression_level, min_bytes=s.compression_min_bytes
+                data, level=s.compression_level, min_bytes=s.compression_min_bytes,
+                run_id=s.run_id, node=str(s.node_number), direction="in",
             )
+            if encoded:
+                headers[ENCODING_HEADER] = "zstd"
+        if (len(data) >= GZIP_MIN_SIZE and ENCODING_HEADER not in headers
+                and "gzip" in self.headers.get("Accept-Encoding", "")):
+            data = gzip.compress(data, compresslevel=6)
+            headers["Content-Encoding"] = "gzip"
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         if self.close_connection:
             self.send_header("Connection", "close")
-        if encoded:
-            self.send_header(ENCODING_HEADER, "zstd")
+        for k, v in headers.items():
+            self.send_header(k, v)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
 
-    def do_GET(self):
-        if self._closing():
-            return
-        if self.path != "/health":
-            self._send(404, {"error": f"no route {self.path}"})
-            return
-        code, body = self.server.app.health()
-        self._send(code, body, route=True)
+    def _send(self, code: int, body: dict, *, route: bool = False) -> None:
+        self._reply(code, json.dumps(body).encode(), route=route)
 
-    def do_POST(self):
+    def _error(self, code: int, exc: BaseException, body: dict) -> None:
+        """An error reply, counted in ERRORS_TOTAL by the exception's type."""
+        s = self.server.app.settings
+        ERRORS_TOTAL.labels(s.run_id, str(s.node_number), "http", type(exc).__name__).inc()
+        self._send(code, body)
+
+    def _read_body(self) -> Optional[bytes]:
+        """The whole body (on a keep-alive connection unread bytes would be
+        taken for the next request); None after a 400 for a bad length."""
         try:
-            # read the whole body first: on a keep-alive connection unread
-            # bytes would be taken for the next request
             length = int(self.headers.get("Content-Length", 0))
             if length < 0:
                 raise ValueError(length)
-            body = self.rfile.read(length)
+            return self.rfile.read(length)
         except ValueError:
             self.close_connection = True
             self._send(400, {"error": "bad Content-Length", "error_type": "validation"})
+            return None
+
+    def do_OPTIONS(self):
+        """A CORS preflight answers 204; any other OPTIONS 405."""
+        if self._read_body() is None or self._closing():
             return
+        if "Access-Control-Request-Method" not in self.headers:
+            self._send(405, {"error": f"OPTIONS {self.path} is not allowed"})
+            return
+        self.send_response(204)
+        for k, v in cors_headers(self.headers.get("Origin")).items():
+            self.send_header(k, v)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+    def do_GET(self):
         if self._closing():
+            return
+        if self.path == "/health":
+            code, body = self.server.app.health()
+            self._send(code, body, route=True)
+        elif self.path == "/metrics":
+            self._reply(200, render_metrics(), CONTENT_TYPE_LATEST)
+        else:
+            self._send(404, {"error": f"no route {self.path}"})
+
+    def _profile(self, action: str) -> None:
+        """`/profile/start` and `/profile/stop`: 409 for a second start or
+        a stop with no trace running."""
+        trace = self.server.trace
+        try:
+            if action == "start":
+                self._send(200, {"status": "tracing", "log_dir": trace.start()})
+            else:
+                path = trace.stop()
+                self._send(200, {"status": "stopped", "log_dir": trace.log_dir,
+                                 "trace": path})
+        except RuntimeError as e:
+            self._send(409, {"error": str(e)[:200]})
+
+    def do_POST(self):
+        body = self._read_body()
+        if body is None or self._closing():
+            return
+        if self.path in ("/profile/start", "/profile/stop"):
+            self._profile(self.path.rsplit("/", 1)[1])
             return
         handler = self.server.app.routes.get(self.path)
         if handler is None:
             self._send(404, {"error": f"no route {self.path}"})
             return
+        if self.path == "/query":
+            self.server.refresh_gauges()
         try:
             if self.headers.get(ENCODING_HEADER) == "zstd":
                 body = decompress(body)
@@ -724,20 +921,20 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ValueError("the request body must be a JSON object")
             out = handler(req)
         except ValueError as e:  # bad JSON and bad base64 are ValueErrors too
-            self._send(400, {"error": str(e)[:500], "error_type": "validation"})
+            self._error(400, e, {"error": str(e)[:500], "error_type": "validation"})
         except RPCError as e:  # a peer node failed: unavailable, not internal
             logger.exception("request failed")
-            self._send(503, {"error": str(e)[:500], "error_type": "unavailable"})
-        except (TimeoutError, concurrent.futures.TimeoutError):
-            self._send(504, {"error": "request timed out", "error_type": "timeout"})
+            self._error(503, e, {"error": str(e)[:500], "error_type": "unavailable"})
+        except (TimeoutError, concurrent.futures.TimeoutError) as e:
+            self._error(504, e, {"error": "request timed out", "error_type": "timeout"})
         except RuntimeError as e:  # readiness failures -> 503
             msg = str(e)
             logger.exception("request failed")
             code = 503 if "not ready" in msg or "not loaded" in msg else 500
-            self._send(code, {"error": msg[:500], "error_type": "unavailable"})
+            self._error(code, e, {"error": msg[:500], "error_type": "unavailable"})
         except Exception as e:  # noqa: BLE001 — the server keeps serving
             logger.exception("request failed")
-            self._send(500, {"error": str(e)[:500], "error_type": "internal"})
+            self._error(500, e, {"error": str(e)[:500], "error_type": "internal"})
         else:
             self._send(200, out, route=True)
 
@@ -751,6 +948,16 @@ class RAGServer(ThreadingHTTPServer):
         self.closing = False
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
+        self.trace = DeviceTraceCapture()
+        self._gauges_at = float("-inf")
+
+    def refresh_gauges(self) -> None:
+        """The resource gauges, at most every GAUGE_PERIOD_S."""
+        now = time.monotonic()
+        if now - self._gauges_at > GAUGE_PERIOD_S:
+            self._gauges_at = now
+            s = self.app.settings
+            update_resource_gauges(s.run_id, str(s.node_number))
 
     def track(self, conn: socket.socket, open_: bool) -> None:
         """The connections being served, to close those kept alive."""
@@ -767,6 +974,8 @@ class RAGServer(ThreadingHTTPServer):
         connections that are still kept alive (their next read sees EOF)."""
         self.closing = True
         super().server_close()
+        if self.trace.active:
+            self.trace.stop()
         self.app.close()
         with self._conns_lock:
             conns = list(self._conns)
@@ -783,12 +992,15 @@ def make_server(
     """Build the app for `settings` and bind the server; `port` overrides
     BASE_PORT + NODE_NUMBER (0 picks a free port); `index` hands the staged
     path a built index in place of INDEX_PATH. A node whose settings ask
-    for zstd refuses to start without `zstandard`."""
+    for zstd refuses to start without `zstandard`. WARMUP_BUCKETS unset
+    means on here (`resolve_serving_settings`)."""
     require_codec(settings)
+    settings = resolve_serving_settings(settings)
     if settings.use_fused_pipeline:
         if index is not None:
             raise ValueError("the fused path loads its index from INDEX_PATH")
-        app = FusedApp(build_executor(settings))
+        registry = ComponentRegistry()
+        app = FusedApp(build_executor(settings, registry), registry)
     else:
         app = StagedApp(settings, index=index)
     try:
@@ -807,6 +1019,7 @@ def main() -> None:
         level=getattr(logging, settings.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
+    setup_tracing(settings)
     server = make_server(settings)
     logger.info(
         "node %d (%s) listening on %s:%d (%s)", settings.node_number,

@@ -1,8 +1,7 @@
 """Service logic of the staged path: the retrieval executor and the
 generation service.
 
-Port of `rag_inference_pipeline_tpu/serve/services.py` (without its
-Prometheus stage timers and sampled profiler):
+Port of `rag_inference_pipeline_tpu/serve/services.py`:
 
 - `RetrievalExecutor`: embed (a provided embedding, else the embedder) ->
   index search behind a search cache keyed by the SHA-256 of the embedding
@@ -15,12 +14,25 @@ Prometheus stage timers and sampled profiler):
   toxicity; a toxic answer is replaced by `TOXIC_PLACEHOLDER`.
   `process_batch` runs the LLM per bucketed batch; `process_batch_async`
   submits each request to the continuous-batching decode engine.
+
+Telemetry, as the reference's: a stage timer (`_StageTimer`, reference
+`:39-44`) observes `STAGE_DURATION` for `embed`, `search` and `fetch`
+(service `retrieval`), and for `rerank`, `llm`, `sentiment` and `toxicity`
+(service `generation`; engine mode times `llm` only); the sampled profiler
+tracks the same stages and `prepare_docs` (reference `:95-100`,
+`:263-289`), and observes a sampled stage a second time, as the
+reference's does. Each stage ends where its result is on the host already
+(`encode` and the classifiers return numpy, the search reads its scores
+and ids with `.cpu()`, the LLM its tokens), so the host clock times the
+device work; nothing synchronizes for the timers' sake.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
+import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -28,9 +40,22 @@ import numpy as np
 from ..core.config import Settings
 from ..core.enums import PayloadMode
 from ..engine.fused_executor import TOXIC_PLACEHOLDER
+from ..telemetry.metrics import STAGE_DURATION
+from ..telemetry.profiling import SampledStageProfiler
 from ..utils.cache import LRUCache
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
 from .compression import pack_docs, unpack_docs
+
+
+class _StageTimer:
+    def __init__(self, settings: Settings, service: str) -> None:
+        self._labels = (settings.run_id, str(settings.node_number), service)
+
+    @contextlib.contextmanager
+    def time(self, stage: str):
+        t0 = time.monotonic()
+        yield
+        STAGE_DURATION.labels(*self._labels, stage).observe(time.monotonic() - t0)
 
 
 class RetrievalExecutor:
@@ -45,7 +70,12 @@ class RetrievalExecutor:
         self.embedder = embedder
         self.doc_store = doc_store
         self.reranker = reranker
-        self.search_cache = LRUCache(settings.search_cache_capacity)
+        self.search_cache = LRUCache(
+            settings.search_cache_capacity, name="search",
+            run_id=settings.run_id, node=str(settings.node_number),
+        )
+        self._timer = _StageTimer(settings, "retrieval")
+        self.profiler = SampledStageProfiler(settings, "retrieval")
         self._buckets = tuple(sorted(settings.shape_buckets))
         self._k_ladder = tuple(sorted({settings.retrieval_k, 16, 32, 64, 128}))
 
@@ -68,9 +98,15 @@ class RetrievalExecutor:
         why = self.ready(items)
         if why:
             raise RuntimeError(f"retrieval not ready: {why}")
-        embs = self._get_embeddings(items)
-        ids, scores = self._search_with_cache(embs, items)
-        return self._build_results(items, ids, scores)
+        prof, timer = self.profiler.maybe_start(), self._timer
+        with prof.track("embed"), timer.time("embed"):
+            embs = self._get_embeddings(items)
+        with prof.track("search"), timer.time("search"):
+            ids, scores = self._search_with_cache(embs, items)
+        with prof.track("fetch"), timer.time("fetch"):
+            results = self._build_results(items, ids, scores)
+        prof.finish()
+        return results
 
     def _get_embeddings(self, items: Sequence[dict]) -> np.ndarray:
         need = [i for i, it in enumerate(items) if it.get("embedding") is None]
@@ -177,6 +213,8 @@ class GenerationService:
         self.sentiment = sentiment
         self.toxicity = toxicity
         self.doc_store = doc_store
+        self._timer = _StageTimer(settings, "generation")
+        self.profiler = SampledStageProfiler(settings, "generation")
 
     @property
     def is_loaded(self) -> bool:
@@ -186,9 +224,20 @@ class GenerationService:
         """items: [{query, documents? | doc_ids?}] -> [{generated_response,
         sentiment, is_toxic}]."""
         self._check_llm()
+        prof, timer = self.profiler.maybe_start(), self._timer
         queries = [it.get("query", "") for it in items]
-        texts = self.llm.generate_batch(queries, self._documents(queries, items))
-        return self._finish(texts)
+        with prof.track("prepare_docs"):
+            docs_batch = [self._prepare_documents(it) for it in items]
+        with prof.track("rerank"), timer.time("rerank"):
+            docs_batch = self._rerank(queries, docs_batch)
+        with prof.track("llm"), timer.time("llm"):
+            texts = self.llm.generate_batch(queries, docs_batch)
+        with prof.track("sentiment"), timer.time("sentiment"):
+            sentiments = self._sentiments(texts)
+        with prof.track("toxicity"), timer.time("toxicity"):
+            tox = self._toxicity(texts)
+        prof.finish()
+        return self._response(texts, sentiments, tox)
 
     async def process_batch_async(self, items: list[dict]) -> list[dict]:
         """Engine mode: documents, rerank and the classifiers run as
@@ -202,7 +251,8 @@ class GenerationService:
         loop = asyncio.get_running_loop()
         queries = [it.get("query", "") for it in items]
         docs_batch = await loop.run_in_executor(None, self._documents, queries, items)
-        texts = await self.llm.generate_batch_engine(queries, docs_batch)
+        with self._timer.time("llm"):
+            texts = await self.llm.generate_batch_engine(queries, docs_batch)
         return await loop.run_in_executor(None, self._finish, texts)
 
     def _check_llm(self) -> None:
@@ -211,22 +261,30 @@ class GenerationService:
 
     def _documents(self, queries: list[str], items: list[dict]) -> list[list[dict]]:
         """Each item's documents, reranked (or cut) to `rerank_top_n`."""
-        docs_batch = [self._prepare_documents(it) for it in items]
+        return self._rerank(queries, [self._prepare_documents(it) for it in items])
+
+    def _rerank(self, queries: list[str], docs_batch: list[list[dict]]) -> list[list[dict]]:
         top_n = self.settings.rerank_top_n
         if self.reranker is not None and self.reranker.is_loaded:
             return self.reranker.rerank_batch(queries, docs_batch, top_n=top_n)
         return [d[:top_n] for d in docs_batch]
 
+    def _sentiments(self, texts: list[str]) -> list[str]:
+        if self.sentiment is not None and self.sentiment.is_loaded:
+            return self.sentiment.analyze_batch(texts)
+        return ["neutral"] * len(texts)
+
+    def _toxicity(self, texts: list[str]) -> list[tuple[bool, float]]:
+        if self.toxicity is not None and self.toxicity.is_loaded:
+            return self.toxicity.check_batch(texts)
+        return [(False, 0.0)] * len(texts)
+
     def _finish(self, texts: list[str]) -> list[dict]:
         """Sentiment and toxicity of the answers -> the response items."""
-        if self.sentiment is not None and self.sentiment.is_loaded:
-            sentiments = self.sentiment.analyze_batch(texts)
-        else:
-            sentiments = ["neutral"] * len(texts)
-        if self.toxicity is not None and self.toxicity.is_loaded:
-            tox = self.toxicity.check_batch(texts)
-        else:
-            tox = [(False, 0.0)] * len(texts)
+        return self._response(texts, self._sentiments(texts), self._toxicity(texts))
+
+    @staticmethod
+    def _response(texts, sentiments, tox) -> list[dict]:
         return [
             {
                 "generated_response": TOXIC_PLACEHOLDER if is_toxic else text,

@@ -103,7 +103,8 @@ class DocumentStore:
         self._docs_override = docs
         self._backend = None
         self.cache = LRUCache(
-            settings.document_cache_capacity, ttl_s=settings.document_cache_ttl_s
+            settings.document_cache_capacity, ttl_s=settings.document_cache_ttl_s,
+            name="document", run_id=settings.run_id, node=str(settings.node_number),
         )
 
     @property

@@ -30,10 +30,12 @@ import sys
 import threading
 import time
 import urllib.request
+import uuid
 
 import numpy as np
 import pytest
 import torch
+from prometheus_client.parser import text_string_to_metric_families
 
 from rag_inference_pipeline_tpu.core.config import Settings as JSettings
 from rag_inference_pipeline_tpu.engine.orchestrator import Orchestrator as JOrchestrator
@@ -182,6 +184,9 @@ _TINY = dict(
     GATEWAY_PIPELINE_CHUNKS="2", MODEL_WEIGHTS_DIR="", DEVICE_PLATFORM="cpu",
     DOC_STORE_BACKEND="sqlite", INDEX_KIND="ivf_flat", INDEX_NPROBE="4",
     RPC_BACKOFF_BASE_S="0.01", COMPRESSION_MIN_BYTES="64",
+    # warm-up has its own tests (test_torch_warmup.py); here it would only
+    # multiply each server's start-up under the parallel test workers
+    WARMUP_BUCKETS="0",
 )
 _WORDS = ["alpha", "beta", "gamma", "delta", "retrieval", "vector", "tpu",
           "gpu", "kernel", "index", "query", "answer", "doc", "cluster"]
@@ -450,6 +455,42 @@ def test_binary_retrieve_wire(cluster, corpus):
 # ---------------------------------------------------------------------------
 # The launcher: three node processes through the entry point
 # ---------------------------------------------------------------------------
+
+
+def test_metrics_on_every_node(cluster):
+    """/metrics on each of the three nodes after two /query: the gateway
+    counts the requests and times both RPC targets, node 1 the retrieval
+    stages, node 2 the generation stages."""
+    _, three = cluster
+    run_id = f"three-{uuid.uuid4().hex}"
+    nodes = three(RUN_ID=run_id)
+    for q in _queries(2, "m"):
+        assert _post(nodes[0], "/query", q)[0] == 200
+    texts = []
+    for server in nodes:
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.server_address[1]}/metrics", timeout=WAIT_S
+        ) as r:
+            assert r.headers["Content-Type"] == "text/plain; version=0.0.4; charset=utf-8"
+            texts.append(r.read().decode())
+    for text in texts:
+        assert text.count("# HELP pipeline_") >= 16
+
+    def count(text, name, **labels):
+        return sum(s.value for fam in text_string_to_metric_families(text)
+                   for s in fam.samples if s.name == name
+                   and all(s.labels.get(k) == v for k, v in dict(labels, run_id=run_id).items()))
+
+    assert count(texts[0], "pipeline_requests_total", node="0", service="gateway",
+                 status="ok") == 2
+    for target in ("retrieval", "generation"):
+        assert count(texts[0], "pipeline_rpc_duration_seconds_count", node="0",
+                     target=target) >= 1
+    for node, service, stages in ((1, "retrieval", ("embed", "search", "fetch")),
+                                  (2, "generation", ("rerank", "llm", "sentiment", "toxicity"))):
+        for stage in stages:
+            assert count(texts[node], "pipeline_stage_duration_seconds_count", node=str(node),
+                         service=service, stage=stage) >= 1, stage
 
 
 def test_start_pipeline_runs_three_node_processes(corpus, tmp_path):

@@ -153,7 +153,7 @@ def corpus(tmp_path, request):
         "SENTIMENT_MODEL": "tiny-sentiment", "TOXICITY_MODEL": "tiny-toxicity",
         "BATCH_SHAPE_BUCKETS": "1,2,4,8", "MAX_TOKENS": "3",
         "TRUNCATE_LENGTH": "32", "RETRIEVAL_K": "5", "PARAM_DTYPE": "float32",
-        "MODEL_WEIGHTS_DIR": "",
+        "MODEL_WEIGHTS_DIR": "", "WARMUP_BUCKETS": "0",  # tested in test_torch_warmup.py
     }
 
 

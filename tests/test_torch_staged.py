@@ -389,10 +389,11 @@ def served(tmp_path, monkeypatch):
     ivf.train_add(vecs, iters=3)
     ivf.save(str(tmp_path / "ivf.npz"))
     env = {k.upper(): str(v) for k, v in _TINY.items()}
+    # warm-up has its own tests (test_torch_warmup.py)
     env.update(DEVICE_PLATFORM="cpu", DOC_STORE_BACKEND="sqlite",
                DOCUMENT_DB_PATH=db, INDEX_KIND="ivf_flat",
                INDEX_PATH=str(tmp_path / "ivf.npz"), INDEX_NPROBE="4",
-               MODEL_WEIGHTS_DIR="")
+               MODEL_WEIGHTS_DIR="", WARMUP_BUCKETS="0")
     servers = []
 
     def start(**over):

@@ -355,13 +355,18 @@ def test_topk_order_matches_lax_top_k(name):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without loading jax."""
+    """Every module of the port imports without loading jax, nor the
+    packages the GPU machine does not guarantee (prometheus_client, psutil,
+    opentelemetry: the port imports OpenTelemetry inside setup_tracing
+    only)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rag_inference_pipeline_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "for name in ('prometheus_client', 'psutil', 'opentelemetry'):\n"
+        "    assert name not in sys.modules, name + ' was imported'\n"
         "assert not any(k == 'rag_inference_pipeline_tpu' or\n"
         "               k.startswith('rag_inference_pipeline_tpu.')\n"
         "               for k in sys.modules), 'the JAX package was imported'\n"
