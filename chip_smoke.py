@@ -245,6 +245,29 @@ and exits non-zero before the last line:
              the CLS embeddings against the same forward through the plain
              version (max abs error, min cosine); ms a forward.
 
+29. host_stores — runs after retrieve_flat, over its 1M x 768 corpus,
+             queries and sqlite docs: the host-side native layer (built by
+             g++ from native/*.cc; the vector extensions of the build
+             printed first). The native doc store of the same documents
+             (build_native_store); the int8 flat index with its f16
+             rescore copy in host RAM (rescore_store="host", rescore_k 64)
+             and with its bf16 copy on the card, the device bytes of each
+             (torch.cuda.memory_allocated around the build). Then
+             PIPELINE_ROLE_PROFILE=retrieval_default over the host store
+             with DOC_STORE_BACKEND and FAST_JSON unset (the defaults:
+             native, on), INDEX_RESCORE_STORE=host: an 8- and a 64-item
+             /retrieve in id_only mode, again with FAST_JSON=0, and in
+             full mode. K1 must launch; ids must equal the plain pipeline's
+             (K1's plain scan, then the numpy re-score, over the batches
+             the server searched) but for near-ties within TOL; recall@10
+             against the exact f32 scan must reach the device store's; the
+             fast reply must read back as the stdlib one (ids, f32 scores);
+             the documents must be sqlite's. Printed: the native re-score
+             against numpy at S 64 and 4,096 (B 8, alternated), native
+             get_batch against sqlite at 64 ids, the native parse and
+             encode of the 64-item body against the stdlib, the /retrieve
+             latencies and index/host_refine from /metrics.
+
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
 PyTorch call computing the same function where there is one), and last the
@@ -918,8 +941,18 @@ def clustered_corpus(g, n: int, d: int, n_clusters: int, spread: float):
     return x
 
 
-def phase_ivf_build(workdir: str):
+def ivf_documents():
+    """The IVF corpus's documents: 48 words each, from a pool of 4096 word
+    sequences, as (id, title, content) rows."""
     import numpy as np
+
+    rng = np.random.default_rng(6)
+    pool = [" ".join(f"w{w}" for w in rng.integers(0, 5000, DOC_LEN))
+            for _ in range(4096)]
+    return ((i, f"doc {i}", pool[i % 4096]) for i in range(N_ROWS))
+
+
+def phase_ivf_build(workdir: str):
     import torch
     from rag_inference_pipeline_tpu_torch.index.base import load_index
     from rag_inference_pipeline_tpu_torch.index.ivf_flat import IVFFlatIndex
@@ -941,13 +974,9 @@ def phase_ivf_build(workdir: str):
     nlist, cap, _ = ivf._listing.buckets.shape
     ids = ivf._listing.ids
     check(int((ids >= 0).sum()) == N_ROWS, "IVF build lost or duplicated rows")
-    # documents: 48 words each, from a pool of 4096 word sequences
     td = time.perf_counter()
-    rng = np.random.default_rng(6)
-    pool = [" ".join(f"w{w}" for w in rng.integers(0, 5000, DOC_LEN))
-            for _ in range(4096)]
     db_path = os.path.join(workdir, "documents.db")
-    build_sqlite_store(db_path, ((i, f"doc {i}", pool[i % 4096]) for i in range(N_ROWS)))
+    build_sqlite_store(db_path, ivf_documents())
     docs_s = time.perf_counter() - td
     # .npz save/load parity on a smaller IVF built the same way
     ts = time.perf_counter()
@@ -1638,12 +1667,14 @@ def _trace_kernels(path: str) -> tuple[list, list]:
 
 
 def _request(port: int, method: str, path: str, body=None, headers=None):
-    """(status, headers, raw body) of one request."""
+    """(status, headers, raw body) of one request; `body` a dict or the
+    JSON bytes."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
-        data = None if body is None else json.dumps(body).encode()
+        data = None if body is None else (
+            body if isinstance(body, bytes) else json.dumps(body).encode())
         conn.request(method, path, body=data, headers={
             **({"Content-Type": "application/json"} if data else {}), **(headers or {})})
         resp = conn.getresponse()
@@ -1905,6 +1936,199 @@ def phase_retrieve_flat(corpus, queries, db_path: str):
           ids_identical=not bool(differ.any()), ids_differ=int(differ.sum()),
           near_tie_gaps=gaps)
     return {"launches": launches}
+
+
+def host_ms(fn, iters: int) -> float:
+    """Host milliseconds per call of a function that runs on the host."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_host_stores(corpus, queries, db_path: str, workdir: str):
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.index.flat import FlatIndex
+    from rag_inference_pipeline_tpu_torch.ops.topk import (
+        binmax_partial_topk_int8gs,
+        binmax_partial_topk_int8gs_plain,
+        exact_topk,
+        fused_topk_int8gs,
+    )
+    from rag_inference_pipeline_tpu_torch.serve.runtime import _parse_retrieve, _result_wire
+    from rag_inference_pipeline_tpu_torch.utils import cpuscan, docstore, fastjson, native
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    print(f"[host_stores] native isa={','.join(native.isa())} "
+          f"threads={cpuscan.hw_threads()} gxx={native._gxx()}", flush=True)
+    # the native doc store of the IVF corpus's documents
+    tb = time.perf_counter()
+    ragdoc = os.path.join(workdir, "documents.ragdoc")
+    docstore.build_native_store(ragdoc, ivf_documents())
+    ragdoc_s = time.perf_counter() - tb
+    # the int8 flat index twice: the f16 rescore copy in host RAM, and the
+    # bf16 copy on the card; the device bytes each leaves allocated
+    def flat_int8(store: str):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        idx = FlatIndex(DIM, dtype="int8", device=dev, rescore_store=store, rescore_k=64)
+        idx.add(corpus)
+        torch.cuda.synchronize()
+        return idx, torch.cuda.memory_allocated() - before
+
+    tb = time.perf_counter()
+    host, host_bytes = flat_int8("host")
+    host_build_s = time.perf_counter() - tb
+    devstore, dev_bytes = flat_int8("device")
+    check(host._db is None and host._host_rescore.dtype == np.float16,
+          "the host store put a rescore copy on the card")
+    print(f"[host_stores] device bytes: host store {host_bytes}, device store {dev_bytes}, "
+          f"saved {dev_bytes - host_bytes}", flush=True)
+
+    # /retrieve under the defaults: DOC_STORE_BACKEND and FAST_JSON unset
+    env = {k: v for k, v in STAGED_ENV.items() if k != "DOC_STORE_BACKEND"}
+    env.update(DOCUMENT_DB_PATH=ragdoc, INDEX_KIND="flat", INDEX_DTYPE="int8",
+               INDEX_RESCORE_STORE="host", PIPELINE_ROLE_PROFILE="retrieval_default")
+    out, lat = {}, {}
+    host_refine = None
+    for mode, fast in (("id_only", None), ("id_only", "0"), ("full", None)):
+        menv = {**env, "DOCUMENTS_PAYLOAD_MODE": mode, **({"FAST_JSON": fast} if fast else {})}
+        server, th = _serve(menv, host)
+        port = server.server_address[1]
+        tag = mode + ("_stdlib" if fast else "")
+        try:
+            s = server.app.settings
+            check(s.doc_store_backend == "native" and s.fast_json == (fast is None),
+                  f"settings: doc store {s.doc_store_backend}, fast_json {s.fast_json}")
+            trunc = s.truncate_length
+            check(_get_health(port)["status"] == "ok", "host-store server not healthy")
+            zero_launches()
+            for b in (MAIN_B, RETRIEVE_B):
+                body = json.dumps({"items": [{"embedding": q} for q in
+                                             queries[:b].float().cpu().tolist()]}).encode()
+                ts = time.perf_counter()
+                status, _, raw = _request(port, "POST", "/retrieve", body)
+                lat[f"{tag}_retrieve{b}_s"] = round(time.perf_counter() - ts, 4)
+                check(status == 200, f"/retrieve {tag} {b}: HTTP {status}")
+                out[(tag, b)] = raw
+            launches = binmax_partial_topk_int8gs.launches
+            check(launches >= 1, f"/retrieve {tag} over the host store did not run K1")
+            if host_refine is None:
+                _, samples = _scrape(port)
+                labels = dict(service="index", stage="host_refine")
+                host_refine = (
+                    _total(samples, "pipeline_stage_duration_seconds_count", **labels),
+                    _total(samples, "pipeline_stage_duration_seconds_sum", **labels))
+        finally:
+            _stop(server, th)
+    check(host_refine[0] >= 2, f"index/host_refine observed {host_refine[0]} times")
+
+    # ids against the plain pipeline: K1's plain scan, then the numpy
+    # re-score, over the batches the server searched (one query scale a
+    # batch): the 8 items, then the 56 of the 64 that its cache missed
+    k = 10
+    s_k = min(max(host.rescore_k, k + 32), host.nbins)
+    fast_res = {b: json.loads(out[("id_only", b)])["results"] for b in (MAIN_B, RETRIEVE_B)}
+    check(fast_res[RETRIEVE_B][:MAIN_B] == fast_res[MAIN_B], "cached results differ")
+    differ, gaps = 0, []
+    store = host._host_rescore
+    for lo, hi in ((0, MAIN_B), (MAIN_B, RETRIEVE_B)):
+        q = queries[lo:hi]
+        _, short = fused_topk_int8gs(q, host._db_i8, host._db_gscale, s_k, nbins=host.nbins,
+                                     ntotal=host.ntotal, scan=binmax_partial_topk_int8gs_plain)
+        qn = q.float().cpu().numpy()
+        _, pi = cpuscan.rescore_f16_plain(qn, store, short.cpu().numpy(), k)
+        for r, irow, qv in zip(fast_res[RETRIEVE_B][lo:hi], pi, qn):
+            want = [int(i) for i in irow if i >= 0]
+            if r["ids"] == want:
+                continue
+            # the native sums in another order: a swap only between ids
+            # whose exact f16 scores tie within the tolerance
+            exact = {i: float(store[i].astype(np.float64) @ qv.astype(np.float64))
+                     for i in set(r["ids"]) | set(want)}
+            for a, w in zip(r["ids"], want):
+                if a != w:
+                    differ += 1
+                    gaps.append(abs(exact[a] - exact[w]))
+    check(all(g <= TOL["atol"] for g in gaps),
+          f"host store: ids differ from the plain pipeline beyond a near-tie: {gaps}")
+    # recall@10 against the exact f32 scan: the 64 queries as one batch
+    # through each store, and as the server batched them
+    with torch.inference_mode():
+        _, exact_ids = exact_topk(queries, corpus, k)
+        _, dev_ids = devstore.search(queries, k)
+        _, host_ids = host.search(queries, k)
+    ref = exact_ids.cpu().numpy()
+    recall_host = _recall([{"ids": r} for r in host_ids.cpu().tolist()], ref)
+    recall_dev = _recall([{"ids": r} for r in dev_ids.cpu().tolist()], ref)
+    recall_served = _recall(fast_res[RETRIEVE_B], ref)
+    check(recall_host >= recall_dev,
+          f"host store recall@10 {recall_host:.4f} < device store's {recall_dev:.4f}")
+    # the fast reply reads back as the stdlib one; documents are sqlite's
+    for b in (MAIN_B, RETRIEVE_B):
+        fast_b, slow_b = out[("id_only", b)], out[("id_only_stdlib", b)]
+        check(b", " not in fast_b and b", " in slow_b, "the fast encoder did not answer")
+        for rf, rs in zip(json.loads(fast_b)["results"], json.loads(slow_b)["results"],
+                          strict=True):
+            check(rf["ids"] == rs["ids"] and np.array_equal(
+                np.float32(rf["scores"]), np.float32(rs["scores"])),
+                "fast and stdlib /retrieve replies differ")
+    sql = docstore._SqliteBackend(db_path, False)
+    for r in json.loads(out[("full", RETRIEVE_B)])["results"]:
+        want = sql.get_batch(r["ids"])
+        got = [{f: d[f] for f in ("id", "title", "content")} for d in r["documents"]]
+        check(got == [{**w, "content": w["content"][:trunc]} for w in want],
+              "native documents differ from sqlite's")
+    # the host layer's figures: re-score, fetch, JSON
+    rng = np.random.default_rng(7)
+    qn = queries[:MAIN_B].float().cpu().numpy()
+    rescore = {}
+    for sl in (64, 4096):
+        ids = rng.integers(0, N_ROWS, (MAIN_B, sl), dtype=np.int32)
+        ms = alternated(host_ms, {
+            "native": lambda: cpuscan.rescore_f16(qn, store, ids, k),
+            "plain": lambda: cpuscan.rescore_f16_plain(qn, store, ids, k)}, 1, 5)
+        rescore[f"s{sl}_native_ms"] = round(ms["native"], 4)
+        rescore[f"s{sl}_plain_ms"] = round(ms["plain"], 4)
+    nat = docstore._NativeBackend(ragdoc, False)
+    ids64 = [int(i) for i in rng.integers(0, N_ROWS, RETRIEVE_B)]
+    check(nat.get_batch(ids64) == sql.get_batch(ids64), "native get_batch differs from sqlite's")
+    fetch = alternated(host_ms, {"native": lambda: nat.get_batch(ids64),
+                                 "sqlite": lambda: sql.get_batch(ids64)}, 1)
+    nat.close()
+    sql.close()
+    body64 = json.dumps({"items": [{"embedding": q} for q in
+                                   queries.float().cpu().tolist()]}).encode()
+    wire = [_result_wire(r) for r in fast_res[RETRIEVE_B]]
+    parse = alternated(host_ms, {
+        "native": lambda: fastjson.parse_retrieve(body64, DIM),
+        "stdlib": lambda: _parse_retrieve(json.loads(body64), DIM)}, 1)
+    encode = alternated(host_ms, {
+        "native": lambda: fastjson.encode_results(wire),
+        "stdlib": lambda: json.dumps({"results": wire}).encode()}, 1)
+    del host, devstore
+    stats = {
+        "ragdoc_build_s": round(ragdoc_s, 3), "host_index_build_s": round(host_build_s, 3),
+        "device_bytes_host_store": host_bytes, "device_bytes_device_store": dev_bytes,
+        "device_bytes_saved": dev_bytes - host_bytes,
+        "k1_launches": launches, "ids_differ": differ, "near_tie_gaps": gaps,
+        "recall_at_10_host": round(recall_host, 4), "recall_at_10_device": round(recall_dev, 4),
+        "recall_at_10_served": round(recall_served, 4),
+        **lat, "host_refine_count": int(host_refine[0]),
+        "host_refine_mean_ms": round(host_refine[1] / max(host_refine[0], 1) * 1e3, 4),
+        **{f"rescore_{k_}": v for k_, v in rescore.items()},
+        "fetch64_native_ms": round(fetch["native"], 4),
+        "fetch64_sqlite_ms": round(fetch["sqlite"], 4),
+        "parse64_native_ms": round(parse["native"], 4),
+        "parse64_stdlib_ms": round(parse["stdlib"], 4),
+        "encode64_native_ms": round(encode["native"], 4),
+        "encode64_stdlib_ms": round(encode["stdlib"], 4),
+        "body64_mb": round(len(body64) / 1e6, 3),
+    }
+    phase("host_stores", t0, **stats)
+    return stats
 
 
 def phase_pq_build(corpus, queries, workdir: str):
@@ -2874,6 +3098,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         flat = phase_retrieve_flat(corpus, queries, db_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_host_stores(corpus, queries, db_path, workdir)
         gc.collect()
         torch.cuda.empty_cache()
         built = phase_pq_build(corpus, queries, workdir)

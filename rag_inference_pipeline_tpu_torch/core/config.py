@@ -76,7 +76,7 @@ class Settings:
     index_dtype: str = "bfloat16"
     index_search_oversample: int = 4
     index_rescore_k: int = 64
-    index_rescore_store: str = "device"  # "host" is refused (not ported)
+    index_rescore_store: str = "device"  # device (bf16) | host (f16 in host RAM)
     index_pq_rescore_k: int = 256  # IVF-PQ shortlist re-score depth
     # exact | int4 | pq8 | host_int8 | host_f16 (index/ivf_pq.py)
     index_pq_rescore_kind: str = "exact"
@@ -109,6 +109,9 @@ class Settings:
     compression_algorithm: str = "zstd"  # zstd | none
     compression_level: int = 3
     compression_min_bytes: int = 512
+    # the native JSON codec on /retrieve (utils/fastjson.py): a strict-shape
+    # parse and the id_only encode; anything else takes the stdlib path
+    fast_json: bool = True
 
     # --- model names ---
     embedding_model: str = "BAAI/bge-base-en-v1.5"
@@ -121,7 +124,7 @@ class Settings:
 
     # --- doc store ---
     document_db_path: Optional[str] = None
-    doc_store_backend: str = "native"  # sqlite | memory; native is refused
+    doc_store_backend: str = "native"  # native (native/docstore.cc) | sqlite | memory
     doc_store_in_memory: bool = False
 
     # --- serving / rpc (serve/rpc.py) ---

@@ -9,14 +9,17 @@ and the built-in role profiles `gateway_default`, `retrieval_default` and
 reference's validators check it (`profiles.py:48-76`): known routes, no
 route twice, no alias twice, and each route's required component placed.
 
-Selection, as in `profiles.py:156-176`: PIPELINE_ROLE_PROFILE names a
-profile; else TOTAL_NODES=1 means `single_node_full`; else the node's role
+Selection, as in `profiles.py:156-176`: ROLE_PROFILE_OVERRIDE_PATH, a
+YAML file, comes first (`load_profile_file`: read with `yaml.safe_load`
+where `yaml` imports, refused by name where it does not, since the GPU
+machine need not have it); else PIPELINE_ROLE_PROFILE names a profile;
+else TOTAL_NODES=1 means `single_node_full`; else the node's role
 (NODE_NUMBER 0, 1, 2) picks its built-in profile.
-ROLE_PROFILE_OVERRIDE_PATH (a YAML file) is refused by name.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -215,15 +218,75 @@ def builtin_profile(role: NodeRole) -> Profile:
     return _BUILTIN[role]
 
 
+_PROFILE_KEYS = ("name", "description", "components", "routes", "batch_overrides")
+_COMPONENT_KEYS = ("type", "alias", "config")
+
+
+def _expect(value, kind, what: str, path: str):
+    if not isinstance(value, kind):
+        raise ValueError(f"profile file {path}: {what} must be a {kind.__name__}")
+    return value
+
+
+def profile_from_mapping(data: dict, path: str) -> Profile:
+    """A parsed profile file as the reference's pydantic `Profile`
+    validates it: typed fields with their defaults, keys it does not know
+    ignored, each component's type one of `ComponentType`, then the
+    routes, aliases and required components checked."""
+    name = _expect(data.get("name"), str, "name", path)
+    description = data.get("description", "")
+    _expect(description, str, "description", path)
+    components = []
+    for i, c in enumerate(_expect(data.get("components", []), list, "components", path)):
+        _expect(c, dict, f"components[{i}]", path)
+        try:
+            ctype = ComponentType(c.get("type"))
+        except ValueError:
+            raise ValueError(
+                f"profile file {path}: components[{i}].type {c.get('type')!r} is "
+                f"not one of {[t.value for t in ComponentType]}"
+            ) from None
+        alias = c.get("alias")
+        if alias is not None:
+            _expect(alias, str, f"components[{i}].alias", path)
+        config = c.get("config", {})
+        _expect(config, dict, f"components[{i}].config", path)
+        components.append(ComponentSpec(ctype, alias=alias, config=dict(config)))
+    routes = _expect(data.get("routes", []), list, "routes", path)
+    for r in routes:
+        _expect(r, str, "each route", path)
+    overrides = _expect(data.get("batch_overrides", {}), dict, "batch_overrides", path)
+    return Profile(
+        name=name, description=description, components=tuple(components),
+        routes=tuple(routes), batch_overrides=dict(overrides),
+    )
+
+
+def load_profile_file(path: str) -> Profile:
+    """A YAML profile file (the reference's `load_profile_file`): it must
+    parse to a mapping; `name` defaults to the file's stem."""
+    try:
+        import yaml
+    except ImportError:
+        raise RuntimeError(
+            f"ROLE_PROFILE_OVERRIDE_PATH={path!r}: reading a profile file needs "
+            "the yaml package (PyYAML), which does not import here; name one "
+            f"of the port's profiles with PIPELINE_ROLE_PROFILE: {profile_names()}"
+        ) from None
+    with open(path, "r", encoding="utf-8") as fh:
+        data = yaml.safe_load(fh)
+    if not isinstance(data, dict):
+        raise ValueError(f"profile file {path} did not parse to a mapping")
+    data.setdefault("name", os.path.splitext(os.path.basename(path))[0])
+    return profile_from_mapping(data, path)
+
+
 def load_role_profile(settings) -> Profile:
-    """PIPELINE_ROLE_PROFILE by name, else `single_node_full` on one node,
-    else the built-in profile of the node's role."""
+    """ROLE_PROFILE_OVERRIDE_PATH's file, else PIPELINE_ROLE_PROFILE by
+    name, else `single_node_full` on one node, else the built-in profile of
+    the node's role."""
     if settings.role_profile_override_path:
-        raise NotImplementedError(
-            "ROLE_PROFILE_OVERRIDE_PATH (a YAML profile file) is not ported: "
-            "yaml is not guaranteed on the GPU machine; name one of the "
-            "port's profiles with PIPELINE_ROLE_PROFILE"
-        )
+        return load_profile_file(settings.role_profile_override_path)
     if settings.pipeline_role_profile:
         return named_profile(settings.pipeline_role_profile)
     if settings.total_nodes == 1:

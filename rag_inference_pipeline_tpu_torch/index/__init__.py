@@ -9,18 +9,14 @@ import torch
 
 def make_index(settings, device: Optional[torch.device] = None):
     """Settings -> an empty index of the configured kind (the reference's
-    `index/__init__.py::make_index`, dp=1). The host rescore store of the
-    flat index is refused by name until it is ported (ROADMAP.md)."""
+    `index/__init__.py::make_index`, dp=1). INDEX_RESCORE_STORE places the
+    flat int8 index's rescore copy (bf16 on the card, or f16 in host RAM);
+    the IVF kinds ignore it, as in the reference."""
     from ..core.enums import IndexKind
     from .flat import FlatIndex
     from .ivf_flat import IVFFlatIndex
     from .ivf_pq import IVFPQIndex
 
-    if settings.index_rescore_store != "device":
-        raise NotImplementedError(
-            f"INDEX_RESCORE_STORE={settings.index_rescore_store!r}: the host "
-            "rescore store is not ported yet (ROADMAP.md, Queue 1)"
-        )
     kind = settings.index_kind
     if kind is IndexKind.FLAT:
         # partial-topk bin count: oversample * k, lane-aligned, >= 512
@@ -35,6 +31,7 @@ def make_index(settings, device: Optional[torch.device] = None):
             device=device,
             nbins=min(nbins, 2048),
             rescore_k=settings.index_rescore_k,
+            rescore_store=settings.index_rescore_store,
         )
     if kind is IndexKind.IVF_FLAT:
         return IVFFlatIndex(

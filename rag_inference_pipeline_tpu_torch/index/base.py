@@ -52,8 +52,14 @@ def save_npz(path: str, **arrays) -> None:
     os.replace(tmp, path)
 
 
-def load_index(path: str, device: Optional[torch.device] = None):
-    """Load an index artifact written by either package."""
+def load_index(
+    path: str, device: Optional[torch.device] = None,
+    *, rescore_store: Optional[str] = None,
+):
+    """Load an index artifact written by either package. `rescore_store`
+    ("device" | "host") places a flat int8 artifact's rescore copy, as a
+    deployment chooses (reference `index/base.py:91-118`); other kinds
+    ignore it."""
     from .flat import FlatIndex
     from .ivf_flat import IVFFlatIndex
     from .ivf_pq import IVFPQIndex
@@ -65,4 +71,6 @@ def load_index(path: str, device: Optional[torch.device] = None):
     }.get(kind)
     if impl is None:
         raise ValueError(f"unknown index kind {kind!r} in {path}")
+    if kind == "flat" and rescore_store is not None:
+        return impl._load(path, device, rescore_store=rescore_store)
     return impl._load(path, device)

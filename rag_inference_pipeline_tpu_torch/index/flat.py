@@ -1,5 +1,5 @@
 """Flat index: bf16/f32 vectors scanned by K2, or int8 codes scanned by K1
-with a device-resident bf16 rescore copy.
+with an exact rescore copy on the device (bf16) or in host RAM (f16).
 
 Port of the dp=1 paths of `rag_inference_pipeline_tpu/index/flat.py`:
 
@@ -11,8 +11,15 @@ Port of the dp=1 paths of `rag_inference_pipeline_tpu/index/flat.py`:
   port started with it; `make_index` and `_load` always name the dtype):
   codes quantized with one global scale
   (`quantize_global_int8`) carry the scan (kernel K1 through
-  `fused_topk_int8gs`); with `rescore_k > 0` a bf16 copy of the vectors
-  re-scores the shortlist exactly. Arrays are padded to a scan-chunk
+  `fused_topk_int8gs`); with `rescore_k > 0` a copy of the vectors
+  re-scores the shortlist exactly. `rescore_store="device"` keeps that
+  copy as bf16 on the card and re-scores inside `fused_topk_int8gs`;
+  `rescore_store="host"` keeps it as f16 in host RAM, on 2 MB pages where
+  the OS grants them, and no copy goes to the card: K1 returns a shortlist
+  of min(max(rescore_k, k + 32), nbins) ids, which `utils/cpuscan.py::
+  rescore_f16` re-ranks on the host (the reference's refine-from-storage,
+  `flat.py:279-312`; its time is the stage `index`/`host_refine` of
+  `pipeline_stage_duration_seconds`). Arrays are padded to a scan-chunk
   multiple at build time and `ntotal` masks the pad rows, as in the
   reference, so artifacts and pipelines see the same layout.
 
@@ -21,6 +28,7 @@ Artifacts are the reference's `.npz` in both directions.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -33,6 +41,8 @@ from ..ops.topk import (
     fused_topk_int8gs,
     quantize_global_int8,
 )
+from ..telemetry.metrics import STAGE_DURATION
+from ..utils import cpuscan
 from .base import check_metric, save_npz, storage_dtype, validate_queries
 
 
@@ -54,7 +64,8 @@ class FlatIndex:
         device: Optional[torch.device] = None,
         nbins: int = 512,
         chunk: int = 4096,
-        rescore_k: int = 64,  # int8: exact bf16 re-score depth (0 = off)
+        rescore_k: int = 64,  # int8: exact re-score depth (0 = off)
+        rescore_store: str = "device",  # "device" (bf16) | "host" (f16 RAM)
     ) -> None:
         check_metric(metric)
         if dtype == "int8":
@@ -62,6 +73,9 @@ class FlatIndex:
                 raise ValueError("int8 storage supports metric='ip' only")
         else:
             storage_dtype(dtype)  # raises on an unsupported name
+        if rescore_store not in ("device", "host"):
+            raise ValueError("rescore_store must be 'device' or 'host'")
+        self.rescore_store = rescore_store
         self.dim = dim
         self.metric = metric
         self.dtype_name = dtype
@@ -75,6 +89,10 @@ class FlatIndex:
         self._db_sq: Optional[torch.Tensor] = None  # l2: squared norms
         self._db_i8: Optional[torch.Tensor] = None
         self._db_gscale: Optional[torch.Tensor] = None  # 0-d f32
+        self._host_rescore: Optional[np.ndarray] = None  # f16 [ntotal, D]
+        # (run_id, node) of the host refine's stage metric; the serving
+        # component sets the node's own
+        self.metric_labels = ("dev", "0")
         self.ntotal = 0
         self._loaded = False
 
@@ -98,13 +116,26 @@ class FlatIndex:
             return
         new = _as_tensor(vectors, self.device, torch.float32)
         self._check_rows(new)
-        if self._db_i8 is not None:
-            # re-add keeps the exact originals where the rescore copy has them
-            prev = (
-                self._db[: self.ntotal].float()
-                if self._db is not None
-                else self._db_i8[: self.ntotal].float() * self._db_gscale
+        host = self.rescore_k > 0 and self.rescore_store == "host"
+        if host:
+            # the f16 originals stay in host RAM; nothing more reaches the
+            # card (f32 -> f16 rounds to nearest even, as numpy's astype)
+            rows = new.to(torch.float16).cpu().numpy()
+            self._host_rescore = (
+                rows if self._host_rescore is None
+                else np.concatenate([self._host_rescore[: self.ntotal], rows])
             )
+            cpuscan.madvise_hugepage(self._host_rescore)
+        if self._db_i8 is not None:
+            # re-add keeps the exact originals where a rescore copy has them
+            if self._db is not None:
+                prev = self._db[: self.ntotal].float()
+            elif self._host_rescore is not None:
+                prev = torch.from_numpy(
+                    self._host_rescore[: self.ntotal].astype(np.float32)
+                ).to(self.device)
+            else:
+                prev = self._db_i8[: self.ntotal].float() * self._db_gscale
             new = torch.cat([prev, new])
         n = new.shape[0]
         # quantize BEFORE padding: pad rows would skew the percentile scale
@@ -114,7 +145,7 @@ class FlatIndex:
         self._db_gscale = gscale
         self._db = (
             torch.nn.functional.pad(new, (0, 0, 0, pad)).to(torch.bfloat16)
-            if self.rescore_k > 0
+            if self.rescore_k > 0 and not host
             else None
         )
         self.ntotal = n
@@ -139,6 +170,8 @@ class FlatIndex:
                 q, self._db, k, metric=self.metric, db_sq_norms=self._db_sq,
                 ntotal=self.ntotal,
             )
+        if self.rescore_k > 0 and self._host_rescore is not None:
+            return self._host_refine(q, k)
         # the re-score runs only when rescore_k > k: deepen the shortlist
         # so it stays on for any k
         r_k = (
@@ -151,6 +184,22 @@ class FlatIndex:
             rescore_db=self._db if r_k > 0 else None, rescore_k=r_k,
             ntotal=self.ntotal,
         )
+
+    def _host_refine(self, q: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """K1's shortlist of s_k ids with no device re-score, then the exact
+        f16 re-rank on the host (native `cs_rescore_f16`)."""
+        s_k = min(max(self.rescore_k, k + 32), self.nbins)
+        _, ids = fused_topk_int8gs(
+            q, self._db_i8, self._db_gscale, s_k, nbins=self.nbins, ntotal=self.ntotal,
+        )
+        qn = q.float().cpu().numpy()
+        ids_n = ids.cpu().numpy()
+        t0 = time.perf_counter()
+        s, i = cpuscan.rescore_f16(qn, self._host_rescore, ids_n, k)
+        STAGE_DURATION.labels(*self.metric_labels, "index", "host_refine").observe(
+            time.perf_counter() - t0
+        )
+        return torch.from_numpy(s).to(self.device), torch.from_numpy(i).to(self.device)
 
     def save(self, path: str) -> None:
         if not self._loaded:
@@ -166,6 +215,9 @@ class FlatIndex:
             extra["vectors_rescore"] = (
                 self._db[: self.ntotal].to(torch.float16).cpu().numpy()
             )
+        elif self._host_rescore is not None:
+            extra["vectors_rescore"] = self._host_rescore[: self.ntotal]
+            extra["rescore_store"] = np.bytes_(b"host")
         save_npz(
             path,
             **head,
@@ -176,12 +228,20 @@ class FlatIndex:
         )
 
     @classmethod
-    def _load(cls, path: str, device: Optional[torch.device] = None) -> "FlatIndex":
+    def _load(
+        cls, path: str, device: Optional[torch.device] = None,
+        *, rescore_store: Optional[str] = None,
+    ) -> "FlatIndex":
+        """`rescore_store` ("device" | "host") overrides where an int8
+        artifact's rescore copy lands (a deployment choice); None keeps the
+        artifact's own (`rescore_store=b"host"` when it was saved so)."""
         with np.load(path, allow_pickle=False) as z:
             idx = cls(
                 int(z["dim"]), metric=str(z["metric"]), dtype=str(z["dtype"]),
                 device=device,
             )
+            if rescore_store is not None:
+                idx.rescore_store = rescore_store
             if "vectors" in z:
                 idx.add(z["vectors"])
                 return idx
@@ -199,7 +259,15 @@ class FlatIndex:
             idx._db_gscale = torch.tensor(
                 float(z["gscale"]), dtype=torch.float32, device=idx.device
             )
-            if "vectors_rescore" in z:
+            want_host = idx.rescore_store == "host" or (
+                "rescore_store" in z and rescore_store is None
+            )
+            if "vectors_rescore" in z and want_host:
+                # the f16 copy stays in host RAM: no upload at all
+                idx.rescore_store = "host"
+                idx._host_rescore = np.ascontiguousarray(z["vectors_rescore"])
+                cpuscan.madvise_hugepage(idx._host_rescore)
+            elif "vectors_rescore" in z:
                 # f16 on disk -> bf16 on the host, then one upload
                 re = torch.from_numpy(z["vectors_rescore"]).to(torch.bfloat16)
                 idx._db = torch.nn.functional.pad(

@@ -12,11 +12,12 @@ one of five stores (`rescore_kind`):
   the product, as the reference's `_rescore_kernel` does;
 - "int4" / "pq8": the residual tiers of `ops/pq.py` in device memory;
 - "host_int8" / "host_f16": int8 codes (global scale) or f16 originals in
-  host RAM, re-scored in numpy with the arithmetic of the reference's
-  numpy fallbacks (`ivf_pq.py:420-431`, `flat.py:85-99`), their different
-  invalid fills (NEG_INF, -inf) and their tie order (`argpartition`, then
-  an unstable `argsort`) included. The reference's native multithreaded
-  re-score and its huge-page advice are not ported.
+  host RAM, on 2 MB pages where the OS grants them, re-scored by the
+  native multithreaded `utils/cpuscan.py::rescore_i8` / `rescore_f16`:
+  the reference's route on a host with `g++` (`ivf_pq.py:402-430`). A
+  masked slot scores -3.0e38 there; the numpy versions beside them
+  (`cpuscan.rescore_*_plain`, the reference's fallback arithmetic) fill
+  NEG_INF and -inf.
 
 Artifacts are the reference's `.npz` in both directions, an OPQ rotation
 included; `train_add` builds without one. The sharded search is not ported
@@ -46,6 +47,7 @@ from ..ops.pq import (
     pq_tier_rescore_topk,
 )
 from ..ops.topk import NEG_INF, _topk, quantize_global_int8
+from ..utils import cpuscan
 from .base import save_npz, validate_queries
 
 logger = logging.getLogger(__name__)
@@ -146,11 +148,13 @@ class IVFPQIndex:
             kind = self.rescore_kind
             if kind == "host_f16":
                 self._host_f16 = v.to(torch.float16).cpu().numpy()
+                cpuscan.madvise_hugepage(self._host_f16)
             elif kind == "host_int8":
                 # the flat int8 quantizer: one percentile-clipped scale
                 codes, scale = quantize_global_int8(v)
                 self._host_codes = codes.cpu().numpy()
                 self._host_scale = float(scale.item())
+                cpuscan.madvise_hugepage(self._host_codes)
             elif kind == "int4":
                 self._int4 = build_int4_tier(v, self._listing.centroids)
             elif kind == "pq8":
@@ -189,9 +193,11 @@ class IVFPQIndex:
         shortlist = max(k, self.rescore_k)
         s, i = adc(shortlist)
         if self._host_f16 is not None:
-            out = _host_rescore(q, self._host_f16, 1.0, i, k, -np.inf)
+            out = cpuscan.rescore_f16(_host(q), self._host_f16, _host(i), k)
         elif self._host_codes is not None:
-            out = _host_rescore(q, self._host_codes, self._host_scale, i, k, NEG_INF)
+            out = cpuscan.rescore_i8(
+                _host(q), self._host_codes, self._host_scale, _host(i), k
+            )
         elif self._int4 is not None:
             return int4_tier_rescore_topk(q, s, i, self._int4, k)
         elif self._tier is not None:
@@ -292,10 +298,12 @@ class IVFPQIndex:
                 idx.rescore_kind = "int4"
             if "host_codes" in z:
                 idx._host_codes = np.ascontiguousarray(z["host_codes"])
+                cpuscan.madvise_hugepage(idx._host_codes)
                 idx._host_scale = float(z["host_scale"])
                 idx.rescore_kind = "host_int8"
             if "host_f16" in z:
                 idx._host_f16 = np.ascontiguousarray(z["host_f16"])
+                cpuscan.madvise_hugepage(idx._host_f16)
                 idx.rescore_kind = "host_f16"
             if "rotation" in z:
                 idx._rotation = put("rotation", torch.float32)
@@ -315,33 +323,8 @@ class IVFPQIndex:
         self.ntotal = 0
 
 
-def _host_rescore(
-    q: torch.Tensor,
-    store: np.ndarray,
-    scale: float,
-    ids: torch.Tensor,
-    k: int,
-    invalid: float,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Host re-score of a device shortlist against a host-RAM store (int8
-    codes with one scale, or f16 originals with scale 1), as the
-    reference's numpy fallbacks compute it: a float32 gather, an einsum,
-    `invalid` at id -1 (NEG_INF for int8, -inf for f16), `argpartition`
-    then a descending `argsort`."""
-    qn = q.cpu().numpy().astype(np.float32)
-    ids_n = ids.cpu().numpy()
-    cand = store[np.clip(ids_n, 0, None)].astype(np.float32)  # [B, S, D]
-    s = np.einsum("bsd,bd->bs", cand, qn)
-    if scale != 1.0:
-        s = s * scale
-    s = np.where(ids_n >= 0, s, invalid)
-    k = min(k, s.shape[1])
-    sel = np.argpartition(-s, k - 1, axis=1)[:, :k]
-    ss = np.take_along_axis(s, sel, axis=1)
-    order = np.argsort(-ss, axis=1)
-    top_s = np.take_along_axis(ss, order, axis=1)
-    top_i = np.take_along_axis(np.take_along_axis(ids_n, sel, axis=1), order, axis=1)
-    return top_s, top_i
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 def _exact_rescore(

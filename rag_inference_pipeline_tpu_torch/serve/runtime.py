@@ -56,6 +56,14 @@ Routes and wire shapes are the JAX package's (`serve/http.py`,
   "trace"}` (409 with none running): a `torch.profiler` trace of the
   process, written as a Chrome trace (`telemetry/profiling.py`).
 
+With FAST_JSON on (the default), `/retrieve` first tries the native codec
+(`utils/fastjson.py`) on the raw body (after zstd decompression): a body
+in the strict retrieve-by-embedding shape is parsed straight into an f32
+matrix, and an `id_only` JSON reply is written from packed arrays (scores
+as `%.9g`, which reads back as the same f32). Any other body takes the
+stdlib path with the same result, so every status, every 400 and every
+payload mode are the same with FAST_JSON on and off.
+
 A body sent with `X-Ragtpu-Encoding: zstd` is decompressed; a reply to a
 request with `X-Ragtpu-Accept-Encoding: zstd` is compressed when the
 node's COMPRESSION_ALGORITHM is zstd and compressing shrinks it. A
@@ -125,6 +133,7 @@ from ..telemetry.metrics import (
 )
 from ..telemetry.profiling import DeviceTraceCapture
 from ..telemetry.tracing import setup_tracing
+from ..utils import fastjson
 from ..utils.docstore import DocumentStore
 from .compression import compress, decompress, require_codec
 from .rpc import ACCEPT_HEADER, ENCODING_HEADER, RPCError
@@ -219,7 +228,9 @@ def build_executor(
     reg = ComponentRegistry() if registry is None else registry
     embedder = reg.register("embedder", EmbedderComponent(settings, device))
     # the fused step scans the index itself: nothing searches it to warm
-    index = reg.register("index", load_index(settings.index_path, device), load=False)
+    index = reg.register("index", load_index(
+        settings.index_path, device, rescore_store=settings.index_rescore_store,
+    ), load=False)
     if index.dim != embedder.dim:
         raise ValueError(
             f"index dim {index.dim} != embedder width {embedder.dim}"
@@ -340,7 +351,10 @@ class IndexComponent:
     def load(self) -> None:
         s, index = self.settings, self._given
         if index is None and s.index_path:
-            index = load_index(s.index_path, self.device)
+            # where the rescore copy lands is the deployment's choice
+            index = load_index(
+                s.index_path, self.device, rescore_store=s.index_rescore_store
+            )
             if hasattr(index, "nprobe"):
                 index.nprobe = s.index_nprobe
         if index is None:
@@ -349,6 +363,8 @@ class IndexComponent:
             return
         if index.dim != s.index_dim:
             raise ValueError(f"index dim {index.dim} != INDEX_DIM {s.index_dim}")
+        if hasattr(index, "metric_labels"):
+            index.metric_labels = (s.run_id, str(s.node_number))
         self.index = index
         if s.warmup_buckets:
             self.warmup()
@@ -437,6 +453,9 @@ class StagedApp:
             self.routes["/query"] = self.query
         if self.retrieval_executor is not None:
             self.routes["/retrieve"] = self.retrieve
+            if settings.fast_json:
+                # built (or refused) at start-up, not in the first request
+                fastjson.load_lib()
         if self.generation_service is not None:
             self.routes["/generate"] = self.generate
         self.loop = asyncio.new_event_loop()
@@ -509,12 +528,36 @@ class StagedApp:
         query, request_id, k = _parse_query(req)
         return self._wait(self.orchestrator.process_query(query, request_id, k))
 
-    def retrieve(self, req: dict) -> dict:
+    def retrieve(self, req: dict):
         items, response_format = _parse_retrieve(req, self.settings.index_dim)
+        return self._retrieve(items, response_format)
+
+    def retrieve_fast(self, body: bytes):
+        """A `/retrieve` body in the native codec's strict shape, answered
+        as `retrieve` answers it (the reference's `serve/http.py:223-240`);
+        None for any other body, which then takes `retrieve`."""
+        fj = fastjson.parse_retrieve(body, self.settings.index_dim)
+        if fj is None:
+            return None
+        items = [
+            {"query": "", "embedding": fj.embeddings[i],
+             "k": int(fj.item_k[i]) if fj.item_k[i] >= 0 else fj.k,
+             "rerank": fj.rerank}
+            for i in range(fj.embeddings.shape[0])
+        ]
+        return self._retrieve(items, fj.response_format)
+
+    def _retrieve(self, items: list[dict], response_format: str):
+        """The reply: a dict, or the id_only JSON already encoded (bytes)."""
         results = self._wait(self.retrieval_scheduler.enqueue_many(items))
         if response_format == "b64":
             return _pack_results_b64(results)
-        return {"results": [_result_wire(r) for r in results]}
+        wire = [_result_wire(r) for r in results]
+        if self.settings.fast_json:
+            encoded = fastjson.encode_results(wire)
+            if encoded is not None:
+                return encoded
+        return {"results": wire}
 
     def generate(self, req: dict) -> dict:
         items = _parse_generate(req)
@@ -840,8 +883,10 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
-    def _send(self, code: int, body: dict, *, route: bool = False) -> None:
-        self._reply(code, json.dumps(body).encode(), route=route)
+    def _send(self, code: int, body, *, route: bool = False) -> None:
+        """`body`: a dict, or JSON already encoded (bytes)."""
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        self._reply(code, data, route=route)
 
     def _error(self, code: int, exc: BaseException, body: dict) -> None:
         """An error reply, counted in ERRORS_TOTAL by the exception's type."""
@@ -916,10 +961,14 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if self.headers.get(ENCODING_HEADER) == "zstd":
                 body = decompress(body)
-            req = json.loads(body or b"{}")
-            if not isinstance(req, dict):
-                raise ValueError("the request body must be a JSON object")
-            out = handler(req)
+            out = None
+            if self.path == "/retrieve" and self.server.app.settings.fast_json:
+                out = self.server.app.retrieve_fast(body)
+            if out is None:
+                req = json.loads(body or b"{}")
+                if not isinstance(req, dict):
+                    raise ValueError("the request body must be a JSON object")
+                out = handler(req)
         except ValueError as e:  # bad JSON and bad base64 are ValueErrors too
             self._error(400, e, {"error": str(e)[:500], "error_type": "validation"})
         except RPCError as e:  # a peer node failed: unavailable, not internal

@@ -1,5 +1,5 @@
-"""Build a synthetic corpus for the port's servers: a sqlite doc store, an
-index `.npz` and, with `--tokens`, the fused path's doc-token files.
+"""Build a synthetic corpus for the port's servers: a doc store, an index
+`.npz` and, with `--tokens`, the fused path's doc-token files.
 
     python -m rag_inference_pipeline_tpu_torch.tools.create_test_docs \\
         --out-dir artifacts/corpus --num-docs 100000 --kind flat --dtype int8 --tokens
@@ -7,8 +7,9 @@ index `.npz` and, with `--tokens`, the fused path's doc-token files.
 Port of `scripts/create_test_docs.py`, with the same documents and, from
 the same `--seed`, the same random vectors:
 
-- `documents.db`, the sqlite store (`DOC_STORE_BACKEND=sqlite`); the
-  native store (`--backend native`) is not ported;
+- `documents.ragdoc`, the native store (`--backend native`, the default,
+  `DOC_STORE_BACKEND=native`; `native/docstore.cc`, built with g++ at
+  first use), or `documents.db`, the sqlite store (`--backend sqlite`);
 - `index.npz`: `--kind flat` (bf16, or int8 with a bf16 re-score copy of
   64, the fused path's index), `ivf_flat` or `ivf_pq`, built by the port's
   index classes on the card (`DEVICE_PLATFORM=cpu`: on the CPU);
@@ -63,21 +64,16 @@ def main(argv: Optional[list[str]] = None) -> int:
     p.add_argument("--embed", action="store_true",
                    help="embed the documents with the configured embedder "
                    "(else random unit vectors)")
-    p.add_argument("--backend", choices=["native", "sqlite"], default="sqlite")
+    p.add_argument("--backend", choices=["native", "sqlite"], default="native")
     p.add_argument("--tokens", action="store_true",
                    help="also write doc_tokens.npy and its mask for the fused path")
     p.add_argument("--doc-tok-len", type=int, default=48)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if args.backend == "native":
-        raise SystemExit(
-            "--backend native: the C++ arena doc store is not ported; use "
-            "--backend sqlite (DOC_STORE_BACKEND=sqlite)"
-        )
 
     from ..core.config import load_settings
     from ..core.device import resolve_device
-    from ..utils.docstore import build_sqlite_store
+    from ..utils.docstore import build_native_store, build_sqlite_store
 
     settings = load_settings()
     device = resolve_device(settings.device_platform)
@@ -86,8 +82,12 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     t0 = time.time()
     docs = [synth_doc(i, rng) for i in range(args.num_docs)]
-    db_path = os.path.join(args.out_dir, "documents.db")
-    build_sqlite_store(db_path, docs)
+    if args.backend == "native":
+        db_path = os.path.join(args.out_dir, "documents.ragdoc")
+        build_native_store(db_path, docs)
+    else:
+        db_path = os.path.join(args.out_dir, "documents.db")
+        build_sqlite_store(db_path, docs)
     print(f"doc store: {db_path} ({time.time() - t0:.1f}s)")
 
     t0 = time.time()
@@ -131,7 +131,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     print(f"index ({args.kind}): {index_path} ({time.time() - t0:.1f}s)")
 
     env = (f"INDEX_PATH={index_path} DOCUMENT_DB_PATH={db_path} "
-           f"DOC_STORE_BACKEND=sqlite INDEX_DIM={dim}")
+           f"DOC_STORE_BACKEND={args.backend} INDEX_DIM={dim}")
     if args.tokens:
         from ..models.components import LLMComponent
         from ..models.tokenizer import make_tokenizer

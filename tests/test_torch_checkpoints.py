@@ -72,6 +72,7 @@ from rag_inference_pipeline_tpu_torch.models.weights import (
 )
 from rag_inference_pipeline_tpu_torch.serve import runtime
 from rag_inference_pipeline_tpu_torch.tools import convert_hf_checkpoint, create_test_docs
+from rag_inference_pipeline_tpu_torch.utils.docstore import DocumentStore
 
 CPU = torch.device("cpu")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "weights")
@@ -578,7 +579,8 @@ def corpus(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         for k, v in _tool_env().items():
             mp.setenv(k, v)
-        common = ["--num-docs", "96", "--embed"]
+        # the sqlite store, which the JAX package's DocumentStore reads here
+        common = ["--num-docs", "96", "--embed", "--backend", "sqlite"]
         create_test_docs.main(["--out-dir", str(out / "flat"), "--kind", "flat",
                                "--dtype", "int8", "--tokens", "--doc-tok-len", "24",
                                *common])
@@ -664,12 +666,13 @@ def test_fused_query_matches_jax(corpus, parts):
 @pytest.mark.parametrize("kind", ["flat", "ivf_pq"])
 def test_create_test_docs_files_load_in_both(tmp_path, monkeypatch, kind):
     """The tool's files, random vectors from the seed: the JAX package's
-    index and doc store read them; the refused native store names itself."""
+    index and sqlite doc store read them; the default native store holds
+    the same documents for the port's DocumentStore."""
     for k, v in _tool_env(MODEL_WEIGHTS_DIR="", LLM_MODEL="tiny-llm").items():
         monkeypatch.setenv(k, v)
     args = ["--out-dir", str(tmp_path), "--num-docs", "300", "--dim", "32", "--kind", kind,
             "--nlist", "4", "--pq-m", "8", "--tokens", "--doc-tok-len", "8"]
-    assert create_test_docs.main(args) == 0
+    assert create_test_docs.main([*args, "--backend", "sqlite"]) == 0
     jidx = JBaseIndex.load(str(tmp_path / "index.npz"))
     tidx = load_index(str(tmp_path / "index.npz"), CPU)
     assert jidx.ntotal == tidx.ntotal == 300 and tidx.kind == kind
@@ -686,8 +689,12 @@ def test_create_test_docs_files_load_in_both(tmp_path, monkeypatch, kind):
     assert store.fetch_documents([7])[0]["title"] == "Cooking document 7"
     assert np.load(tmp_path / "doc_tokens.npy").shape == (300, 8)
     assert np.load(tmp_path / "doc_tokens_mask.npy").dtype == np.uint8
-    with pytest.raises(SystemExit, match="not ported"):
-        create_test_docs.main([*args, "--backend", "native"])
+    assert create_test_docs.main(args) == 0  # --backend native, the default
+    native = DocumentStore(Settings(doc_store_backend="native",
+                                    document_db_path=str(tmp_path / "documents.ragdoc")))
+    native.load()
+    ids = [7, 0, 299, 300]
+    assert native.fetch_documents_batch(ids) == store.fetch_documents_batch(ids)
 
 
 def test_convert_hf_checkpoint(tmp_path, capsys):

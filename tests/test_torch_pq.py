@@ -37,6 +37,7 @@ from rag_inference_pipeline_tpu_torch.index.ivf_pq import IVFPQIndex
 from rag_inference_pipeline_tpu_torch.ops import kmeans as tkmeans
 from rag_inference_pipeline_tpu_torch.ops import pq as tpq
 from rag_inference_pipeline_tpu_torch.ops.topk import NEG_INF
+from rag_inference_pipeline_tpu_torch.utils import cpuscan
 
 # the JAX package's ops/__init__.py exports functions named `kmeans`, ...
 jpq = importlib.import_module("rag_inference_pipeline_tpu.ops.pq")
@@ -455,8 +456,13 @@ class TestIVFPQIndex:
     @pytest.mark.parametrize("kind", ["host_int8", "host_f16"])
     def test_host_tiers_match_the_numpy_formula(self, tmp_path, kind):
         """The port's host re-score of the ADC shortlist of JAX's own PQ4
-        search over the port's listing: the reference's numpy arithmetic,
-        its invalid fill, scores equal and ids wherever scores differ."""
+        search over the port's listing. Its plain version
+        (`cpuscan.rescore_*_plain`) is the reference's numpy arithmetic with
+        its invalid fill: scores equal, and ids wherever scores differ. The
+        index's search takes the native re-score, the reference's route on
+        a host with g++: scores within TOL (f32 sums in another order),
+        -3.0e38 at a masked slot, the same ids but where scores tie within
+        TOL."""
         x, q = _corpus(1)
         # one probe and a shortlist deeper than a list: padding ids (-1)
         # reach the re-score
@@ -472,19 +478,29 @@ class TestIVFPQIndex:
             store, scale, fill = np.asarray(codes), float(scale), np.float32(NEG_INF)
             np.testing.assert_array_equal(tidx._host_codes, store)
             assert tidx._host_scale == scale
+            plain = cpuscan.rescore_i8_plain(q, store, scale, short, 30)
         else:
             store, scale, fill = x.astype(np.float16), 1.0, -np.inf
+            plain = cpuscan.rescore_f16_plain(q, store, short, 30)
         s = np.einsum("bsd,bd->bs", store[np.clip(short, 0, None)].astype(np.float32), q)
         s = np.where(short >= 0, s * scale if scale != 1.0 else s, fill)
         order = np.argsort(-s, axis=1, kind="stable")[:, :30]
         ref_s = np.take_along_axis(s, order, axis=1)
         ref_i = np.take_along_axis(short, order, axis=1)
+        ps, pi = plain
+        np.testing.assert_array_equal(ps, ref_s)
+        for b in range(len(q)):
+            once = np.array([(ps[b] == v).sum() == 1 for v in ps[b]])
+            np.testing.assert_array_equal(pi[b][once], ref_i[b][once])
+        valid = ref_i >= 0
         for idx in (tidx, _reload(tidx, tmp_path)):
             ts, ti = (a.numpy() for a in idx.search(q, 30))
-            np.testing.assert_array_equal(ts, ref_s)
+            np.testing.assert_allclose(ts[valid], ref_s[valid], **TOL)
+            assert (ts[~valid] == np.float32(-3.0e38)).all()
             for b in range(len(q)):
-                once = np.array([(ts[b] == v).sum() == 1 for v in ts[b]])
-                np.testing.assert_array_equal(ti[b][once], ref_i[b][once])
+                apart = np.array([(np.abs(ref_s[b] - v) <= 2 * TOL["atol"]).sum() == 1
+                                  for v in ref_s[b]])
+                np.testing.assert_array_equal(ti[b][apart], ref_i[b][apart])
         assert (short == -1).any()
 
     def test_port_train_add_search_and_unload(self):

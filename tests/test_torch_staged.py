@@ -342,16 +342,20 @@ def test_builtin_profiles_match_the_jax_loader(name):
 
 
 def test_refusals_name_what_is_not_ported(tmp_path):
+    """Each refusal names what it refuses: the default native doc store
+    without DOCUMENT_DB_PATH (as the reference refuses it), an unknown index
+    kind, a profile file that is not there, a profile name the port does
+    not carry. The host rescore store is no longer refused."""
     s = Settings(**_TINY, device_platform="cpu")
-    with pytest.raises(NotImplementedError, match="native"):
+    assert s.doc_store_backend == "native"
+    with pytest.raises(ValueError, match="document_db_path"):
         DocumentStore(s).load()
     host = load_settings({"INDEX_KIND": "ivf_pq", "INDEX_RESCORE_STORE": "host"})
-    with pytest.raises(NotImplementedError, match="INDEX_RESCORE_STORE"):
-        make_index(host, CPU)
+    assert isinstance(make_index(host, CPU), IVFPQIndex)
     np.savez(tmp_path / "odd.npz", kind="hnsw", dim=8)
     with pytest.raises(ValueError, match="hnsw"):
         load_index(str(tmp_path / "odd.npz"), CPU)
-    with pytest.raises(NotImplementedError, match="ROLE_PROFILE_OVERRIDE_PATH"):
+    with pytest.raises(FileNotFoundError, match="p.yaml"):
         load_role_profile(Settings(role_profile_override_path=str(tmp_path / "p.yaml")))
     with pytest.raises(ValueError, match="carries"):
         load_role_profile(Settings(pipeline_role_profile="no_such_profile"))
