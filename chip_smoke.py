@@ -268,6 +268,37 @@ and exits non-zero before the last line:
              encode of the 64-item body against the stdlib, the /retrieve
              latencies and index/host_refine from /metrics.
 
+30. mesh_retrieve — runs after serve_pq, on its corpus, queries and
+             indexes: data parallelism on the one card, dp = 4 positions
+             repeating cuda:0 (core/mesh.py::force_host_devices): the int8
+             flat index with the bf16 re-score on the card and with the f16
+             store in host RAM, the bf16 flat index, IVF-Flat (serve_staged's
+             listing, sharded) and IVF-PQ4 (pq_build's, sharded), each
+             searched at B=64 beside the same index at dp = 1. Per kind:
+             each shard's device bytes; K1, K2, K5 or K6, zeroed just
+             before, launched exactly once a shard; ids equal to the same
+             sharded search through the kernel's plain version (bf16 and
+             IVF-Flat: but for near-ties within TOL; PQ4: its 256-deep ADC
+             shortlist before the re-score, near-ties looked up in the
+             plain one searched deeper); recall@10 against the exact f32
+             scan, at or above the dp = 1 index's. K1 at B=8: the four
+             shards' times summed beside one launch over all the rows; the
+             IVF searches warm, with the kernel and with the plain version.
+31. mesh_fused — the fused /query server of phase 6 on a dp = 2 mesh of
+             cuda:0 (make_server(mesh=...)): full-width BGE-base and
+             Qwen2.5-0.5B, the 1M int8 index loaded into 2 row shards. Two
+             /query (K1 twice a step); then one 8-lane step with the kernel
+             and with the plain scan: doc ids and tokens identical.
+32. spmd   — two processes of the serving entry point on cuda:0
+             (DIST_NUM_PROCESSES=2, gloo on localhost), each holding half of
+             phase corpus's 1M int8 index (retrieval_default, id_only): an
+             8-item /retrieve through process 0, its ids identical to the
+             in-process dp = 2 sharded search; K1 launched once on process
+             0 for it (its /health), and on the worker once a search (the
+             counts it logs as it leaves, against process 0's total);
+             SIGINT on process 0 sends OP_STOP, and both processes exit 0,
+             having imported no jax.
+
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
 PyTorch call computing the same function where there is one), and last the
@@ -3040,6 +3071,361 @@ def phase_engine_serve(ivf, db_path: str) -> dict:
     return stats
 
 
+# the data-parallel slice on one card: the mesh's positions repeat cuda:0
+MESH_DP, FUSED_DP, SPMD_PROCS = 4, 2, 2
+
+
+def _one_card_mesh(dp: int):
+    from rag_inference_pipeline_tpu_torch.core.mesh import force_host_devices, make_mesh
+
+    return make_mesh(dp=dp, devices=force_host_devices(dp, f"{DEVICE}:0" if DEVICE == "cuda"
+                                                       else DEVICE))
+
+
+def _near_ties(name: str, got_s, got_i, ref_s, ref_i, rows_of) -> list:
+    """Ids of a kernel's search against its plain version's: scores within
+    TOL, and where an id differs, the two candidates' exact scores (float64
+    over the stored rows, `rows_of(ids)`) tie within TOL["atol"]."""
+    import torch
+
+    check(torch.allclose(got_s, ref_s, **TOL), f"{name}: scores differ from the plain search")
+    differ = got_i != ref_i
+    gaps = []
+    if differ.any():
+        gaps = (rows_of(got_i) - rows_of(ref_i)).abs()[differ].tolist()
+    check(all(g <= TOL["atol"] for g in gaps), f"{name}: ids differ beyond a near-tie: {gaps}")
+    return gaps
+
+
+def _shortlist_ties(name: str, got_s, got_i, wide_s, wide_i) -> list:
+    """A kernel's shortlist [B, w] against its plain version's searched
+    deeper [B, w + extra]: scores within TOL position by position, and each
+    id that differs found in the plain list at a score within TOL["atol"]
+    of the kernel's (a near-tie). Returns those gaps."""
+    import torch
+
+    w = got_s.shape[1]
+    check(torch.allclose(got_s, wide_s[:, :w], **TOL), f"{name}: scores differ from plain")
+    gaps = []
+    for r, c in (got_i != wide_i[:, :w]).nonzero().tolist():
+        hit = (wide_i[r] == got_i[r, c]).nonzero()
+        check(hit.numel() == 1, f"{name}: id {int(got_i[r, c])} (row {r}) not in the plain list")
+        gaps.append(abs(float(wide_s[r, hit[0, 0]] - got_s[r, c])))
+    check(all(g <= TOL["atol"] for g in gaps), f"{name}: ids differ beyond a near-tie: {gaps}")
+    return gaps
+
+
+def phase_mesh_retrieve(corpus, queries, ivf, pq4):
+    import copy
+
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.index.flat import FlatIndex
+    from rag_inference_pipeline_tpu_torch.ops import ivf as tivf
+    from rag_inference_pipeline_tpu_torch.ops import pq as tpq
+    from rag_inference_pipeline_tpu_torch.ops.topk import (
+        binmax_partial_topk,
+        binmax_partial_topk_int8gs,
+        binmax_partial_topk_int8gs_plain,
+        binmax_partial_topk_plain,
+        exact_topk,
+        sharded_topk,
+        sharded_topk_int8gs,
+    )
+    from rag_inference_pipeline_tpu_torch.utils import cpuscan
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    mesh = _one_card_mesh(MESH_DP)
+    k = 10
+    with torch.inference_mode():
+        ref = exact_topk(queries, corpus, k)[1].cpu().numpy()
+
+    def recall(ids):
+        return round(_recall([{"ids": r} for r in ids.cpu().tolist()], ref), 4)
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    stats = {}
+    counters = {"int8": binmax_partial_topk_int8gs, "int8_host": binmax_partial_topk_int8gs,
+                "bf16": binmax_partial_topk, "ivf_flat": tivf.ivf_dedup_scores,
+                "pq4": tpq.ivfpq4_adc_scores}
+    q8 = queries[:MAIN_B]
+    for name, dtype, store in (("int8", "int8", "device"), ("int8_host", "int8", "host"),
+                               ("bf16", "bfloat16", "device")):
+        one = FlatIndex(DIM, dtype=dtype, device=dev, rescore_store=store, rescore_k=64)
+        one.add(corpus)
+        sh = FlatIndex(DIM, dtype=dtype, mesh=mesh, rescore_store=store, rescore_k=64)
+        sh.add(corpus)
+        torch.cuda.synchronize()
+        shards = sh._db_i8 if dtype == "int8" else sh._db
+        rescore = sh._db if dtype == "int8" and sh._db is not None else [None] * MESH_DP
+        per_shard = [nbytes(a, b) for a, b in zip(shards, rescore)]
+        zero_launches()
+        s, i = sh.search(queries, k)
+        torch.cuda.synchronize()
+        launches = counters[name].launches
+        check(launches == MESH_DP, f"mesh {name}: {launches} launches, not one a shard")
+        with torch.inference_mode():
+            if name == "int8":
+                ps, pi = sharded_topk_int8gs(mesh, queries, sh._db_i8, sh._db_gscale, k,
+                                             rescore_db_shards=sh._db, rescore_k=64,
+                                             nbins=sh.nbins, ntotal=sh.ntotal,
+                                             scan=binmax_partial_topk_int8gs_plain)
+                check(torch.equal(i, pi), "mesh int8: ids differ from the plain sharded search")
+                # K1 at B=8: every shard's launch against one over all rows
+                qf = q8.float()
+                q_scale = torch.clamp(qf.abs().amax(), min=1e-9) / 127.0
+                q_i8 = torch.clamp(torch.round(qf / q_scale), -127, 127).to(torch.int8)
+                rows = sh._db_i8[0].shape[0]
+                shard_ms = [cuda_ms(lambda c=c, r=r: binmax_partial_topk_int8gs(
+                    q_i8, c, nbins=sh.nbins, ntotal=max(0, min(sh.ntotal - r * rows, rows))), 20)
+                    for r, c in enumerate(sh._db_i8)]
+                whole_ms = cuda_ms(lambda: binmax_partial_topk_int8gs(
+                    q_i8, one._db_i8, nbins=one.nbins, ntotal=one.ntotal), 20)
+                stats.update(k1_b8_shard_ms=[round(x, 5) for x in shard_ms],
+                             k1_b8_shards_sum_ms=round(sum(shard_ms), 5),
+                             k1_b8_dp1_ms=round(whole_ms, 5))
+            elif name == "int8_host":
+                s_k = min(max(sh.rescore_k, k + 32), sh.nbins)
+                _, short = sharded_topk_int8gs(mesh, queries, sh._db_i8, sh._db_gscale, s_k,
+                                               nbins=sh.nbins, ntotal=sh.ntotal,
+                                               scan=binmax_partial_topk_int8gs_plain)
+                _, pi = cpuscan.rescore_f16(queries.float().cpu().numpy(), sh._host_rescore,
+                                            short.cpu().numpy(), k)
+                check(np.array_equal(i.cpu().numpy(), pi),
+                      "mesh int8_host: ids differ from the plain sharded search")
+                per_shard = [nbytes(c) for c in sh._db_i8]
+            else:
+                ps, pi = sharded_topk(mesh, queries, sh._db, k, use_fused=True, nbins=sh.nbins,
+                                      ntotal=sh.ntotal, scan=binmax_partial_topk_plain)
+                qd = queries.to(torch.bfloat16).double()[:, None, :]
+                db_rows = torch.cat(sh._db)
+                stats["bf16_near_tie_gaps"] = _near_ties(
+                    "mesh bf16", s, i, ps, pi,
+                    lambda ids: (db_rows[ids.long()].double() * qd).sum(-1))
+                del db_rows
+            _, i1 = one.search(queries, k)
+        stats[f"{name}_shard_bytes"] = per_shard
+        stats[f"{name}_launches"] = launches
+        stats[f"{name}_recall_dp{MESH_DP}"] = recall(i)
+        stats[f"{name}_recall_dp1"] = recall(i1)
+        del one, sh, shards, rescore
+        gc.collect()
+        torch.cuda.empty_cache()
+    # IVF-Flat (K5) and IVF-PQ4 (K6): the built listings sharded (views, no
+    # copy), each kernel once a shard, held to the same sharded search
+    # through its plain version at the phase's shape (B=64)
+    qd = queries.to(torch.bfloat16).double()[:, None, :]
+    for name, index in (("ivf_flat", ivf), ("pq4", pq4)):
+        sh = copy.copy(index)
+        sh.mesh = mesh
+        sh._maybe_shard()
+        check(len(sh._shards) == MESH_DP, f"mesh {name}: not sharded")
+        if name == "ivf_flat":
+            per_shard = [nbytes(*lst) for lst in sh._shards]
+        else:
+            per_shard = [nbytes(lst.centroids, lst.code_buckets, lst.ids, lst.list_sizes)
+                         for lst in sh._shards]
+        zero_launches()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with torch.inference_mode():
+            s, i = sh.search(queries, k)
+        torch.cuda.synchronize()
+        stats[f"{name}_search64_s"] = round(time.perf_counter() - ts, 4)
+        launches = counters[name].launches
+        check(launches == MESH_DP, f"mesh {name}: {launches} launches, not one a shard")
+        kw = dict(nprobe=sh.nprobe, nprobe_local=sh.nprobe_local)
+        with torch.inference_mode():
+            if name == "ivf_flat":
+                ps, pi = tivf.sharded_ivf_search(mesh, sh._shards, queries, k,
+                                                 scan=tivf.ivf_dedup_scores_plain, **kw)
+                # warm, on CUDA events (a search reads each shard's slot
+                # count on the host, so the span holds the host's share)
+                stats["ivf_flat_search64_warm_ms"] = round(
+                    cuda_ms(lambda: sh.search(queries, k), 3), 4)
+                stats["ivf_flat_plain_search64_warm_ms"] = round(cuda_ms(
+                    lambda: tivf.sharded_ivf_search(mesh, sh._shards, queries, k,
+                                                    scan=tivf.ivf_dedup_scores_plain, **kw),
+                    3), 4)
+                stats["ivf_flat_near_tie_gaps"] = _near_ties(
+                    "mesh ivf_flat", s, i, ps, pi,
+                    lambda ids: (corpus[ids.long()].to(torch.bfloat16).double() * qd).sum(-1))
+            else:
+                # the ADC shortlist before any re-score: K6 at width w, its
+                # plain version 16 deeper (a near-tie may swap across w)
+                q = queries.float() if sh._rotation is None else queries.float() @ sh._rotation
+                w = max(k, sh.rescore_k)
+                ks, ki = tpq.sharded_ivfpq_search(mesh, sh._shards, q, w, **kw)
+                ws, wi = tpq.sharded_ivfpq_search(mesh, sh._shards, q, w + 16,
+                                                  scan=tpq.ivfpq4_adc_scores_plain, **kw)
+                torch.cuda.synchronize()
+                stats["pq4_shortlist"] = w
+                stats["pq4_search64_warm_ms"] = round(cuda_ms(lambda: sh.search(queries, k), 3), 4)
+                stats["pq4_near_tie_gaps"] = _shortlist_ties("mesh pq4", ks, ki, ws, wi)
+            _, i1 = index.search(queries, k)
+        stats[f"{name}_launches"] = launches
+        stats[f"{name}_shard_bytes"] = per_shard
+        stats[f"{name}_recall_dp{MESH_DP}"] = recall(i)
+        stats[f"{name}_recall_dp1"] = recall(i1)
+        del sh
+    for name in counters:
+        got, base = stats[f"{name}_recall_dp{MESH_DP}"], stats[f"{name}_recall_dp1"]
+        check(got >= base, f"mesh {name}: recall@10 {got} at dp={MESH_DP} < {base} at dp=1")
+    phase("mesh_retrieve", t0, dp=MESH_DP, batch=RETRIEVE_B, **stats)
+    return stats
+
+
+def phase_mesh_fused(paths: dict):
+    import torch
+    from rag_inference_pipeline_tpu_torch.core.config import load_settings
+    from rag_inference_pipeline_tpu_torch.ops.topk import (
+        binmax_partial_topk_int8gs,
+        binmax_partial_topk_int8gs_plain,
+    )
+    from rag_inference_pipeline_tpu_torch.serve import runtime
+
+    t0 = time.perf_counter()
+    mesh = _one_card_mesh(FUSED_DP)
+    settings = load_settings({**SERVE_ENV, **paths})
+    server = runtime.make_server(settings, port=0, mesh=mesh)
+    port = server.server_address[1]
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    load_s = time.perf_counter() - t0
+    try:
+        health = _get_health(port)
+        check(all(health["components"].values()) and "mesh" in health["components"],
+              f"not loaded: {health}")
+        ex = server.executor
+        check(ex.dp == FUSED_DP and len(ex.index._db_i8) == FUSED_DP,
+              "the fused executor is not on the dp mesh")
+        zero_launches()
+        results = [_post(port, f"what does the corpus say about topic {i}?", f"d{i}")
+                   for i in range(2)]
+        launches = binmax_partial_topk_int8gs.launches
+        for i, (status, body, _) in enumerate(results):
+            check(status == 200 and body["request_id"] == f"d{i}", f"/query {i}: HTTP {status}")
+        check(launches == FUSED_DP * len(results),
+              f"K1 launched {launches} times for {len(results)} dp={FUSED_DP} steps")
+        pipe, (ids, mask, lm_ids, lm_mask) = _step_inputs(ex)
+        ts = time.perf_counter()
+        out_k = pipe.step(ids, mask, lm_ids, lm_mask)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - ts
+        out_p = pipe.step(ids, mask, lm_ids, lm_mask, scan=binmax_partial_topk_int8gs_plain)
+        torch.cuda.synchronize()
+    finally:
+        _stop(server, th)
+    check(torch.equal(out_k.doc_ids, out_p.doc_ids), "mesh fused: doc ids differ from plain")
+    check(torch.equal(out_k.tokens, out_p.tokens), "mesh fused: tokens differ from plain")
+    check(out_k.tokens.shape == (MAIN_B, pipe.max_new_tokens), "mesh fused: tokens shape")
+    phase("mesh_fused", t0, dp=FUSED_DP, load_s=round(load_s, 3),
+          first_s=round(results[0][2], 4), second_s=round(results[1][2], 4),
+          k1_launches=launches, step8_s=round(step_s, 4), doc_ids_identical=True,
+          tokens_identical=True)
+    return {"launches": launches}
+
+
+# a process of the serving entry point; exit 3 if it imported jax
+_SPMD_ENTRY = (
+    "import sys\n"
+    "from rag_inference_pipeline_tpu_torch.serve import runtime\n"
+    "runtime.main()\n"
+    "sys.exit(3 if 'jax' in sys.modules or any(m.split('.')[0] == "
+    "'rag_inference_pipeline_tpu' for m in sys.modules) else 0)\n"
+)
+
+
+def phase_spmd(paths: dict, workdir: str):
+    import signal
+
+    import torch
+    from rag_inference_pipeline_tpu_torch.index.base import load_index
+
+    t0 = time.perf_counter()
+    coord = _free_base(2)  # the group's rendezvous, then the front door's port
+    port = coord + 1
+    env = {**os.environ, "DEVICE_PLATFORM": DEVICE, "MODEL_WEIGHTS_DIR": "",
+           "DIST_NUM_PROCESSES": str(SPMD_PROCS), "DIST_COORDINATOR": f"127.0.0.1:{coord}",
+           "BASE_PORT": str(port), "TOTAL_NODES": "1",
+           "PIPELINE_ROLE_PROFILE": "retrieval_default", "INDEX_KIND": "flat",
+           "INDEX_DTYPE": "int8", "INDEX_PATH": paths["INDEX_PATH"],
+           "DOC_STORE_BACKEND": "memory", "DOCUMENTS_PAYLOAD_MODE": "id_only",
+           "WARMUP_BUCKETS": "0"}
+    logs = [os.path.join(workdir, f"spmd{r}.log") for r in range(SPMD_PROCS)]
+    procs = []
+    for r in range(SPMD_PROCS):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _SPMD_ENTRY], cwd=ROOT,
+                env={**env, "DIST_PROCESS_ID": str(r)}, stdout=log, stderr=subprocess.STDOUT))
+
+    def tail(r):
+        with open(logs[r]) as f:
+            return f.read()[-3000:]
+
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    q = torch.randn(2 * MAIN_B, DIM, generator=g, device=DEVICE)
+    q /= q.norm(dim=1, keepdim=True)
+    q, q2 = q[:MAIN_B], q[MAIN_B:]
+    try:
+        deadline = time.perf_counter() + 240
+        while True:
+            for r, p in enumerate(procs):
+                check(p.poll() is None, f"spmd process {r} exited {p.returncode}: {tail(r)}")
+            try:
+                health = _get_health(port)
+                break
+            except OSError:
+                check(time.perf_counter() < deadline, "the spmd front door did not come up")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        before = health["kernel_launches"]["binmax_int8gs"]
+        ret, retrieve_s = _retrieve(port, q)
+        after = _get_health(port)["kernel_launches"]["binmax_int8gs"]
+        _, second_s = _retrieve(port, q2)  # a second batch: the first paid set-up
+        front_total = _get_health(port)["kernel_launches"]["binmax_int8gs"]
+        procs[0].send_signal(signal.SIGINT)
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    check(rcs == [0] * SPMD_PROCS, f"spmd exit codes {rcs}: {tail(0)} {tail(1)}")
+    # one K1 launch a search in each process (its half on a one-position
+    # mesh): the front door's for the one /retrieve, and the worker's, which
+    # runs every search the front door broadcast and logs its counts
+    check(after - before == 1, f"the spmd front door launched K1 {after - before} times "
+          "for one /retrieve")
+    worker = tail(1)
+    searches = re.search(r"stopping after (\d+) searches", worker)
+    counts = re.search(r"SPMD worker kernel launches (\{.*\})", worker)
+    check(searches is not None and counts is not None,
+          f"the spmd worker did not leave its loop on OP_STOP: {worker}")
+    worker_searches = int(searches.group(1))
+    worker_k1 = json.loads(counts.group(1))["binmax_int8gs"]
+    check(worker_searches == front_total and worker_k1 == worker_searches,
+          f"spmd worker: {worker_searches} searches and {worker_k1} K1 launches against "
+          f"the front door's {front_total}")
+    ref = load_index(paths["INDEX_PATH"], mesh=_one_card_mesh(SPMD_PROCS))
+    with torch.inference_mode():
+        _, ids = ref.search(q, 10)
+    got = [r["ids"] for r in ret["results"]]
+    check(got == ids.tolist(), "spmd /retrieve ids differ from the dp=2 sharded search")
+    del ref
+    torch.cuda.empty_cache()
+    phase("spmd", t0, processes=SPMD_PROCS, up_s=round(up_s, 3),
+          retrieve8_s=round(retrieve_s, 4), second_retrieve8_s=round(second_s, 4),
+          front_k1_launches=after - before, front_k1_total=front_total,
+          worker_searches=worker_searches, worker_k1_launches=worker_k1,
+          ids_identical=True, exit_codes=rcs)
+    return {"launches": after - before}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py: no {PKG}/ beside this script", file=sys.stderr)
@@ -3094,7 +3480,6 @@ def main() -> int:
         staged = phase_serve_staged(ivf, corpus, queries, db_path)
         phase_serve_3node(ivf, queries, db_path, workdir, staged)
         phase_engine_serve(ivf, db_path)
-        del ivf
         gc.collect()
         torch.cuda.empty_cache()
         flat = phase_retrieve_flat(corpus, queries, db_path)
@@ -3106,7 +3491,14 @@ def main() -> int:
         built = phase_pq_build(corpus, queries, workdir)
         k6 = phase_k6(built["pq4"], queries)
         k6_launches = phase_serve_pq(built, corpus, queries, db_path)
-        del built, corpus, queries
+        mesh = phase_mesh_retrieve(corpus, queries, ivf, built["pq4"])
+        del built, corpus, queries, ivf
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_fused = phase_mesh_fused(paths)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_spmd(paths, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     gc.collect()
@@ -3137,14 +3529,20 @@ def main() -> int:
         }
 
     jax_ops = "rag_inference_pipeline_tpu/ops"
+    print(smi, flush=True)  # the card beside the numbers, at the end of the log too
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     print(json.dumps({"kernels": [
-        entry("binmax_int8gs", f"{jax_ops}/topk.py:442", k1_launches, k1),
-        entry("binmax_bf16", f"{jax_ops}/topk.py:118", flat["launches"], k2),
+        # the main paths' launches, and the sharded paths' (one a shard)
+        entry("binmax_int8gs", f"{jax_ops}/topk.py:442",
+              k1_launches + mesh["int8_launches"] + mesh["int8_host_launches"]
+              + mesh_fused["launches"], k1),
+        entry("binmax_bf16", f"{jax_ops}/topk.py:118",
+              flat["launches"] + mesh["bf16_launches"], k2),
         entry("binmax_int8", f"{jax_ops}/topk.py:268", k3["launches"], k3),
         entry("ivf_scan", f"{jax_ops}/ivf.py:156", staged["k4_launches"], k45["k4"]),
-        entry("ivf_dedup", f"{jax_ops}/ivf.py:290", staged["k5_launches"], k45["k5"]),
-        entry("ivfpq4_adc", f"{jax_ops}/pq.py:432", k6_launches, k6),
+        entry("ivf_dedup", f"{jax_ops}/ivf.py:290",
+              staged["k5_launches"] + mesh["ivf_flat_launches"], k45["k5"]),
+        entry("ivfpq4_adc", f"{jax_ops}/pq.py:432", k6_launches + mesh["pq4_launches"], k6),
         entry("kv_row_insert", "scripts/bench_decode_anatomy.py:88", k7["launches"], k7),
         entry("stream", "scripts/bench_kernel.py:171", k8["launches"], k8),
         # no Pallas kernel: the reference's XLA _qdense and quantize_act_rows;

@@ -38,8 +38,15 @@ class Settings:
     # refused by name (core/profiles.py): the card does not guarantee yaml
     role_profile_override_path: Optional[str] = None
 
-    # --- device ---
+    # --- device and mesh (core/mesh.py) ---
     device_platform: Optional[str] = None  # None = cuda (core/device.py)
+    mesh_dp: int = 0  # 0 = infer from the devices and mesh_tp
+    mesh_tp: int = 1  # > 1 is refused at mesh build (tensor parallelism)
+    # --- process group (core/distributed.py): DIST_NUM_PROCESSES > 1 joins
+    # a gloo group at tcp://DIST_COORDINATOR (host:port of process 0)
+    dist_num_processes: int = 1
+    dist_process_id: int = 0
+    dist_coordinator: str = "127.0.0.1:12355"
     param_dtype: str = "bfloat16"
 
     # --- batching ---
@@ -81,6 +88,8 @@ class Settings:
     # exact | int4 | pq8 | host_int8 | host_f16 (index/ivf_pq.py)
     index_pq_rescore_kind: str = "exact"
     index_cap_factor: float = 2.5
+    # dp-sharded IVF: scan slots per shard (0 = 2 * ceil(nprobe / dp))
+    index_nprobe_local: int = 0
 
     # --- retrieval / generation semantics ---
     retrieval_k: int = 10

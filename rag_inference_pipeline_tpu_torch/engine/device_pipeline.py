@@ -1,23 +1,35 @@
 """Device-resident RAG step: embed -> int8 scan + exact re-score ->
-doc-token gather -> KV-cache decode (greedy, or n-gram speculation), all
-on one device.
+doc-token gather -> KV-cache decode (greedy, or n-gram speculation), on
+one device or over the dp positions of a mesh.
 
-Port of `rag_inference_pipeline_tpu/engine/device_pipeline.py` at dp=1
-over the int8 flat index. On CUDA the decode loop replays a captured graph
+Port of `rag_inference_pipeline_tpu/engine/device_pipeline.py` over the
+int8 flat index. On CUDA the decode loop replays a captured graph
 (`models/decode_graph.py`), the port's counterpart of the reference's one
 compiled step. The document token store lives on the
 device beside the index; retrieval ids gather context tokens there and the
 decoder consumes them directly, so the host sees only final token ids.
+
+With a `core/mesh.py` mesh of dp > 1 (the reference's `_rag_step`
+branches, `:288-320`): the database, its rescore copy and the token store
+are row-sharded over dp; the batch must be a dp multiple. The embed and
+the decode run batch-over-dp, as the reference's `batch_sharding`: one
+slice of B/dp rows a position, the weights once per distinct device. The
+scan is `sharded_topk_int8gs` (K1 once a shard) over the whole batch (the
+query's int8 scale is batch-wide), and the winners' tokens come from
+`sharded_token_gather`. On a mesh that repeats one device the slices run
+one after another.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..core.mesh import MeshContext
 from ..models.bert import BertConfig, bert_embed
 from ..models.layers import ParamTree
 from ..models.qwen import QwenConfig, greedy_generate, ngram_speculative_generate
@@ -25,7 +37,40 @@ from ..ops.topk import (
     binmax_partial_topk_int8gs,
     fused_topk_int8gs,
     quantize_global_int8,
+    sharded_topk_int8gs,
 )
+
+
+def sharded_token_gather(
+    mesh: MeshContext,
+    doc_tokens: list[torch.Tensor],  # dp row blocks of [N_pad, L] i32
+    doc_token_mask: list[torch.Tensor],  # dp row blocks of [N_pad, L] i32
+    ids: torch.Tensor,  # [B, C] global row ids (-1 = no hit)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The winners' tokens and masks [B, C, L] from a dp-row-sharded store
+    (reference `:52-86`): each position contributes the rows it owns and
+    zeros elsewhere, and the contributions are summed on the front device
+    (the reference's psum), so the store stays 1/dp a position."""
+    rows = doc_tokens[0].shape[0]
+    toks, msks = [], []
+    for shard, (dev, tok_l, msk_l) in enumerate(zip(mesh.devices, doc_tokens, doc_token_mask)):
+        gid = ids.to(dev)
+        lid = gid - shard * rows
+        mine = ((lid >= 0) & (lid < rows) & (gid >= 0)).to(torch.int32)[..., None]
+        safe = lid.clamp(0, rows - 1).long()
+        toks.append((tok_l[safe] * mine).to(mesh.front))
+        msks.append((msk_l[safe] * mine).to(mesh.front))
+    return torch.stack(toks).sum(0, dtype=torch.int32), torch.stack(msks).sum(0, dtype=torch.int32)
+
+
+def _replicate(mesh: MeshContext, params: ParamTree) -> list[ParamTree]:
+    """`params` for every dp position: the tree itself on its own device, a
+    copy on each other distinct device."""
+    home = next(iter(params.state_dict().values())).device
+    copies = {
+        d: params if d == home else copy.deepcopy(params).to(d) for d in mesh.distinct
+    }
+    return [copies[d] for d in mesh.devices]
 
 
 class RAGStepOutput(NamedTuple):
@@ -50,6 +95,8 @@ class DeviceRAGPipeline:
     speculative: bool = False
     spec_gamma: int = 8
     inject_accept_p: Optional[float] = None
+    # dp > 1: the database, the token store and the batch over dp
+    mesh: Optional[MeshContext] = None
 
     def build(
         self,
@@ -61,9 +108,9 @@ class DeviceRAGPipeline:
         *,
         # fast path: reuse a loaded int8 FlatIndex's device tensors instead
         # of uploading the corpus again
-        db_i8: Optional[torch.Tensor] = None,
-        db_scale: Optional[torch.Tensor] = None,
-        db_rescore: Optional[torch.Tensor] = None,  # bf16, same rows as db_i8
+        db_i8=None,  # a tensor, or its dp row shards (a sharded FlatIndex's)
+        db_scale=None,
+        db_rescore=None,  # bf16, same rows (and shards) as db_i8
         ntotal: Optional[int] = None,
     ) -> None:
         dev = self.device
@@ -71,6 +118,10 @@ class DeviceRAGPipeline:
             # hash-tokenizer convention (pad id 0); real tokenizers pass the
             # explicit mask, since id 0 can be a real token
             doc_token_mask = (np.asarray(doc_tokens) > 0).astype(np.int32)
+        if self.mesh is not None and self.mesh.dp > 1:
+            self._build_sharded(bert_params, qwen_params, db, doc_tokens, doc_token_mask,
+                                db_i8, db_scale, db_rescore, ntotal)
+            return
         self.bert_params = bert_params
         self.qwen_params = qwen_params
         if db_i8 is not None:
@@ -97,6 +148,48 @@ class DeviceRAGPipeline:
         self.doc_token_mask = torch.from_numpy(msk).to(dev)
         self.ntotal = n
 
+    def _build_sharded(self, bert_params, qwen_params, db, doc_tokens, doc_token_mask,
+                       db_i8, db_scale, db_rescore, ntotal) -> None:
+        """dp > 1: the weights once per distinct device, the database, its
+        rescore copy and the token store in dp row shards."""
+        mesh = self.mesh
+        dp, rows = mesh.dp, mesh.rows_dp
+        self.bert_params = _replicate(mesh, bert_params)
+        self.qwen_params = _replicate(mesh, qwen_params)
+        if db_i8 is not None:
+            if db_rescore is None:
+                raise ValueError("the fast path requires the bf16 rescore copy")
+            n = int(ntotal if ntotal is not None else sum(s.shape[0] for s in db_i8))
+            if isinstance(db_i8, torch.Tensor):
+                if db_i8.shape[0] % dp:
+                    raise ValueError(
+                        f"device-resident db rows {db_i8.shape[0]} not divisible "
+                        f"by dp={dp}; use the host build path"
+                    )
+                db_i8, db_rescore = mesh.put(db_i8, rows), mesh.put(db_rescore, rows)
+            self.db_i8 = list(db_i8)
+            self.db = [s.to(torch.bfloat16) for s in db_rescore]
+            scale = db_scale[0] if isinstance(db_scale, (list, tuple)) else db_scale
+            self.db_scale = mesh.put(scale.float())
+        else:
+            n = db.shape[0]
+            # the reference pads to a dp multiple before it quantizes
+            pad = -n % dp
+            host = np.concatenate([np.asarray(db, np.float32),
+                                   np.zeros((pad, db.shape[1]), np.float32)])
+            dbt = torch.from_numpy(host).to(mesh.front)
+            q_i8, scale = quantize_global_int8(dbt)
+            self.db_i8 = mesh.put(q_i8, rows)
+            self.db_scale = mesh.put(scale)
+            self.db = mesh.put(dbt.to(torch.bfloat16), rows)
+        n_pad = sum(s.shape[0] for s in self.db_i8)
+        tok = np.asarray(doc_tokens, np.int32)[:n_pad]
+        msk = np.asarray(doc_token_mask, np.int32)[:n_pad]
+        fill = np.zeros((n_pad - tok.shape[0], tok.shape[1]), np.int32)
+        self.doc_tokens = mesh.put(np.concatenate([tok, fill]), rows)
+        self.doc_token_mask = mesh.put(np.concatenate([msk, fill]), rows)
+        self.ntotal = n
+
     def step(
         self,
         query_tokens: np.ndarray,
@@ -112,6 +205,12 @@ class DeviceRAGPipeline:
         `fused_topk_int8gs`."""
         if lm_query_tokens is None:
             lm_query_tokens, lm_query_mask = query_tokens, query_mask
+        dp = self.mesh.dp if self.mesh is not None else 1
+        if query_tokens.shape[0] % dp != 0:
+            raise ValueError(
+                f"batch {query_tokens.shape[0]} must be a multiple of "
+                f"dp={dp} (pad the batch bucket up to a dp multiple)"
+            )
 
         def dev(a):
             return torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
@@ -126,7 +225,19 @@ class DeviceRAGPipeline:
             ntotal=self.ntotal, rescore_k=self.rescore_k, scan=scan,
             speculative=self.speculative, spec_gamma=self.spec_gamma,
             inject_accept_p=self.inject_accept_p,
+            mesh=self.mesh if dp > 1 else None,
         )
+
+
+def _over_dp(mesh: MeshContext, fn, params: list, *batch: torch.Tensor) -> torch.Tensor:
+    """`fn(params_i, *slice_i)` for each dp position's slice of the batch
+    (B/dp rows, on its device), the results joined on the front device."""
+    b = batch[0].shape[0] // mesh.dp
+    outs = [
+        fn(params[i], *(t[i * b : (i + 1) * b].to(dev) for t in batch))
+        for i, dev in enumerate(mesh.devices)
+    ]
+    return torch.cat([o.to(mesh.front) for o in outs])
 
 
 @torch.inference_mode()
@@ -154,25 +265,41 @@ def _rag_step(
     speculative: bool = False,
     spec_gamma: int = 8,
     inject_accept_p: Optional[float] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> RAGStepOutput:
-    # 1. embed queries
-    emb = bert_embed(bert_params, bert_cfg, query_tokens, query_mask)
+    # 1. embed queries (batch over dp)
+    if mesh is None:
+        emb = bert_embed(bert_params, bert_cfg, query_tokens, query_mask)
+    else:
+        emb = _over_dp(mesh, lambda p, t, m: bert_embed(p, bert_cfg, t, m),
+                       bert_params, query_tokens, query_mask)
 
-    # 2. int8 scan (K1) + exact bf16 re-score; ntotal masks the pad rows
-    scores, ids = fused_topk_int8gs(
-        emb, db_i8, db_scale, k, rescore_db=db, rescore_k=rescore_k,
-        ntotal=ntotal, scan=scan,
-    )
+    # 2. int8 scan (K1, once a shard over dp) + exact bf16 re-score; ntotal
+    #    masks the pad rows
+    if mesh is None:
+        scores, ids = fused_topk_int8gs(
+            emb, db_i8, db_scale, k, rescore_db=db, rescore_k=rescore_k,
+            ntotal=ntotal, scan=scan,
+        )
+    else:
+        scores, ids = sharded_topk_int8gs(
+            mesh, emb, db_i8, db_scale, k, rescore_db_shards=db,
+            rescore_k=rescore_k, ntotal=ntotal, scan=scan,
+        )
 
     # 3. decoder context from the device-resident doc tokens: the top
     #    ctx_docs docs' tokens, then the query tokens
     b = query_tokens.shape[0]
     ctx_ids = ids[:, :ctx_docs]  # [B, C]
-    safe_ids = ctx_ids.clamp(min=0).long()
-    ctx_toks = doc_tokens[safe_ids]  # [B, C, L]
-    # valid = the store's per-token mask AND a real hit: an id of -1 (fewer
-    # than ctx_docs hits) must not attend to doc 0
-    tok_mask = doc_token_mask[safe_ids] * (ctx_ids >= 0).to(torch.int32)[:, :, None]
+    if mesh is None:
+        safe_ids = ctx_ids.clamp(min=0).long()
+        ctx_toks = doc_tokens[safe_ids]  # [B, C, L]
+        # valid = the store's per-token mask AND a real hit: an id of -1
+        # (fewer than ctx_docs hits) must not attend to doc 0
+        tok_mask = doc_token_mask[safe_ids] * (ctx_ids >= 0).to(torch.int32)[:, :, None]
+    else:
+        # owners contribute their rows; an id of -1 has no owner
+        ctx_toks, tok_mask = sharded_token_gather(mesh, doc_tokens, doc_token_mask, ctx_ids)
     prompt = torch.cat([ctx_toks.reshape(b, -1), lm_query_tokens], dim=1)
     pmask = torch.cat([tok_mask.reshape(b, -1), lm_query_mask], dim=1)
     # the decoder takes right-padded prompts (prefill writes the cache
@@ -184,12 +311,17 @@ def _rag_step(
 
     # 4. decode with a KV cache: greedy, or n-gram self-speculation
     kw = dict(eos_token_id=-1, cache_len=prompt.shape[1] + max_new_tokens)
-    if speculative:
-        toks, _ = ngram_speculative_generate(
-            qwen_params, qwen_cfg, prompt, pmask, max_new_tokens,
-            gamma=spec_gamma, inject_accept_p=inject_accept_p, **kw,
-        )
-    else:
-        toks = greedy_generate(qwen_params, qwen_cfg, prompt, pmask,
-                               max_new_tokens, **kw)
+
+    def decode(params, p, m):
+        if speculative:
+            return ngram_speculative_generate(
+                params, qwen_cfg, p, m, max_new_tokens,
+                gamma=spec_gamma, inject_accept_p=inject_accept_p, **kw,
+            )[0]
+        return greedy_generate(params, qwen_cfg, p, m, max_new_tokens, **kw)
+
+    if mesh is None:
+        toks = decode(qwen_params, prompt, pmask)
+    else:  # batch over dp
+        toks = _over_dp(mesh, decode, qwen_params, prompt, pmask)
     return RAGStepOutput(tokens=toks, doc_ids=ids, scores=scores)

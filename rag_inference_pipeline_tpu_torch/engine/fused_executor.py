@@ -1,12 +1,15 @@
 """Fused serving executor: the whole RAG hot path as one device step per
 chunk of requests, then the joint sentiment + toxicity classifier.
 
-Port of `rag_inference_pipeline_tpu/engine/fused_executor.py` (dp=1;
-greedy, or n-gram speculation with `use_speculative_decoding`). Batches are cut into chunks of at most `fused_chunk_lanes` lanes,
-each padded to a shape bucket exactly as the reference pads it: the query's
-int8 scale is batch-wide, so padded lanes take part in it and a different
-padding would change ids. Requires a document token store
-(`doc_tokens.npy`, decoder token space) beside the int8 flat index.
+Port of `rag_inference_pipeline_tpu/engine/fused_executor.py` (greedy,
+or n-gram speculation with `use_speculative_decoding`). Batches are cut
+into chunks of at most `fused_chunk_lanes` lanes, each padded to a shape
+bucket exactly as the reference pads it: the query's int8 scale is
+batch-wide, so padded lanes take part in it and a different padding would
+change ids. On a mesh of dp > 1 the buckets and the chunk lanes are
+rounded up to dp multiples (the step splits the batch over dp), as the
+reference rounds them (`:126-130`, `:227-236`). Requires a document token
+store (`doc_tokens.npy`, decoder token space) beside the int8 flat index.
 
 Warm-up (`warmup_buckets`, reference `fused_executor.py:123-142`) runs one
 chunk of each bucket that `process_batch` can dispatch: the buckets up to
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.config import Settings
+from ..core.mesh import MeshContext
 from ..telemetry.profiling import NULL_PROFILE, SampledStageProfiler
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
 from .device_pipeline import DeviceRAGPipeline, RAGStepOutput
@@ -55,9 +59,12 @@ class FusedExecutor:
         llm,  # loaded LLMComponent
         sentiment=None,
         toxicity=None,
+        mesh: Optional[MeshContext] = None,
     ) -> None:
         self.settings = settings
         self.device = device
+        self.mesh = mesh
+        self.dp = mesh.dp if mesh is not None else 1
         self.embedder = embedder
         self.index = index
         self.llm = llm
@@ -107,18 +114,23 @@ class FusedExecutor:
         if s.warmup_buckets:
             self.warmup()
 
+    def _buckets(self) -> tuple[int, ...]:
+        """The shape buckets, each rounded up to a dp multiple."""
+        dp = self.dp
+        return tuple(sorted({-(-b // dp) * dp for b in self.settings.shape_buckets}))
+
     def _max_chunk(self) -> int:
-        s = self.settings
-        max_chunk = max(s.shape_buckets)
+        s, dp = self.settings, self.dp
+        max_chunk = max(self._buckets())
         if s.fused_chunk_lanes > 0:
-            max_chunk = min(max_chunk, s.fused_chunk_lanes)
+            max_chunk = min(max_chunk, -(-s.fused_chunk_lanes // dp) * dp)
         return max_chunk
 
     def dispatched_buckets(self) -> tuple[int, ...]:
         """The buckets a chunk of `process_batch` can be padded to."""
-        buckets = self.settings.shape_buckets
+        buckets = self._buckets()
         top = pick_bucket(self._max_chunk(), buckets)
-        return tuple(b for b in sorted(buckets) if b <= top)
+        return tuple(b for b in buckets if b <= top)
 
     def warmup(self) -> None:
         """One chunk of every dispatched bucket, answers discarded."""
@@ -147,6 +159,7 @@ class FusedExecutor:
                 speculative=s.use_speculative_decoding,
                 spec_gamma=s.speculative_gamma,
                 inject_accept_p=s.speculative_inject_p,
+                mesh=self.mesh,
             )
             idx = self.index
             if idx._db is not None:
@@ -160,7 +173,7 @@ class FusedExecutor:
             else:
                 # no rescore copy: the step re-quantizes dequantized codes
                 host = (
-                    idx._db_i8[: self._ntotal].float() * idx._db_gscale
+                    idx._rows(idx._db_i8).float() * idx._front_scale()
                 ).cpu().numpy()
                 pipe.build(
                     self.embedder.params, self.llm.params,
@@ -190,7 +203,7 @@ class FusedExecutor:
         return self._process(items, self.profiler.maybe_start())
 
     def _process(self, items: Sequence[dict], prof) -> list[dict]:
-        buckets = self.settings.shape_buckets
+        buckets = self._buckets()
         spans = chunk_spans(len(items), self._max_chunk())
         sent, tox_c = self.sentiment, self.toxicity
         sent_on = sent is not None and sent.is_loaded

@@ -7,11 +7,12 @@ from typing import Optional
 import torch
 
 
-def make_index(settings, device: Optional[torch.device] = None):
+def make_index(settings, device: Optional[torch.device] = None, mesh=None):
     """Settings -> an empty index of the configured kind (the reference's
-    `index/__init__.py::make_index`, dp=1). INDEX_RESCORE_STORE places the
+    `index/__init__.py::make_index`). INDEX_RESCORE_STORE places the
     flat int8 index's rescore copy (bf16 on the card, or f16 in host RAM);
-    the IVF kinds ignore it, as in the reference."""
+    the IVF kinds ignore it, as in the reference. `mesh` shards the index
+    over its dp positions; the IVF kinds take INDEX_NPROBE_LOCAL."""
     from ..core.enums import IndexKind
     from .flat import FlatIndex
     from .ivf_flat import IVFFlatIndex
@@ -32,9 +33,10 @@ def make_index(settings, device: Optional[torch.device] = None):
             nbins=min(nbins, 2048),
             rescore_k=settings.index_rescore_k,
             rescore_store=settings.index_rescore_store,
+            mesh=mesh,
         )
     if kind is IndexKind.IVF_FLAT:
-        return IVFFlatIndex(
+        idx = IVFFlatIndex(
             settings.index_dim,
             settings.index_nlist,
             metric=settings.index_metric,
@@ -42,8 +44,11 @@ def make_index(settings, device: Optional[torch.device] = None):
             dtype=settings.index_dtype,
             device=device,
             cap_factor=settings.index_cap_factor,
+            mesh=mesh,
         )
-    return IVFPQIndex(
+        idx.nprobe_local = settings.index_nprobe_local
+        return idx
+    idx = IVFPQIndex(
         settings.index_dim,
         settings.index_nlist,
         settings.index_pq_m,
@@ -54,4 +59,7 @@ def make_index(settings, device: Optional[torch.device] = None):
         ksub=16 if settings.index_pq_bits == 4 else 256,
         rescore_kind=settings.index_pq_rescore_kind,
         device=device,
+        mesh=mesh,
     )
+    idx.nprobe_local = settings.index_nprobe_local
+    return idx

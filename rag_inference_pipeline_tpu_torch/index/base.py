@@ -54,12 +54,13 @@ def save_npz(path: str, **arrays) -> None:
 
 def load_index(
     path: str, device: Optional[torch.device] = None,
-    *, rescore_store: Optional[str] = None,
+    *, rescore_store: Optional[str] = None, mesh=None,
 ):
     """Load an index artifact written by either package. `rescore_store`
     ("device" | "host") places a flat int8 artifact's rescore copy, as a
     deployment chooses (reference `index/base.py:91-118`); other kinds
-    ignore it."""
+    ignore it. `mesh` (a `core/mesh.py` MeshContext of dp > 1) shards the
+    flat rows, or the IVF lists when nlist % dp == 0, over its positions."""
     from .flat import FlatIndex
     from .ivf_flat import IVFFlatIndex
     from .ivf_pq import IVFPQIndex
@@ -71,6 +72,6 @@ def load_index(
     }.get(kind)
     if impl is None:
         raise ValueError(f"unknown index kind {kind!r} in {path}")
-    if kind == "flat" and rescore_store is not None:
-        return impl._load(path, device, rescore_store=rescore_store)
-    return impl._load(path, device)
+    if kind == "flat":
+        return impl._load(path, device, rescore_store=rescore_store, mesh=mesh)
+    return impl._load(path, device, mesh=mesh)

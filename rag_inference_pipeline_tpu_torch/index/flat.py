@@ -1,7 +1,7 @@
 """Flat index: bf16/f32 vectors scanned by K2, or int8 codes scanned by K1
 with an exact rescore copy on the device (bf16) or in host RAM (f16).
 
-Port of the dp=1 paths of `rag_inference_pipeline_tpu/index/flat.py`:
+Port of `rag_inference_pipeline_tpu/index/flat.py`:
 
 - bf16 / f32 storage (`dtype="bfloat16"` or "float32"):
   on the card an IP search with k <= nbins takes `fused_topk` (kernel K2);
@@ -23,6 +23,19 @@ Port of the dp=1 paths of `rag_inference_pipeline_tpu/index/flat.py`:
   multiple at build time and `ntotal` masks the pad rows, as in the
   reference, so artifacts and pipelines see the same layout.
 
+With a `core/mesh.py` mesh of dp > 1 the stores are lists of row shards,
+one a dp position (`flat.py:215-260`): int8 codes and their bf16 copy are
+padded to a multiple of chunk x dp, bf16/f32 vectors to a dp multiple,
+`ntotal` kept; an `.npz` places each shard's rows on its position's device;
+the global scale is the artifact's (all rows), never a shard's. Searches
+go through `ops/topk.py::sharded_topk_int8gs` (K1 once a shard; the device
+re-score, or K1's shortlist then the host refine) and `sharded_topk` (K2
+once a shard).
+
+Under SPMD serving (`serve/spmd.py`) each process loads its own row range
+of an artifact (`load_part`): rows [rank * R, (rank + 1) * R) of the
+artifact padded to world x chunk x dp, its local ids lifted by `id_offset`.
+
 Artifacts are the reference's `.npz` in both directions.
 """
 
@@ -34,12 +47,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.mesh import MeshContext
 from ..ops.topk import (
     _round_up,
     exact_topk,
     fused_topk,
     fused_topk_int8gs,
     quantize_global_int8,
+    sharded_topk,
+    sharded_topk_int8gs,
 )
 from ..telemetry.metrics import STAGE_DURATION
 from ..utils import cpuscan
@@ -66,6 +82,7 @@ class FlatIndex:
         chunk: int = 4096,
         rescore_k: int = 64,  # int8: exact re-score depth (0 = off)
         rescore_store: str = "device",  # "device" (bf16) | "host" (f16 RAM)
+        mesh: Optional[MeshContext] = None,
     ) -> None:
         check_metric(metric)
         if dtype == "int8":
@@ -79,7 +96,11 @@ class FlatIndex:
         self.dim = dim
         self.metric = metric
         self.dtype_name = dtype
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        if device is None:
+            device = mesh.front if mesh is not None else "cpu"
+        self.device = torch.device(device)
+        # rows sharded over dp: every store below is a list of row blocks
+        self.mesh = mesh if mesh is not None and mesh.dp > 1 else None
         self.nbins = nbins
         self.rescore_k = rescore_k
         # int8 rows are padded to a multiple of the reference's int8 scan
@@ -93,6 +114,10 @@ class FlatIndex:
         # (run_id, node) of the host refine's stage metric; the serving
         # component sets the node's own
         self.metric_labels = ("dev", "0")
+        # SPMD process part (`load_part`): the first global row this process
+        # holds, and the artifact's row count
+        self.id_offset = 0
+        self.ntotal_global = 0
         self.ntotal = 0
         self._loaded = False
 
@@ -106,13 +131,8 @@ class FlatIndex:
         if self.dtype_name != "int8":
             new = _as_tensor(vectors, self.device, storage_dtype(self.dtype_name))
             self._check_rows(new)
-            db = new if self._db is None else torch.cat([self._db[: self.ntotal], new])
-            self._db = db
-            self.ntotal = db.shape[0]
-            if self.metric == "l2":
-                dbf = db.float()
-                self._db_sq = (dbf * dbf).sum(dim=-1)
-            self._loaded = True
+            db = new if self._db is None else torch.cat([self._rows(self._db), new])
+            self._set_db(db)
             return
         new = _as_tensor(vectors, self.device, torch.float32)
         self._check_rows(new)
@@ -129,27 +149,75 @@ class FlatIndex:
         if self._db_i8 is not None:
             # re-add keeps the exact originals where a rescore copy has them
             if self._db is not None:
-                prev = self._db[: self.ntotal].float()
+                prev = self._rows(self._db).float()
             elif self._host_rescore is not None:
                 prev = torch.from_numpy(
                     self._host_rescore[: self.ntotal].astype(np.float32)
                 ).to(self.device)
             else:
-                prev = self._db_i8[: self.ntotal].float() * self._db_gscale
+                prev = self._rows(self._db_i8).float() * self._front_scale()
             new = torch.cat([prev, new])
         n = new.shape[0]
         # quantize BEFORE padding: pad rows would skew the percentile scale
         db_i8, gscale = quantize_global_int8(new)
-        pad = _round_up(n, self._chunk_i8) - n
-        self._db_i8 = torch.nn.functional.pad(db_i8, (0, 0, 0, pad))
-        self._db_gscale = gscale
-        self._db = (
+        pad = _round_up(n, self._i8_align()) - n
+        rescore = (
             torch.nn.functional.pad(new, (0, 0, 0, pad)).to(torch.bfloat16)
             if self.rescore_k > 0 and not host
             else None
         )
+        self._put_i8(torch.nn.functional.pad(db_i8, (0, 0, 0, pad)), gscale, rescore)
         self.ntotal = n
         self._loaded = True
+
+    def _i8_align(self, world: int = 1) -> int:
+        """Row alignment of the int8 store: a scan-chunk multiple, times dp
+        when sharded (and times the processes of an SPMD part), so every
+        shard's rows are chunk-aligned."""
+        dp = self.mesh.dp if self.mesh is not None else 1
+        return self._chunk_i8 * dp * world
+
+    def _put_i8(
+        self, db_i8: torch.Tensor, gscale: torch.Tensor,
+        rescore: Optional[torch.Tensor],
+    ) -> None:
+        """Place the padded codes (and the bf16 copy) on the device, or row
+        shards of them over the mesh; the scale once per distinct device."""
+        if self.mesh is not None:
+            rows = self.mesh.rows_dp
+            self._db_i8 = self.mesh.put(db_i8, rows)
+            self._db_gscale = self.mesh.put(gscale.float())
+            self._db = self.mesh.put(rescore, rows) if rescore is not None else None
+            return
+        self._db_i8 = db_i8.to(self.device)
+        self._db_gscale = gscale.to(self.device, torch.float32)
+        self._db = rescore.to(self.device) if rescore is not None else None
+
+    def _set_db(self, db: torch.Tensor) -> None:
+        """Vectors (bf16/f32) on the device, or padded to a dp multiple and
+        row-sharded (`ntotal` masks the pad rows in the sharded scans)."""
+        n = db.shape[0]
+        if self.mesh is not None:
+            pad = _round_up(n, self.mesh.dp) - n
+            self._db = self.mesh.put(torch.nn.functional.pad(db, (0, 0, 0, pad)),
+                                     self.mesh.rows_dp)
+        else:
+            self._db = db.to(self.device)
+            if self.metric == "l2":
+                dbf = self._db.float()
+                self._db_sq = (dbf * dbf).sum(dim=-1)
+        self.ntotal = n
+        self._loaded = True
+
+    def _rows(self, x) -> torch.Tensor:
+        """The first ntotal rows of a store (a tensor, or row shards joined
+        on the front device)."""
+        if isinstance(x, list):
+            x = torch.cat([s.to(self.device) for s in x])
+        return x[: self.ntotal]
+
+    def _front_scale(self) -> torch.Tensor:
+        return self._db_gscale[0] if isinstance(self._db_gscale, list) else self._db_gscale
 
     def _check_rows(self, new: torch.Tensor) -> None:
         if new.dim() != 2 or new.shape[1] != self.dim:
@@ -164,7 +232,13 @@ class FlatIndex:
             raise RuntimeError("flat index not loaded")
         q = self.validate_queries(queries)
         if self.dtype_name != "int8":
-            if self.device.type == "cuda" and self.metric == "ip" and k <= self.nbins:
+            fused = self.device.type == "cuda" and self.metric == "ip" and k <= self.nbins
+            if self.mesh is not None:
+                return sharded_topk(
+                    self.mesh, q, self._db, k, use_fused=fused, nbins=self.nbins,
+                    metric=self.metric, ntotal=self.ntotal,
+                )
+            if fused:
                 return fused_topk(q, self._db, k, nbins=self.nbins, ntotal=self.ntotal)
             return exact_topk(
                 q, self._db, k, metric=self.metric, db_sq_norms=self._db_sq,
@@ -179,19 +253,27 @@ class FlatIndex:
             if self.rescore_k > 0 and self._db is not None
             else 0
         )
+        return self._scan_i8(q, k, rescore_k=r_k)
+
+    def _scan_i8(self, q: torch.Tensor, k: int, *, rescore_k: int = 0):
+        """K1 (once a shard when sharded), with the device re-score of the
+        top rescore_k when rescore_k > 0."""
+        rescore = self._db if rescore_k > 0 else None
+        if self.mesh is not None:
+            return sharded_topk_int8gs(
+                self.mesh, q, self._db_i8, self._db_gscale, k, nbins=self.nbins,
+                rescore_db_shards=rescore, rescore_k=rescore_k, ntotal=self.ntotal,
+            )
         return fused_topk_int8gs(
             q, self._db_i8, self._db_gscale, k, nbins=self.nbins,
-            rescore_db=self._db if r_k > 0 else None, rescore_k=r_k,
-            ntotal=self.ntotal,
+            rescore_db=rescore, rescore_k=rescore_k, ntotal=self.ntotal,
         )
 
     def _host_refine(self, q: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """K1's shortlist of s_k ids with no device re-score, then the exact
         f16 re-rank on the host (native `cs_rescore_f16`)."""
         s_k = min(max(self.rescore_k, k + 32), self.nbins)
-        _, ids = fused_topk_int8gs(
-            q, self._db_i8, self._db_gscale, s_k, nbins=self.nbins, ntotal=self.ntotal,
-        )
+        _, ids = self._scan_i8(q, s_k)
         qn = q.float().cpu().numpy()
         ids_n = ids.cpu().numpy()
         t0 = time.perf_counter()
@@ -207,13 +289,13 @@ class FlatIndex:
         head = dict(kind=self.kind, dim=self.dim, metric=self.metric,
                     dtype=self.dtype_name)
         if self.dtype_name != "int8":
-            save_npz(path, **head, vectors=self._db[: self.ntotal].float().cpu().numpy())
+            save_npz(path, **head, vectors=self._rows(self._db).float().cpu().numpy())
             return
         extra = {}
         if self._db is not None:  # rescore copy, float16 on disk
             # bf16 -> f16 rounds once, as the reference's bf16 -> f32 -> f16
             extra["vectors_rescore"] = (
-                self._db[: self.ntotal].to(torch.float16).cpu().numpy()
+                self._rows(self._db).to(torch.float16).cpu().numpy()
             )
         elif self._host_rescore is not None:
             extra["vectors_rescore"] = self._host_rescore[: self.ntotal]
@@ -222,59 +304,86 @@ class FlatIndex:
             path,
             **head,
             rescore_k=self.rescore_k,
-            vectors_i8=self._db_i8[: self.ntotal].cpu().numpy(),
-            gscale=np.float32(self._db_gscale.item()),
+            vectors_i8=self._rows(self._db_i8).cpu().numpy(),
+            gscale=np.float32(self._front_scale().item()),
             **extra,
         )
 
     @classmethod
     def _load(
         cls, path: str, device: Optional[torch.device] = None,
-        *, rescore_store: Optional[str] = None,
+        *, rescore_store: Optional[str] = None, mesh: Optional[MeshContext] = None,
+        part: Optional[tuple[int, int]] = None,
     ) -> "FlatIndex":
         """`rescore_store` ("device" | "host") overrides where an int8
         artifact's rescore copy lands (a deployment choice); None keeps the
-        artifact's own (`rescore_store=b"host"` when it was saved so)."""
+        artifact's own (`rescore_store=b"host"` when it was saved so).
+        `mesh` row-shards the stores; `part=(rank, world)` keeps this
+        process's row range only (`load_part`)."""
         with np.load(path, allow_pickle=False) as z:
             idx = cls(
                 int(z["dim"]), metric=str(z["metric"]), dtype=str(z["dtype"]),
-                device=device,
+                device=device, mesh=mesh,
             )
             if rescore_store is not None:
                 idx.rescore_store = rescore_store
-            if "vectors" in z:
-                idx.add(z["vectors"])
-                return idx
-            if "vectors_i8" not in z or "scales" in z:
+            key = "vectors" if "vectors" in z else "vectors_i8"
+            if key not in z or "scales" in z:
                 raise ValueError(
                     f"{path}: not a global-scale int8 or a vector flat artifact"
                 )
+            n = z[key].shape[0]
+            rank, world = part if part is not None else (0, 1)
+            if key == "vectors":
+                lo, hi = idx._part_rows(n, rank, world, idx.mesh.dp if idx.mesh else 1)
+                idx.add(z["vectors"][lo:hi])
+                idx.id_offset, idx.ntotal_global = lo, n
+                return idx
             idx.rescore_k = int(z["rescore_k"]) if "rescore_k" in z else 0
-            codes = torch.from_numpy(z["vectors_i8"])
-            n = codes.shape[0]
-            pad = _round_up(n, idx._chunk_i8) - n
-            idx._db_i8 = torch.nn.functional.pad(
-                codes.to(idx.device), (0, 0, 0, pad)
-            )
-            idx._db_gscale = torch.tensor(
-                float(z["gscale"]), dtype=torch.float32, device=idx.device
-            )
+            lo, hi = idx._part_rows(n, rank, world, idx._i8_align())
+            n_pad = _round_up(n, idx._i8_align(world)) // world
+
+            def padded(a, dtype):
+                t = torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dtype)
+                return torch.nn.functional.pad(t, (0, 0, 0, n_pad - (hi - lo)))
+
+            gscale = torch.tensor(float(z["gscale"]), dtype=torch.float32)
             want_host = idx.rescore_store == "host" or (
                 "rescore_store" in z and rescore_store is None
             )
+            rescore = None
             if "vectors_rescore" in z and want_host:
                 # the f16 copy stays in host RAM: no upload at all
                 idx.rescore_store = "host"
-                idx._host_rescore = np.ascontiguousarray(z["vectors_rescore"])
+                idx._host_rescore = np.ascontiguousarray(z["vectors_rescore"][lo:hi])
                 cpuscan.madvise_hugepage(idx._host_rescore)
             elif "vectors_rescore" in z:
                 # f16 on disk -> bf16 on the host, then one upload
-                re = torch.from_numpy(z["vectors_rescore"]).to(torch.bfloat16)
-                idx._db = torch.nn.functional.pad(
-                    re, (0, 0, 0, pad)
-                ).to(idx.device)
+                rescore = padded(z["vectors_rescore"], torch.bfloat16)
             else:
                 idx.rescore_k = 0
-            idx.ntotal = n
+            idx._put_i8(padded(z["vectors_i8"], torch.int8), gscale, rescore)
+            idx.ntotal = hi - lo
+            idx.id_offset, idx.ntotal_global = lo, n
             idx._loaded = True
         return idx
+
+    @staticmethod
+    def _part_rows(n: int, rank: int, world: int, align: int) -> tuple[int, int]:
+        """Process `rank`'s rows [lo, hi) of n: the artifact padded to a
+        multiple of world x align, cut into world equal ranges."""
+        per = _round_up(n, align * world) // world
+        lo = min(rank * per, n)
+        return lo, min(lo + per, n)
+
+
+def load_part(
+    path: str, rank: int, world: int, *, mesh: Optional[MeshContext] = None,
+    device: Optional[torch.device] = None, rescore_store: Optional[str] = None,
+) -> FlatIndex:
+    """Process `rank`'s row range of a flat artifact, for SPMD serving: the
+    global scale and rescore rows are the artifact's, `id_offset` lifts the
+    part's ids to global ids (`serve/spmd.py::spmd_search`)."""
+    return FlatIndex._load(
+        path, device, rescore_store=rescore_store, mesh=mesh, part=(rank, world)
+    )

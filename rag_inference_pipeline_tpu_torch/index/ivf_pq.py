@@ -1,7 +1,7 @@
 """IVF-PQ index: residual product quantization over the bucketed IVF layout,
 with an optional re-score of the ADC shortlist.
 
-Port of `rag_inference_pipeline_tpu/index/ivf_pq.py` at dp=1, with its
+Port of `rag_inference_pipeline_tpu/index/ivf_pq.py`, with its
 search routing: PQ4 (ksub=16) scans through `ivfpq4_search_dedup` (kernel
 K6 on the card, its plain version on the CPU, where the reference runs
 Pallas in interpret mode), PQ8 through the gather-ADC `ivfpq_search`. With
@@ -20,8 +20,14 @@ one of five stores (`rescore_kind`):
   NEG_INF and -inf.
 
 Artifacts are the reference's `.npz` in both directions, an OPQ rotation
-included; `train_add` builds without one. The sharded search is not ported
-(no mesh in the port).
+included; `train_add` builds without one.
+
+With a mesh of dp > 1 and nlist % dp == 0 the code buckets are sharded
+over dp (`_maybe_shard`, reference `ivf_pq.py:137-147`) and the ADC runs
+through `ops/pq.py::sharded_ivfpq_search` (K6 once a shard for PQ4). The
+re-score stores are not sharded: the merged shortlist's ids are global and
+it lands on the front device, so each store is held once there (on one card
+that is the one copy per distinct device; the reference replicates them).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.mesh import MeshContext
 from ..ops.kmeans import require_full_f32
 from ..ops.pq import (
     Int4ResidualTier,
@@ -45,6 +52,8 @@ from ..ops.pq import (
     ivfpq4_search_dedup,
     ivfpq_search,
     pq_tier_rescore_topk,
+    shard_ivfpq_listing,
+    sharded_ivfpq_search,
 )
 from ..ops.topk import NEG_INF, _topk, quantize_global_int8
 from ..utils import cpuscan
@@ -71,6 +80,7 @@ class IVFPQIndex:
         rescore_kind: str = "exact",
         rescore_pq_m: int = 0,
         device: Optional[torch.device] = None,
+        mesh: Optional[MeshContext] = None,
     ) -> None:
         if dim % m != 0:
             raise ValueError(f"dim {dim} not divisible by pq m {m}")
@@ -97,8 +107,13 @@ class IVFPQIndex:
         self.rescore_kind = rescore_kind
         # pq8 tier subspaces; 0 = 4-dim subspaces (dim / 4)
         self.rescore_pq_m = rescore_pq_m or dim // 4
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        if device is None:
+            device = mesh.front if mesh is not None else "cpu"
+        self.device = torch.device(device)
+        self.mesh = mesh
+        self.nprobe_local = 0  # sharded: scan slots a shard, 0 = auto
         self._listing: Optional[IVFPQListing] = None
+        self._shards: Optional[list[IVFPQListing]] = None  # when sharded
         self._vectors: Optional[torch.Tensor] = None  # "exact": [N, D] bf16
         self._tier: Optional[PQFlatTier] = None  # "pq8"
         self._int4: Optional[Int4ResidualTier] = None  # "int4"
@@ -166,7 +181,29 @@ class IVFPQIndex:
             else:
                 self._vectors = v.to(torch.bfloat16)
         self.ntotal = n
+        self._maybe_shard()
         self._loaded = True
+
+    def _maybe_shard(self) -> None:
+        """Shard the lists over dp when the mesh has dp > 1 and nlist % dp
+        == 0; the whole listing is dropped for its shards. The re-score
+        tiers keep the whole listing's centroids (views of the same rows)."""
+        if self.mesh is not None and self.mesh.dp > 1 and self.nlist % self.mesh.dp == 0:
+            self._shards = shard_ivfpq_listing(self.mesh, self._listing)
+            self._listing = None
+
+    def listing(self) -> IVFPQListing:
+        """The whole listing: the one on the device, or the shards joined on
+        the host (codebooks from the front position)."""
+        if self._shards is None:
+            return self._listing
+        g = self.mesh.gather_rows
+        sh = self._shards
+        return IVFPQListing(
+            centroids=g([x.centroids for x in sh]), codebooks=sh[0].codebooks.cpu(),
+            code_buckets=g([x.code_buckets for x in sh]), ids=g([x.ids for x in sh]),
+            list_sizes=g([x.list_sizes for x in sh]),
+        )
 
     def search(
         self, queries, k: int, *, scan=ivfpq4_adc_scores
@@ -182,6 +219,11 @@ class IVFPQIndex:
             q = q @ self._rotation
 
         def adc(kk):
+            if self._shards is not None:
+                return sharded_ivfpq_search(
+                    self.mesh, self._shards, q, kk, nprobe=self.nprobe,
+                    nprobe_local=self.nprobe_local, scan=scan,
+                )
             if self.ksub == 16:
                 return ivfpq4_search_dedup(
                     self._listing, q, kk, nprobe=self.nprobe, scan=scan
@@ -211,7 +253,7 @@ class IVFPQIndex:
     def save(self, path: str) -> None:
         if not self._loaded:
             raise RuntimeError("nothing to save")
-        lst = self._listing
+        lst = self.listing()
         extra = {}
         if self._vectors is not None:
             extra["vectors"] = self._vectors.float().cpu().numpy()
@@ -250,7 +292,10 @@ class IVFPQIndex:
         )
 
     @classmethod
-    def _load(cls, path: str, device: Optional[torch.device] = None) -> "IVFPQIndex":
+    def _load(
+        cls, path: str, device: Optional[torch.device] = None,
+        mesh: Optional[MeshContext] = None,
+    ) -> "IVFPQIndex":
         with np.load(path, allow_pickle=False) as z:
             idx = cls(
                 int(z["dim"]),
@@ -261,19 +306,22 @@ class IVFPQIndex:
                 rescore_k=int(z["rescore_k"]),
                 ksub=int(z["ksub"]) if "ksub" in z else 256,
                 device=device,
+                mesh=mesh,
             )
             dev = idx.device
 
-            def put(name, dtype=None):
+            def put(name, dtype=None, where=dev):
                 t = torch.from_numpy(z[name])
-                return t.to(dev) if dtype is None else t.to(dev, dtype)
+                return t.to(where) if dtype is None else t.to(where, dtype)
 
+            # sharded: the lists go from the host straight to their positions
+            lists = "cpu" if mesh is not None and mesh.dp > 1 and idx.nlist % mesh.dp == 0 else dev
             idx._listing = IVFPQListing(
                 centroids=put("centroids", torch.float32),
                 codebooks=put("codebooks", torch.float32),
-                code_buckets=put("code_buckets", torch.uint8),
-                ids=put("ids", torch.int32),
-                list_sizes=put("list_sizes", torch.int32),
+                code_buckets=put("code_buckets", torch.uint8, lists),
+                ids=put("ids", torch.int32, lists),
+                list_sizes=put("list_sizes", torch.int32, lists),
             )
             if "vectors" in z:
                 # f32 on disk -> bf16 on the host, then one upload
@@ -308,11 +356,13 @@ class IVFPQIndex:
             if "rotation" in z:
                 idx._rotation = put("rotation", torch.float32)
             idx.ntotal = int(z["ntotal"])
+            idx._maybe_shard()
             idx._loaded = True
         return idx
 
     def unload(self) -> None:
         self._listing = None
+        self._shards = None
         self._vectors = None
         self._tier = None
         self._int4 = None

@@ -27,6 +27,12 @@ whole (memory-clamped) ladder. Under USE_CONTINUOUS_BATCHING the engine
 captures its segment graph when it starts, so the warm-up runs the eager
 prefill only; with the fused pipeline the LLM warms nothing (the fused
 executor warms its own buckets).
+
+Every component takes the serving mesh (`core/mesh.py`, the reference's
+`MeshContext` argument) and holds its weights on the mesh's front device,
+which must be the `device` it is given. The staged forwards run the whole
+batch there; the fused step splits its batch over dp itself
+(`engine/device_pipeline.py`), with the weights once per distinct device.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from ..core.config import Settings
 from ..core.device import torch_dtype
+from ..core.mesh import MeshContext
 from ..utils.cache import LRUCache
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
 from .bert import (
@@ -131,6 +138,13 @@ def _checkpoint_dir(settings: Settings, model_name: str) -> Optional[str]:
     return mdir
 
 
+def _front(device: torch.device, mesh: Optional[MeshContext]) -> torch.device:
+    """The component's device: `device`, which must be the mesh's front."""
+    if mesh is not None and torch.device(device) != mesh.front:
+        raise ValueError(f"device {device} is not the mesh's front device {mesh.front}")
+    return device
+
+
 class _BertBase:
     """Shared load for BERT-backed components."""
 
@@ -138,11 +152,12 @@ class _BertBase:
 
     def __init__(
         self, settings: Settings, model_name: str, device: torch.device,
-        num_labels: int = 0,
+        num_labels: int = 0, mesh: Optional[MeshContext] = None,
     ) -> None:
         self.settings = settings
         self.model_name = model_name
-        self.device = device
+        self.device = _front(device, mesh)
+        self.mesh = mesh
         self.cfg = _bert_config_for(model_name, num_labels)
         self.max_len = min(settings.truncate_length, self.cfg.max_positions)
         self.params = None
@@ -217,8 +232,9 @@ class EmbedderComponent(_BertBase):
     dim], cached by the SHA-256 of the text; the fused step runs its
     forward itself."""
 
-    def __init__(self, settings: Settings, device: torch.device):
-        super().__init__(settings, settings.embedding_model, device)
+    def __init__(self, settings: Settings, device: torch.device,
+                 mesh: Optional[MeshContext] = None):
+        super().__init__(settings, settings.embedding_model, device, mesh=mesh)
         self.cache = LRUCache(
             settings.embedding_cache_capacity, name="embedding",
             run_id=settings.run_id, node=str(settings.node_number),
@@ -265,8 +281,9 @@ class RerankerComponent(_BertBase):
     """Cross-encoder rerank: (query, doc) pairs -> sigmoid relevance,
     sorted descending, with `rerank_score` added to each doc."""
 
-    def __init__(self, settings: Settings, device: torch.device):
-        super().__init__(settings, settings.reranker_model, device, num_labels=1)
+    def __init__(self, settings: Settings, device: torch.device,
+                 mesh: Optional[MeshContext] = None):
+        super().__init__(settings, settings.reranker_model, device, num_labels=1, mesh=mesh)
         self.max_len = min(settings.truncate_length, self.cfg.max_positions - 2)
 
     def _warm(self, b: int) -> None:
@@ -324,8 +341,9 @@ class SentimentComponent(_BertBase):
 
     CLASSIFIER = True
 
-    def __init__(self, settings: Settings, device: torch.device):
-        super().__init__(settings, settings.sentiment_model, device, num_labels=5)
+    def __init__(self, settings: Settings, device: torch.device,
+                 mesh: Optional[MeshContext] = None):
+        super().__init__(settings, settings.sentiment_model, device, num_labels=5, mesh=mesh)
 
     def _warm(self, b: int) -> None:
         self.analyze_batch([f"warmup {i}" for i in range(b)])
@@ -355,8 +373,9 @@ class ToxicityComponent(_BertBase):
     CLASSIFIER = True
     THRESHOLD = 0.5
 
-    def __init__(self, settings: Settings, device: torch.device):
-        super().__init__(settings, settings.toxicity_model, device, num_labels=6)
+    def __init__(self, settings: Settings, device: torch.device,
+                 mesh: Optional[MeshContext] = None):
+        super().__init__(settings, settings.toxicity_model, device, num_labels=6, mesh=mesh)
 
     def _warm(self, b: int) -> None:
         self.check_batch([f"warmup {i}" for i in range(b)])
@@ -386,9 +405,11 @@ class LLMComponent:
     with `use_continuous_batching`, one request at a time through the
     decode engine that `start()` runs."""
 
-    def __init__(self, settings: Settings, device: torch.device):
+    def __init__(self, settings: Settings, device: torch.device,
+                 mesh: Optional[MeshContext] = None):
         self.settings = settings
-        self.device = device
+        self.device = _front(device, mesh)
+        self.mesh = mesh
         self.model_name = settings.llm_model
         self.cfg = _qwen_config_for(self.model_name)
         lname = self.model_name.lower()

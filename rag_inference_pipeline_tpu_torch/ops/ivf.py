@@ -1,7 +1,7 @@
 """IVF-Flat: a cluster-bucketed layout and its searches, with the bucket
 scans K5 (batch-deduplicated) and K4 (per-query streaming).
 
-Port of `rag_inference_pipeline_tpu/ops/ivf.py` at dp=1. Inverted lists
+Port of `rag_inference_pipeline_tpu/ops/ivf.py`. Inverted lists
 are a padded dense tensor [nlist, cap, D] with an id map [nlist, cap]
 (-1 = padding); a vector that overflows a full list cascades to its
 next-nearest centroid with room. The list layout is computed in numpy on
@@ -19,7 +19,12 @@ Searches: the coarse probe is a float32 matmul against the centroids
   `ivf_dedup_scores`), membership and padding masked after;
 - `ivf_search_scan`: per query, the scores of its probed buckets folded
   into a positional max and the winning probe slot (K4,
-  `ivf_scan_partial`), ids resolved after.
+  `ivf_scan_partial`), ids resolved after;
+- `sharded_ivf_search`: lists split over a `core/mesh.py` mesh's dp
+  positions (`shard_ivf_listing`), global probe selection, each
+  position's kept lists scored once a batch (K5 through
+  `ivf_search_dedup(coarse_floor=...)`; l2 through the plain gather), one
+  merge.
 
 On CUDA tensors the K4/K5 wrappers launch `csrc/ivf_scan.cu` /
 `csrc/ivf_dedup.cu` (or raise); on CPU tensors they run the plain PyTorch
@@ -210,14 +215,20 @@ def ivf_search(
     nprobe: int = 64,
     metric: str = "ip",
     query_chunk: int = 8,
+    coarse_floor: Optional[torch.Tensor] = None,  # [B, 1] least coarse score
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact search within the probed lists (plain gather path). Returns
     (scores [B,k] f32, row ids [B,k] i32). Gathers `query_chunk` queries'
-    buckets at a time; the result does not depend on it."""
+    buckets at a time; the result does not depend on it. `coarse_floor`
+    masks a query's probed lists whose coarse score is under its floor, as
+    the reference's sharded search masks them (`ops/ivf.py:505`)."""
     nlist, cap, d = listing.buckets.shape
     nprobe = min(nprobe, nlist)
     qf = queries.float()
-    probe = coarse_probe(listing, qf, nprobe, metric).long()
+    coarse_s, probe = _topk(coarse_scores(listing.centroids, qf, metric), nprobe)
+    keep = torch.ones_like(probe, dtype=torch.bool)
+    if coarse_floor is not None:
+        keep = coarse_s >= coarse_floor
     qd = qf.to(listing.buckets.dtype).float()
     k_eff = min(k, nprobe * cap)
     out_s, out_i = [], []
@@ -228,7 +239,7 @@ def ivf_search(
         s = torch.einsum("bpcd,bd->bpc", vecs, qd[s0 : s0 + query_chunk])
         if metric == "l2":
             s = 2.0 * s - (vecs * vecs).sum(dim=-1)
-        s = torch.where(bids >= 0, s, NEG_INF)
+        s = torch.where(keep[s0 : s0 + query_chunk, :, None] & (bids >= 0), s, NEG_INF)
         b = s.shape[0]
         top_s, sel = _topk(s.reshape(b, nprobe * cap), k_eff)
         out_s.append(top_s)
@@ -252,6 +263,22 @@ def dedup_probes(
     mask[probe.reshape(-1).long()] = 1.0
     slots = torch.sort(mask, descending=True, stable=True).indices[:n_slots]
     member = (probe[:, :, None].long() == slots[None, None, :]).any(dim=1)
+    return slots.to(torch.int32), member
+
+
+def dedup_kept_probes(
+    probe: torch.Tensor, keep: torch.Tensor, nlist: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`dedup_probes` over the kept probes only: (slots [n_kept] i32, the
+    lists some query keeps in ascending id; member [B, n_kept] bool). The
+    slot count is read on the host."""
+    kept = torch.where(keep, probe.long(), nlist)  # nlist: a spare entry
+    mask = torch.zeros((nlist + 1,), dtype=torch.float32, device=probe.device)
+    mask[kept.reshape(-1)] = 1.0
+    mask = mask[:nlist]
+    n_kept = int(mask.sum().item())
+    slots = torch.sort(mask, descending=True, stable=True).indices[:n_kept]
+    member = (kept[:, :, None] == slots[None, None, :]).any(dim=1)
     return slots.to(torch.int32), member
 
 
@@ -349,21 +376,45 @@ def ivf_search_dedup(
     nprobe: int = 64,
     max_slots: int = 0,  # 0 = min(nlist, B * nprobe)
     scan=ivf_dedup_scores,
+    coarse_floor: Optional[torch.Tensor] = None,  # [B, 1] least coarse score
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """IVF search (IP) reading each probed bucket once per batch (K5); exact
     within the probed lists. Returns (scores [B,k] f32, ids [B,k] i32).
 
     As in the reference, when fewer than k candidates are valid the top-k
     fills up with NEG_INF entries in flat order, which may carry the real
-    id of an unprobed slot's row (callers filter on the score or the id)."""
+    id of an unprobed slot's row (callers filter on the score or the id).
+
+    `coarse_floor` is the sharded search's: a query's probed lists under
+    its floor are dropped, and a list no query keeps takes no slot, so K5
+    scans only the kept lists (one host read of their count). Each query's
+    candidates are then laid out as the reference's sharded gather lays
+    them, [its probes best first, cap] (`ops/ivf.py:509-520`), so ties and
+    the NEG_INF fill fall as there."""
     nlist, cap, _ = listing.buckets.shape
     nprobe = min(nprobe, nlist)
     b = queries.shape[0]
-    n_slots = min(max_slots or min(nlist, b * nprobe), nlist)
     qf = queries.float()
+    q = qf.to(listing.buckets.dtype).contiguous()
+    if coarse_floor is not None:
+        coarse_s, probe = _topk(coarse_scores(listing.centroids, qf), nprobe)
+        keep = coarse_s >= coarse_floor
+        slots, _ = dedup_kept_probes(probe, keep, nlist)
+        bids = listing.ids[probe]  # [B, nprobe, cap]
+        s = torch.full(bids.shape, NEG_INF, dtype=torch.float32, device=q.device)
+        if slots.shape[0]:
+            scores = scan(q, listing.buckets, slots, listing.list_sizes)
+            col = torch.zeros((nlist,), dtype=torch.long, device=q.device)
+            col[slots.long()] = torch.arange(slots.shape[0], device=q.device)
+            idx = col[probe][:, :, None].expand(-1, -1, cap)
+            s = torch.gather(scores.permute(1, 0, 2), 1, idx)
+            del scores
+        s.masked_fill_(~keep[:, :, None] | (bids < 0), NEG_INF)
+        top_s, sel = _topk(s.reshape(b, nprobe * cap), min(k, nprobe * cap))
+        return top_s, torch.gather(bids.reshape(b, nprobe * cap), 1, sel)
+    n_slots = min(max_slots or min(nlist, b * nprobe), nlist)
     probe = coarse_probe(listing, qf, nprobe)
     slots, member = dedup_probes(probe, nlist, n_slots)
-    q = qf.to(listing.buckets.dtype).contiguous()
     scores = scan(q, listing.buckets, slots, listing.list_sizes)
     ids_g = listing.ids[slots.long()]  # [n_slots, cap]
     valid = member[:, :, None] & (ids_g >= 0)[None]
@@ -464,3 +515,88 @@ def ivf_search_scan(
     out_ids = torch.where(win >= 0, listing.ids[clusters, pos], -1)
     top_s, sel = _topk(vals, min(k, cap))
     return top_s, torch.gather(out_ids, 1, sel)
+
+
+# ---------------------------------------------------------------------------
+# dp-sharded IVF: the inverted lists split over the mesh's dp positions.
+# ---------------------------------------------------------------------------
+
+def shard_ivf_listing(ctx, listing: IVFListing) -> list[IVFListing]:
+    """The listing with its lists split over dp: position i holds lists
+    [i * nlist/dp, (i+1) * nlist/dp) with their centroids (reference
+    `ops/ivf.py:425`); ids stay global. Needs nlist % dp == 0."""
+    nlist = listing.buckets.shape[0]
+    if nlist % ctx.dp != 0:
+        raise ValueError(f"nlist ({nlist}) must be divisible by mesh dp ({ctx.dp})")
+    fields = [ctx.put(f, ctx.rows_dp) for f in listing]
+    return [IVFListing(*per_shard) for per_shard in zip(*fields)]
+
+
+def default_nprobe_local(nprobe: int, nlist: int, dp: int, nprobe_local: int = 0) -> int:
+    """Scan slots per shard: `nprobe_local`, or 2 * ceil(nprobe / dp) (the
+    reference's measured exactness point), at most nlist / dp."""
+    if nprobe_local <= 0:
+        nprobe_local = max(1, 2 * -(-nprobe // dp))
+    return min(nprobe_local, nlist // dp)
+
+
+def global_coarse_floor(
+    ctx, coarse_l: list[torch.Tensor], nprobe: int
+) -> torch.Tensor:
+    """The all-gather of the positions' coarse scores [B, nlist/dp] on the
+    front device, in position order, and each query's nprobe-th best score
+    [B, 1]: a list clearing it is in the global top-nprobe (ties widen)."""
+    coarse_g = torch.cat([c.to(ctx.front) for c in coarse_l], dim=1)
+    tvals, _ = _topk(coarse_g, min(nprobe, coarse_g.shape[1]))
+    return tvals[:, -1:]
+
+
+def sharded_ivf_search(
+    ctx,
+    shards: list[IVFListing],
+    queries: torch.Tensor,
+    k: int,
+    *,
+    nprobe: int = 64,
+    nprobe_local: int = 0,
+    metric: str = "ip",
+    scan=ivf_dedup_scores,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF search over dp-sharded lists (reference `ops/ivf.py:448`).
+
+    Probe selection is global: the positions' coarse scores are gathered
+    into [B, nlist] and each query's nprobe-th best score is the floor;
+    each position then scans its top-`nprobe_local` lists that clear it
+    (`default_nprobe_local`), so the probed union is the unsharded search's
+    while no shard owns more than nprobe_local of a query's winners. An IP
+    position scores its kept lists once a batch (K5, `scan`, through
+    `ivf_search_dedup(coarse_floor=...)`: the reference's gather and
+    einsum would materialise [B, nprobe_local, cap, D], 2 GB a shard at
+    B=64 on the staged 1M corpus); an l2 position takes the plain gather
+    (`ivf_search`), as the unsharded l2 search does. Per-shard top-k lists
+    (padded with NEG_INF and -1 where a shard has fewer than k slots)
+    merge as in `ops/topk.py::sharded_topk`."""
+    from .topk import _merge_shards
+
+    if len(shards) != ctx.dp:
+        raise ValueError(f"{len(shards)} shards for a mesh of dp={ctx.dp}")
+    nlist_l = shards[0].buckets.shape[0]
+    nprobe_local = default_nprobe_local(nprobe, nlist_l * ctx.dp, ctx.dp, nprobe_local)
+    qf = queries.float()
+    qs = [qf.to(dev) for dev in ctx.devices]
+    coarse_l = [coarse_scores(loc.centroids, q, metric) for loc, q in zip(shards, qs)]
+    floor = global_coarse_floor(ctx, coarse_l, nprobe)
+    parts = []
+    for dev, loc, q in zip(ctx.devices, shards, qs):
+        fl = floor.to(dev)
+        if metric == "ip":
+            s, i = ivf_search_dedup(loc, q, k, nprobe=nprobe_local, scan=scan,
+                                    coarse_floor=fl)
+        else:
+            s, i = ivf_search(loc, q, k, nprobe=nprobe_local, metric=metric,
+                              coarse_floor=fl)
+        if s.shape[1] < k:  # the shard has fewer than k candidate slots
+            s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=NEG_INF)
+            i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=-1)
+        parts.append((torch.where(i >= 0, s, NEG_INF), i))
+    return _merge_shards(ctx, parts, k)

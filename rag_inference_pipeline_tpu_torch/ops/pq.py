@@ -1,7 +1,7 @@
 """Product quantization: codebook training, encoding, ADC scans, IVF-PQ and
 its re-score tiers, with the PQ4 ADC kernel K6.
 
-Port of `rag_inference_pipeline_tpu/ops/pq.py` at dp=1:
+Port of `rag_inference_pipeline_tpu/ops/pq.py`:
 
 - codebooks are 2^bits-way k-means per subspace, all M subspaces trained at
   once as a batch (`ops/kmeans.py`); encoding is the nearest codeword by
@@ -23,8 +23,10 @@ On CUDA tensors the K6 wrapper launches `csrc/ivfpq4_adc.cu` (or raises);
 on CPU tensors it runs `ivfpq4_adc_scores_plain` beside it, which is also
 the kernel's oracle. Randomness comes from a `torch.Generator`, so trained
 codebooks match the reference in kind, not bit for bit; encoding, LUTs,
-the layout and every search match it on the same codebooks. The sharded
-IVF-PQ search is not ported (no mesh in the port).
+the layout and every search match it on the same codebooks;
+- the dp-sharded search (`shard_ivfpq_listing`, `sharded_ivfpq_search`)
+  over a `core/mesh.py` mesh: global probe selection through the
+  `coarse_floor` of both searches, K6 once a shard.
 """
 
 from __future__ import annotations
@@ -35,7 +37,13 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .ivf import coarse_scores, dedup_probes, layout_inverted_lists, _index_args
+from .ivf import (
+    _index_args,
+    coarse_scores,
+    dedup_kept_probes,
+    dedup_probes,
+    layout_inverted_lists,
+)
 from .kmeans import assign_clusters, kmeans, require_full_f32
 from .topk import NEG_INF, _on_cpu, _round_up, _topk
 
@@ -290,19 +298,24 @@ def ivfpq_search(
     k: int,
     *,
     nprobe: int = 64,
+    coarse_floor: Optional[torch.Tensor] = None,  # [B, 1] least coarse score
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """IVF-PQ search (IP, residual codes), the gather-ADC path for any
     ksub: score = q.centroid + ADC(q, codes), probed lists scored
     `_PROBE_CHUNK` at a time with a running top-k merge. The probe set is
     padded to a multiple of `_PROBE_CHUNK` with repeats of the last probe at
-    a NEG_INF coarse term, as the reference pads it. Returns (scores [B,k]
-    f32, ids [B,k] i32)."""
+    a NEG_INF coarse term, as the reference pads it. `coarse_floor` gives
+    probed lists under a caller's threshold a NEG_INF coarse term, as the
+    reference does (the sharded search passes the global nprobe-th coarse
+    score). Returns (scores [B,k] f32, ids [B,k] i32)."""
     nlist, cap, _ = listing.code_buckets.shape
     m, ksub, _ = listing.codebooks.shape  # m_store may be lane-padded (PQ4)
     nprobe = min(nprobe, nlist)
     b = queries.shape[0]
     qf = queries.float()
     coarse_s, probe = _topk(coarse_scores(listing.centroids, qf), nprobe)
+    if coarse_floor is not None:
+        coarse_s = torch.where(coarse_s >= coarse_floor, coarse_s, NEG_INF)
     pad = (-nprobe) % _PROBE_CHUNK
     if pad:
         probe = torch.cat([probe, probe[:, -1:].expand(b, pad)], dim=1)
@@ -427,6 +440,7 @@ def ivfpq4_search_dedup(
     *,
     nprobe: int = 64,
     scan=ivfpq4_adc_scores,
+    coarse_floor: Optional[torch.Tensor] = None,  # [B, 1] least coarse score
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """IVF-PQ4 search (IP, residual codes) scoring each probed bucket once
     per batch (K6). Needs a PQ4 (ksub=16) listing with m % 8 == 0. Returns
@@ -436,7 +450,15 @@ def ivfpq4_search_dedup(
     b_pad, a multiple of 8 queries, as the reference feeds its kernel. As
     there, when fewer than k candidates are valid the flat top-k fills up
     with NEG_INF entries in flat order, which may carry the real id of an
-    unprobed slot's row."""
+    unprobed slot's row.
+
+    `coarse_floor` drops a query's probed lists whose coarse score is under
+    its floor (the sharded search's global threshold). It masks membership
+    before the dedup, so a list no query keeps takes no slot and K6 scans
+    only the kept lists (one host read of their count); the reference
+    masks after its kernel. The valid candidates, their scores and their
+    order are the same; where fewer than k are valid, the fill is NEG_INF
+    and -1 up to the reference's width."""
     nlist, cap, _ = listing.code_buckets.shape
     m, ksub, _ = listing.codebooks.shape
     if ksub != 16:
@@ -447,10 +469,21 @@ def ivfpq4_search_dedup(
     b = queries.shape[0]
     b_pad = _round_up(max(b, 8), 8)
     n_slots = min(nlist, b * nprobe)
+    width = min(k, n_slots * cap)
     qf = queries.float()
     coarse = coarse_scores(listing.centroids, qf)
-    probe = _topk(coarse, nprobe)[1].to(torch.int32)
-    slots, member = dedup_probes(probe, nlist, n_slots)
+    coarse_s, probe = _topk(coarse, nprobe)
+    probe = probe.to(torch.int32)
+    if coarse_floor is None:
+        slots, member = dedup_probes(probe, nlist, n_slots)
+    else:
+        slots, member = dedup_kept_probes(probe, coarse_s >= coarse_floor, nlist)
+        n_slots = slots.shape[0]
+        if n_slots == 0:
+            return (
+                torch.full((b, width), NEG_INF, dtype=torch.float32, device=qf.device),
+                torch.full((b, width), -1, dtype=torch.int32, device=qf.device),
+            )
     lut = pq_lut(qf, listing.codebooks)
     lut = torch.nn.functional.pad(lut, (0, 0, 0, b_pad - b)).to(torch.bfloat16)
     scores = scan(lut.contiguous(), listing.code_buckets, slots, listing.list_sizes)
@@ -463,7 +496,85 @@ def ivfpq4_search_dedup(
     flat_s = s_bq.reshape(b, n_slots * cap)
     flat_i = ids_g.reshape(1, n_slots * cap).expand(b, -1)
     top_s, sel = _topk(flat_s, min(k, n_slots * cap))
-    return top_s, torch.gather(flat_i, 1, sel)
+    top_i = torch.gather(flat_i, 1, sel)
+    if top_s.shape[1] < width:  # fewer kept slots than the reference's
+        fill = width - top_s.shape[1]
+        top_s = torch.nn.functional.pad(top_s, (0, fill), value=NEG_INF)
+        top_i = torch.nn.functional.pad(top_i, (0, fill), value=-1)
+    return top_s, top_i
+
+
+# ---------------------------------------------------------------------------
+# dp-sharded IVF-PQ: the code buckets split over the mesh's dp positions.
+# ---------------------------------------------------------------------------
+
+
+def shard_ivfpq_listing(ctx, listing: IVFPQListing) -> list[IVFPQListing]:
+    """The listing with its lists split over dp (centroids, code buckets,
+    ids, sizes) and the codebooks once per distinct device (reference
+    `ops/pq.py:587`). Needs nlist % dp == 0."""
+    nlist = listing.code_buckets.shape[0]
+    if nlist % ctx.dp != 0:
+        raise ValueError(f"nlist ({nlist}) must be divisible by mesh dp ({ctx.dp})")
+    rows = ctx.rows_dp
+    cents, buckets, ids, sizes = (
+        ctx.put(f, rows) for f in (
+            listing.centroids, listing.code_buckets, listing.ids, listing.list_sizes,
+        )
+    )
+    books = ctx.put(listing.codebooks)
+    return [
+        IVFPQListing(centroids=c, codebooks=cb, code_buckets=bk, ids=i, list_sizes=sz)
+        for c, cb, bk, i, sz in zip(cents, books, buckets, ids, sizes)
+    ]
+
+
+def sharded_ivfpq_search(
+    ctx,
+    shards: list[IVFPQListing],
+    queries: torch.Tensor,
+    k: int,
+    *,
+    nprobe: int = 64,
+    nprobe_local: int = 0,
+    scan=ivfpq4_adc_scores,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF-PQ search over dp-sharded lists (reference `ops/pq.py:611`).
+
+    Probe selection is global, as in `ops/ivf.py::sharded_ivf_search`: the
+    nprobe-th best coarse score over all lists is every position's
+    `coarse_floor`, and a position's ADC (K6 through `ivfpq4_search_dedup`
+    for PQ4, once a shard; the gather ADC for PQ8) scans its top
+    `nprobe_local` lists that clear it. Per-shard top-k lists are padded
+    with -inf and -1 below k and merged as in `ops/topk.py::sharded_topk`.
+    Stored ids are global; re-scoring the merged shortlist is the index's
+    job."""
+    from .ivf import default_nprobe_local, global_coarse_floor
+    from .topk import _merge_shards
+
+    if len(shards) != ctx.dp:
+        raise ValueError(f"{len(shards)} shards for a mesh of dp={ctx.dp}")
+    nlist_l = shards[0].code_buckets.shape[0]
+    nprobe_local = default_nprobe_local(nprobe, nlist_l * ctx.dp, ctx.dp, nprobe_local)
+    ksub = shards[0].codebooks.shape[1]
+    qf = queries.float()
+    qs = [qf.to(dev) for dev in ctx.devices]
+    coarse_l = [coarse_scores(loc.centroids, q) for loc, q in zip(shards, qs)]
+    floor = global_coarse_floor(ctx, coarse_l, nprobe)
+    parts = []
+    for dev, loc, q in zip(ctx.devices, shards, qs):
+        fl = floor.to(dev)
+        if ksub == 16:
+            s, i = ivfpq4_search_dedup(
+                loc, q, k, nprobe=nprobe_local, scan=scan, coarse_floor=fl
+            )
+        else:
+            s, i = ivfpq_search(loc, q, k, nprobe=nprobe_local, coarse_floor=fl)
+        if s.shape[1] < k:
+            s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=-float("inf"))
+            i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=-1)
+        parts.append((torch.where(i >= 0, s, -float("inf")), i))
+    return _merge_shards(ctx, parts, k)
 
 
 # ---------------------------------------------------------------------------

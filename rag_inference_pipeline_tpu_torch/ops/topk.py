@@ -12,6 +12,10 @@ tensors `binmax_partial_topk`, `binmax_partial_topk_int8gs` and
 on CPU tensors they run the plain PyTorch versions beside them, which are
 also the kernels' oracles.
 
+The sharded searches (`sharded_topk`, `sharded_topk_int8gs`) split the
+rows over the dp positions of a `core/mesh.py` mesh: a local scan a
+position (K2 or K1 once a shard), ids lifted to global ids, one merge.
+
 Ties: `lax.top_k` puts the lower index first, so every top-k here goes
 through `_topk`, an exact selection in that order.
 """
@@ -638,3 +642,123 @@ def fused_topk_int8(
         return _rescore(queries, vals, idxs, rescore_db, rescore_k, k)
     s, sel = _topk(vals, min(k, vals.shape[1]))
     return s, torch.gather(idxs, 1, sel)
+
+
+# ---------------------------------------------------------------------------
+# Sharded search: database rows split over the mesh's dp positions; a local
+# scan per position, then one merge of the [B, dp*k] candidates.
+# ---------------------------------------------------------------------------
+
+
+def _merge_shards(
+    ctx, parts: list[tuple[torch.Tensor, torch.Tensor]], k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's all-gather merge: every position's (scores, ids)
+    gathered on the front device in position order, then one `_topk`, so a
+    tie goes to the lower shard (as `lax.top_k` over the tiled gather)."""
+    front = ctx.front
+    s_all = torch.cat([s.to(front) for s, _ in parts], dim=1)
+    i_all = torch.cat([i.to(front) for _, i in parts], dim=1)
+    ms, sel = _topk(s_all, k)
+    return ms, torch.gather(i_all, 1, sel)
+
+
+def _check_shards(ctx, *placed) -> None:
+    for p in placed:
+        if p is not None and len(p) != ctx.dp:
+            raise ValueError(f"{len(p)} shards for a mesh of dp={ctx.dp}")
+
+
+def sharded_topk(
+    ctx,
+    queries: torch.Tensor,
+    db_shards,  # dp row blocks of [N_pad, D] (MeshContext.put(db, rows_dp))
+    k: int,
+    *,
+    use_fused: bool = False,
+    nbins: int = 512,
+    chunk: int = 4096,
+    metric: str = "ip",
+    ntotal: Optional[int] = None,
+    scan=binmax_partial_topk,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a dp-row-sharded database (reference `ops/topk.py:645`).
+
+    Each position scans its rows: K2 through `fused_topk` with
+    `use_fused`, else `exact_topk`; local ids are lifted to global ids and
+    rows at or past `ntotal` (the even-sharding pad) masked to NEG_INF and
+    -1 after the scan, as the reference masks them. Every position's scan
+    is launched before any result is read (no host sync between shards),
+    so on several devices the scans overlap. `scan` as in `fused_topk`."""
+    _check_shards(ctx, db_shards)
+    if use_fused and metric != "ip":
+        raise ValueError("fused sharded scan supports metric='ip' only")
+    shard_rows = db_shards[0].shape[0]
+    n_real = ntotal if ntotal is not None else shard_rows * ctx.dp
+    parts = []
+    for shard, (dev, db_l) in enumerate(zip(ctx.devices, db_shards)):
+        q = queries.to(dev)
+        if use_fused:
+            s, i = fused_topk(q, db_l, k, nbins=nbins, scan=scan)
+        else:
+            s, i = exact_topk(
+                q, db_l, k, chunk=min(chunk * 8, shard_rows), metric=metric
+            )
+        gid = i + shard * shard_rows
+        s = torch.where(gid < n_real, s, NEG_INF)
+        parts.append((s, torch.where(gid < n_real, gid, -1)))
+    return _merge_shards(ctx, parts, k)
+
+
+def sharded_topk_int8gs(
+    ctx,
+    queries: torch.Tensor,  # [B, D] float, the whole batch
+    db_i8_shards,  # dp row blocks of [N_pad, D] int8
+    db_scale,  # the global scale: a 0-d f32 tensor, or one per position
+    k: int,
+    *,
+    rescore_db_shards=None,  # dp row blocks of [N_pad, D] bf16
+    rescore_k: int = 0,
+    nbins: int = 1024,
+    ntotal: Optional[int] = None,
+    scan=binmax_partial_topk_int8gs,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """dp-sharded global-scale int8 scan (K1, once a shard) + per-shard bf16
+    re-score + merge: the sharded twin of `fused_topk_int8gs` (reference
+    `ops/topk.py:705`).
+
+    Each shard passes the rows it owns, `clip(ntotal - shard * shard_rows,
+    0, shard_rows)`, as the kernel's `ntotal`, so even-sharding pad rows
+    never enter a bin and cannot displace a real negative-scoring
+    candidate; a shard that owns no row is not scanned (its candidates are
+    the empty bins' NEG_INF and -1). The query's int8 scale is the whole
+    batch's on every shard, and `db_scale` is the corpus's, never a
+    shard's own. The re-score runs per shard over that shard's rescore_k
+    survivors, so ids may differ from the unsharded search's."""
+    _check_shards(ctx, db_i8_shards, rescore_db_shards)
+    scales = db_scale if isinstance(db_scale, (list, tuple)) else [db_scale] * ctx.dp
+    shard_rows = db_i8_shards[0].shape[0]
+    n_real = ntotal if ntotal is not None else shard_rows * ctx.dp
+    rescore = rescore_db_shards is not None and rescore_k > k
+    width = min(k, nbins, rescore_k if rescore else nbins)
+    parts = []
+    for shard, dev in enumerate(ctx.devices):
+        local_rows = max(0, min(n_real - shard * shard_rows, shard_rows))
+        q = queries.to(dev)
+        if local_rows == 0:
+            b = q.shape[0]
+            parts.append((
+                torch.full((b, width), NEG_INF, dtype=torch.float32, device=dev),
+                torch.full((b, width), -1, dtype=torch.int32, device=dev),
+            ))
+            continue
+        s, i = fused_topk_int8gs(
+            q, db_i8_shards[shard], scales[shard].to(dev), k, nbins=nbins,
+            rescore_db=rescore_db_shards[shard] if rescore else None,
+            rescore_k=rescore_k if rescore else 0,
+            ntotal=local_rows, scan=scan,
+        )
+        gid = i + shard * shard_rows
+        keep = (i >= 0) & (gid < n_real)
+        parts.append((torch.where(keep, s, NEG_INF), torch.where(keep, gid, -1)))
+    return _merge_shards(ctx, parts, k)

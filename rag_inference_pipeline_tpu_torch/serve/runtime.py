@@ -82,6 +82,19 @@ WARMUP_BUCKETS on where it is unset (`resolve_serving_settings`, the
 reference's `serve/runtime.py:35-43`): every component warms the buckets
 it will dispatch before `/health` answers. Library use (`StagedApp`,
 `build_executor`) leaves it off unless set.
+
+Both paths hold a `MeshComponent` (the reference's `serve/factory.py:
+36-55`): the mesh of MESH_DP x MESH_TP over DEVICE_PLATFORM's devices, or
+one the caller hands `make_server(mesh=...)` (the reference's component
+overrides; `core/mesh.py::force_host_devices` puts dp positions on one
+card). Every component takes it; the index shards over its dp positions,
+and the fused step splits its batch over them.
+
+SPMD (DIST_NUM_PROCESSES > 1, `serve/spmd.py`): every process loads its
+part of a flat INDEX_PATH; process 0 serves HTTP with its index behind an
+`SPMDIndexProxy`, the others enter `worker_loop` and serve no HTTP (the
+reference's `serve/runtime.py:74-87`). A front door that fails to start
+sends OP_STOP before it raises, so the workers exit instead of hanging.
 """
 
 from __future__ import annotations
@@ -105,7 +118,8 @@ import numpy as np
 import torch
 
 from ..core.config import Settings, load_settings, replace_settings
-from ..core.device import resolve_device
+from ..core.distributed import init_distributed
+from ..core.mesh import MeshContext, mesh_from_settings
 from ..core.enums import ComponentType
 from ..core.profiles import load_role_profile
 from ..core.registry import ComponentRegistry
@@ -114,6 +128,7 @@ from ..engine.fused_executor import FusedExecutor
 from ..engine.orchestrator import Orchestrator
 from ..index import make_index
 from ..index.base import load_index
+from ..index.flat import load_part
 from ..models.components import (
     EmbedderComponent,
     LLMComponent,
@@ -138,6 +153,7 @@ from ..utils.docstore import DocumentStore
 from .compression import compress, decompress, require_codec
 from .rpc import ACCEPT_HEADER, ENCODING_HEADER, RPCError
 from .services import GenerationService, RetrievalExecutor
+from .spmd import SPMDIndexProxy, is_front_door, is_spmd, worker_loop
 
 logger = logging.getLogger(__name__)
 
@@ -210,12 +226,36 @@ def kernel_launches() -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
+class MeshComponent:
+    """The registry's holder of the device mesh (reference `serve/factory.py:
+    36-55`): the mesh handed in, else `mesh_from_settings` at load."""
+
+    def __init__(self, settings: Settings, ctx: Optional[MeshContext] = None) -> None:
+        self.settings = settings
+        self._given = ctx
+        self.ctx: Optional[MeshContext] = None
+
+    @property
+    def is_loaded(self) -> bool:
+        return self.ctx is not None
+
+    def load(self) -> None:
+        self.ctx = self._given if self._given is not None else mesh_from_settings(self.settings)
+        logger.info("mesh ready: dp=%d tp=%d devices=%s", self.ctx.dp, self.ctx.tp,
+                    [str(d) for d in self.ctx.devices])
+
+    def unload(self) -> None:
+        self.ctx = None
+
+
 def build_executor(
-    settings: Settings, registry: Optional[ComponentRegistry] = None
+    settings: Settings, registry: Optional[ComponentRegistry] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> FusedExecutor:
     """Load every component named by `settings` and the fused executor,
     each registered (and so loaded, and warmed where WARMUP_BUCKETS is on)
-    in `registry`, in the order the reference's profile places them."""
+    in `registry`, in the order the reference's profile places them.
+    `mesh` takes the place of the settings' mesh."""
     if not settings.use_fused_pipeline:
         raise ValueError("build_executor builds the fused pipeline: set USE_FUSED_PIPELINE=1")
     if settings.index_dtype != "int8":
@@ -224,23 +264,26 @@ def build_executor(
         raise ValueError("the fused pipeline needs a flat index at INDEX_PATH")
     if not settings.doc_tokens_path:
         raise ValueError("the fused pipeline needs DOC_TOKENS_PATH")
-    device = resolve_device(settings.device_platform)
+    if settings.dist_num_processes > 1:
+        raise ValueError("the fused pipeline runs in one process: set DIST_NUM_PROCESSES=1")
     reg = ComponentRegistry() if registry is None else registry
-    embedder = reg.register("embedder", EmbedderComponent(settings, device))
+    ctx = reg.register("mesh", MeshComponent(settings, mesh)).ctx
+    device = ctx.front
+    embedder = reg.register("embedder", EmbedderComponent(settings, device, mesh=ctx))
     # the fused step scans the index itself: nothing searches it to warm
     index = reg.register("index", load_index(
-        settings.index_path, device, rescore_store=settings.index_rescore_store,
+        settings.index_path, device, rescore_store=settings.index_rescore_store, mesh=ctx,
     ), load=False)
     if index.dim != embedder.dim:
         raise ValueError(
             f"index dim {index.dim} != embedder width {embedder.dim}"
         )
-    llm = reg.register("llm", LLMComponent(settings, device))
-    sentiment = reg.register("sentiment", SentimentComponent(settings, device))
-    toxicity = reg.register("toxicity", ToxicityComponent(settings, device))
+    llm = reg.register("llm", LLMComponent(settings, device, mesh=ctx))
+    sentiment = reg.register("sentiment", SentimentComponent(settings, device, mesh=ctx))
+    toxicity = reg.register("toxicity", ToxicityComponent(settings, device, mesh=ctx))
     return reg.register("fused_executor", FusedExecutor(
         settings, device=device, embedder=embedder, index=index, llm=llm,
-        sentiment=sentiment, toxicity=toxicity,
+        sentiment=sentiment, toxicity=toxicity, mesh=ctx,
     ))
 
 
@@ -328,18 +371,26 @@ def _index_settings(settings: Settings, config: dict) -> Settings:
 
 class IndexComponent:
     """A staged node's index (the reference's `serve/factory.py::
-    IndexComponent`): a built index handed in, else INDEX_PATH's artifact
-    with the deployment's nprobe, else an empty index of the configured
-    kind. With WARMUP_BUCKETS on, `load()` runs one search at RETRIEVAL_K
-    (reference `index/base.py:80-88`) and one of every shape bucket at
-    every k of the retrieval executor's ladder that the index holds
-    (`serve/factory.py:100-115`), on seeded unit queries; results are read
-    back and dropped, and no cache sees them. `unload()` drops only an
-    index it loaded itself."""
+    IndexComponent`, `:61-119`): a built index handed in, else INDEX_PATH's
+    artifact on the mesh with the deployment's nprobe and nprobe_local,
+    else an empty index of the configured kind. With WARMUP_BUCKETS on,
+    `load()` runs one search at RETRIEVAL_K (reference `index/base.py:
+    80-88`) and one of every shape bucket at every k of the retrieval
+    executor's ladder that the index holds (`serve/factory.py:100-115`), on
+    seeded unit queries; results are read back and dropped, and no cache
+    sees them. `unload()` drops only an index it loaded itself.
 
-    def __init__(self, settings: Settings, device: torch.device, index=None) -> None:
+    Under SPMD each process loads its part of a flat INDEX_PATH; a worker
+    searches only when the front door's broadcasts drive it (no warm-up),
+    and the front door's index is an `SPMDIndexProxy`."""
+
+    def __init__(
+        self, settings: Settings, device: torch.device, index=None,
+        mesh: Optional[MeshContext] = None,
+    ) -> None:
         self.settings = settings
         self.device = device
+        self.mesh = mesh
         self._given = index
         self.index = None
         self.warmed: tuple[tuple[int, int], ...] = ()
@@ -352,22 +403,41 @@ class IndexComponent:
         s, index = self.settings, self._given
         if index is None and s.index_path:
             # where the rescore copy lands is the deployment's choice
-            index = load_index(
-                s.index_path, self.device, rescore_store=s.index_rescore_store
-            )
+            index = self._load_path()
+            # runtime knobs, not artifact state
             if hasattr(index, "nprobe"):
                 index.nprobe = s.index_nprobe
+            if hasattr(index, "nprobe_local"):
+                index.nprobe_local = s.index_nprobe_local
         if index is None:
             logger.warning("index: no INDEX_PATH — starting empty (not loaded)")
-            self.index = make_index(s, self.device)
+            self.index = make_index(s, self.device, mesh=self.mesh)
             return
         if index.dim != s.index_dim:
             raise ValueError(f"index dim {index.dim} != INDEX_DIM {s.index_dim}")
         if hasattr(index, "metric_labels"):
             index.metric_labels = (s.run_id, str(s.node_number))
         self.index = index
+        if is_spmd():
+            if not is_front_door():
+                return  # worker: searches only from the front door's broadcasts
+            self.index = SPMDIndexProxy(index)
         if s.warmup_buckets:
             self.warmup()
+
+    def _load_path(self):
+        s = self.settings
+        if not is_spmd():
+            return load_index(s.index_path, self.device,
+                              rescore_store=s.index_rescore_store, mesh=self.mesh)
+        with np.load(s.index_path, allow_pickle=False) as z:
+            kind = str(z["kind"])
+        if kind != "flat":
+            raise ValueError(f"SPMD serving splits a flat index over processes, not {kind!r}")
+        return load_part(
+            s.index_path, torch.distributed.get_rank(), torch.distributed.get_world_size(),
+            mesh=self.mesh, device=self.device, rescore_store=s.index_rescore_store,
+        )
 
     def warmup(self) -> None:
         s, index = self.settings, self.index
@@ -402,30 +472,40 @@ class StagedApp:
 
     _SERVICES = ("retrieval_executor", "generation_service", "orchestrator")
 
-    def __init__(self, settings: Settings, *, index=None) -> None:
+    def __init__(
+        self, settings: Settings, *, index=None, mesh: Optional[MeshContext] = None,
+    ) -> None:
         self.profile = profile = load_role_profile(settings)
         if profile.batch_overrides:
             settings = replace_settings(settings, **profile.batch_overrides)
         self.settings = settings
-        self.device = device = resolve_device(settings.device_platform)
+        # the mesh comes first: every component is placed on it
+        mesh_comp = MeshComponent(settings, mesh)
+        mesh_comp.load()
+        self.mesh = ctx = mesh_comp.ctx
+        self.device = device = ctx.front
         self.registry = reg = ComponentRegistry()
         for spec in profile.components:
             t = spec.type
+            if t is ComponentType.MESH:
+                reg.register(spec.name, mesh_comp, load=False)
+                continue
             if t is ComponentType.EMBEDDER:
-                comp = EmbedderComponent(settings, device)
+                comp = EmbedderComponent(settings, device, mesh=ctx)
             elif t is ComponentType.INDEX:
-                comp = IndexComponent(_index_settings(settings, spec.config), device, index)
+                comp = IndexComponent(_index_settings(settings, spec.config), device, index,
+                                      mesh=ctx)
             elif t is ComponentType.DOC_STORE:
                 comp = DocumentStore(settings)
             elif t is ComponentType.RERANKER:
-                comp = RerankerComponent(settings, device)
+                comp = RerankerComponent(settings, device, mesh=ctx)
             elif t is ComponentType.LLM:
-                comp = LLMComponent(settings, device)
+                comp = LLMComponent(settings, device, mesh=ctx)
             elif t is ComponentType.SENTIMENT:
-                comp = SentimentComponent(settings, device)
+                comp = SentimentComponent(settings, device, mesh=ctx)
             elif t is ComponentType.TOXICITY:
-                comp = ToxicityComponent(settings, device)
-            else:  # mesh: one device, nothing to hold; orchestrator: below
+                comp = ToxicityComponent(settings, device, mesh=ctx)
+            else:  # orchestrator: below
                 continue
             reg.register(spec.name, comp)
             if spec.name != t.value and t.value not in reg:
@@ -992,13 +1072,22 @@ class RAGServer(ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, app, host: str, port: int):
-        super().__init__((host, port), _Handler)
+        # bind after the fields exist: a failed bind must raise its OSError
+        # to the caller, who closes the app (the base class would run the
+        # overridden server_close on a half-built server)
+        super().__init__((host, port), _Handler, bind_and_activate=False)
         self.app = app
         self.closing = False
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
         self.trace = DeviceTraceCapture()
         self._gauges_at = float("-inf")
+        try:
+            self.server_bind()
+            self.server_activate()
+        except OSError:
+            self.socket.close()
+            raise
 
     def refresh_gauges(self) -> None:
         """The resource gauges, at most every GAUGE_PERIOD_S."""
@@ -1036,30 +1125,49 @@ class RAGServer(ThreadingHTTPServer):
 
 
 def make_server(
-    settings: Settings, port: Optional[int] = None, *, index=None
+    settings: Settings, port: Optional[int] = None, *, index=None,
+    mesh: Optional[MeshContext] = None,
 ) -> RAGServer:
     """Build the app for `settings` and bind the server; `port` overrides
     BASE_PORT + NODE_NUMBER (0 picks a free port); `index` hands the staged
-    path a built index in place of INDEX_PATH. A node whose settings ask
-    for zstd refuses to start without `zstandard`. WARMUP_BUCKETS unset
-    means on here (`resolve_serving_settings`)."""
+    path a built index in place of INDEX_PATH; `mesh` takes the place of
+    the settings' mesh. A node whose settings ask for zstd refuses to start
+    without `zstandard`. WARMUP_BUCKETS unset means on here
+    (`resolve_serving_settings`). An SPMD front door that cannot bind
+    stops its workers (OP_STOP, as the app closes) before it raises."""
     require_codec(settings)
     settings = resolve_serving_settings(settings)
     if settings.use_fused_pipeline:
         if index is not None:
             raise ValueError("the fused path loads its index from INDEX_PATH")
         registry = ComponentRegistry()
-        app = FusedApp(build_executor(settings, registry), registry)
+        app = FusedApp(build_executor(settings, registry, mesh), registry)
     else:
-        app = StagedApp(settings, index=index)
+        app = StagedApp(settings, index=index, mesh=mesh)
     try:
         return RAGServer(
             app, settings.listen_host,
             settings.listen_port if port is None else port,
         )
     except OSError:
-        app.close()
+        app.close()  # unloads the index: an SPMD proxy sends OP_STOP
         raise
+
+
+def serve_worker(settings: Settings) -> None:
+    """An SPMD worker process (DIST_PROCESS_ID > 0): its app's components,
+    no HTTP; the front door's broadcast searches until OP_STOP, then the
+    components stop (reference `serve/runtime.py:74-87`). It logs its
+    kernels' launch counts as it leaves: it has no /health to read them."""
+    app = StagedApp(resolve_serving_settings(settings))
+    try:
+        index = app.components.get("index")
+        if index is None:
+            raise RuntimeError("SPMD worker process has no index component")
+        worker_loop(index)
+        logger.info("SPMD worker kernel launches %s", json.dumps(kernel_launches()))
+    finally:
+        app.close()
 
 
 def main() -> None:
@@ -1069,6 +1177,10 @@ def main() -> None:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     setup_tracing(settings)
+    init_distributed(settings)
+    if is_spmd() and not is_front_door():
+        serve_worker(settings)
+        return
     server = make_server(settings)
     logger.info(
         "node %d (%s) listening on %s:%d (%s)", settings.node_number,
