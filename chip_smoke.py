@@ -163,7 +163,11 @@ and exits non-zero before the last line:
              graph of many calls: an eager loop of microsecond launches
              times the host), the plain version's time, the bound and the
              share of it, and, as a yardstick only, torch._int_mm where
-             M > 16; the wrapper's host us a call. Runs after k2.
+             M > 16; the wrapper's host us a call. Then the s32 kind
+             (a row-parallel shard's exact sum) on both kernels at
+             Qwen2.5-0.5B's tp = 2 shapes (W8A8_TP_SHAPES: decode o and
+             down, prefill down), bit for bit against its plain twin, µs,
+             bound and torch._int_mm. Runs after k2.
 24. serve_w8a8 — the fused server of phase 6 with LLM_WEIGHT_QUANT=int8 and
              ENCODER_WEIGHT_QUANT=int8: 10 POST /query, 8 of them
              concurrent; the K1 count and each W8A8 kernel's (small-row,
@@ -298,6 +302,34 @@ and exits non-zero before the last line:
              counts it logs as it leaves, against process 0's total);
              SIGINT on process 0 sends OP_STOP, and both processes exit 0,
              having imported no jax.
+33. mesh_tp — runs after mesh_fused: the attention over a shard's 7
+             heads against those heads of the 14-head call, bit for bit
+             (decode and prefill shapes); Qwen2.5-0.5B at tp = 2 on cuda:0
+             (parallel/sharding.py::place_params), bf16 and W8A8: a shard's
+             split elements against the arithmetic (bf16), the MiB the
+             split adds; greedy at B=8, prompt bucket 512, 128 tokens as a
+             graph against tp = 1 and against its own eager loop (16
+             tokens, bit for bit). W8A8: every token and the logits over 32
+             decode steps forced to tp = 1's tokens bit for bit tp = 1's.
+             bf16: the forced logits' RMS distance to f32 activations
+             within TP_BF16_RMS x tp = 1's, a planted dropped partial
+             beyond it; the rows that leave tp = 1's, reported. ms a token
+             (alternated) and kernels a step (torch.profiler) at tp 1 and
+             2; the s32 launches of the timed calls (the wrappers' prefill
+             launches and each replay's from the trace). The W8A8 engine
+             at tp = 2 over 16 prompts: every sequence tp = 1's. The fused
+             W8A8 server through make_server at MESH_TP=2: /health's mesh,
+             every model split, two /query bodies equal to serve_w8a8's.
+34. tp_encode — bge-base (T 1024, B 4, bf16, attention weights at 3x the
+             init's std) at tp 2 and 4: the flash kernel 12 x tp times a
+             forward, the pooled embeddings within TP_EMB_ATOL of tp = 1
+             (cosine >= TP_MIN_COS) and a planted dropped partial outside,
+             ms a forward (alternated, 20 a round).
+35. sp     — bert_encode_sp at sp 2 and 4 (T 2048, B 2, row 1 valid to
+             1500, the same weights' scale): the valid rows against
+             bert_encode's within SP_ATOL (cosine >= SP_MIN_COS), a planted
+             gather of position 0's keys only outside, ms a forward beside
+             bert_encode's.
 
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
@@ -307,6 +339,7 @@ device line that the chip check reads.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -387,7 +420,8 @@ PQ_RECALL_BAR = {"pq4": 0.95, "pq4_host": 0.9, "pq8": 0.95}
 # plain f32 adds issue at half that.
 HBM_BYTES_PER_S = 3.35e12
 # the anatomy probe's --length 128 and --reps 3, cut to fit the time limit
-ANATOMY_ARGS = ["--length", "32", "--reps", "2"]
+# (the tensor-parallel phases took the probe's length from 32 to 8)
+ANATOMY_ARGS = ["--length", "8", "--reps", "2"]
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2,
                   "f32_fma": 67e12}
 # the decode slice: the staged ladder's largest prefill bucket, MAX_TOKENS,
@@ -398,6 +432,49 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2,
 DECODE_BUCKET, DECODE_NEW, DECODE_ROUNDS = 512, 128, 2
 SPEC_GAMMA, INJECT_P, NEAR_TIE = 8, (0.7, 0.9), 1e-4
 ENGINE_REQUESTS, ENGINE_LANES, ENGINE_CACHE, ENGINE_SEGMENT = 16, 32, 1024, 8
+# tensor and sequence parallelism on the one card (positions repeat cuda:0):
+# Qwen2.5-0.5B at tp = 2 (its 2 kv heads allow no other tp); its engine over
+# TP_ENGINE_REQUESTS prompts; bge-base at tp 2 and 4 (T 1024, B 4) and
+# sequence-parallel at sp 2 and 4 (T 2048, B 2, row 1 valid to SP_VALID)
+TP, TP_ENCODE, SP_SIZES = 2, (2, 4), (2, 4)
+TP_ENGINE_REQUESTS, TP_ENGINE_LANES, TP_ENGINE_CACHE = 16, 16, 640
+TP_ENCODE_T, TP_ENCODE_B, SP_T, SP_B, SP_VALID = 1024, 4, 2048, 2, 1500
+# tp_encode and sp draw bge-base's attention weights (q, k, v, o) at
+# ATTN_SCALE x the init's std of 0.02: at the init the scores are near
+# uniform and a layer's attention adds ~1% to its residual, so a fault in
+# the head split or in the K/V gather reads as rounding (4 layers, T 512,
+# f32 on a CPU: each sp position attending position 0's keys only moves
+# the valid rows 0.088 from bert_encode at the init's scale, against bf16's
+# own 0.074; at 3x 0.479 against 0.039)
+ATTN_SCALE = 3.0
+# each limit lies between the sound reading and a planted fault's, both
+# printed every run (PERF.md): tp_encode's pooled embeddings (unit norm)
+# against tp = 1, the fault row_dense dropping every shard's partial but
+# the first (on an H100: sound 2.3e-3, cosine 0.99984; fault 0.18-0.20,
+# cosine 0.01); sp's valid rows against bert_encode (its flash branch), the
+# fault each position attending position 0's keys only (sound 0.047,
+# cosine 0.999923; fault 0.17-0.32, cosine 0.99534-0.99875: the limits at
+# the geometric means)
+TP_EMB_ATOL, TP_MIN_COS = 1e-2, 0.999
+SP_ATOL, SP_MIN_COS = 0.09, 0.9997
+# mesh_tp: W8A8 at tp = 2 is tp = 1 bit for bit (the row-parallel sums
+# exact in s32, the attention's products of one kv head's group the same
+# shapes at any tp), so its tokens, its logits over TP_FORCED_STEPS decode
+# steps forced to tp = 1's tokens, the engine's and the served bodies must
+# equal tp = 1's. bf16 sums its row-parallel partials in f32 before one
+# cast where tp = 1 casts one product's sum: another rounding, as the
+# reference's psum over tp is. Its tokens are reported; its forced logits'
+# RMS distance to the same tree with f32 activations must stay within
+# TP_BF16_RMS times tp = 1's (a split no less precise than the whole
+# product; set before the first run that checked it, and a planted dropped
+# partial must exceed it). The tp = 2 graph is held to its eager loop over
+# TP_EAGER_TOKENS tokens
+TP_FORCED_STEPS, TP_BF16_RMS, TP_EAGER_TOKENS = 32, 1.25, 16
+# timing: the encoder's eager forwards, alternated, TP_TIME_ITERS a round
+TP_TIME_ITERS, TP_TIME_ROUNDS = 20, 3
+# Qwen2.5-0.5B at tp = 2 by arithmetic: the split weight elements a shard
+# holds (q/k/v, o, gate/up, down of 24 layers, halved) and its q/k/v biases
+TP_SPLIT_WEIGHTS, TP_SPLIT_BIASES = 178_913_280, 13_824
 # the encoder's flash kernel: bge-base's heads (12 x 64) at three lengths,
 # its width as 6 x 128 and 3 x 256 heads, and the other two dtypes, at B=4
 # over the four mask kinds; the long-context path (bert_embed at bge-base
@@ -439,9 +516,10 @@ def zero_launches() -> None:
                topk.binmax_partial_topk_int8, ivf.ivf_scan_partial,
                ivf.ivf_dedup_scores, pq.ivfpq4_adc_scores, kv.kv_row_insert,
                kv.kv_row_insert_pair, stream.stream_sum, w8a8.quantize_rows,
-               w8a8.w8a8_gemm, w8a8.w8a8_qgemm,
+               w8a8.w8a8_gemm, w8a8.w8a8_qgemm, w8a8.w8a8_gemm_s32,
                flash_attention.flash_encoder_attention):
         fn.launches = 0
+    w8a8.w8a8_gemm_s32.wgmma_launches = 0
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -831,9 +909,16 @@ W8A8_SHAPES = [
     ("encoder_ffn_in", 4096, 768, (3072,), True), ("classifier", 8, 768, (5,), True),
 ]
 # the kernels line's shape of each kernel: the decode step's gate/up group
-# (24 launches a step), the prefill's gate/up and its activation quantize
+# (24 launches a step), the prefill's gate/up and its activation quantize;
+# the s32 kind's at tp = 2: decode down on the small-row route, prefill
+# down on the wgmma route
 W8A8_MAIN = {"small": "decode_gate_up", "wgmma": "prefill_gate_up",
-             "quant": "prefill_gate_up"}
+             "quant": "prefill_gate_up", "small_s32": "decode_down_tp2",
+             "wgmma_s32": "prefill_down_tp2"}
+# the row-parallel products of Qwen2.5-0.5B at tp = 2 (each shard's columns
+# of the int8 rows by its weight rows, exact s32): name, M, K/tp, N
+W8A8_TP_SHAPES = [("decode_o_tp2", 8, 448, 896), ("decode_down_tp2", 8, 2432, 896),
+                  ("prefill_down_tp2", 4096, 2432, 896)]
 
 
 def _w8a8_weights(g, k, ns, has_bias, out_dtype):
@@ -951,9 +1036,43 @@ def phase_w8a8():
         rows[name] = row
         del x, weights, biases, q, sc, want, got
         torch.cuda.empty_cache()
+    # the s32 kind (a row-parallel shard's partial) on both routes, at
+    # every row-parallel shape, bit for bit against its plain twin
+    s32 = {}
+    for name, m, k, n in W8A8_TP_SHAPES:
+        xq = torch.randint(-127, 128, (m, k), generator=g, device=DEVICE, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=g, device=DEVICE, dtype=torch.int8)
+        want = w8a8.w8a8_acc_plain(xq, wq)
+        calls = {"qgemm": lambda: w8a8._qgemm_launch(xq, [(wq, None)], [None],
+                                                     torch.int32)[0],
+                 "wgmma": lambda: w8a8._gemm_launch(xq, None, wq, None, None, torch.int32)}
+        got = w8a8.w8a8_gemm_s32(xq, wq)
+        check(torch.equal(got, want), f"the s32 product differs from its plain twin at {name}")
+        row = {"route": w8a8._route(m, k, True)}
+        big = m > 1000
+        it, pit = (20, 3) if big else (100, 20)
+        plain_ms = cuda_ms(lambda: w8a8.w8a8_acc_plain(xq, wq), pit)
+        library_ms = graph_ms(lambda: torch._int_mm(xq, wq.t()), it) if m > 16 else None
+        b = bound(m * k + n * k + 4 * m * n, 2.0 * m * n * k, "int8")
+        for route, fn in calls.items():
+            check(torch.equal(fn(), want),
+                  f"the s32 kind of the {route} kernel differs from its plain twin at {name}")
+            km = {"ms": graph_ms(fn, it), "plain_ms": plain_ms, "max_abs_err": 0.0,
+                  "library_ms": library_ms, **b}
+            row.update({f"{route}_us": round(km["ms"] * 1e3, 3),
+                        f"{route}_of_bound": round(km["bound_ms"] / km["ms"], 3)})
+            if name == W8A8_MAIN[("small" if route == "qgemm" else "wgmma") + "_s32"]:
+                out[("small" if route == "qgemm" else "wgmma") + "_s32"] = km
+        row.update({"bound_us": round(b["bound_ms"] * 1e3, 3),
+                    "plain_ms": round(plain_ms, 4),
+                    "int_mm_us": None if library_ms is None else round(library_ms * 1e3, 3)})
+        s32[name] = row
+        del xq, wq, want, got
+    torch.cuda.empty_cache()
     phase("w8a8", t0, bit_identical=True, ragged_cases=cases, m_star=w8a8.M_STAR,
           main=json.dumps(W8A8_MAIN, separators=(",", ":")), **host,
-          shapes=json.dumps(rows, separators=(",", ":")))
+          shapes=json.dumps(rows, separators=(",", ":")),
+          s32_tp2=json.dumps(s32, separators=(",", ":")))
     return out
 
 
@@ -2742,10 +2861,18 @@ def _profile_steps(params, cfg, entry, ids, mask, steps: int = 8) -> dict:
         return {"b8_step_busy_share": "not measured (no device events)"}
     top = [(name[:48], round(us / busy, 3)) for name, us in by_name.most_common(6)]
     cuda_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    def per_step(*marks) -> int:
+        return sum(1 for e in cuda_events if any(m in e.name for m in marks)) // steps
+
+    # the s32 kind of the small-row GEMM is its int8-row instance (in_kind 2,
+    # T = int8_t: "signed char", "Ia" mangled)
     return {"b8_step_busy_share": f"{busy / wall_us:.3f}",
             "b8_step_kernel_ms": f"{busy / steps / 1e3:.3f}",
             "b8_step_kernels": len(cuda_events) // steps,
-            "b8_step_w8a8_kernels": sum(1 for e in cuda_events if "w8a8" in e.name) // steps,
+            "b8_step_w8a8_kernels": per_step("w8a8"),
+            "b8_step_s32_small_kernels": per_step("w8a8_qgemm_kernel<signed char",
+                                                  "w8a8_qgemm_kernelIa"),
+            "b8_step_wgmma_kernels": per_step("w8a8_wgmma_kernel"),
             "b8_step_top_kernels": json.dumps(top)}
 
 
@@ -2773,18 +2900,19 @@ def _top2_gaps(params, cfg, ids, mask, n: int, cache_len=None):
     return torch.stack(toks, 1), torch.stack(gaps, 1)
 
 
-def _hold_to_greedy(name: str, got: list, ref: list, gap_of) -> dict:
+def _hold_to_greedy(name: str, got: list, ref: list, gap_of, tie: float = NEAR_TIE) -> dict:
     """Rows (token lists) equal to greedy's, or diverging first at a step
-    where greedy's two top logits lie within NEAR_TIE (f32). `gap_of(i, j)`
-    gives row i's gap at step j. -> {identical, near_ties: [(row, step, gap)]}."""
+    where greedy's two top logits lie within `tie` (NEAR_TIE: f32).
+    `gap_of(i, j)` gives row i's gap at step j. -> {identical, near_ties:
+    [(row, step, gap)]}."""
     ties = []
     for i, (a, r) in enumerate(zip(got, ref)):
         if a == r:
             continue
         j = next((k for k, (x, y) in enumerate(zip(a, r)) if x != y), min(len(a), len(r)))
         gap = float(gap_of(i, j))
-        check(gap <= NEAR_TIE, f"{name}: row {i} diverges from greedy at step {j}, "
-              f"where its top two logits are {gap:.3g} apart (> {NEAR_TIE})")
+        check(gap <= tie, f"{name}: row {i} diverges from greedy at step {j}, "
+              f"where its top two logits are {gap:.3g} apart (> {tie:.3g})")
         ties.append((i, j, round(gap, 8)))
     return {"identical": len(got) - len(ties), "near_ties": ties}
 
@@ -2844,7 +2972,7 @@ def phase_spec(bf16_params):
 def phase_serve_w8a8(paths: dict) -> dict:
     """The fused server with both W8A8 knobs on: the serve phase's requests,
     its K1 check, and the quantize and GEMM counts rising."""
-    executor, _, stats, _, _ = phase_serve(
+    executor, _, stats, bodies, _ = phase_serve(
         paths, {"LLM_WEIGHT_QUANT": "int8", "ENCODER_WEIGHT_QUANT": "int8"}, "serve_w8a8")
     from rag_inference_pipeline_tpu_torch.models.layers import QuantizedEmbed, QuantizedLinear
 
@@ -2855,7 +2983,7 @@ def phase_serve_w8a8(paths: dict) -> dict:
     check(stats["w8a8_small_launches"] > 0 and stats["w8a8_wgmma_launches"] > 0
           and stats["quantize_rows_launches"] > 0,
           f"serve_w8a8: a W8A8 kernel did not launch on /query ({stats})")
-    return stats
+    return {**stats, "bodies": bodies}
 
 
 def w8a8_launches(cfg, rows: int, head_rows: int) -> tuple[int, int, int]:
@@ -3075,11 +3203,11 @@ def phase_engine_serve(ivf, db_path: str) -> dict:
 MESH_DP, FUSED_DP, SPMD_PROCS = 4, 2, 2
 
 
-def _one_card_mesh(dp: int):
+def _one_card_mesh(dp: int, tp: int = 1):
     from rag_inference_pipeline_tpu_torch.core.mesh import force_host_devices, make_mesh
 
-    return make_mesh(dp=dp, devices=force_host_devices(dp, f"{DEVICE}:0" if DEVICE == "cuda"
-                                                       else DEVICE))
+    return make_mesh(dp=dp, tp=tp, devices=force_host_devices(
+        dp * tp, f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE))
 
 
 def _near_ties(name: str, got_s, got_i, ref_s, ref_i, rows_of) -> list:
@@ -3329,6 +3457,422 @@ def phase_mesh_fused(paths: dict):
     return {"launches": launches}
 
 
+def _shard_bytes(tree, j: int) -> tuple[int, int]:
+    """(split weight elements, split bias elements) of tp position j's
+    shard: its layers' leaves but the norms, each int8 block or tensor
+    counted once."""
+    weights = biases = 0
+    for key, t in tree.shards[j].state_dict().items():
+        if not key.startswith("layers.") or key.endswith("_ln") or key.endswith(".s"):
+            continue
+        if key.endswith("_b"):
+            biases += t.numel()
+        else:
+            weights += t.numel()
+    return weights, biases
+
+
+def _f32_activations(params):
+    """`params` with its floating leaves in f32 (int8 blocks and their f32
+    scales as they are): the same weights, run with f32 activations."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models.layers import ParamTree
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [conv(v) for v in t]
+        return t if isinstance(t, torch.nn.Module) else t.float()
+
+    return ParamTree(conv(params.to_tree()))
+
+
+def _forced_logits(trees: dict, cfg, ids, mask, toks, steps: int) -> dict:
+    """Every tree's f32 logits over the same tokens (`toks` [B, n], tp =
+    1's greedy ones), eagerly: the prefill, then `steps` decode steps ->
+    {name: [steps + 1, B, V]}."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    b, t = ids.shape
+    steps = min(steps, toks.shape[1] - 1)
+    runs = {}
+    for name, p in trees.items():
+        cache = qwen.KVCache.zeros(cfg.layers, b, t + steps + 1, cfg.kv_heads, cfg.head_dim,
+                                   dtype=p.final_ln.dtype, device=ids.device,
+                                   grid=qwen.cache_grid(p))
+        out = [qwen.qwen_prefill(p, cfg, ids, mask, cache)[0]]
+        for j in range(steps):
+            out.append(qwen.qwen_decode_step(p, cfg, toks[:, j].contiguous(), cache)[0])
+        runs[name] = torch.stack(out).float()
+    return runs
+
+
+@contextlib.contextmanager
+def planted(module, name: str, fault):
+    """`module.name` replaced by `fault` inside the block: a planted fault,
+    to show that a check's limit tells it from the sound reading."""
+    sound = getattr(module, name)
+    setattr(module, name, fault)
+    try:
+        yield
+    finally:
+        setattr(module, name, sound)
+
+
+def _drop_partials(row_dense):
+    """A row-parallel product that keeps the first shard's partial only."""
+    return lambda xs, ws, b=None: row_dense(xs[:1], ws[:1], b)
+
+
+def _first_divergence(got: list, ref: list) -> list:
+    """[(row, first step where it leaves ref)] of the rows that differ."""
+    return [(i, next((k for k, (x, y) in enumerate(zip(a, r)) if x != y),
+                     min(len(a), len(r))))
+            for i, (a, r) in enumerate(zip(got, ref)) if a != r]
+
+
+def phase_mesh_tp(paths: dict, w8_bodies: list):
+    """Qwen2.5-0.5B at tp = 2 on the one card: greedy (bf16 and W8A8) as a
+    graph against tp = 1, ms a token and kernels a step of each, device
+    bytes a shard; the W8A8 engine at tp = 2 against tp = 1; the fused
+    W8A8 server at MESH_TP = 2 against serve_w8a8's bodies.
+
+    W8A8 is held to tp = 1 bit for bit: its tokens, its forced logits, the
+    engine's sequences and the served bodies. bf16's row-parallel sums
+    round otherwise by design: its forced logits are held to TP_BF16_RMS
+    times tp = 1's own distance from f32 activations, and a planted dropped
+    partial must break that limit. The s32 launches are the main path's:
+    the counts are zeroed before the timed greedy calls, the wrappers count
+    the eager prefills, and a torch.profiler trace of the tp = 2 step graph
+    gives the launches each replay adds."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.core.config import load_settings
+    from rag_inference_pipeline_tpu_torch.engine.decode_engine import DecodeEngine
+    from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
+    from rag_inference_pipeline_tpu_torch.models.layers import TPTree, attention
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+    from rag_inference_pipeline_tpu_torch.parallel.sharding import place_params
+    from rag_inference_pipeline_tpu_torch.serve import runtime
+
+    t0 = time.perf_counter()
+    mesh = _one_card_mesh(1, TP)
+    cfg, bf16 = _decoder("bfloat16")
+    n = DECODE_NEW
+    stats, s32 = {}, {}
+    with torch.inference_mode():
+        # the attention over a shard's 7 heads against the same heads of the
+        # 14-head call, at the decode step's and the prefill's shapes
+        g = torch.Generator(device=DEVICE).manual_seed(47)
+        for tag, t, s_len in (("decode", 1, DECODE_BUCKET + n), ("prefill", DECODE_BUCKET,
+                                                                DECODE_BUCKET + n)):
+            q = torch.randn(MAIN_B, t, cfg.heads, cfg.head_dim, generator=g,
+                            device=DEVICE).to(torch.bfloat16)
+            kv = [torch.randn(MAIN_B, s_len, cfg.kv_heads, cfg.head_dim, generator=g,
+                              device=DEVICE).to(torch.bfloat16) for _ in range(2)]
+            full = attention(q, *kv)
+            h, kh = cfg.heads // TP, cfg.kv_heads // TP
+            half = torch.cat([attention(q[:, :, j * h:(j + 1) * h],
+                                        *(x[:, :, j * kh:(j + 1) * kh] for x in kv))
+                              for j in range(TP)], dim=2)
+            stats[f"attn_split_{tag}_max_diff"] = f"{(full - half).float().abs().max().item():.3g}"
+            check(torch.equal(full, half), f"mesh_tp: the attention over a shard's heads "
+                  f"differs from those heads of the whole call ({tag})")
+        trees = {"bf16": bf16, "w8a8": qwen.quantize_qwen_params(bf16)}
+        ids, mask = _decode_prompts(MAIN_B, seed=MAIN_B)
+        for dtype in ("bf16", "w8a8"):
+            solo = trees[dtype]
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            (tree,) = place_params(mesh, solo, cfg)
+            torch.cuda.synchronize()
+            added = torch.cuda.memory_allocated() - before
+            check(isinstance(tree, TPTree) and decode_graph.uses_graphs(
+                qwen.tree_all_devices(tree)), "mesh_tp: the tp = 2 tree is not one graph's")
+            weights, biases = _shard_bytes(tree, 0)
+            if dtype == "bf16":
+                check((weights, biases) == (TP_SPLIT_WEIGHTS, TP_SPLIT_BIASES),
+                      f"mesh_tp: a shard holds {weights} weights and {biases} biases, not "
+                      f"{TP_SPLIT_WEIGHTS} and {TP_SPLIT_BIASES}")
+            stats[f"{dtype}_shard_split_elements"] = weights + biases
+            stats[f"{dtype}_shards_added_mb"] = f"{added / 2**20:.1f}"
+            ref, _ = _wall(lambda: qwen.greedy_generate(solo, cfg, ids, mask, n,
+                                                        eos_token_id=-1))
+            got, first2 = _wall(lambda: qwen.greedy_generate(tree, cfg, ids, mask, n,
+                                                             eos_token_id=-1))
+            m = min(TP_EAGER_TOKENS, n)
+            # the graph's cache length: another S is another attention shape
+            eager = qwen.greedy_generate_eager(tree, cfg, ids, mask, m, eos_token_id=-1,
+                                               cache_len=ids.shape[1] + n)
+            check(torch.equal(got[:, :m], eager), f"mesh_tp {dtype}: the tp = 2 graph's "
+                  "tokens differ from its eager loop's")
+            left = _first_divergence(got.tolist(), ref.tolist())
+            stats[f"{dtype}_rows_identical"] = f"{MAIN_B - len(left)}/{MAIN_B}"
+            stats[f"{dtype}_first_divergence"] = json.dumps(left)
+            if dtype == "w8a8":
+                check(not left, f"mesh_tp w8a8: rows (row, step) {left} leave tp = 1's tokens")
+                runs = _forced_logits({"tp1": solo, "tp2": tree}, cfg, ids, mask, ref,
+                                      TP_FORCED_STEPS)
+                check(torch.equal(runs["tp1"], runs["tp2"]), "mesh_tp w8a8: tp = 2's forced "
+                      "logits differ from tp = 1's")
+                stats["w8a8_forced_logits_identical"] = True
+            else:
+                runs = _forced_logits({"tp1": solo, "tp2": tree, "f32": _f32_activations(solo)},
+                                      cfg, ids, mask, ref, TP_FORCED_STEPS)
+                with planted(qwen, "row_dense", _drop_partials(qwen.row_dense)):
+                    runs["fault"] = _forced_logits({"fault": tree}, cfg, ids, mask, ref,
+                                                   TP_FORCED_STEPS)["fault"]
+                f32 = runs.pop("f32")
+                rms = {k: (r - f32).square().mean().sqrt().item() for k, r in runs.items()}
+                limit = TP_BF16_RMS * rms["tp1"]
+                check(rms["tp2"] <= limit, f"mesh_tp bf16: tp = 2's forced logits lie "
+                      f"{rms['tp2']:.4g} (RMS) from f32 activations, beyond {TP_BF16_RMS} x tp "
+                      f"= 1's {rms['tp1']:.4g}")
+                check(rms["fault"] > limit, f"mesh_tp bf16: a dropped partial reads "
+                      f"{rms['fault']:.4g}, within the limit {limit:.4g}")
+                stats.update({
+                    "bf16_forced_rms_tp1": f"{rms['tp1']:.5g}",
+                    "bf16_forced_rms_tp2": f"{rms['tp2']:.5g}",
+                    "bf16_forced_rms_fault": f"{rms['fault']:.5g}",
+                    "bf16_forced_max_tp2_tp1": f"{(runs['tp2'] - runs['tp1']).abs().max().item():.4g}",
+                    "bf16_logits_std": f"{runs['tp1'].std().item():.4g}",
+                })
+            del runs
+            # the main path: the timed greedy calls, the counts zeroed first
+            zero_launches()
+            walls = alternated(lambda f, _: _wall(f)[1], {
+                "tp1": lambda: qwen.greedy_generate(solo, cfg, ids, mask, n, eos_token_id=-1),
+                "tp2": lambda: qwen.greedy_generate(tree, cfg, ids, mask, n, eos_token_id=-1),
+            }, 0, rounds=DECODE_ROUNDS)
+            counted = (w8a8.w8a8_gemm_s32.launches - w8a8.w8a8_gemm_s32.wgmma_launches,
+                       w8a8.w8a8_gemm_s32.wgmma_launches)
+            entries = {"tp1": decode_graph.graphs_of(solo).entries()[0],
+                       "tp2": decode_graph.graphs_of(tree).entries()[0]}
+            prof = {k: _profile_steps(p, cfg, entries[k], ids, mask)
+                    for k, p in (("tp1", solo), ("tp2", tree))}
+            if dtype == "w8a8":
+                per = prof["tp2"].get("b8_step_s32_small_kernels")
+                # o and down a layer, one launch a shard, on the small-row route
+                want = 2 * TP * cfg.layers
+                check(per == want and prof["tp2"].get("b8_step_wgmma_kernels") == 0,
+                      f"mesh_tp: a tp = 2 step replays {per} s32 small-row kernels (not "
+                      f"{want}) and {prof['tp2'].get('b8_step_wgmma_kernels')} wgmma ones")
+                # the eager prefills launch through the wrappers; the replays
+                # (n - 1 a call) through the graph
+                s32 = {"small": counted[0] + per * DECODE_ROUNDS * (n - 1), "wgmma": counted[1]}
+                check(s32["small"] > 0 and s32["wgmma"] > 0,
+                      f"mesh_tp: the s32 kind did not launch on both routes ({s32})")
+                stats.update({"s32_small_launches": s32["small"],
+                              "s32_wgmma_launches": s32["wgmma"],
+                              "s32_small_a_step": per})
+            stats.update({
+                f"{dtype}_tp1_ms_per_token": f"{walls['tp1'] / n * 1e3:.3f}",
+                f"{dtype}_tp2_ms_per_token": f"{walls['tp2'] / n * 1e3:.3f}",
+                f"{dtype}_tp2_first_call_s": f"{first2:.3f}",
+                f"{dtype}_tp1_kernels_a_step": prof["tp1"].get("b8_step_kernels"),
+                f"{dtype}_tp2_kernels_a_step": prof["tp2"].get("b8_step_kernels"),
+                f"{dtype}_tp1_step_kernel_ms": prof["tp1"].get("b8_step_kernel_ms"),
+                f"{dtype}_tp2_step_kernel_ms": prof["tp2"].get("b8_step_kernel_ms"),
+                f"{dtype}_tp2_pool_mb": f"{entries['tp2'].graph.pool_bytes / 2**20:.1f}",
+            })
+            trees[dtype + "_tp2"] = tree
+
+        # the engine at tp = 2 against tp = 1, W8A8: 16 prompts, every
+        # sequence tp = 1's
+        rng = np.random.default_rng(37)
+        lens = rng.integers(64, 257, TP_ENGINE_REQUESTS)
+        budgets = rng.integers(16, 65, TP_ENGINE_REQUESTS)
+        prompts = [rng.integers(1000, DOC_VOCAB - 1, int(k)).astype(np.int32) for k in lens]
+
+        def run_engine(params, engine_mesh):
+            eng = DecodeEngine(params, cfg, lanes=TP_ENGINE_LANES, cache_len=TP_ENGINE_CACHE,
+                               segment_steps=ENGINE_SEGMENT, eos_token_id=-1,
+                               admit_buckets=(1, 2, 4, 8, 16), prefill_buckets=(128, 256),
+                               mesh=engine_mesh)
+
+            async def main():
+                await eng.start()
+                try:
+                    return await asyncio.gather(*(eng.submit(p, int(m))
+                                                  for p, m in zip(prompts, budgets)))
+                finally:
+                    await eng.stop()
+
+            outs, wall = _wall(lambda: asyncio.new_event_loop().run_until_complete(main()))
+            return outs, wall, eng
+
+        ref_outs, ref_wall, _ = run_engine(trees["w8a8"], None)
+        outs, wall, eng = run_engine(trees["w8a8"], mesh)
+        check(len(eng.cache.grid[0]) == TP and eng.graph is not None,
+              "mesh_tp engine: the lane pool is not split over tp, or runs eagerly")
+        left = _first_divergence(outs, ref_outs)
+        check(not left, f"mesh_tp engine: sequences (index, step) {left} leave tp = 1's")
+        stats.update({"engine_identical": f"{len(outs)}/{len(ref_outs)}",
+                      "engine_tp1_wall_s": f"{ref_wall:.3f}",
+                      "engine_tp2_wall_s": f"{wall:.3f}"})
+        del eng, trees
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the fused W8A8 server at MESH_TP = 2 against serve_w8a8 (tp = 1)
+    settings = load_settings({**SERVE_ENV, **paths, "MESH_TP": str(TP),
+                              "LLM_WEIGHT_QUANT": "int8", "ENCODER_WEIGHT_QUANT": "int8"})
+    server = runtime.make_server(settings, port=0, mesh=mesh)
+    port = server.server_address[1]
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        health = _get_health(port)
+        check(health["mesh"] == {"dp": 1, "tp": TP}, f"mesh_tp: /health mesh {health['mesh']}")
+        ex = server.executor
+        check(all(isinstance(c.params, TPTree)
+                  for c in (ex.embedder, ex.llm, ex.sentiment, ex.toxicity)),
+              "mesh_tp: a served model is not split over tp")
+        results = [_post(port, f"what does the corpus say about topic {i}?", f"q{i}")
+                   for i in range(2)]
+    finally:
+        _stop(server, th)
+    for i, (status, body, _) in enumerate(results):
+        check(status == 200 and body["request_id"] == f"q{i}", f"mesh_tp /query {i}: {status}")
+    same = sum(r[1] == b for r, b in zip(results, w8_bodies[:2]))
+    check(same == len(results), f"mesh_tp: {len(results) - same} served bodies at MESH_TP = "
+          f"{TP} differ from tp = 1's")
+    stats.update({"serve_second_s": round(results[1][2], 4),
+                  "serve_bodies_identical_to_tp1": f"{same}/{len(results)}"})
+    phase("mesh_tp", t0, tp=TP, batch=MAIN_B, new_tokens=n, prompt_bucket=DECODE_BUCKET,
+          **stats)
+    return s32
+
+
+def _bge_long(g):
+    """bge-base at full width, max_positions 2048, random bf16 weights, the
+    attention's at ATTN_SCALE x the init's std."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import bert as tbert
+
+    cfg = tbert.BertConfig(max_positions=SP_T)
+    params = tbert.init_bert_params(cfg, generator=g, dtype=torch.bfloat16, device=DEVICE)
+    with torch.no_grad():
+        for lp in params.layers:
+            for k in ("q_w", "k_w", "v_w", "o_w"):
+                getattr(lp, k).mul_(ATTN_SCALE)
+    return cfg, params
+
+
+def _rows_diff(got, ref) -> tuple[float, float]:
+    """(max |got - ref|, least cosine of a row) over rows [N, H]."""
+    import torch.nn.functional as F
+
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max().item(),
+            F.cosine_similarity(got, ref, dim=-1).min().item())
+
+
+def phase_tp_encode():
+    """bge-base at tp 2 and 4, T 1024, B 4: the flash kernel 12 x tp times a
+    forward, the pooled embeddings against tp = 1 (and a planted dropped
+    partial against the same limits), ms a forward."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import bert as tbert
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+    from rag_inference_pipeline_tpu_torch.parallel.sharding import place_params
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(41)
+    cfg, params = _bge_long(g)
+    mask = flash_masks(TP_ENCODE_B, TP_ENCODE_T)
+    ids = torch.randint(1, cfg.vocab_size, mask.shape, generator=g, device=DEVICE) * mask
+    stats, launches = {}, 0
+    fns = {"tp1": lambda: tbert.bert_embed(params, cfg, ids, mask)}
+    with torch.inference_mode():
+        ref = tbert.bert_embed(params, cfg, ids, mask)
+        for tp in TP_ENCODE:
+            (tree,) = place_params(_one_card_mesh(1, tp), params, cfg)
+            zero_launches()
+            emb = tbert.bert_embed(tree, cfg, ids, mask)
+            torch.cuda.synchronize()
+            per = fa.flash_encoder_attention.launches
+            check(per == cfg.layers * tp, f"tp_encode tp={tp}: {per} flash launches a "
+                  f"forward, not {cfg.layers * tp}")
+            launches += per
+            err, cos = _rows_diff(emb, ref)
+            with planted(tbert, "row_dense", _drop_partials(tbert.row_dense)):
+                bad_err, bad_cos = _rows_diff(tbert.bert_embed(tree, cfg, ids, mask), ref)
+            check(bool(torch.isfinite(emb).all()) and err <= TP_EMB_ATOL and cos >= TP_MIN_COS,
+                  f"tp_encode tp={tp}: pooled embeddings {err:.3e} from tp = 1 (min cosine "
+                  f"{cos:.6f})")
+            check(bad_err > TP_EMB_ATOL or bad_cos < TP_MIN_COS,
+                  f"tp_encode tp={tp}: a dropped partial reads {bad_err:.3e} (min cosine "
+                  f"{bad_cos:.6f}), within the limits")
+            stats.update({f"tp{tp}_flash_a_forward": per, f"tp{tp}_max_abs_err": f"{err:.3e}",
+                          f"tp{tp}_min_cos": f"{cos:.6f}",
+                          f"tp{tp}_fault_max_abs_err": f"{bad_err:.3e}",
+                          f"tp{tp}_fault_min_cos": f"{bad_cos:.6f}"})
+            fns[f"tp{tp}"] = lambda tree=tree: tbert.bert_embed(tree, cfg, ids, mask)
+        ms = alternated(cuda_ms, fns, TP_TIME_ITERS, rounds=TP_TIME_ROUNDS)
+        stats.update({f"{k}_forward_ms": f"{v:.3f}" for k, v in ms.items()})
+    del params, fns
+    torch.cuda.empty_cache()
+    phase("tp_encode", t0, batch=TP_ENCODE_B, t=TP_ENCODE_T, attn_scale=ATTN_SCALE,
+          atol=TP_EMB_ATOL, min_cos=TP_MIN_COS, **stats)
+    return {"launches": launches}
+
+
+def phase_sp():
+    """bge-base bert_encode_sp at sp 2 and 4, T 2048, B 2 (row 1 padded
+    past SP_VALID): the valid rows against bert_encode at the same T (and a
+    planted gather of position 0's keys only against the same limits), ms
+    a forward of each."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import bert as tbert
+    from rag_inference_pipeline_tpu_torch.parallel import bert_encode_sp, sequence
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(43)
+    cfg, params = _bge_long(g)
+    mask = torch.ones(SP_B, SP_T, dtype=torch.int32, device=DEVICE)
+    mask[1, SP_VALID:] = 0
+    ids = torch.randint(1, cfg.vocab_size, mask.shape, generator=g, device=DEVICE) * mask
+    valid = mask.bool()
+    stats = {}
+    fns = {"encode": lambda: tbert.bert_encode(params, cfg, ids, mask)}
+
+    def first_keys(q, ks, vs, masks, sound=sequence._sp_attention):
+        return sound(q, ks[:1], vs[:1], masks[:1])
+
+    with torch.inference_mode():
+        ref = tbert.bert_encode(params, cfg, ids, mask)
+        for sp in SP_SIZES:
+            mesh = _one_card_mesh(sp)
+            out = bert_encode_sp(params, cfg, mesh, ids, mask)
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape and bool(torch.isfinite(out[valid]).all()),
+                  f"sp={sp}: shape {tuple(out.shape)} or non-finite rows")
+            err, cos = _rows_diff(out[valid], ref[valid])
+            with planted(sequence, "_sp_attention", first_keys):
+                bad_err, bad_cos = _rows_diff(bert_encode_sp(params, cfg, mesh, ids, mask)[valid],
+                                              ref[valid])
+            check(err <= SP_ATOL and cos >= SP_MIN_COS, f"sp={sp}: valid rows {err:.3e} from "
+                  f"bert_encode (min cosine {cos:.6f})")
+            check(bad_err > SP_ATOL or bad_cos < SP_MIN_COS, f"sp={sp}: a gather of position "
+                  f"0's keys only reads {bad_err:.3e} (min cosine {bad_cos:.6f}), within the "
+                  "limits")
+            stats.update({f"sp{sp}_max_abs_err": f"{err:.3e}", f"sp{sp}_min_cos": f"{cos:.6f}",
+                          f"sp{sp}_fault_max_abs_err": f"{bad_err:.3e}",
+                          f"sp{sp}_fault_min_cos": f"{bad_cos:.6f}"})
+            fns[f"sp{sp}"] = lambda mesh=mesh: bert_encode_sp(params, cfg, mesh, ids, mask)
+        ms = alternated(cuda_ms, fns, TP_TIME_ITERS // 2, rounds=TP_TIME_ROUNDS)
+        stats.update({f"{k}_forward_ms": f"{v:.3f}" for k, v in ms.items()})
+    del params, fns
+    torch.cuda.empty_cache()
+    phase("sp", t0, batch=SP_B, t=SP_T, valid_row1=SP_VALID, attn_scale=ATTN_SCALE,
+          atol=SP_ATOL, min_cos=SP_MIN_COS, **stats)
+
+
 # a process of the serving entry point; exit 3 if it imported jax
 _SPMD_ENTRY = (
     "import sys\n"
@@ -3498,6 +4042,9 @@ def main() -> int:
         mesh_fused = phase_mesh_fused(paths)
         gc.collect()
         torch.cuda.empty_cache()
+        mesh_tp = phase_mesh_tp(paths, w8_serve["bodies"])
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_spmd(paths, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3515,6 +4062,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_decode_w8a8(bf16_stats)
     phase_engine()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_encode = phase_tp_encode()
+    phase_sp()
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m.split(".")[0] == "rag_inference_pipeline_tpu" for m in sys.modules),
           "the JAX package was imported")
@@ -3553,8 +4104,14 @@ def main() -> int:
               w8_serve["w8a8_wgmma_launches"], w8["wgmma"], "w8a8_wgmma"),
         entry("w8a8_quant", "rag_inference_pipeline_tpu/models/layers.py:80",
               w8_serve["quantize_rows_launches"], w8["quant"]),
+        # the s32 kind of both GEMMs: a row-parallel shard's partial at tp = 2
+        # (o and down; the reference's int32 psum over tp), from mesh_tp
+        entry("w8a8_gemm_small_rows_s32", "rag_inference_pipeline_tpu/models/layers.py:92",
+              mesh_tp["small"], w8["small_s32"], "w8a8_gemm"),
+        entry("w8a8_gemm_wgmma_s32", "rag_inference_pipeline_tpu/models/layers.py:92",
+              mesh_tp["wgmma"], w8["wgmma_s32"], "w8a8_wgmma"),
         entry("flash_attention", "rag_inference_pipeline_tpu/models/layers.py:205",
-              flash["launches"], flash),
+              flash["launches"] + tp_encode["launches"], flash),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -41,7 +41,7 @@ class Settings:
     # --- device and mesh (core/mesh.py) ---
     device_platform: Optional[str] = None  # None = cuda (core/device.py)
     mesh_dp: int = 0  # 0 = infer from the devices and mesh_tp
-    mesh_tp: int = 1  # > 1 is refused at mesh build (tensor parallelism)
+    mesh_tp: int = 1  # tensor parallelism: Megatron shards over tp (parallel/)
     # --- process group (core/distributed.py): DIST_NUM_PROCESSES > 1 joins
     # a gloo group at tcp://DIST_COORDINATOR (host:port of process 0)
     dist_num_processes: int = 1

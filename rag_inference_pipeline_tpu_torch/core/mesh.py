@@ -17,9 +17,15 @@ positions on one physical device (the CPU in the tests, `cuda:0` on a
 one-card machine), so the sharded paths run with the real kernels on one
 card and can be held to the unsharded search; there the positions' work
 runs one after another. It is an explicit call: `make_mesh` never repeats
-a device on its own, and a dp larger than the devices there are raises.
+a device on its own, and a dp x tp larger than the devices there are
+raises.
 
-Tensor parallelism (tp > 1) is not ported yet: `make_mesh` refuses it.
+Tensor parallelism: `group(i)` is dp position i's tp group, the devices
+its Megatron shards of the weights live on (`parallel/sharding.py`). The
+model functions run a group's shards one after another and sum the
+row-parallel partials on the group's first device (`models/layers.py::
+tp_sum`); tp stays inside a process (`core/distributed.py::
+validate_mesh_for_hosts`).
 """
 
 from __future__ import annotations
@@ -76,8 +82,13 @@ class MeshContext:
 
     @property
     def devices(self) -> tuple[torch.device, ...]:
-        """The device of each dp position (tp = 1)."""
+        """The first device of each dp position's tp group: where its batch
+        slice, its row shards and its replicated tensors live."""
         return tuple(row[0] for row in self.grid)
+
+    def group(self, i: int) -> tuple[torch.device, ...]:
+        """The tp group of dp position i: the device of each tp position."""
+        return self.grid[i]
 
     @property
     def front(self) -> torch.device:
@@ -86,7 +97,8 @@ class MeshContext:
 
     @property
     def distinct(self) -> tuple[torch.device, ...]:
-        """The physical devices, each once, in position order."""
+        """The physical devices of the dp positions' groups' first devices,
+        each once, in position order."""
         return tuple(dict.fromkeys(self.devices))
 
     @property
@@ -136,14 +148,11 @@ def make_mesh(
     devices: Optional[Sequence[torch.device]] = None,
 ) -> MeshContext:
     """A dp x tp mesh; dp = 0 infers dp from the devices and tp. Needs
-    dp * tp <= len(devices) (devices default to `default_devices()`)."""
+    dp * tp <= len(devices) (devices default to `default_devices()`); dp
+    position i's tp group is devices[i * tp : (i + 1) * tp]."""
     devs = [torch.device(d) for d in (devices if devices is not None else default_devices())]
     if tp <= 0:
         tp = 1
-    if tp > 1:
-        raise NotImplementedError(
-            f"mesh tp={tp}: tensor parallelism is not ported yet (ROADMAP Queue 1 item 9b)"
-        )
     if dp <= 0:
         dp = max(1, len(devs) // tp)
     need = dp * tp

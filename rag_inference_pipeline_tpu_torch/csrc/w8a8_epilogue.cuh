@@ -10,6 +10,11 @@
 // __float2bfloat16_rn for bf16, the bias added as f32 (__fadd_rn) and
 // rounded again, as PyTorch adds two bf16 tensors. Never built with
 // -use_fast_math.
+//
+// The s32 kind (kOutS32) writes the exact sum itself and skips the scales
+// and the bias: a row-parallel shard's partial (the reference's int32
+// psum over tp, models/layers.py::_qdense under parallel/sharding.py's row
+// split), whose epilogue runs once after the partials are summed.
 
 #pragma once
 
@@ -18,14 +23,14 @@
 namespace ragtorch {
 namespace w8a8 {
 
-enum OutKind { kOutF32 = 0, kOutBf16 = 1 };
+enum OutKind { kOutF32 = 0, kOutBf16 = 1, kOutS32 = 2 };
 
 // One weight matrix's output side: its column scales, bias (or null) and
 // the [M, N] output of the kind the launch names.
 struct OutSide {
-  const float* ws;   // [N]
+  const float* ws;   // [N] (null for kOutS32)
   const void* bias;  // [N] of the output type, or null
-  void* out;         // [M, N]
+  void* out;         // [M, N] of the output kind
   int N;
 };
 

@@ -48,12 +48,18 @@
 //   them and run the epilogue with coalesced stores. Either way one
 //   launch, no scratch, no second kernel; each tile's column scales and
 //   biases are loaded as the tile starts.
+// - The s32 kind (in_kind 2, out_kind 2): x is already int8 (a
+//   row-parallel shard's columns of a row quantized whole, ops/w8a8.py::
+//   w8a8_row_dense), copied into shared memory as it is, and each output is
+//   the exact sum itself, with no scale and no bias.
 // Nothing here allocates or synchronises: the wrapper (ops/w8a8.py)
 // allocates the outputs and chooses mt, nt8 and the grid. The entry point
 // returns cudaGetLastError().
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "ptx.cuh"
 #include "w8a8_epilogue.cuh"
@@ -69,6 +75,8 @@ using ragtorch::w8a8::row_scale;
 using ragtorch::w8a8::bias_at;
 using ragtorch::w8a8::epi_bf16;
 using ragtorch::w8a8::epi_f32;
+using ragtorch::w8a8::kOutF32;
+using ragtorch::w8a8::kOutS32;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -88,7 +96,7 @@ struct Member {
 };
 
 struct Args {
-  const void* x;  // [M, K] bf16 or f32
+  const void* x;  // [M, K] bf16, f32 or (the s32 kind) int8
   Member mem[kMaxMembers];
   int nmem, M, K, out_kind;
   int mt;      // token rows an m tile: 8, or a multiple of 16 up to 64
@@ -225,7 +233,7 @@ w8a8_qgemm_kernel(const __grid_constant__ Args a) {
   auto fetch_cols = [&](int j) {
     int n0;
     const Member& w = a.mem[tile_member(a, (int)blockIdx.x + j * (int)gridDim.x, n0)];
-    if (tid < R && n0 + tid < w.o.N) {
+    if (tid < R && n0 + tid < w.o.N && a.out_kind != kOutS32) {
       pre_ws = w.o.ws[n0 + tid];
       pre_b = bias_at(w.o, a.out_kind, n0 + tid);
     }
@@ -255,77 +263,91 @@ w8a8_qgemm_kernel(const __grid_constant__ Args a) {
     r = u / upr;
     return kb0 * kBlockK + (u - r * upr) * 16;
   };
-  for (int i = tid; i < mt; i += kThreads) rowmax[i] = 0u;
-  __syncthreads();
-  float keep[kKeep][16];
-#pragma unroll
-  for (int i = 0; i < kKeep; ++i) {
-    const int u = tid + i * kThreads;
-    if (u < units) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    // int8 rows: copied as they are (zeros past K and past M), no scale
+    cluster.sync();  // every block of the cluster has started
+    for (int u = tid; u < mt * upr; u += kThreads) {
       int r;
       const int e = unit_at(u, r);
-      load16(x + (size_t)r * K, e, K, keep[i]);
+      uint4 word = make_uint4(0u, 0u, 0u, 0u);
+      if (u < units && e < K)
+        word = __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * K + e));
+      uint4* dst = reinterpret_cast<uint4*>(xq + r * a.stride + e);
+      for (int q = 0; q < cn; ++q) *cluster.map_shared_rank(dst, q) = word;
     }
-  }
+  } else {
+    for (int i = tid; i < mt; i += kThreads) rowmax[i] = 0u;
+    __syncthreads();
+    float keep[kKeep][16];
 #pragma unroll
-  for (int i = 0; i < kKeep; ++i) {
-    const int u = tid + i * kThreads;
-    if (u < units) {
+    for (int i = 0; i < kKeep; ++i) {
+      const int u = tid + i * kThreads;
+      if (u < units) {
+        int r;
+        const int e = unit_at(u, r);
+        load16(x + (size_t)r * K, e, K, keep[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kKeep; ++i) {
+      const int u = tid + i * kThreads;
+      if (u < units) {
+        float m = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) m = fmaxf(m, fabsf(keep[i][q]));
+        // non-negative floats order as their bits do
+        atomicMax(&rowmax[u / upr], __float_as_uint(m));
+      }
+    }
+    for (int u = tid + kKeep * kThreads; u < units; u += kThreads) {
+      int r;
+      const int e = unit_at(u, r);
+      float f[16];
+      load16(x + (size_t)r * K, e, K, f);
       float m = 0.0f;
 #pragma unroll
-      for (int q = 0; q < 16; ++q) m = fmaxf(m, fabsf(keep[i][q]));
-      // non-negative floats order as their bits do
-      atomicMax(&rowmax[u / upr], __float_as_uint(m));
+      for (int q = 0; q < 16; ++q) m = fmaxf(m, fabsf(f[q]));
+      atomicMax(&rowmax[r], __float_as_uint(m));
     }
-  }
-  for (int u = tid + kKeep * kThreads; u < units; u += kThreads) {
-    int r;
-    const int e = unit_at(u, r);
-    float f[16];
-    load16(x + (size_t)r * K, e, K, f);
-    float m = 0.0f;
+    cluster.sync();  // every block's partial maxima are in place
+    for (int r = tid; r < mrows; r += kThreads) {
+      float pm[kMaxCluster];
 #pragma unroll
-    for (int q = 0; q < 16; ++q) m = fmaxf(m, fabsf(f[q]));
-    atomicMax(&rowmax[r], __float_as_uint(m));
-  }
-  cluster.sync();  // every block's partial maxima are in place
-  for (int r = tid; r < mrows; r += kThreads) {
-    float pm[kMaxCluster];
+      for (int q = 0; q < kMaxCluster; ++q)
+        pm[q] = q < cn ? __uint_as_float(cluster.map_shared_rank(rowmax, q)[r]) : 0.0f;
+      float m = 0.0f;
 #pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q)
-      pm[q] = q < cn ? __uint_as_float(cluster.map_shared_rank(rowmax, q)[r]) : 0.0f;
-    float m = 0.0f;
-#pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q) m = fmaxf(m, pm[q]);
-    scale[r] = row_scale(m);
-  }
-  __syncthreads();
-  // unit u quantized from its 16 elements (valid), or zeros (past M)
-  auto put = [&](int u, bool valid, const float (&f)[16]) {
-    int r;
-    const int e = unit_at(u, r);
-    uint4 word = make_uint4(0u, 0u, 0u, 0u);
-    if (valid) {
-      const float sc = scale[r], rc = __frcp_rn(sc);
-      word = make_uint4(quantize4(f, sc, rc), quantize4(f + 4, sc, rc),
-                        quantize4(f + 8, sc, rc), quantize4(f + 12, sc, rc));
+      for (int q = 0; q < kMaxCluster; ++q) m = fmaxf(m, pm[q]);
+      scale[r] = row_scale(m);
     }
-    uint4* dst = reinterpret_cast<uint4*>(xq + r * a.stride + e);
-    for (int q = 0; q < cn; ++q) *cluster.map_shared_rank(dst, q) = word;
-  };
-#pragma unroll
-  for (int i = 0; i < kKeep; ++i) {
-    const int u = tid + i * kThreads;
-    if (u < mt * upr) put(u, u < units, keep[i]);
-  }
-  for (int u = tid + kKeep * kThreads; u < mt * upr; u += kThreads) {
-    float f[16];
-    if (u < units) {
+    __syncthreads();
+    // unit u quantized from its 16 elements (valid), or zeros (past M)
+    auto put = [&](int u, bool valid, const float (&f)[16]) {
       int r;
       const int e = unit_at(u, r);
-      load16(x + (size_t)r * K, e, K, f);
+      uint4 word = make_uint4(0u, 0u, 0u, 0u);
+      if (valid) {
+        const float sc = scale[r], rc = __frcp_rn(sc);
+        word = make_uint4(quantize4(f, sc, rc), quantize4(f + 4, sc, rc),
+                          quantize4(f + 8, sc, rc), quantize4(f + 12, sc, rc));
+      }
+      uint4* dst = reinterpret_cast<uint4*>(xq + r * a.stride + e);
+      for (int q = 0; q < cn; ++q) *cluster.map_shared_rank(dst, q) = word;
+    };
+#pragma unroll
+    for (int i = 0; i < kKeep; ++i) {
+      const int u = tid + i * kThreads;
+      if (u < mt * upr) put(u, u < units, keep[i]);
     }
-    put(u, u < units, f);
+    for (int u = tid + kKeep * kThreads; u < mt * upr; u += kThreads) {
+      float f[16];
+      if (u < units) {
+        int r;
+        const int e = unit_at(u, r);
+        load16(x + (size_t)r * K, e, K, f);
+      }
+      put(u, u < units, f);
+    }
   }
   cluster.sync();  // every slice has landed in every block
 
@@ -341,7 +363,8 @@ w8a8_qgemm_kernel(const __grid_constant__ Args a) {
     if (solo) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        if (n1 + i < w.o.N) sws[i] = w.o.ws[n1 + i], sb[i] = bias_at(w.o, a.out_kind, n1 + i);
+        if (n1 + i < w.o.N && a.out_kind != kOutS32)
+          sws[i] = w.o.ws[n1 + i], sb[i] = bias_at(w.o, a.out_kind, n1 + i);
     } else if (j > 0) {
       fetch_cols(j);
     }
@@ -389,7 +412,9 @@ w8a8_qgemm_kernel(const __grid_constant__ Args a) {
           const int m = 16 * t + g + (i >= 2 ? 8 : 0), n = n1 + (i & 1);
           if (m >= mrows || n >= w.o.N) continue;
           const size_t o = (size_t)(m0 + m) * w.o.N + n;
-          if (a.out_kind == ragtorch::w8a8::kOutF32)
+          if (a.out_kind == kOutS32)
+            static_cast<int*>(w.o.out)[o] = acc[t][i];
+          else if (a.out_kind == kOutF32)
             static_cast<float*>(w.o.out)[o] =
                 epi_f32(acc[t][i], scale[m], sws[i & 1], has_bias, sb[i & 1]);
           else
@@ -413,7 +438,9 @@ w8a8_qgemm_kernel(const __grid_constant__ Args a) {
       int sum = 0;
       for (int k = 0; k < ks_n; ++k) sum += red[(k * mt + m) * R + r];
       const size_t o = (size_t)(m0 + m) * w.o.N + n0 + r;
-      if (a.out_kind == ragtorch::w8a8::kOutF32)
+      if (a.out_kind == kOutS32)
+        static_cast<int*>(w.o.out)[o] = sum;
+      else if (a.out_kind == kOutF32)
         static_cast<float*>(w.o.out)[o] = epi_f32(sum, scale[m], col_ws[r], has_bias, col_b[r]);
       else
         static_cast<__nv_bfloat16*>(w.o.out)[o] =
@@ -490,8 +517,10 @@ extern "C" int ragtorch_w8a8_qgemm_smem(int mt, int K) { return smem_bytes(mt, K
 // outs[i] [M, N[i]] (f32: out_kind 0, bf16: 1) = epilogue(quantize(x) .
 // wq[i]^T) for i < nmem (1 to 3 members sharing x); x [M, K] bf16 (in_kind
 // 1) or f32 (0), its base aligned to 4 elements; wq[i] [N[i], K] int8,
-// 4-byte aligned; biases[i] null or [N[i]] of the output type. K a multiple
-// of 4; mt 8 (M <= 8) or a multiple of 16 up to 64; nt8 1, 2, 4 or 8;
+// 4-byte aligned; biases[i] null or [N[i]] of the output type. The s32
+// kind: in_kind 2 and out_kind 2 together, x [M, K] int8 (K a multiple of
+// 16, x 16-byte aligned), outs[i] [M, N[i]] int32 = x . wq[i]^T, ws and
+// biases unread (may be null). K a multiple of 4; mt 8 (M <= 8) or a multiple of 16 up to 64; nt8 1, 2, 4 or 8;
 // grid_x blocks a share of the tiles, in clusters of `cluster` (1 or 8)
 // that share the quantize of x.
 extern "C" int ragtorch_w8a8_qgemm(const void* x, const void* const* wq,
@@ -501,10 +530,11 @@ extern "C" int ragtorch_w8a8_qgemm(const void* x, const void* const* wq,
                                    int mt, int nt8, int grid_x, int cluster,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t xalign = in_kind == 0 ? 16 : 8;
+  const size_t xalign = in_kind == 1 ? 8 : 16;
   if (nmem < 1 || nmem > kMaxMembers || M < 1 || K < 4 || K % 4 != 0 ||
-      (in_kind != 0 && in_kind != 1) ||
-      (out_kind != ragtorch::w8a8::kOutF32 && out_kind != ragtorch::w8a8::kOutBf16) ||
+      (in_kind != 0 && in_kind != 1 && in_kind != 2) ||
+      (out_kind != kOutF32 && out_kind != ragtorch::w8a8::kOutBf16 && out_kind != kOutS32) ||
+      (in_kind == 2) != (out_kind == kOutS32) || (in_kind == 2 && K % 16 != 0) ||
       !(mt == 8 ? M <= 8 : mt % 16 == 0 && mt >= 16 && mt <= kMaxRows) ||
       (nt8 != 1 && nt8 != 2 && nt8 != 4 && nt8 != 8) || grid_x < 1 ||
       (cluster != 1 && cluster != kMaxCluster) || grid_x % cluster != 0 ||
@@ -528,6 +558,7 @@ extern "C" int ragtorch_w8a8_qgemm(const void* x, const void* const* wq,
                       tiles};
     a.tiles += tiles;
   }
+  if (in_kind == 2) return launch_t<int8_t>(a, vec16, grid_x, cluster, smem, st);
   return in_kind == 1 ? launch_t<__nv_bfloat16>(a, vec16, grid_x, cluster, smem, st)
                       : launch_t<float>(a, vec16, grid_x, cluster, smem, st);
 }

@@ -45,6 +45,8 @@
 //   __grid_constant__ parameters, so a launch captured in a CUDA graph
 //   carries its own maps.
 // - Exact s32 sums: |acc| <= K * 127^2 < 2^31 for K < 133,000.
+// - The s32 kind (out_kind 2, a row-parallel shard's partial) stores the
+//   sums themselves, staged as 4-byte words like f32; no scale is read.
 // Nothing here allocates or synchronises: the wrapper allocates the
 // output. The entry point returns the encode's or the launch's error.
 
@@ -79,7 +81,7 @@ constexpr int kStages = 3;
 constexpr int kSmem = 1024 + kStages * kStage + 3 * 128 * 4 + 2 * kStages * 8;
 
 struct Epi {
-  const float* xs;  // [M] token scales
+  const float* xs;  // [M] token scales (null for the s32 kind)
   OutSide o;
   int M, out_kind;
 };
@@ -125,7 +127,8 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   // the epilogue's scales and biases, loaded while the products run (read
   // back from shared memory after barrier 1)
   const bool f32 = e.out_kind == ragtorch::w8a8::kOutF32;
-  {
+  const bool s32 = e.out_kind == ragtorch::w8a8::kOutS32;
+  if (!s32) {
     const int i = threadIdx.x % 128;
     if (threadIdx.x < 128) {
       row_s[i] = m0 + i < e.M ? e.xs[m0 + i] : 0.0f;
@@ -161,7 +164,7 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   // row order (16-byte stores where the rows allow).
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
   const bool has_bias = e.o.bias != nullptr;
-  const int esz = f32 ? 4 : 2;
+  const int esz = f32 || s32 ? 4 : 2;
   const int pitch = kBN * esz + 16;  // bytes a staged row, 16-aligned
   uint8_t* tile = smem + wg * 64 * pitch;
   // accumulator layout (each warp 16 rows): acc[4j + 2h + i] is row
@@ -181,7 +184,9 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       const float b0 = col_b[col], b1 = col_b[col + 1];
       const int a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
       uint8_t* p = tile + r * pitch + col * esz;
-      if (f32) {
+      if (s32) {
+        *reinterpret_cast<int2*>(p) = make_int2(a0, a1);
+      } else if (f32) {
         *reinterpret_cast<float2*>(p) = make_float2(epi_f32(a0, xs, s0, has_bias, b0),
                                                     epi_f32(a1, xs, s1, has_bias, b1));
       } else {
@@ -208,9 +213,9 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       const int r = ei / kBN, col = ei % kBN;
       if (mw + r >= e.M || n0 + col >= e.o.N) continue;
       const size_t o = ((size_t)(mw + r) * e.o.N + n0 + col) * esz;
-      if (f32)
-        *reinterpret_cast<float*>(out + o) =
-            *reinterpret_cast<const float*>(tile + r * pitch + col * 4);
+      if (esz == 4)
+        *reinterpret_cast<uint32_t*>(out + o) =
+            *reinterpret_cast<const uint32_t*>(tile + r * pitch + col * 4);
       else
         *reinterpret_cast<__nv_bfloat16*>(out + o) =
             *reinterpret_cast<const __nv_bfloat16*>(tile + r * pitch + col * 2);
@@ -236,15 +241,19 @@ bool encode(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
 }  // namespace
 
 // out [M, N] (f32: out_kind 0, bf16: 1) = epilogue(xq [M, K] . wq [N, K]^T);
-// bias null or [N] of the output type. K must be a multiple of 16 and xq,
-// wq 16-byte aligned (TMA's rules for a row stride and a base).
+// bias null or [N] of the output type; out_kind 2 (s32): out [M, N] int32 =
+// the exact sums, xs, ws and bias unread (may be null). K must be a
+// multiple of 16 and xq, wq 16-byte aligned (TMA's rules for a row stride
+// and a base).
 extern "C" int ragtorch_w8a8_gemm_wgmma(const void* xq, const void* xs,
                                         const void* wq, const void* ws,
                                         const void* bias, void* out, int M,
                                         int N, int K, int out_kind,
                                         void* stream) {
   if (M < 1 || N < 1 || K < 16 || K % 16 != 0 ||
-      (out_kind != ragtorch::w8a8::kOutF32 && out_kind != ragtorch::w8a8::kOutBf16) ||
+      (out_kind != ragtorch::w8a8::kOutF32 && out_kind != ragtorch::w8a8::kOutBf16 &&
+       out_kind != ragtorch::w8a8::kOutS32) ||
+      (out_kind != ragtorch::w8a8::kOutS32 && (xs == nullptr || ws == nullptr)) ||
       reinterpret_cast<uintptr_t>(xq) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wq) % 16 != 0)
     return (int)cudaErrorInvalidValue;

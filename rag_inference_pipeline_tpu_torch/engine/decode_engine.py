@@ -20,6 +20,14 @@ Port of `rag_inference_pipeline_tpu/engine/decode_engine.py`:
 - finished lanes (eos, length cap, cache end) free up at segment
   boundaries, so a short generation never waits on a long one.
 
+On a mesh (`mesh=`, the reference's `:352-366`) the lane pool follows
+`parallel/sharding.py::kv_cache_sharding`: the lanes split over dp, each
+position's block on its tp group with its kv heads split over tp, and
+each position decodes its lanes with its tree of the weights (a
+`models/layers.py::MeshTree`). The lanes' tokens, flags and emission
+buffer stay on the first device. The admission prefill runs on dp position
+0's tree and its rows are copied into their lanes' blocks.
+
 Pipelined completion (`pipeline_segments`). Segment N+1 is dispatched
 before the host reads segment N's flags. The JAX arrays of the reference
 are immutable; here the next replay rewrites `done`, `counts` and the
@@ -48,13 +56,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.mesh import MeshContext
 from ..models import decode_graph
+from ..models.layers import MeshTree, tree_devices
 from ..models.qwen import (
     KVCache,
     QwenConfig,
+    cache_grid,
     qwen_decode_step,
     qwen_prefill,
     spec_verify_round,
+    tree_all_devices,
 )
 from ..telemetry.metrics import ENGINE_LANES_ACTIVE, ENGINE_SEGMENTS, TOKENS_GENERATED
 from ..utils.shapes import pick_bucket
@@ -124,9 +136,19 @@ class DecodeEngine:
         gamma: int = 8,
         spec_rounds: int = 2,
         inject_accept_p: Optional[float] = None,  # benchmark-only
+        mesh: Optional[MeshContext] = None,
         run_id: str = "dev",
         node: str = "0",
     ) -> None:
+        # the prefill's tree (dp position 0's) and the segments' (every
+        # position's, the batch split over dp)
+        self._prefill_params = params
+        if mesh is not None and mesh.n_devices > 1:
+            from ..parallel.sharding import place_params
+
+            groups = place_params(mesh, params, cfg)
+            self._prefill_params = groups[0]
+            params = MeshTree(groups) if mesh.dp > 1 else groups[0]
         self.params = params
         self.cfg = cfg
         self.lanes = lanes
@@ -140,7 +162,7 @@ class DecodeEngine:
         self.gamma = gamma
         self.spec_rounds = spec_rounds
         self.inject_accept_p = inject_accept_p
-        self.device = dev = params.final_ln.device
+        self.device = dev = tree_devices(params)[0]
         # the reference's Prometheus series (`decode_engine.py:334-344`),
         # and the same figures as integers for in-process readers
         self.lanes_active = 0
@@ -158,7 +180,8 @@ class DecodeEngine:
         s_alloc = cache_len + (gamma + 1 if speculative else 0)
         cdt = torch.bfloat16 if params.final_ln.dtype == torch.bfloat16 else torch.float32
         self.cache = KVCache.zeros(cfg.layers, lanes, s_alloc, cfg.kv_heads,
-                                   cfg.head_dim, dtype=cdt, device=dev)
+                                   cfg.head_dim, dtype=cdt, device=dev,
+                                   grid=cache_grid(params))
         self.tokens = zeros(lanes)
         self.done = zeros(lanes, dtype=torch.bool)
         # + headroom: a plain lane's last segment may overrun its budget by
@@ -185,7 +208,7 @@ class DecodeEngine:
         self._wake = asyncio.Event()
         self._stopped = False
         self.graph: Optional[decode_graph.CapturedGraph] = None
-        if decode_graph.uses_graphs(dev):
+        if decode_graph.uses_graphs(tree_all_devices(params)):
             self.graph = decode_graph.CapturedGraph(self._segment_body, dev)
         self._reset()
 
@@ -321,14 +344,12 @@ class DecodeEngine:
         cfg = self.cfg
         ids_t, mask_t = _h2d(ids, dev), _h2d(mask, dev)
         lanes = _h2d(np.array([r.lane for r in batch], np.int64), dev)
-        mini = KVCache.zeros(cfg.layers, ids.shape[0], self.cache.k.shape[2],
-                             cfg.kv_heads, cfg.head_dim, dtype=self.cache.k.dtype,
-                             device=dev)
-        logits, mini = qwen_prefill(self.params, cfg, ids_t, mask_t, mini)
+        mini = KVCache.zeros(cfg.layers, ids.shape[0], self.cache.max_len,
+                             cfg.kv_heads, cfg.head_dim, dtype=self.cache.dtype,
+                             device=dev, grid=cache_grid(self._prefill_params))
+        logits, mini = qwen_prefill(self._prefill_params, cfg, ids_t, mask_t, mini)
         first = torch.argmax(logits[:n], dim=-1).to(torch.int32)
-        self.cache.k[:, lanes] = mini.k[:, :n]
-        self.cache.v[:, lanes] = mini.v[:, :n]
-        self.cache.length[lanes] = mini.length[:n]
+        self.cache.put_lanes([r.lane for r in batch], mini)
         self.tokens[lanes] = first
         self.done[lanes] = first == self.eos
         self.emit_buf[lanes, 0] = first
@@ -352,7 +373,7 @@ class DecodeEngine:
         """`segment_steps` decode steps for every lane, appended to the
         emission buffer at each lane's count."""
         steps = self.segment_steps
-        s = self.cache.k.shape[2]
+        s = self.cache.max_len
         for i in range(steps):
             logits, _ = qwen_decode_step(self.params, self.cfg, self.tokens, self.cache)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -18,11 +18,15 @@ scan is `sharded_topk_int8gs` (K1 once a shard) over the whole batch (the
 query's int8 scale is batch-wide), and the winners' tokens come from
 `sharded_token_gather`. On a mesh that repeats one device the slices run
 one after another.
+
+With tp > 1 (the reference's `:145-149`) the BERT and Qwen trees are split
+over each dp position's tp group (`parallel/sharding.py::place_params`),
+and each position's embed and decode run on its group's shards. The scan
+and the token gather stay over dp.
 """
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -31,7 +35,8 @@ import torch
 
 from ..core.mesh import MeshContext
 from ..models.bert import BertConfig, bert_embed
-from ..models.layers import ParamTree
+from ..models.layers import ParamTree, over_dp
+from ..parallel.sharding import place_params
 from ..models.qwen import QwenConfig, greedy_generate, ngram_speculative_generate
 from ..ops.topk import (
     binmax_partial_topk_int8gs,
@@ -61,16 +66,6 @@ def sharded_token_gather(
         toks.append((tok_l[safe] * mine).to(mesh.front))
         msks.append((msk_l[safe] * mine).to(mesh.front))
     return torch.stack(toks).sum(0, dtype=torch.int32), torch.stack(msks).sum(0, dtype=torch.int32)
-
-
-def _replicate(mesh: MeshContext, params: ParamTree) -> list[ParamTree]:
-    """`params` for every dp position: the tree itself on its own device, a
-    copy on each other distinct device."""
-    home = next(iter(params.state_dict().values())).device
-    copies = {
-        d: params if d == home else copy.deepcopy(params).to(d) for d in mesh.distinct
-    }
-    return [copies[d] for d in mesh.devices]
 
 
 class RAGStepOutput(NamedTuple):
@@ -122,6 +117,9 @@ class DeviceRAGPipeline:
             self._build_sharded(bert_params, qwen_params, db, doc_tokens, doc_token_mask,
                                 db_i8, db_scale, db_rescore, ntotal)
             return
+        if self.mesh is not None and self.mesh.tp > 1:
+            bert_params = place_params(self.mesh, bert_params, self.bert_cfg)[0]
+            qwen_params = place_params(self.mesh, qwen_params, self.qwen_cfg)[0]
         self.bert_params = bert_params
         self.qwen_params = qwen_params
         if db_i8 is not None:
@@ -150,12 +148,13 @@ class DeviceRAGPipeline:
 
     def _build_sharded(self, bert_params, qwen_params, db, doc_tokens, doc_token_mask,
                        db_i8, db_scale, db_rescore, ntotal) -> None:
-        """dp > 1: the weights once per distinct device, the database, its
-        rescore copy and the token store in dp row shards."""
+        """dp > 1: the weights once per distinct device (split over each
+        position's tp group with tp > 1), the database, its rescore copy and
+        the token store in dp row shards."""
         mesh = self.mesh
         dp, rows = mesh.dp, mesh.rows_dp
-        self.bert_params = _replicate(mesh, bert_params)
-        self.qwen_params = _replicate(mesh, qwen_params)
+        self.bert_params = place_params(mesh, bert_params, self.bert_cfg)
+        self.qwen_params = place_params(mesh, qwen_params, self.qwen_cfg)
         if db_i8 is not None:
             if db_rescore is None:
                 raise ValueError("the fast path requires the bf16 rescore copy")
@@ -229,17 +228,6 @@ class DeviceRAGPipeline:
         )
 
 
-def _over_dp(mesh: MeshContext, fn, params: list, *batch: torch.Tensor) -> torch.Tensor:
-    """`fn(params_i, *slice_i)` for each dp position's slice of the batch
-    (B/dp rows, on its device), the results joined on the front device."""
-    b = batch[0].shape[0] // mesh.dp
-    outs = [
-        fn(params[i], *(t[i * b : (i + 1) * b].to(dev) for t in batch))
-        for i, dev in enumerate(mesh.devices)
-    ]
-    return torch.cat([o.to(mesh.front) for o in outs])
-
-
 @torch.inference_mode()
 def _rag_step(
     bert_params,
@@ -271,8 +259,8 @@ def _rag_step(
     if mesh is None:
         emb = bert_embed(bert_params, bert_cfg, query_tokens, query_mask)
     else:
-        emb = _over_dp(mesh, lambda p, t, m: bert_embed(p, bert_cfg, t, m),
-                       bert_params, query_tokens, query_mask)
+        emb = over_dp(mesh.devices, lambda p, t, m: bert_embed(p, bert_cfg, t, m),
+                      bert_params, query_tokens, query_mask)
 
     # 2. int8 scan (K1, once a shard over dp) + exact bf16 re-score; ntotal
     #    masks the pad rows
@@ -323,5 +311,5 @@ def _rag_step(
     if mesh is None:
         toks = decode(qwen_params, prompt, pmask)
     else:  # batch over dp
-        toks = _over_dp(mesh, decode, qwen_params, prompt, pmask)
+        toks = over_dp(mesh.devices, decode, qwen_params, prompt, pmask)
     return RAGStepOutput(tokens=toks, doc_ids=ids, scores=scores)

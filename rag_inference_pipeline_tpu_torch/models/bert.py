@@ -1,6 +1,12 @@
 """BERT-family encoder in PyTorch: the BGE embedder, the BGE cross-encoder
 reranker (XLM-RoBERTa-base) and the BERT classifiers. Port of
 `rag_inference_pipeline_tpu/models/bert.py`.
+
+Every forward also takes a tp-sharded tree (`layers.TPTree`, from
+`parallel/sharding.py`): each shard runs its `heads / tp` heads (on the
+card at T >= 1024 the flash kernel once a shard a layer), o and ffn_out are
+row-parallel (`layers.row_dense`, the bias added once after the sum), and
+the LayerNorms run on the summed residual.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from .layers import (
     gelu,
     layer_norm,
     quantize_linear,
+    row_dense,
+    shards_of,
+    spread,
 )
 
 
@@ -160,7 +169,8 @@ def bert_encode(
     attn_mask: torch.Tensor,  # [B, T] {0,1}
     token_type_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Backbone forward -> [B, T, H] hidden states (post-LN BERT)."""
+    """Backbone forward -> [B, T, H] hidden states (post-LN BERT), the
+    layers over the tree's tp shards (one for an unsplit tree)."""
     b, t = input_ids.shape
     emb = params.embeddings
     ids = input_ids.long()
@@ -171,19 +181,23 @@ def bert_encode(
     tt = token_type_ids if token_type_ids is not None else torch.zeros_like(ids)
     x = emb.word[ids] + emb.position[pos.long()] + emb.token_type[tt.long()]
     x = layer_norm(x, emb.ln_w, emb.ln_b, cfg.eps)
+    shards, devs = shards_of(params)
+    tp = len(shards)
     dh = cfg.hidden // cfg.heads
-    for lp in params.layers:
-        q, k, v = (y.reshape(b, t, cfg.heads, dh) for y in dense_group(
-            x, (lp.q_w, lp.k_w, lp.v_w), (lp.q_b, lp.k_b, lp.v_b)))
-        a = encoder_attention(q, k, v, attn_mask).reshape(b, t, cfg.hidden)
-        x = layer_norm(
-            x + dense(a, lp.o_w, lp.o_b), lp.attn_ln_w, lp.attn_ln_b, cfg.eps
-        )
-        h = gelu(dense(x, lp.ffn_in_w, lp.ffn_in_b))
-        x = layer_norm(
-            x + dense(h, lp.ffn_out_w, lp.ffn_out_b), lp.ffn_ln_w,
-            lp.ffn_ln_b, cfg.eps,
-        )
+    masks = spread(attn_mask, devs)
+    for li in range(cfg.layers):
+        lps = [sh.layers[li] for sh in shards]
+        parts = []
+        for lp, xj, mj in zip(lps, spread(x, devs), masks):
+            q, k, v = (y.reshape(b, t, cfg.heads // tp, dh) for y in dense_group(
+                xj, (lp.q_w, lp.k_w, lp.v_w), (lp.q_b, lp.k_b, lp.v_b)))
+            parts.append(encoder_attention(q, k, v, mj).reshape(b, t, -1))
+        lp0 = lps[0]
+        x = layer_norm(x + row_dense(parts, [lp.o_w for lp in lps], lp0.o_b),
+                       lp0.attn_ln_w, lp0.attn_ln_b, cfg.eps)
+        hs = [gelu(dense(xj, lp.ffn_in_w, lp.ffn_in_b)) for lp, xj in zip(lps, spread(x, devs))]
+        x = layer_norm(x + row_dense(hs, [lp.ffn_out_w for lp in lps], lp0.ffn_out_b),
+                       lp0.ffn_ln_w, lp0.ffn_ln_b, cfg.eps)
     return x
 
 

@@ -33,6 +33,12 @@ Every component takes the serving mesh (`core/mesh.py`, the reference's
 which must be the `device` it is given. The staged forwards run the whole
 batch there; the fused step splits its batch over dp itself
 (`engine/device_pipeline.py`), with the weights once per distinct device.
+On a mesh of tp > 1 each model's weights are its Megatron shards over the
+front tp group (`parallel/sharding.py::place_params`, the reference's
+`:123-135` and `:369-383`), and every forward, the decode loops and the
+engine run them sharded; the warm-up captures the sharded step graphs.
+Where the group spans distinct cards the decode steps run eagerly
+(`decode_graph.uses_graphs`), which the LLM logs once at load.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ..core.device import torch_dtype
 from ..core.mesh import MeshContext
 from ..utils.cache import LRUCache
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
+from . import decode_graph
 from .bert import (
     BertConfig,
     bert_classify,
@@ -60,10 +67,12 @@ from .bert import (
 from .qwen import (
     KVCache,
     QwenConfig,
+    cache_grid,
     greedy_generate,
     init_qwen_params,
     ngram_speculative_generate,
     qwen_prefill,
+    tree_all_devices,
 )
 from .safetensors import load_safetensors_dict
 from .tokenizer import make_tokenizer
@@ -145,6 +154,16 @@ def _front(device: torch.device, mesh: Optional[MeshContext]) -> torch.device:
     return device
 
 
+def _on_mesh(params, cfg, mesh: Optional[MeshContext]):
+    """A loaded tree as the component serves it: on a mesh of tp > 1 its
+    Megatron shards over the front tp group, else as it is."""
+    if mesh is None or mesh.tp == 1:
+        return params
+    from ..parallel.sharding import place_params
+
+    return place_params(mesh, params, cfg)[0]
+
+
 class _BertBase:
     """Shared load for BERT-backed components."""
 
@@ -210,6 +229,7 @@ class _BertBase:
             # W8A8-dynamic encoder, quantized after load as the reference's
             # components do
             self.params = quantize_bert_params(self.params)
+        self.params = _on_mesh(self.params, self.cfg, self.mesh)
         self.random_weights = mdir is None
         self.checkpoint_dir = mdir
         self.tokenizer = make_tokenizer(
@@ -450,6 +470,11 @@ class LLMComponent:
                 self.cfg, generator=_generator(self.device), dtype=dtype,
                 device=self.device, quantize=quantize,
             )
+        self.params = _on_mesh(self.params, self.cfg, self.mesh)
+        devs = tree_all_devices(self.params)
+        if len(devs) > 1 and not decode_graph.uses_graphs(devs):
+            logger.warning("LLM: the tp group spans %s: the decode steps run eagerly "
+                           "(one CUDA graph cannot hold them)", [str(d) for d in devs])
         self.random_weights = mdir is None
         self.checkpoint_dir = mdir
         fam_llama = self.model_name.lower().startswith("meta-llama")
@@ -586,7 +611,7 @@ class LLMComponent:
         dtype = torch.bfloat16 if self.params.final_ln.dtype == torch.bfloat16 else torch.float32
         s_alloc = s.kv_cache_max_len + (s.speculative_gamma + 1 if s.use_speculative_decoding else 0)
         cache = KVCache.zeros(cfg.layers, ids.shape[0], s_alloc, cfg.kv_heads, cfg.head_dim,
-                              dtype=dtype, device=self.device)
+                              dtype=dtype, device=self.device, grid=cache_grid(self.params))
         t = torch.from_numpy(ids).to(self.device)
         logits, _ = qwen_prefill(self.params, cfg, t, t, cache)
         logits.cpu()
@@ -614,6 +639,7 @@ class LLMComponent:
             gamma=s.speculative_gamma,
             spec_rounds=s.speculative_rounds,
             inject_accept_p=s.speculative_inject_p,
+            mesh=self.mesh,  # the lane pool over the mesh, as the weights
             run_id=s.run_id,
             node=str(s.node_number),
         )

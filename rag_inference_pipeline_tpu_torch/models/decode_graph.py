@@ -21,10 +21,11 @@ eager call of the same body computes:
 - lookup tables (the rope tables) are built before the capture: the
   warm-up call builds them.
 
-On the CPU nothing is captured and callers run the same bodies eagerly. On
-CUDA a capture that fails raises; there is no eager fallback and no
-setting that turns the graphs off (the eager functions keep their own
-names for the tools that compare the two).
+On the CPU nothing is captured and callers run the same bodies eagerly;
+so does a loop whose tp shards or dp positions span distinct cards
+(`uses_graphs`). On CUDA a capture that fails raises; there is no eager
+fallback and no setting that turns the graphs off (the eager functions
+keep their own names for the tools that compare the two).
 """
 
 from __future__ import annotations
@@ -36,10 +37,16 @@ from typing import Callable, Hashable
 import torch
 
 
-def uses_graphs(device: torch.device) -> bool:
-    """Whether the decode loops on `device` replay captured graphs: on
-    CUDA always, on the CPU never."""
-    return device.type == "cuda"
+def uses_graphs(devices) -> bool:
+    """Whether a decode loop whose work runs on `devices` (a device, or the
+    devices of a tp-sharded tree) replays captured graphs: when it all runs
+    on one CUDA device, so one graph holds every shard's kernels. On the
+    CPU never; nor when a tp group or a dp mesh spans distinct cards, where
+    one graph cannot hold the step and it runs eagerly (a deliberate
+    difference: the reference compiles one program over the mesh)."""
+    devs = {torch.device(d) for d in
+            ((devices,) if isinstance(devices, (str, torch.device)) else devices)}
+    return len(devs) == 1 and next(iter(devs)).type == "cuda"
 
 
 class HostFlag:

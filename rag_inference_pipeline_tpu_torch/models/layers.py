@@ -10,6 +10,15 @@ lists of arrays) as an `nn.Module`, so `state_dict` keys are the tree's
 paths (`layers.3.q_w`) and the model functions read `params.layers[3].q_w`.
 A W8A8 leaf is a `QuantizedLinear` or `QuantizedEmbed` module in the tree
 (`layers.3.q_w.q`, `layers.3.q_w.s`); `dense` dispatches on it.
+
+Under tensor parallelism (`parallel/sharding.py`) a tree is a `TPTree`:
+one `ParamTree` a tp position, each holding its Megatron slice of the split
+leaves. A column-parallel product is `dense_group` on each shard; a
+row-parallel one is `row_dense`, whose partials `tp_sum` adds over the
+group; an unsplit tree is one shard (`shards_of`), so the model bodies
+are the same loop at every tp. A `MeshTree` holds one tree a dp position;
+the decoder's functions split their batch over it with `over_dp`, the one
+dp batch split (the fused step's too, `engine/device_pipeline.py`).
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import flash_encoder_attention
-from ..ops.w8a8 import int8_scale, quantize_rows, w8a8_dense
+from ..ops.w8a8 import int8_scale, quantize_rows, w8a8_dense, w8a8_row_dense
 
 
 class ParamTree(nn.Module):
@@ -59,6 +68,139 @@ class ParamTree(nn.Module):
             else:
                 out[name] = m
         return out
+
+
+# the leaves a split tree keeps whole on every shard and that callers read
+# off the tree itself: the norms and tables around the blocks
+_WHOLE = ("final_ln", "embed", "embeddings", "pooler", "classifier")
+
+
+class TPTree:
+    """A parameter tree split over one tp group (Megatron): `shards[j]` is
+    tp position j's `ParamTree` on `devices[j]`, each split leaf its
+    contiguous 1/tp slice, each replicated leaf whole (one copy a distinct
+    device: shards on one device share it). Built by
+    `parallel/sharding.py::shard_params`. The leaves outside the blocks
+    that stay whole (`final_ln`, `embed`, `embeddings`, `pooler`,
+    `classifier`) read through to shard 0; an untied `lm_head` is split and
+    does not."""
+
+    def __init__(self, shards, devices) -> None:
+        self.shards = list(shards)
+        self.devices = tuple(torch.device(d) for d in devices)
+
+    @property
+    def tp(self) -> int:
+        return len(self.shards)
+
+    def __getattr__(self, name):
+        shards = self.__dict__.get("shards")
+        if shards and name in _WHOLE:
+            return getattr(shards[0], name)
+        raise AttributeError(name)
+
+
+class MeshTree:
+    """One tree a dp position of a mesh (a `ParamTree`, or a `TPTree` over
+    the position's tp group): the decoder's functions run the batch's dp
+    slices on their positions' trees (the reference's batch over dp). The
+    whole leaves read through to position 0's tree."""
+
+    def __init__(self, groups) -> None:
+        self.groups = list(groups)
+
+    @property
+    def dp(self) -> int:
+        return len(self.groups)
+
+    def __getattr__(self, name):
+        groups = self.__dict__.get("groups")
+        if groups and name in _WHOLE:
+            return getattr(groups[0], name)
+        raise AttributeError(name)
+
+
+def tree_devices(params) -> tuple[torch.device, ...]:
+    """The devices of a tree's tp positions (one for an unsplit tree; a
+    `MeshTree` answers for dp position 0)."""
+    if isinstance(params, MeshTree):
+        return tree_devices(params.groups[0])
+    if isinstance(params, TPTree):
+        return params.devices
+    leaf = next(params.parameters(), None)
+    return ((leaf if leaf is not None else next(params.buffers())).device,)
+
+
+def shards_of(params) -> tuple[list, tuple[torch.device, ...]]:
+    """(shard trees, their devices): a `TPTree`'s, or an unsplit tree as
+    its one shard."""
+    if isinstance(params, TPTree):
+        return params.shards, params.devices
+    return [params], tree_devices(params)
+
+
+def over_dp(devices, fn, items, *batch: torch.Tensor) -> torch.Tensor:
+    """`fn(items[i], *slice_i)` for each dp position i: its B/dp rows of
+    every tensor in `batch`, moved to `devices[i]`; the results joined on
+    batch[0]'s device (the reference's batch over dp). On a mesh that
+    repeats one device the positions run one after another."""
+    b = batch[0].shape[0] // len(devices)
+    outs = [fn(item, *(t[i * b:(i + 1) * b].to(dev) for t in batch))
+            for i, (item, dev) in enumerate(zip(items, devices))]
+    return torch.cat([o.to(batch[0].device) for o in outs])
+
+
+def spread(t: torch.Tensor, devices) -> list:
+    """`t` on each of `devices`, copied once a distinct device (positions
+    that share a device share the tensor)."""
+    copies = {t.device: t}
+    return [copies[d] if d in copies else copies.setdefault(d, t.to(d)) for d in devices]
+
+
+def tp_sum(parts) -> torch.Tensor:
+    """The sum of a row-parallel product's partials over its tp group, in
+    position order, on the first partial's device (the reference's psum
+    over tp): on one device a sum; across devices each partial is copied
+    to the first, and the callers copy the result back where it is read
+    (`spread`)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p.to(acc.device)
+    return acc
+
+
+def _f32_product(x, w):
+    """x @ w with a float32 result (the reference's
+    preferred_element_type): on the card a bf16 product written as f32
+    (`torch.mm(..., out_dtype=)`); elsewhere x and w upcast (the CPU has no
+    mm with an output dtype)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def row_dense(xs, ws, b=None):
+    """The reference's `dense` (`rag_inference_pipeline_tpu/models/
+    layers.py:103-111`) under a row split: x's slices `xs` (one a tp
+    position, on its device) against the matching weight row shards `ws`.
+    Each partial product is kept in f32, the partials are summed over the
+    group in position order (`tp_sum`), then cast to x's dtype and the
+    (replicated) bias added once. Over `QuantizedLinear` shards it is the
+    exact s32 form (`ops/w8a8.py::w8a8_row_dense`): bit for bit the unsplit
+    W8A8 `dense`. One shard (an unsplit tree) is `dense` itself. The result
+    lies on the first slice's device."""
+    if len(ws) == 1:
+        return dense(xs[0], ws[0], b)
+    if isinstance(ws[0], QuantizedLinear):
+        lead = xs[0].shape[:-1]
+        y = w8a8_row_dense([x.reshape(-1, x.shape[-1]) for x in xs], [w.q for w in ws],
+                           ws[0].s, b, out_dtype=xs[0].dtype)
+        return y.reshape(*lead, y.shape[-1])
+    y = tp_sum([_f32_product(x, w) for x, w in zip(xs, ws)]).to(xs[0].dtype)
+    return y if b is None else y + b
 
 
 class _Int8Weight(nn.Module):
@@ -225,24 +367,44 @@ def attention(
     q: torch.Tensor,  # [B, T, Hq, Dh]
     k: torch.Tensor,  # [B, S, Hkv, Dh]
     v: torch.Tensor,  # [B, S, Hkv, Dh]
-    mask: Optional[torch.Tensor] = None,  # broadcastable to [B, Hq, T, S], bool
+    mask: Optional[torch.Tensor] = None,  # [B or 1, 1, T or 1, S] bool
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA head-group broadcast.
 
     Scores and softmax in float32 whatever the input dtype. Masked scores
     are filled with -1e30, not -inf, so a fully masked row gets uniform
-    weights (as in the reference) instead of NaN."""
+    weights (as in the reference) instead of NaN. Under GQA each kv head's
+    group is its own pair of products (`_group_attention`)."""
     dh = q.shape[-1]
     hq, hkv = q.shape[2], k.shape[2]
     if hq != hkv:
-        k = k.repeat_interleave(hq // hkv, dim=2)
-        v = v.repeat_interleave(hq // hkv, dim=2)
+        return torch.cat([
+            _group_attention(q[:, :, g * (hq // hkv):(g + 1) * (hq // hkv)], k[:, :, g],
+                             v[:, :, g], mask)
+            for g in range(hkv)], dim=2)
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(dh)
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhts,bshd->bthd", probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def _group_attention(q, k, v, mask) -> torch.Tensor:
+    """`attention` of one kv head's query group: q [B, T, G, Dh] against k,
+    v [B, S, Dh], the group's T x G query rows as one batched product a
+    lane. The products' shapes do not depend on how many heads a call
+    holds, so a tp shard's heads round as the same heads of the unsplit
+    call do (cuBLAS may sum a batch of 7 heads otherwise than one of 14)."""
+    b, t, g, dh = q.shape
+    qf = q.float().reshape(b, t * g, dh)
+    scores = torch.bmm(qf, k.float().transpose(1, 2)) / math.sqrt(dh)
+    scores = scores.view(b, t, g, -1)
+    if mask is not None:  # [B or 1, 1, T or 1, S] -> [B or 1, T or 1, 1, S]
+        scores = scores.masked_fill(~mask[:, 0, :, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.bmm(probs.float().view(b, t * g, -1), v.float())
+    return out.view(b, t, g, dh).to(q.dtype)
 
 
 def make_padding_mask(attn_mask: torch.Tensor) -> torch.Tensor:

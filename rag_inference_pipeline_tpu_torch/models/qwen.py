@@ -13,6 +13,16 @@ The loops keep their carried state in tensors updated in place, so that
 on CUDA one captured graph of the loop body serves every step
 (`models/decode_graph.py`); `greedy_generate_eager` and
 `ngram_speculative_generate_eager` issue every step from Python.
+
+Every function takes a tp-sharded tree too (`layers.TPTree`, from
+`parallel/sharding.py`), as the reference's take a sharded pytree: each
+shard runs its `heads / tp` query heads and `kv_heads / tp` kv heads
+against its own slice of the KV cache, o and down are row-parallel
+(`layers.row_dense`, the residual added after the sum), the tied head runs
+whole and an untied one column-split (its f32 logits joined in position
+order). A `layers.MeshTree` (one tree a dp position) splits the batch over
+dp: each position's lanes, and their cache, live on its tp group
+(`KVCache.zeros(grid=...)`, the reference's `kv_cache_sharding`).
 """
 
 from __future__ import annotations
@@ -27,18 +37,24 @@ import torch
 from . import decode_graph
 from ..ops.w8a8 import w8a8_dense
 from .layers import (
+    MeshTree,
     ParamTree,
     QuantizedEmbed,
     QuantizedLinear,
+    TPTree,
     attention,
-    dense,
     dense_group,
+    over_dp,
     quantize_embed,
     quantize_linear,
     rms_norm,
     rope_at,
     rope_frequencies,
     rotate,
+    row_dense,
+    shards_of,
+    spread,
+    tree_devices,
 )
 
 
@@ -186,20 +202,89 @@ def _embed_rows(params: ParamTree, ids: torch.Tensor) -> torch.Tensor:
 
 class KVCache:
     """Static-shape KV cache: [L, B, S, Hkv, Dh] per k and v, written in
-    place; `length` [B] int32 is the filled length per lane."""
+    place; `length` [B] int32 is the filled length per lane.
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor, length: torch.Tensor):
-        self.k, self.v, self.length = k, v, length
+    On a mesh the cache is a grid of blocks (`grid[i][j]` = (k, v) of dp
+    position i, tp position j: [L, B/dp, S, Hkv/tp, Dh] on that position's
+    device, the reference's `kv_cache_sharding`); `length` stays whole on
+    the first device. `k` and `v` name the one block of an unsplit cache."""
+
+    def __init__(self, k, v, length: torch.Tensor, grid=None):
+        self.grid = grid if grid is not None else (((k, v),),)
+        self.length = length
+
+    @property
+    def k(self) -> torch.Tensor:
+        return self._whole()[0]
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self._whole()[1]
+
+    def _whole(self):
+        if len(self.grid) * len(self.grid[0]) != 1:
+            raise AttributeError("a cache split over a mesh has no single k, v: read .grid")
+        return self.grid[0][0]
+
+    @property
+    def max_len(self) -> int:
+        return self.grid[0][0][0].shape[2]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.grid[0][0][0].dtype
+
+    def zero_(self) -> None:
+        for row in self.grid:
+            for k, v in row:
+                k.zero_()
+                v.zero_()
 
     @classmethod
     def zeros(cls, layers, batch, max_len, heads_kv, head_dim,
-              dtype=torch.bfloat16, device=None):
-        shape = (layers, batch, max_len, heads_kv, head_dim)
-        return cls(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
-            length=torch.zeros(batch, dtype=torch.int32, device=device),
-        )
+              dtype=torch.bfloat16, device=None, grid=None):
+        """A zero cache on `device`, or split over `grid` (a mesh's grid, or
+        one tp group as a 1-row grid): the lanes over its rows (dp), the kv
+        heads over its columns (tp); `length` on grid[0][0]."""
+        if grid is None:
+            grid = ((device,),)
+        dp, tp = len(grid), len(grid[0])
+        if batch % dp or heads_kv % tp:
+            raise ValueError(f"a cache of {batch} lanes and {heads_kv} kv heads does not "
+                             f"split over dp={dp} x tp={tp}")
+        shape = (layers, batch // dp, max_len, heads_kv // tp, head_dim)
+        blocks = tuple(
+            tuple((torch.zeros(shape, dtype=dtype, device=d),
+                   torch.zeros(shape, dtype=dtype, device=d)) for d in row)
+            for row in grid)
+        return cls(None, None, torch.zeros(batch, dtype=torch.int32, device=grid[0][0]),
+                   grid=blocks)
+
+    def put_lanes(self, lanes: list, src: "KVCache") -> None:
+        """Row r of `src` (a cache of one dp block, split like this one over
+        tp, with len(lanes) rows or more) into lane `lanes[r]`: a lane of dp
+        block i lands in block i, on its devices."""
+        per = self.grid[0][0][0].shape[1]
+        for i, row in enumerate(self.grid):
+            rows = [r for r, lane in enumerate(lanes) if lane // per == i]
+            if not rows:
+                continue
+            local = [lanes[r] - i * per for r in rows]
+            for (k, v), (sk, sv) in zip(row, src.grid[0]):
+                src_rows, dst = _index(rows, sk.device), _index(local, k.device)
+                k[:, dst] = sk[:, src_rows].to(k.device)
+                v[:, dst] = sv[:, src_rows].to(v.device)
+        self.length[_index(lanes, self.length.device)] = (
+            src.length[: len(lanes)].to(self.length.device))
+
+
+def _index(values: list, device: torch.device) -> torch.Tensor:
+    """Host ints as a long tensor on `device`, through pinned memory on a
+    card (a pageable copy would wait for the work queued there)."""
+    t = torch.tensor(values, dtype=torch.long)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 @functools.lru_cache(maxsize=8)
@@ -210,27 +295,39 @@ def _rope_tables(cfg: QwenConfig, device: torch.device):
     )
 
 
-def _block(
-    lp: ParamTree,
-    cfg: QwenConfig,
-    x: torch.Tensor,  # [B, T, H]
-    rope,  # rope_at's rows for `positions`
-    positions: torch.Tensor,  # [B, T]
-    cache_k: torch.Tensor,  # [B, S, Hkv, Dh], written in place
-    cache_v: torch.Tensor,
-    mask: torch.Tensor,  # [B or 1, 1, T, S] bool
-) -> torch.Tensor:
-    b, t, _ = x.shape
-    y = rms_norm(x, lp.in_ln, cfg.eps)
+def cache_grid(params):
+    """The devices a tree's cache lies on, as `KVCache.zeros` takes them:
+    None for an unsplit tree (its own device), one tp group, or a
+    `MeshTree`'s groups."""
+    if isinstance(params, MeshTree):
+        return tuple(tree_devices(g) for g in params.groups)
+    if isinstance(params, TPTree):
+        return (params.devices,)
+    return None
+
+
+def tree_all_devices(params) -> tuple[torch.device, ...]:
+    """Every device a tree's work runs on, each once."""
+    groups = params.groups if isinstance(params, MeshTree) else (params,)
+    return tuple(dict.fromkeys(d for g in groups for d in tree_devices(g)))
+
+
+def _attend(lp, cfg: QwenConfig, heads: int, kv_heads: int, y, rope, positions,
+            cache_k, cache_v, mask) -> torch.Tensor:
+    """The attention half of a block on one shard's `heads` query and
+    `kv_heads` kv heads (all of them unsplit): q/k/v, rope, the cache
+    write (none without a cache: `qwen_forward`) and attention ->
+    [B, T, heads * Dh]."""
+    b, t, _ = y.shape
     q, k, v = dense_group(y, (lp.q_w, lp.k_w, lp.v_w),
                           (lp.get("q_b"), lp.get("k_b"), lp.get("v_b")))
-    q = q.reshape(b, t, cfg.heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    q = rotate(q, *rope)
-    k = rotate(k, *rope)
+    q = rotate(q.reshape(b, t, heads, cfg.head_dim), *rope)
+    k = rotate(k.reshape(b, t, kv_heads, cfg.head_dim), *rope)
+    v = v.reshape(b, t, kv_heads, cfg.head_dim)
+    if cache_k is None:
+        return attention(q, k, v, mask).reshape(b, t, -1)
     s_len = cache_k.shape[1]
-    lanes = torch.arange(b, device=x.device)
+    lanes = torch.arange(b, device=y.device)
     if t == 1:
         # decode-step insert, in place with index_copy_ over the flattened
         # [B*S] rows. As in the reference's one-hot insert, a lane past the
@@ -248,29 +345,44 @@ def _block(
         # to [0, S - t] as the reference's dynamic_update_slice clamps it
         # (a prefill starts at 0; qwen_extend at the lane's length)
         start = positions[:, 0].long().clamp(0, s_len - t)
-        rows = (lanes * s_len + start)[:, None] + torch.arange(t, device=x.device)
+        rows = (lanes * s_len + start)[:, None] + torch.arange(t, device=y.device)
         for cache, new in ((cache_k, k), (cache_v, v)):
             cache.view(b * s_len, *cache.shape[2:]).index_copy_(
                 0, rows.reshape(-1), new.reshape(b * t, *new.shape[2:]).to(cache.dtype)
             )
-    a = attention(q, cache_k, cache_v, mask).reshape(b, t, -1)
-    x = x + dense(a, lp.o_w)
-    y = rms_norm(x, lp.post_ln, cfg.eps)
-    gate, up = dense_group(y, (lp.gate_w, lp.up_w))
-    ff = torch.nn.functional.silu(gate) * up
-    return x + dense(ff, lp.down_w)
+    return attention(q, cache_k, cache_v, mask).reshape(b, t, -1)
 
 
-def _logits(params: ParamTree, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits: the head product runs in float32, as in the reference.
-    An int8 head (the tied `QuantizedEmbed`, or an untied `QuantizedLinear`
-    `lm_head`: both [V, H] here) is the reference's W8A8 branch
-    (`qwen.py:309-327`): the quantized rows of the normed x against it,
-    f32(acc) * ys * s, kept in f32."""
-    y = rms_norm(x, params.final_ln, cfg.eps)
-    head = params.embed if cfg.tie_embeddings else params.lm_head
-    if (isinstance(head, QuantizedEmbed) if cfg.tie_embeddings
-            else isinstance(head, QuantizedLinear)):
+def _block(lps, devs, cfg: QwenConfig, x, ropes, poss, kv, masks) -> torch.Tensor:
+    """One decoder layer over a tp group (one shard for an unsplit tree):
+    `lps[j]` is the layer's shard j on `devs[j]`, with its `heads / tp`
+    query and `kv_heads / tp` kv heads and its cache block `kv[j]` (None:
+    no cache); the norms run once on x (on devs[0]) and are copied to each
+    distinct device; o and down are row-parallel, their partials summed
+    before the residual."""
+    tp = len(lps)
+    ys = spread(rms_norm(x, lps[0].in_ln, cfg.eps), devs)
+    parts = [
+        _attend(lp, cfg, cfg.heads // tp, cfg.kv_heads // tp, ys[j], ropes[j], poss[j],
+                *(kv[j] if kv is not None else (None, None)), masks[j])
+        for j, lp in enumerate(lps)
+    ]
+    x = x + row_dense(parts, [lp.o_w for lp in lps])
+    ys = spread(rms_norm(x, lps[0].post_ln, cfg.eps), devs)
+    ffs = []
+    for lp, y in zip(lps, ys):
+        gate, up = dense_group(y, (lp.gate_w, lp.up_w))
+        ffs.append(torch.nn.functional.silu(gate) * up)
+    return x + row_dense(ffs, [lp.down_w for lp in lps])
+
+
+def _head(head, cfg: QwenConfig, y: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the normed y against a head (or a shard's vocabulary
+    slice of an untied one). An int8 head (the tied `QuantizedEmbed`, or an
+    untied `QuantizedLinear`: both [V, H] here) is the reference's W8A8
+    branch (`qwen.py:309-327`): the quantized rows of y against it, f32(acc)
+    * ys * s, kept in f32."""
+    if isinstance(head, (QuantizedEmbed, QuantizedLinear)):
         out = w8a8_dense(y.reshape(-1, y.shape[-1]).contiguous(), [(head.q, head.s)],
                          out_dtype=torch.float32)[0]
         return out.reshape(*y.shape[:-1], out.shape[-1])
@@ -280,11 +392,69 @@ def _logits(params: ParamTree, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor
     return torch.matmul(y, head.float())
 
 
-def _layers(params, cfg, x, positions, cache: KVCache, mask) -> torch.Tensor:
+def _logits(params, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits: the head product runs in float32, as in the reference.
+    A `MeshTree` runs each dp position's rows on its tree; an untied head
+    over tp is column-split, each shard's f32 vocabulary slice joined in
+    position order (the tied head is whole on every shard)."""
+    if isinstance(params, MeshTree):
+        return over_dp(_dp_devices(params), lambda g, xi: _logits(g, cfg, xi),
+                       params.groups, x)
+    y = rms_norm(x, params.final_ln, cfg.eps)
+    if isinstance(params, TPTree) and not cfg.tie_embeddings:
+        return torch.cat([_head(sh.lm_head, cfg, yj).to(y.device)
+                          for sh, yj in zip(params.shards, spread(y, params.devices))], dim=-1)
+    return _head(params.embed if cfg.tie_embeddings else params.lm_head, cfg, y)
+
+
+def _dp_devices(params: MeshTree) -> list:
+    return [tree_devices(g)[0] for g in params.groups]
+
+
+def _group_layers(params, cfg, x, positions, blocks, mask) -> torch.Tensor:
+    """Every layer over one tree (unsplit or a tp group) and its cache
+    blocks (`KVCache.grid`'s row; None: no cache)."""
+    shards, devs = shards_of(params)
     rope = rope_at(*_rope_tables(cfg, x.device), positions)
-    for li, lp in enumerate(params.layers):
-        x = _block(lp, cfg, x, rope, positions, cache.k[li], cache.v[li], mask)
+    ropes = list(zip(spread(rope[0], devs), spread(rope[1], devs)))
+    poss, masks = spread(positions, devs), spread(mask, devs)
+    for li in range(len(shards[0].layers)):
+        kv = None if blocks is None else [(k[li], v[li]) for k, v in blocks]
+        x = _block([sh.layers[li] for sh in shards], devs, cfg, x, ropes, poss, kv, masks)
     return x
+
+
+def _layers(params, cfg, x, positions, cache: Optional[KVCache], mask) -> torch.Tensor:
+    """The decoder layers over x [B, T, H]; a `MeshTree` runs each dp
+    position's slice of the batch on its tree and cache block, the results
+    joined on x's device."""
+    if isinstance(params, MeshTree):
+        rows = [(g, None if cache is None else cache.grid[i])
+                for i, g in enumerate(params.groups)]
+        return over_dp(_dp_devices(params),
+                       lambda gb, xi, pi, mi: _group_layers(gb[0], cfg, xi, pi, gb[1], mi),
+                       rows, x, positions, mask.expand(x.shape[0], *mask.shape[1:]))
+    return _group_layers(params, cfg, x, positions,
+                         None if cache is None else cache.grid[0], mask)
+
+
+def qwen_forward(
+    params,
+    cfg: QwenConfig,
+    input_ids: torch.Tensor,  # [B, T]
+    attn_mask: torch.Tensor,  # [B, T] {0,1}, right-padded
+) -> torch.Tensor:
+    """Plain causal forward with no cache -> f32 logits [B, T, V], the
+    reference's `qwen_forward` (`qwen.py:335-355`): causal and key-padding
+    masks, positions from the mask's running count."""
+    t = input_ids.shape[1]
+    dev = input_ids.device
+    positions = torch.clamp(torch.cumsum(attn_mask, dim=1) - 1, min=0).long()
+    idx = torch.arange(t, device=dev)
+    causal = (idx[None, :] <= idx[:, None])[None, None]
+    pad = (attn_mask > 0)[:, None, None, :]
+    x = _layers(params, cfg, _embed_rows(params, input_ids), positions, None, causal & pad)
+    return _logits(params, cfg, x)
 
 
 def qwen_prefill(
@@ -297,7 +467,7 @@ def qwen_prefill(
     """Fill the cache with the prompt; return (next-token logits [B, V],
     cache). `cache.length` becomes the true prompt length per lane."""
     b, t = input_ids.shape
-    s = cache.k.shape[2]
+    s = cache.max_len
     dev = input_ids.device
     positions = torch.clamp(torch.cumsum(attn_mask, dim=1) - 1, min=0).long()
     lengths = attn_mask.sum(dim=1).to(torch.int32)
@@ -320,7 +490,7 @@ def qwen_decode_step(
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step for every lane -> (logits [B, V], cache); the
     cache's rows and `length` are updated in place."""
-    s = cache.k.shape[2]
+    s = cache.max_len
     positions = cache.length.long()[:, None]  # [B, 1]
     cols = torch.arange(s, device=tokens.device)[None, :]
     mask = (cols[None] <= positions[:, :, None])[:, None]  # [B,1,1,S]
@@ -344,7 +514,7 @@ def qwen_extend(
     back to the accepted prefix (rows past `length` are never attended and
     are overwritten later)."""
     b, t = tokens.shape
-    s = cache.k.shape[2]
+    s = cache.max_len
     dev = tokens.device
     positions = cache.length.long()[:, None] + torch.arange(t, device=dev)[None]
     cols = torch.arange(s, device=dev)[None, None, :]
@@ -366,9 +536,10 @@ class _GreedyState:
     column the next token goes to (a device counter, so that one captured
     step serves every column)."""
 
-    def __init__(self, cfg: QwenConfig, b: int, s: int, width: int, dtype, device):
+    def __init__(self, cfg: QwenConfig, b: int, s: int, width: int, dtype, device,
+                 grid=None):
         self.cache = KVCache.zeros(cfg.layers, b, s, cfg.kv_heads, cfg.head_dim,
-                                   dtype=dtype, device=device)
+                                   dtype=dtype, device=device, grid=grid)
         self.tok = torch.zeros(b, dtype=torch.int32, device=device)
         self.done = torch.zeros(b, dtype=torch.bool, device=device)
         self.out = torch.zeros(b, width, dtype=torch.int32, device=device)
@@ -396,7 +567,7 @@ def _greedy_step(params, cfg: QwenConfig, st: _GreedyState, eos: int) -> None:
 
 
 def _greedy_graph(params, cfg, b, s, width, eos, device, pool) -> SimpleNamespace:
-    st = _GreedyState(cfg, b, s, width, params.final_ln.dtype, device)
+    st = _GreedyState(cfg, b, s, width, params.final_ln.dtype, device, cache_grid(params))
     graph = decode_graph.CapturedGraph(lambda: _greedy_step(params, cfg, st, eos),
                                        device, pool)
     return SimpleNamespace(state=st, graph=graph)
@@ -418,7 +589,7 @@ def greedy_generate_eager(
     b, t = input_ids.shape
     s = cache_len or (t + max_new_tokens)
     st = _GreedyState(cfg, b, s, max(s, max_new_tokens), params.final_ln.dtype,
-                      input_ids.device)
+                      input_ids.device, cache_grid(params))
     st.start(params, cfg, input_ids, attn_mask, eos_token_id)
     for _ in range(max_new_tokens - 1):
         _greedy_step(params, cfg, st, eos_token_id)
@@ -441,7 +612,7 @@ def greedy_generate(
     On CUDA the decode steps replay one captured step graph, kept per
     (B, S, eos) on the parameter tree (prefill stays eager); on the CPU
     they run eagerly."""
-    if not decode_graph.uses_graphs(input_ids.device):
+    if not decode_graph.uses_graphs(tree_all_devices(params)):
         return greedy_generate_eager(
             params, cfg, input_ids, attn_mask, max_new_tokens,
             eos_token_id=eos_token_id, cache_len=cache_len,
@@ -458,8 +629,7 @@ def greedy_generate(
         )
         st = entry.state
         # a fresh call sees a zero cache, as the eager path's new one
-        st.cache.k.zero_()
-        st.cache.v.zero_()
+        st.cache.zero_()
         st.start(params, cfg, input_ids, attn_mask, eos_token_id)
         for _ in range(max_new_tokens - 1):
             entry.graph.replay()
@@ -501,12 +671,12 @@ class _SpecState:
     read, the injected acceptance draws and the loop condition."""
 
     def __init__(self, cfg: QwenConfig, b: int, t: int, s: int, out_w: int,
-                 gamma: int, dtype, device):
+                 gamma: int, dtype, device, grid=None):
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
         self.cache = KVCache.zeros(cfg.layers, b, s, cfg.kv_heads, cfg.head_dim,
-                                   dtype=dtype, device=device)
+                                   dtype=dtype, device=device, grid=grid)
         self.ids, self.plen = zeros(b, t), zeros(b)
         self.out, self.n_out, self.last = zeros(b, out_w), zeros(b), zeros(b)
         self.limits = zeros(b)
@@ -546,7 +716,7 @@ def spec_verify_round(params, cfg: QwenConfig, cache: KVCache, prompts, plen,
     `cache_guard` also ends a lane whose cache has no room for another
     window (the write would clamp onto live rows)."""
     w = out.shape[1]
-    s = cache.k.shape[2]
+    s = cache.max_len
     prev = torch.where(
         n_out >= 2, out.gather(1, (n_out.long() - 2).clamp(min=0)[:, None])[:, 0], last)
     drafts = bigram_draft(prompts, plen, torch.stack([prev, last], dim=1),
@@ -596,7 +766,8 @@ def _spec_round(params, cfg: QwenConfig, st: _SpecState, *, gamma: int, eos: int
 
 def _spec_graph(params, cfg, key, device, pool) -> SimpleNamespace:
     _, b, t, s, out_w, gamma, eos, max_new, p = key
-    st = _SpecState(cfg, b, t, s, out_w, gamma, params.final_ln.dtype, device)
+    st = _SpecState(cfg, b, t, s, out_w, gamma, params.final_ln.dtype, device,
+                    cache_grid(params))
     graph = decode_graph.CapturedGraph(
         lambda: _spec_round(params, cfg, st, gamma=gamma, eos=eos,
                             max_new=max_new, inject_accept_p=p),
@@ -642,7 +813,7 @@ def ngram_speculative_generate_eager(
     b, t, s, out_w, gen = _spec_setup(cfg, input_ids, max_new_tokens, gamma,
                                       cache_len, inject_accept_p, inject_generator)
     st = _SpecState(cfg, b, t, s, out_w, gamma, params.final_ln.dtype,
-                    input_ids.device)
+                    input_ids.device, cache_grid(params))
     st.start(params, cfg, input_ids, attn_mask, eos_token_id, max_new_tokens)
     while bool(st.cont):
         _draw(st, gen)
@@ -681,7 +852,7 @@ def ngram_speculative_generate(
     the parameter tree; the loop's condition (some lane live and fewer than
     `max_new_tokens` rounds) is read on the host between rounds through a
     pinned copy and an event. On the CPU the same round runs eagerly."""
-    if not decode_graph.uses_graphs(input_ids.device):
+    if not decode_graph.uses_graphs(tree_all_devices(params)):
         return ngram_speculative_generate_eager(
             params, cfg, input_ids, attn_mask, max_new_tokens, gamma=gamma,
             eos_token_id=eos_token_id, cache_len=cache_len,
@@ -696,8 +867,7 @@ def ngram_speculative_generate(
         entry = graphs.get(key, lambda: _spec_graph(params, cfg, key, input_ids.device,
                                                     graphs.pool()))
         st = entry.state
-        st.cache.k.zero_()
-        st.cache.v.zero_()
+        st.cache.zero_()
         st.start(params, cfg, input_ids, attn_mask, eos_token_id, max_new_tokens)
         while entry.flag.read(st.cont):
             _draw(st, gen)

@@ -20,13 +20,24 @@ shape:
   quantize and the GEMM of up to three weights that share x (q/k/v,
   gate/up) in one launch.
 
-`w8a8_dense` is the entry the models call. On CUDA tensors every wrapper
+`w8a8_dense` is the entry the models call. Under a row split over tp (o
+and down, BERT's ffn_out: `models/layers.py::row_dense`) they call
+`w8a8_row_dense`: the whole row quantized once (`quantize_rows` over the
+shards' columns joined: the reference's abs-max runs over the whole row),
+each shard's exact s32 partial (`w8a8_gemm_s32`, the two GEMM kernels'
+s32 output kind), the partials summed in int32 (exact, as the
+reference's psum of the int32 dot), then the reference's epilogue in
+plain f32 torch ops: bit for bit the unsplit product.
+
+On CUDA tensors every wrapper
 launches its kernel (or raises: a failed build or launch is never replaced
 by the plain version, and no route picks it); on CPU tensors it runs
 `quantize_rows_plain` / `w8a8_gemm_plain` / `w8a8_dense_plain`, the
 kernels' oracles, which the tests hold to the JAX package bit for bit. Each
 kernel counts the launches it makes outside a CUDA graph capture
-(`quantize_rows.launches`, `w8a8_gemm.launches`, `w8a8_qgemm.launches`): a
+(`quantize_rows.launches`, `w8a8_gemm.launches`, `w8a8_qgemm.launches`,
+and for the s32 kind `w8a8_gemm_s32.launches`, of which
+`w8a8_gemm_s32.wgmma_launches` took the wgmma route): a
 call under a capture records its kernel into the graph and counts nothing,
 as the K7 wrappers do (`ops/kv.py`).
 """
@@ -41,8 +52,9 @@ import torch
 
 from . import _kernels
 
-_OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _IN_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_S32 = 2  # the s32 kind: int8 rows in (the small-row kernel), int32 sums out
 
 # rows above which a product takes the wgmma route: where the two routes'
 # times for a Qwen2.5-0.5B layer cross, between 32 and 48 rows, on an H100
@@ -75,17 +87,32 @@ def quantize_rows_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, s[..., 0]
 
 
+def w8a8_acc_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `w8a8_gemm_s32`, on any device: the exact
+    s32 sums xq [M, K] . wq [N, K]^T. The product of the int8 values runs in
+    float64: every partial sum is an integer below K * 127^2 < 2^53, so it
+    is exact in any order and casts to the exact s32 sum."""
+    return torch.matmul(xq.double(), wq.double().T).to(torch.int32)
+
+
+def w8a8_epilogue(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """The reference's epilogue of exact sums acc [M, N]: (f32(acc) * xs[m])
+    * ws[n], two f32 multiplies in that order (separate ops, so nothing
+    contracts them into an FMA: the kernels' `__fmul_rn` pair), rounded to
+    `out_dtype`, plus the bias in that type."""
+    y = ((acc.float() * xs[:, None]) * ws[None, :]).to(out_dtype)
+    return y if bias is None else y + bias
+
+
 def w8a8_gemm_plain(
     xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     bias: Optional[torch.Tensor] = None, *, out_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """Plain PyTorch version of `w8a8_gemm`, on any device. The product of
-    the int8 values runs in float64: every partial sum is an integer below
-    K * 127^2 < 2^53, so it is exact in any order and casts to the exact
-    s32 sum. Then the reference's epilogue."""
-    acc = torch.matmul(xq.double(), wq.double().T).to(torch.int32)
-    y = ((acc.float() * xs[:, None]) * ws[None, :]).to(out_dtype)
-    return y if bias is None else y + bias
+    """Plain PyTorch version of `w8a8_gemm`, on any device: the exact sums
+    (`w8a8_acc_plain`), then the reference's epilogue."""
+    return w8a8_epilogue(w8a8_acc_plain(xq, wq), xs, ws, bias, out_dtype=out_dtype)
 
 
 def w8a8_dense_plain(
@@ -232,7 +259,7 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _check_weights(what: str, k: int, weights: Weights, biases, out_dtype) -> list:
     """Each (wq [N, K] int8, ws [N] f32) and bias ([N] of out_dtype, or None)
     checked; returns the biases as a list."""
-    if out_dtype not in _OUT_KINDS:
+    if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: out_dtype must be bf16 or f32, not {out_dtype}")
     biases = list(biases) if biases is not None else [None] * len(weights)
     if not 1 <= len(weights) <= 3 or len(biases) != len(weights):
@@ -256,15 +283,19 @@ def _check_weights(what: str, k: int, weights: Weights, biases, out_dtype) -> li
 
 
 def _gemm_launch(xq, xs, wq, ws, bias, out_dtype) -> torch.Tensor:
+    """The wgmma GEMM; out_dtype int32 is the s32 kind (xs, ws, bias None)."""
     m, k = xq.shape
     n = wq.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m and n:
         _kernels.launch("ragtorch_w8a8_gemm_wgmma", xq.get_device(), xq.data_ptr(),
-                        xs.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                        None if xs is None else xs.data_ptr(), wq.data_ptr(),
+                        None if ws is None else ws.data_ptr(),
                         None if bias is None else bias.data_ptr(), out.data_ptr(),
                         m, n, k, _OUT_KINDS[out_dtype])
-        _counted(w8a8_gemm)
+        _counted(w8a8_gemm_s32 if out_dtype == torch.int32 else w8a8_gemm)
+        if out_dtype == torch.int32 and not torch.cuda.is_current_stream_capturing():
+            w8a8_gemm_s32.wgmma_launches += 1
     return out
 
 
@@ -305,6 +336,8 @@ def w8a8_gemm(
 
 
 def _qgemm_launch(x, weights, biases, out_dtype) -> list[torch.Tensor]:
+    """The small-row kernel over 1 to 3 weights; int8 x with out_dtype
+    int32 is the s32 kind (scales and biases unread)."""
     m, k = x.shape
     if x.data_ptr() % (4 * x.element_size()):  # the kernel reads 4 elements at once
         x = x.clone()
@@ -318,12 +351,12 @@ def _qgemm_launch(x, weights, biases, out_dtype) -> list[torch.Tensor]:
         _kernels.launch(
             "ragtorch_w8a8_qgemm", index, x.data_ptr(),
             ptrs(*(wq.data_ptr() for wq, _ in weights)),
-            ptrs(*(ws.data_ptr() for _, ws in weights)),
+            ptrs(*(None if ws is None else ws.data_ptr() for _, ws in weights)),
             ptrs(*(None if b is None else b.data_ptr() for b in biases)),
             ptrs(*(o.data_ptr() for o in outs)), (ctypes.c_int * 3)(*ns),
-            len(weights), m, k, _IN_KINDS[x.dtype], _OUT_KINDS[out_dtype], mt, nt8,
-            grid_x, cluster)
-        _counted(w8a8_qgemm)
+            len(weights), m, k, _S32 if x.dtype == torch.int8 else _IN_KINDS[x.dtype],
+            _OUT_KINDS[out_dtype], mt, nt8, grid_x, cluster)
+        _counted(w8a8_gemm_s32 if out_dtype == torch.int32 else w8a8_qgemm)
     return outs
 
 
@@ -396,8 +429,76 @@ def w8a8_dense(
             for (wq, ws), b in zip(weights, biases)]
 
 
+def w8a8_gemm_s32(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact s32 sums xq [M, K] int8 . wq [N, K]^T int8 -> [M, N] int32,
+    before any scale: a row-parallel shard's partial.
+
+    On CUDA tensors this launches the s32 kind of the kernel `_route`
+    picks (or raises: K must be a multiple of 16 and xq, wq 16-byte
+    aligned): the small-row kernel with int8 rows in, or the wgmma GEMM;
+    on CPU tensors it runs `w8a8_acc_plain`."""
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
+        raise ValueError(f"w8a8_gemm_s32: xq {tuple(xq.shape)} and wq {tuple(wq.shape)} "
+                         "must be [M, K] and [N, K]")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"w8a8_gemm_s32: xq and wq must be int8, not {xq.dtype}, {wq.dtype}")
+    if _off_card("w8a8_gemm_s32", (xq, wq)):
+        return w8a8_acc_plain(xq, wq)
+    if not (xq.is_contiguous() and wq.is_contiguous()):
+        raise ValueError("w8a8_gemm_s32: xq and wq must be contiguous")
+    m, k = xq.shape
+    if k % 16 or (xq.data_ptr() | wq.data_ptr()) % 16:
+        raise ValueError(f"w8a8_gemm_s32: K ({k}) must be a multiple of 16 and xq, wq "
+                         "16-byte aligned")
+    if _route(m, k, True) == "qgemm":
+        return _qgemm_launch(xq, [(wq, None)], [None], torch.int32)[0]
+    return _gemm_launch(xq, None, wq, None, None, torch.int32)
+
+
+def w8a8_row_dense(
+    xs: Sequence[torch.Tensor],  # tp slices [M, K_j] (bf16 or f32) of the rows
+    wqs: Sequence[torch.Tensor],  # the matching [N, K_j] int8 row shards
+    ws: torch.Tensor,  # [N] f32: a row split keeps the scales whole
+    bias: Optional[torch.Tensor] = None,  # [N] of out_dtype
+    *,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The W8A8 `dense` of a row-parallel product -> [M, N] of `out_dtype`
+    on the first slice's device, bit for bit the unsplit `w8a8_dense`.
+
+    The reference's `_qdense` under a row split: the abs-max runs over the
+    whole row, so the slices are joined on the first device and quantized
+    once (`quantize_rows`: on the card its kernel; a per-shard scale would
+    change the tokens); each shard multiplies its columns of the int8 rows
+    by its weight rows into exact s32 (`w8a8_gemm_s32`, on its device); the
+    partials are summed in int32 in position order (exact: the reference
+    psums the int32 dot); then the epilogue once (`w8a8_epilogue`). The
+    f32 outputs of the shards could not be summed instead: an s32 partial
+    past 2^24 (down at tp = 2 reaches 3.9e7) does not survive the cast."""
+    front = xs[0].device
+    x = torch.cat([p.to(front) for p in xs], dim=1) if len(xs) > 1 else xs[0]
+    if sum(wq.shape[1] for wq in wqs) != x.shape[1]:
+        raise ValueError(f"w8a8_row_dense: the shards take K = "
+                         f"{sum(wq.shape[1] for wq in wqs)}, the rows have {x.shape[1]}")
+    xq, xscale = quantize_rows(x.contiguous())
+    parts, k0 = [], 0
+    for wq in wqs:
+        kj = wq.shape[1]
+        xj = xq[:, k0:k0 + kj].to(wq.device).contiguous()
+        if xj.data_ptr() % 16:  # a one-row slice is a view at byte k0
+            xj = xj.clone()
+        parts.append(w8a8_gemm_s32(xj, wq))
+        k0 += kj
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p.to(front)
+    return w8a8_epilogue(acc, xscale, ws.to(front), bias, out_dtype=out_dtype)
+
+
 # kernel launches, for chip_smoke.py: a call under a CUDA graph capture
 # records the launch into the graph and runs nothing, so it counts nothing
 quantize_rows.launches = 0
 w8a8_gemm.launches = 0
 w8a8_qgemm.launches = 0
+w8a8_gemm_s32.launches = 0
+w8a8_gemm_s32.wgmma_launches = 0

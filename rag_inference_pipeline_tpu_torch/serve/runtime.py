@@ -190,6 +190,11 @@ def node_health(settings: Settings) -> dict:
     return {"node": settings.node_number, "role": settings.node_role.value}
 
 
+def mesh_health(mesh: Optional[MeshContext]) -> dict:
+    """The serving mesh's shape: dp and tp positions."""
+    return {"dp": mesh.dp, "tp": mesh.tp} if mesh is not None else {}
+
+
 def weights_health(named: dict[str, Any]) -> dict[str, dict]:
     """Each model component's weights: random, or the checkpoint directory
     they were loaded from."""
@@ -324,6 +329,7 @@ class FusedApp:
             "status": "ok",
             **node_health(self.settings),
             "device": str(self.executor.device),
+            "mesh": mesh_health(self.executor.mesh),
             "components": reg.health(),
             "random_weights": [
                 k for k, c in named.items() if getattr(c, "random_weights", False)
@@ -688,6 +694,7 @@ class StagedApp:
             **node_health(self.settings),
             "profile": self.profile.name,
             "device": str(self.device),
+            "mesh": mesh_health(self.mesh),
             "components": comps,
             "random_weights": [
                 k for k, c in named.items() if getattr(c, "random_weights", False)

@@ -98,8 +98,11 @@ class TestMesh:
             with pytest.raises(ValueError, match="needs 4 devices, have 2"):
                 make_mesh(dp=4, devices=force_host_devices(2))
         elif case == "tp":
-            with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-                make_mesh(dp=2, tp=2, devices=force_host_devices(4))
+            # tp > 1 is served; a dp x tp grid larger than the devices is not
+            mesh = make_mesh(dp=2, tp=2, devices=force_host_devices(4))
+            assert (mesh.dp, mesh.tp) == (2, 2) and len(mesh.group(1)) == 2
+            with pytest.raises(ValueError, match="needs 4 devices, have 3"):
+                make_mesh(dp=2, tp=2, devices=force_host_devices(3))
         else:
             # MESH_DP above the visible devices raises: never a quiet shrink
             s = Settings(device_platform="cpu", mesh_dp=2)
