@@ -5,7 +5,9 @@
 // bulk copies, named barriers, setmaxnreg, shared-memory matrix
 // descriptors (K-major and MN-major) and the warpgroup products (s8, and
 // bf16/f16 with A from shared memory or registers) with their fence,
-// commit and wait.
+// commit and wait; and, for the W8A8 GEMM's split K, the cluster barrier,
+// mapa and stores into another block's shared memory; and programmatic
+// dependent launch's wait and trigger.
 //
 // Every helper is `asm volatile` with a "memory" clobber where it touches
 // memory, so the compiler keeps a copy, its wait and the reads of what it
@@ -252,6 +254,86 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 s32: 32 registers a thread) += a (64 x 32 s8, K-major, shared)
+// . b (32 x 64 s8, K-major, shared); exact s32 sums, as the n128 form
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// --- thread block clusters -------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier's arrive (release: this thread's writes, shared
+// memory of other blocks included, are seen by the threads that wait) and
+// wait (acquire); every thread of every block of the cluster arrives once a
+// phase. Not .aligned: a warp may reach them diverged. The relaxed arrive
+// orders nothing: it marks the block as started, before any block stores
+// into its shared memory.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of shared address `addr` in block `rank` of
+// the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// two s32 values to a shared::cluster address (8-byte aligned)
+__device__ __forceinline__ void st_cluster_v2(uint32_t addr, int a, int b) {
+  asm volatile("st.shared::cluster.v2.s32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b)
+               : "memory");
+}
+
+// a TMA descriptor (a __grid_constant__ parameter, by generic address)
+// brought into the descriptor cache ahead of its first load
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// --- programmatic dependent launch ----------------------------------------
+
+// waits until the grids this one depends on (the previous kernel in the
+// stream, where this one was launched with programmatic stream
+// serialization) have completed and their memory is visible; returns at
+// once otherwise. Nothing before it may read what they write.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// lets the next kernel in the stream, where it was launched with
+// programmatic stream serialization, start once every block of this grid
+// has signalled or exited; a no-op otherwise
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // keeps the compiler from moving reads or writes of `r` across this point:

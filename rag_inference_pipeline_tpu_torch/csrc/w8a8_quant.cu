@@ -18,13 +18,18 @@
 // one whose bytes are not 16-byte aligned, takes a scalar two-pass loop of
 // the same arithmetic, one warp a row. The scale is an IEEE division and
 // x / s rounds as an IEEE division would (w8a8_round.cuh); the file is
-// built without -use_fast_math.
-// Nothing here allocates or synchronises; the entry point returns
-// cudaGetLastError().
+// built without -use_fast_math. Launched under programmatic dependent
+// launch, as the GEMM after it (w8a8_wgmma.cu): the blocks wait for the
+// previous kernel in the stream before they read x, then let the GEMM's
+// blocks start their prologue (the GEMM waits for this grid's end before
+// it reads q), so neither launch's latency adds to the other's.
+// Nothing here allocates or synchronises; the entry point returns the
+// launch's error.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
 #include "w8a8_round.cuh"
 
 namespace {
@@ -63,6 +68,8 @@ template <typename T, int kG>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_vec(const T* __restrict__ x, int8_t* __restrict__ q,
                   float* __restrict__ s, int M, int K) {
+  ragtorch::ptx::grid_dependency_wait();  // x is the previous kernel's output
+  ragtorch::ptx::launch_dependents();     // the GEMM that reads q may start
   constexpr int kE = 16 / sizeof(T);  // elements a piece
   __shared__ float part[kWarps];
   const int w = threadIdx.x / 32 % kG;  // this warp's place in its row
@@ -122,6 +129,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_scalar(const T* __restrict__ x, int8_t* __restrict__ q,
                      float* __restrict__ s, int M, int K) {
+  ragtorch::ptx::grid_dependency_wait();  // x is the previous kernel's output
+  ragtorch::ptx::launch_dependents();     // the GEMM that reads q may start
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
@@ -135,6 +144,23 @@ quantize_rows_scalar(const T* __restrict__ x, int8_t* __restrict__ q,
   for (int i = lane; i < K; i += 32) qr[i] = quantize_exact(to_f32(xr[i]), scale, rcp);
 }
 
+// a launch under programmatic dependent launch: its blocks may start while
+// the previous kernel in the stream finishes (they wait for it before any
+// read)
+template <typename... KArgs, typename... Args>
+int launch_pdl(void (*kernel)(KArgs...), unsigned grid, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 template <typename T>
 int launch(const void* x, void* q, void* s, int M, int K, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
@@ -146,25 +172,20 @@ int launch(const void* x, void* q, void* s, int M, int K, cudaStream_t st) {
   // the fewest warps a row (1, 2, 4, 8) whose lanes hold it in kVecs pieces
   int g = 1;
   while (g < kWarps && pieces > 32 * kVecs * g) g *= 2;
-  if (!vec || pieces > 32 * kVecs * g) {
-    quantize_rows_scalar<T><<<(M + kWarps - 1) / kWarps, kThreads, 0, st>>>(xt, qt, sf, M, K);
-    return (int)cudaGetLastError();
-  }
+  if (!vec || pieces > 32 * kVecs * g)
+    return launch_pdl(quantize_rows_scalar<T>, (unsigned)((M + kWarps - 1) / kWarps), st,
+                      xt, qt, sf, M, K);
   const unsigned grid = (unsigned)((M + kWarps / g - 1) / (kWarps / g));
   switch (g) {
     case 1:
-      quantize_rows_vec<T, 1><<<grid, kThreads, 0, st>>>(xt, qt, sf, M, K);
-      break;
+      return launch_pdl(quantize_rows_vec<T, 1>, grid, st, xt, qt, sf, M, K);
     case 2:
-      quantize_rows_vec<T, 2><<<grid, kThreads, 0, st>>>(xt, qt, sf, M, K);
-      break;
+      return launch_pdl(quantize_rows_vec<T, 2>, grid, st, xt, qt, sf, M, K);
     case 4:
-      quantize_rows_vec<T, 4><<<grid, kThreads, 0, st>>>(xt, qt, sf, M, K);
-      break;
+      return launch_pdl(quantize_rows_vec<T, 4>, grid, st, xt, qt, sf, M, K);
     default:
-      quantize_rows_vec<T, 8><<<grid, kThreads, 0, st>>>(xt, qt, sf, M, K);
+      return launch_pdl(quantize_rows_vec<T, 8>, grid, st, xt, qt, sf, M, K);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -150,8 +150,10 @@ def load_library() -> ctypes.CDLL:
             # lut, codes, slots, sizes, out, b_pad, m, n_slots, cap, m_store,
             # stream
             "ragtorch_ivfpq4_adc": [vp] * 5 + [i32] * 5 + [vp],
-            # xq, xs, wq, ws, bias (or null), out, M, N, K, out_kind, stream
-            "ragtorch_w8a8_gemm_wgmma": [vp] * 6 + [i32] * 4 + [vp],
+            # xq, xs, wq[3], ws[3], bias[3], out[3], N[3], nmem, M, K,
+            # out_kind, bm, bn, split, pdl, stream
+            "ragtorch_w8a8_gemm_wgmma": [vp] * 2 + [ctypes.POINTER(vp)] * 4
+            + [ctypes.POINTER(i32)] + [i32] * 8 + [vp],
             # x, wq[3], ws[3], bias[3], out[3], N[3], nmem, M, K, in_kind,
             # out_kind, mt, nt8, grid_x, cluster, stream
             "ragtorch_w8a8_qgemm": [vp] + [ctypes.POINTER(vp)] * 4

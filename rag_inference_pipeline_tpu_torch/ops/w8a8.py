@@ -15,7 +15,11 @@ shape:
 
 - large row counts (M > `M_STAR`, K % 16 == 0, 16-byte-aligned weights):
   `quantize_rows` (`csrc/w8a8_quant.cu`, one warp a row), then `w8a8_gemm`
-  (`csrc/w8a8_wgmma.cu`: s8 wgmma fed by TMA) for each weight;
+  (`csrc/w8a8_wgmma.cu`: s8 wgmma fed by TMA), one launch for the group
+  on the plan `_gemm_plan` gives: 128-column tiles over all of K where
+  they fill the card, else 64 x 64 tiles, and there K split across the
+  blocks of a cluster where a block would stream a long K (exact int32
+  partial sums);
 - everything else (K % 4 == 0): `w8a8_qgemm` (`csrc/w8a8_gemm.cu`), the
   quantize and the GEMM of up to three weights that share x (q/k/v,
   gate/up) in one launch.
@@ -37,7 +41,8 @@ kernels' oracles, which the tests hold to the JAX package bit for bit. Each
 kernel counts the launches it makes outside a CUDA graph capture
 (`quantize_rows.launches`, `w8a8_gemm.launches`, `w8a8_qgemm.launches`,
 and for the s32 kind `w8a8_gemm_s32.launches`, of which
-`w8a8_gemm_s32.wgmma_launches` took the wgmma route): a
+`w8a8_gemm_s32.wgmma_launches` took the wgmma route; of the wgmma launches
+of either kind, `few_tile_launches` took the plan for few row tiles): a
 call under a capture records its kernel into the graph and counts nothing,
 as the K7 wrappers do (`ops/kv.py`).
 """
@@ -56,9 +61,13 @@ _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _IN_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _S32 = 2  # the s32 kind: int8 rows in (the small-row kernel), int32 sums out
 
-# rows above which a product takes the wgmma route: where the two routes'
-# times for a Qwen2.5-0.5B layer cross, between 32 and 48 rows, on an H100
-# 80GB HBM3 at 700 W (tools/bench_w8a8.py --sweep; PERF.md)
+# rows above which a product takes the wgmma route. tools/bench_w8a8.py
+# --sweep (8 to 512 rows, Qwen2.5-0.5B's groups, an H100 80GB HBM3 at 700 W;
+# PERF.md) finds the wgmma route (quantize_rows, then one GEMM launch a
+# group on `_gemm_plan`'s plan) faster than the small-row kernel for one
+# product from 8 rows up, but the whole int8 decode step at 16 and 32 lanes
+# no faster for it in every turn: decode steps up to 32 lanes keep the
+# small-row kernel, one launch a group
 M_STAR = 32
 # csrc/w8a8_gemm.cu's block: 8 warps, rings of 8 slots of 32 x 32 bytes, K
 # in 64-byte blocks, m tiles of at most 64 rows, clusters of 8 blocks; the
@@ -66,6 +75,10 @@ M_STAR = 32
 # reserved a block)
 _QG_WARPS, _QG_DEPTH, _QG_BLOCK_K, _QG_MAX_ROWS, _QG_CLUSTER = 8, 8, 64, 64, 8
 _BLOCK_SMEM, _SM_SMEM, _SM_RESERVED = 232_448, 233_472, 1024
+# csrc/w8a8_wgmma.cu's tiles: 128 bytes of K a stage, 64 rows a consumer
+# warpgroup (one or two), 128 or 64 columns; K split over at most 8 blocks
+# of a cluster (the portable cluster size)
+_WG_BLOCK_K, _WG_MAX_SPLIT = 128, 8
 
 Weights = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -222,6 +235,46 @@ def _qgemm_plan(m: int, k: int, ns: Sequence[int],
     return mt, nt8, grid, cluster
 
 
+def _gemm_plan(m: int, k: int, ns: Sequence[int],
+               sms: int) -> tuple[int, int, int, int]:
+    """(bm, bn, split, blocks) of a wgmma-route launch over the weights of
+    N `ns` that share xq [M, K]: the rows a tile (64: one consumer
+    warpgroup; 128: two), the columns a tile, the blocks of a cluster that
+    split K, and the blocks of the grid.
+
+    Where 128-column tiles give at least half as many blocks as SMs
+    (prefill, the tied head, gate/up from 72 rows), a block takes its tile
+    over all of K, on 64-row tiles where M fits one, else 128. Else the
+    tiles are 64 x 64, and K splits over the most blocks of a cluster (a
+    power of two, at most 8) that keep at least four of K's 128-byte
+    chunks a block and the grid within an SM a block: the verify round's
+    down (72 x 4,864 -> 896) takes 28 tiles x 4 splits, where 128 x 128
+    tiles gave 7 blocks. Measured on an H100 (`tools/bench_w8a8.py
+    --sweep`, PERF.md): 64-row tiles beat 128-row ones at 72 to 288 rows,
+    and a split pays only where a block would stream a long K."""
+    bm = 64 if m <= 64 else 128
+    wide = -(-m // bm) * sum(-(-n // 128) for n in ns)
+    if 2 * wide >= sms:
+        return bm, 128, 1, wide
+    tiles = -(-m // 64) * sum(-(-n // 64) for n in ns)
+    most = min(_WG_MAX_SPLIT, -(-k // _WG_BLOCK_K) // 4)
+    split = 1
+    while 2 * split <= most and 2 * split * tiles <= sms:
+        split *= 2
+    return 64, 64, split, tiles * split
+
+
+def _pdl(k: int) -> bool:
+    """Whether a wgmma-route launch goes out under programmatic dependent
+    launch (its start overlapping the end of the kernel before it): for K
+    under 4,096 bytes. On an H100 (`tools/bench_w8a8.py`, PERF.md), after
+    an elementwise kernel and `quantize_rows` as in a layer, it sped up
+    every product at K 896 and slowed every one at K 4,864 (the split
+    verify down, the engine's and a B = 1 prefill's down); alone it slowed
+    prefill's down by 4%."""
+    return k < 32 * _WG_BLOCK_K
+
+
 @functools.lru_cache(maxsize=16)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -282,21 +335,38 @@ def _check_weights(what: str, k: int, weights: Weights, biases, out_dtype) -> li
     return biases
 
 
-def _gemm_launch(xq, xs, wq, ws, bias, out_dtype) -> torch.Tensor:
-    """The wgmma GEMM; out_dtype int32 is the s32 kind (xs, ws, bias None)."""
+def _gemm_launch(xq, xs, weights, biases, out_dtype) -> list[torch.Tensor]:
+    """The wgmma GEMM over 1 to 3 weights sharing xq, one launch on the
+    plan `_gemm_plan` gives; out_dtype int32 is the s32 kind (xs, the
+    scales and the biases None), under programmatic dependent launch where
+    `_pdl` says so."""
     m, k = xq.shape
-    n = wq.shape[0]
-    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    if m and n:
-        _kernels.launch("ragtorch_w8a8_gemm_wgmma", xq.get_device(), xq.data_ptr(),
-                        None if xs is None else xs.data_ptr(), wq.data_ptr(),
-                        None if ws is None else ws.data_ptr(),
-                        None if bias is None else bias.data_ptr(), out.data_ptr(),
-                        m, n, k, _OUT_KINDS[out_dtype])
-        _counted(w8a8_gemm_s32 if out_dtype == torch.int32 else w8a8_gemm)
-        if out_dtype == torch.int32 and not torch.cuda.is_current_stream_capturing():
-            w8a8_gemm_s32.wgmma_launches += 1
-    return out
+    outs = [torch.empty((m, wq.shape[0]), dtype=out_dtype, device=xq.device)
+            for wq, _ in weights]
+    live = [i for i, (wq, _) in enumerate(weights) if wq.shape[0]]
+    if m and live:
+        index = xq.get_device()
+        ns = [weights[i][0].shape[0] for i in live]
+        bm, bn, split, _ = _gemm_plan(m, k, ns, _sms(index))
+        ptrs = ctypes.c_void_p * 3
+        _kernels.launch(
+            "ragtorch_w8a8_gemm_wgmma", index, xq.data_ptr(),
+            None if xs is None else xs.data_ptr(),
+            ptrs(*(weights[i][0].data_ptr() for i in live)),
+            ptrs(*(None if weights[i][1] is None else weights[i][1].data_ptr()
+                   for i in live)),
+            ptrs(*(None if biases[i] is None else biases[i].data_ptr() for i in live)),
+            ptrs(*(outs[i].data_ptr() for i in live)), (ctypes.c_int * 3)(*ns),
+            len(live), m, k, _OUT_KINDS[out_dtype], bm, bn, split,
+            int(_pdl(k)))
+        if not torch.cuda.is_current_stream_capturing():
+            fn = w8a8_gemm_s32 if out_dtype == torch.int32 else w8a8_gemm
+            fn.launches += 1
+            if fn is w8a8_gemm_s32:
+                fn.wgmma_launches += 1
+            if bn == 64:
+                fn.few_tile_launches += 1
+    return outs
 
 
 def w8a8_gemm(
@@ -332,7 +402,7 @@ def w8a8_gemm(
     if k % 16 or (xq.data_ptr() | wq.data_ptr()) % 16:
         raise ValueError(f"w8a8_gemm: TMA loads 16-byte rows: K ({k}) must be a "
                          "multiple of 16 and xq, wq 16-byte aligned")
-    return _gemm_launch(xq, xs, wq, ws, bias, out_dtype)
+    return _gemm_launch(xq, xs, [(wq, ws)], [bias], out_dtype)[0]
 
 
 def _qgemm_launch(x, weights, biases, out_dtype) -> list[torch.Tensor]:
@@ -415,8 +485,9 @@ def w8a8_dense(
     (`quantize_act_rows` and `_qdense`).
 
     On CUDA tensors `_route` picks the kernels: `quantize_rows` once and
-    `w8a8_gemm` per weight for large row counts, else one `w8a8_qgemm`
-    launch for the group. On CPU tensors it runs `w8a8_dense_plain`."""
+    one `w8a8_gemm` launch for the group for large row counts, else one
+    `w8a8_qgemm` launch for the group. On CPU tensors it runs
+    `w8a8_dense_plain`."""
     biases, on_cpu = _check_group("w8a8_dense", x, weights, biases, out_dtype)
     if on_cpu:
         return w8a8_dense_plain(x, weights, biases, out_dtype=out_dtype)
@@ -425,8 +496,7 @@ def w8a8_dense(
     if _route(m, k, aligned) == "qgemm":
         return _qgemm_launch(x, weights, biases, out_dtype)
     xq, xs = quantize_rows(x)
-    return [_gemm_launch(xq, xs, wq, ws, b, out_dtype)
-            for (wq, ws), b in zip(weights, biases)]
+    return _gemm_launch(xq, xs, weights, biases, out_dtype)
 
 
 def w8a8_gemm_s32(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -452,7 +522,7 @@ def w8a8_gemm_s32(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
                          "16-byte aligned")
     if _route(m, k, True) == "qgemm":
         return _qgemm_launch(xq, [(wq, None)], [None], torch.int32)[0]
-    return _gemm_launch(xq, None, wq, None, None, torch.int32)
+    return _gemm_launch(xq, None, [(wq, None)], [None], torch.int32)[0]
 
 
 def w8a8_row_dense(
@@ -502,3 +572,5 @@ w8a8_gemm.launches = 0
 w8a8_qgemm.launches = 0
 w8a8_gemm_s32.launches = 0
 w8a8_gemm_s32.wgmma_launches = 0
+w8a8_gemm.few_tile_launches = 0
+w8a8_gemm_s32.few_tile_launches = 0

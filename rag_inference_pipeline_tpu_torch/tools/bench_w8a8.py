@@ -2,6 +2,7 @@
 checkouts.
 
     python3 rag_inference_pipeline_tpu_torch/tools/bench_w8a8.py [--out PATH] [--sweep]
+        [--against PARENT_ROOT]
 
 Imports `rag_inference_pipeline_tpu_torch` from the checkout this file sits
 in, builds its kernels and times on one card, with seeded random inputs:
@@ -11,23 +12,40 @@ in, builds its kernels and times on one card, with seeded random inputs:
   shared quantize and a `dense` a weight), as a replayed CUDA graph of many
   calls (an eager loop of microsecond kernels times the host), with its
   bound (`chip_smoke.py::bound`'s rule), its share of the bound and, where
-  M > 16, `torch._int_mm` on the quantized rows as a yardstick;
+  M > 16, `torch._int_mm` on the quantized rows as a yardstick; where the
+  product takes the wgmma route, its first weight's GEMM alone (`gemm_ms`,
+  `w8a8_gemm`, the same call in any checkout) beside `_int_mm` on it;
+- the products of few row tiles in the order a Qwen layer runs them
+  (`model_order`): an elementwise kernel writing x, `quantize_rows`, then
+  the group's wgmma GEMM (or `torch._int_mm` a weight), as a replayed
+  graph: the GEMM no longer follows another GEMM;
 - the B = 8 greedy step of Qwen2.5-0.5B at full width (random weights
   from seed 0, prompt bucket 512) in int8 (W8A8) and in bf16: device ms a
   step over replays of the step graph, ms a token of a whole
   `greedy_generate` call (prefill included), and the kernels a step
-  replays (from a torch.profiler trace).
+  replays (from a torch.profiler trace); the int8 step at 16 and 32
+  lanes too;
+- one int8 verify round of `ngram_speculative_generate` at B = 8, gamma 8
+  (72 rows; bf16 activations): device ms a round over replays of its
+  graph, and from a torch.profiler trace the kernel time a round, its
+  W8A8 kernels' share and their count.
 
 `--sweep` times the two routes of the checkout's `ops/w8a8.py` against each
-other at 8 to 256 rows for the decode shapes (the small-row kernel, and
-`quantize_rows` + the wgmma GEMM): where they cross sets `M_STAR`; and the
-small-row kernel with its quantize shared by a cluster of 8 blocks (where
-the plan clusters) and done by each block alone.
+other at 8 to 512 rows for Qwen2.5-0.5B's groups (the small-row kernel, and
+`quantize_rows` + the wgmma GEMM, one launch a group where the checkout
+groups), each call after an elementwise kernel that writes x, as in a
+layer; beside them `torch._int_mm`, the
+wgmma GEMM's plan, and the small-row kernel with its quantize shared by a
+cluster of 8 blocks (where the plan clusters) and done by each block alone;
+then the wgmma GEMM alone on every plan its kernel takes at the few-tile
+shapes (`plans`), against which `_gemm_plan`'s rule is set.
 
-To compare two checkouts in one call on the same card, copy this file into
-the other checkout's `rag_inference_pipeline_tpu_torch/tools/` and run both
-in turns (parent, change, change, parent). Prints one JSON line and writes
-it to `--out` (default `build/bench/w8a8.json`); needs a card.
+`--against PARENT_ROOT` compares two checkouts on one card in one call: it
+copies this file into PARENT_ROOT's `rag_inference_pipeline_tpu_torch/
+tools/` and runs it there and here in turns (parent, change, change,
+parent), each in a process of its own (the sweep only here), then prints
+and writes the four runs as one JSON. Without it, prints one JSON line and
+writes it to `--out` (default `build/bench/w8a8.json`); needs a card.
 """
 
 from __future__ import annotations
@@ -44,22 +62,48 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 # name, M, K, the N of each weight sharing x, a bias on each: the products
 # of Qwen2.5-0.5B (H 896, kv 2 x 64, I 4,864, V 151,936) at a decode step
-# (B = 8), a verify round (8 x 9 rows) and prefill (8 x 512), and of
-# BERT-base (H 768, I 3,072) at 8 x 512 tokens and its classifier
+# (B = 8), a verify round (8 x 9 rows), the engine's speculative segment
+# (32 x 9), a B = 1 prefill (128) and prefill (8 x 512), and of BERT-base
+# (H 768, I 3,072) at 8 x 512 tokens and its classifier
 SHAPES = [
     ("decode_qkv", 8, 896, (896, 128, 128), True), ("decode_o", 8, 896, (896,), False),
     ("decode_gate_up", 8, 896, (4864, 4864), False), ("decode_down", 8, 4864, (896,), False),
     ("decode_head", 8, 896, (151936,), False), ("decode_head_b1", 1, 896, (151936,), False),
-    ("verify_qo", 72, 896, (896,), True), ("verify_head", 72, 896, (151936,), False),
+    ("verify_qo", 72, 896, (896,), True), ("verify_qkv", 72, 896, (896, 128, 128), True),
+    ("verify_gate_up", 72, 896, (4864, 4864), False),
+    ("verify_down", 72, 4864, (896,), False), ("verify_head", 72, 896, (151936,), False),
+    ("engine_qkv", 288, 896, (896, 128, 128), True), ("engine_o", 288, 896, (896,), False),
+    ("engine_gate_up", 288, 896, (4864, 4864), False),
+    ("engine_down", 288, 4864, (896,), False),
+    ("prefill_b1_qkv", 128, 896, (896, 128, 128), True),
+    ("prefill_b1_down", 128, 4864, (896,), False),
     ("prefill_qkv", 4096, 896, (896, 128, 128), True),
     ("prefill_gate_up", 4096, 896, (4864, 4864), False),
     ("prefill_down", 4096, 4864, (896,), False),
     ("encoder_ffn_in", 4096, 768, (3072,), True), ("classifier", 8, 768, (5,), True),
 ]
-SWEEP_ROWS = (8, 16, 24, 32, 48, 64, 72, 96, 128, 192, 256)
+SWEEP_ROWS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 96, 128, 192, 256, 288, 384, 512)
 SWEEP_SHAPES = [("qkv", 896, (896, 128, 128)), ("o", 896, (896,)),
                 ("gate_up", 896, (4864, 4864)), ("down", 4864, (896,))]
+# the wgmma GEMM alone on every plan its kernel takes (`_gemm_plan` forced),
+# at the few-tile shapes: name, M, K, N of each weight
+PLAN_SHAPES = [("verify_o", 72, 896, (896,)), ("verify_qkv", 72, 896, (896, 128, 128)),
+               ("verify_gate_up", 72, 896, (4864, 4864)), ("verify_down", 72, 4864, (896,)),
+               ("engine_qkv", 288, 896, (896, 128, 128)), ("engine_down", 288, 4864, (896,)),
+               ("prefill_b1_down", 128, 4864, (896,)), ("m33_o", 33, 896, (896,)),
+               ("m48_down", 48, 4864, (896,))]
+PDL_SHAPES = [("prefill_gate", 4096, 896, (4864,)), ("prefill_down", 4096, 4864, (896,)),
+              ("prefill_o", 4096, 896, (896,)), ("verify_head", 72, 896, (151936,)),
+              ("engine_gate_up", 288, 896, (4864, 4864)),
+              ("prefill_down_tp2", 4096, 2432, (896,)),
+              ("encoder_ffn_out", 4096, 3072, (768,))]
+# the products of few row tiles timed in a layer's order (`model_order`)
+ORDER_SHAPES = [("verify_qo", 72, 896, (896,)), ("verify_qkv", 72, 896, (896, 128, 128)),
+                ("verify_gate_up", 72, 896, (4864, 4864)),
+                ("verify_down", 72, 4864, (896,)), ("engine_qkv", 288, 896, (896, 128, 128)),
+                ("engine_down", 288, 4864, (896,)), ("prefill_b1_down", 128, 4864, (896,))]
 DECODE_BUCKET, DECODE_NEW, STEP_REPLAYS = 512, 64, 48
+STEP_LANES, ROUND_GAMMA, ROUND_REPLAYS = (16, 32), 8, 16
 
 
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
@@ -116,8 +160,22 @@ def _head(x, w):
     return lambda: w8a8.w8a8_gemm(*w8a8.quantize_rows(x), w.q, w.s, out_dtype=torch.float32)
 
 
+def _wgmma_group(xq, xs, weights):
+    """The wgmma GEMMs of a group on quantized rows, as the checkout's
+    route runs them: one launch for the group, or a launch a weight."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    if hasattr(w8a8, "_gemm_plan"):
+        return lambda: w8a8._gemm_launch(xq, xs, weights, [None] * len(weights),
+                                         torch.bfloat16)
+    return lambda: [w8a8.w8a8_gemm(xq, xs, wq, s, out_dtype=torch.bfloat16)
+                    for wq, s in weights]
+
+
 def bench_shapes(g) -> dict:
     import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     out = {}
     for name, m, k, ns, bias in SHAPES:
@@ -127,16 +185,21 @@ def bench_shapes(g) -> dict:
         ws, bs = _weights(g, k, ns, bias, out_dtype)
         fn = _head(x, ws[0]) if head else _product(x, ws, bs)
         big = m * sum(ns) * k > 1e10
-        ms = graph_ms(fn, 20 if big else 100)
+        it = 20 if big else 100
+        ms = graph_ms(fn, it)
         esz = 4 if head else 2
         nbytes = (m * k * 2 + sum(n * k + 4 * n + m * n * esz + (n * esz if bias else 0)
                                   for n in ns))
         bound_ms = max(nbytes / HBM_BYTES_PER_S, 2.0 * m * k * sum(ns) / INT8_OPS_PER_S) * 1e3
         row = {"ms": ms, "bound_ms": bound_ms, "of_bound": bound_ms / ms}
         if m > 16:
-            xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
-            row["int_mm_ms"] = graph_ms(lambda: [torch._int_mm(xq, w.q.t()) for w in ws],
-                                        20 if big else 100)
+            xq, xs = w8a8.quantize_rows(x)
+            row["int_mm_ms"] = graph_ms(lambda: [torch._int_mm(xq, w.q.t()) for w in ws], it)
+            if w8a8._route(m, k, True) == "wgmma":
+                w0, b0 = ws[0], bs[0]
+                row["gemm_ms"] = graph_ms(lambda: w8a8.w8a8_gemm(
+                    xq, xs, w0.q, w0.s, b0, out_dtype=out_dtype), it)
+                row["gemm_int_mm_ms"] = graph_ms(lambda: torch._int_mm(xq, w0.q.t()), it)
         out[name] = row
         del x, ws, bs, fn
         torch.cuda.empty_cache()
@@ -154,20 +217,28 @@ def bench_sweep(g) -> dict:
         weights = [(w.q, w.s) for w in ws]
         for m in SWEEP_ROWS:
             x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+            xq, xs = w8a8.quantize_rows(x)
+            gemm = _wgmma_group(xq, xs, weights)
+
+            x0 = x.clone()
 
             def wgmma():
-                xq, xs = w8a8.quantize_rows(x)
-                return [w8a8.w8a8_gemm(xq, xs, wq, s, out_dtype=torch.bfloat16)
-                        for wq, s in weights]
+                torch.mul(x0, 1.0, out=x)  # the layer's elementwise kernel before
+                w8a8.quantize_rows(x)
+                return gemm()
 
             def qgemm():
+                torch.mul(x0, 1.0, out=x)
                 return w8a8.w8a8_qgemm(x, weights, out_dtype=torch.bfloat16)
 
-            xq, xs = w8a8.quantize_rows(x)
             row = {"qgemm_ms": graph_ms(qgemm, 50), "wgmma_ms": graph_ms(wgmma, 50),
                    "quant_only_ms": graph_ms(lambda: w8a8.quantize_rows(x), 50),
-                   "gemm_only_ms": graph_ms(lambda: w8a8.w8a8_gemm(
-                       xq, xs, *weights[0], out_dtype=torch.bfloat16), 50)}
+                   "gemm_only_ms": graph_ms(gemm, 50)}
+            if m > 16:
+                row["int_mm_ms"] = graph_ms(lambda: [torch._int_mm(xq, wq.t())
+                                                     for wq, _ in weights], 50)
+            if hasattr(w8a8, "_gemm_plan"):
+                row["plan"] = list(w8a8._gemm_plan(m, k, ns, w8a8._sms(0))[:3])
             # the small-row kernel with its m tile's quantize shared by a
             # cluster of 8 blocks (where the plan clusters), and done by
             # each block alone
@@ -178,7 +249,153 @@ def bench_sweep(g) -> dict:
             finally:
                 w8a8._QG_CLUSTER = keep
             out[f"{name}_m{m}"] = row
+    if hasattr(w8a8, "_gemm_plan"):
+        out["plans"] = bench_plans(g)
     return out
+
+
+def bench_plans(g) -> dict:
+    """The wgmma GEMM of each PLAN_SHAPES group on each plan its kernel
+    takes: 64- and 128-row tiles by 128 columns and 64 x 64 tiles over all
+    of K, and 64 x 64 tiles with K split 2, 4 and 8 ways; then, on the plan
+    `_gemm_plan` picks, with programmatic dependent launch off and on
+    (`_pdl` forced), there and at prefill's shapes; ms a launch."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    out, pick, pdl = {}, w8a8._gemm_plan, w8a8._pdl
+    for name, m, k, ns in PLAN_SHAPES:
+        ws, _ = _weights(g, k, ns, False, torch.bfloat16)
+        weights = [(w.q, w.s) for w in ws]
+        xq, xs = w8a8.quantize_rows(torch.randn(m, k, generator=g, device="cuda")
+                                    .to(torch.bfloat16))
+        chunks = -(-k // 128)
+        plans = [(64, 128, 1), (128, 128, 1), (64, 64, 1)]
+        plans += [(64, 64, sp) for sp in (2, 4, 8) if sp <= chunks]
+        row = {"picked": list(pick(m, k, ns, w8a8._sms(0))[:3])}
+        try:
+            for plan in plans:
+                w8a8._gemm_plan = lambda *a, plan=plan: (*plan, 0)
+                row[",".join(map(str, plan))] = graph_ms(_wgmma_group(xq, xs, weights), 50)
+        finally:
+            w8a8._gemm_plan = pick
+        out[name] = row
+    # the picked plan with programmatic dependent launch forced off and on
+    for name, m, k, ns in PLAN_SHAPES[:4] + PDL_SHAPES:
+        ws, _ = _weights(g, k, ns, False, torch.bfloat16)
+        weights = [(w.q, w.s) for w in ws]
+        xq, xs = w8a8.quantize_rows(torch.randn(m, k, generator=g, device="cuda")
+                                    .to(torch.bfloat16))
+        row = out.setdefault(name, {})
+        try:
+            for on in (False, True):
+                w8a8._pdl = lambda *a, on=on: on
+                row[f"pdl_{int(on)}"] = graph_ms(_wgmma_group(xq, xs, weights),
+                                                 20 if m >= 4096 else 50)
+        finally:
+            w8a8._pdl = pdl
+    return out
+
+
+def bench_model_order(g) -> dict:
+    """Each ORDER_SHAPES group as a layer runs it: an elementwise kernel
+    writing x (bf16), `quantize_rows`, then the group's wgmma GEMM
+    (`gemm_ms`), or `torch._int_mm` a weight instead (`int_mm_ms`), or
+    nothing (`quant_ms`); where the checkout has `_pdl`, the GEMM with
+    programmatic dependent launch forced off too (`gemm_pdl_off_ms`).
+    ms a call of the three or two kernels."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    out = {}
+    for name, m, k, ns in ORDER_SHAPES:
+        ws, _ = _weights(g, k, ns, False, torch.bfloat16)
+        weights = [(w.q, w.s) for w in ws]
+        x0 = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        x = x0.clone()
+
+        def front():
+            torch.mul(x0, 1.0, out=x)
+            return w8a8.quantize_rows(x)
+
+        def with_gemm():
+            return _wgmma_group(*front(), weights)()
+
+        def with_int_mm():
+            xq = front()[0]
+            return [torch._int_mm(xq, wq.t()) for wq, _ in weights]
+
+        row = {"gemm_ms": graph_ms(with_gemm, 50), "int_mm_ms": graph_ms(with_int_mm, 50),
+               "quant_ms": graph_ms(front, 50)}
+        if hasattr(w8a8, "_pdl"):
+            pdl = w8a8._pdl
+            w8a8._pdl = lambda *a: False
+            try:
+                row["gemm_pdl_off_ms"] = graph_ms(with_gemm, 50)
+            finally:
+                w8a8._pdl = pdl
+        out[name] = row
+    return out
+
+
+def bench_round() -> dict:
+    """One int8 verify round of ngram_speculative_generate at B = 8, gamma
+    8 (72 rows, bf16 activations): device ms a round over replays of its
+    graph (CUDA events), and from a torch.profiler trace of 8 replays the
+    kernel ms a round, the W8A8 kernels' ms and their count."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
+
+    cfg = qwen.QwenConfig.qwen25_05b()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = qwen.init_qwen_params(cfg, generator=g, dtype=torch.bfloat16,
+                                   device=torch.device("cuda"), quantize=True)
+    ids, mask = _prompts(np, torch, 8)
+    qwen.ngram_speculative_generate(params, cfg, ids, mask, DECODE_NEW,
+                                    gamma=ROUND_GAMMA, eos_token_id=-1)
+    entry = next(e for e in decode_graph.graphs_of(params).entries() if hasattr(e, "flag"))
+
+    def restart():
+        entry.state.cache.zero_()
+        entry.state.start(params, cfg, ids, mask, -1, DECODE_NEW)
+        torch.cuda.synchronize()
+
+    restart()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ROUND_REPLAYS):
+        entry.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    out = {"round_ms": start.elapsed_time(end) / ROUND_REPLAYS}
+    restart()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(8):
+            entry.graph.replay()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    w8 = [e for e in kern if "w8a8" in e.name or "quantize_rows" in e.name]
+    if kern:
+        out.update(
+            kernel_ms=sum(e.time_range.elapsed_us() for e in kern) / 8e3,
+            w8a8_ms=sum(e.time_range.elapsed_us() for e in w8) / 8e3,
+            kernels=len(kern) // 8, w8a8_kernels=len(w8) // 8)
+    else:
+        out["kernel_ms"] = "not measured (no device events)"
+    del params, entry
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prompts(np, torch, b: int):
+    rng = np.random.default_rng(8)
+    ids = rng.integers(1000, 151935, (b, DECODE_BUCKET)).astype(np.int32)
+    lens = rng.integers(DECODE_BUCKET * 3 // 4, DECODE_BUCKET + 1, b)
+    mask = (np.arange(DECODE_BUCKET)[None] < lens[:, None]).astype(np.int32)
+    return torch.from_numpy(ids * mask).cuda(), torch.from_numpy(mask).cuda()
 
 
 def _kernels_a_step(entry) -> int:
@@ -193,9 +410,9 @@ def _kernels_a_step(entry) -> int:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) // 8
 
 
-def bench_step(weights: str) -> dict:
-    """The B = 8 greedy step of Qwen2.5-0.5B: step graph replays, a whole
-    call's ms a token, kernels a step."""
+def bench_step(weights: str, b: int = 8) -> dict:
+    """The greedy step of Qwen2.5-0.5B at B lanes: step graph replays, a
+    whole call's ms a token, kernels a step."""
     import numpy as np
     import torch
     from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
@@ -204,12 +421,7 @@ def bench_step(weights: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     params = qwen.init_qwen_params(cfg, generator=g, dtype=torch.bfloat16,
                                    device=torch.device("cuda"), quantize=weights == "int8")
-    rng = np.random.default_rng(8)
-    ids = rng.integers(1000, 151935, (8, DECODE_BUCKET)).astype(np.int32)
-    lens = rng.integers(DECODE_BUCKET * 3 // 4, DECODE_BUCKET + 1, 8)
-    mask = (np.arange(DECODE_BUCKET)[None] < lens[:, None]).astype(np.int32)
-    ids = torch.from_numpy(ids * mask).cuda()
-    mask = torch.from_numpy(mask).cuda()
+    ids, mask = _prompts(np, torch, b)
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -236,31 +448,63 @@ def bench_step(weights: str) -> dict:
     return out
 
 
+def against(parent: str, sweep: bool) -> dict:
+    """This checkout and `parent` in turns (parent, change, change,
+    parent), each run a process of its own on this file."""
+    import shutil
+
+    here = os.path.abspath(__file__)
+    there = os.path.join(os.path.abspath(parent), "rag_inference_pipeline_tpu_torch",
+                         "tools", os.path.basename(here))
+    if os.path.abspath(there) != here:
+        shutil.copyfile(here, there)
+    turns = []
+    for i, (tag, script) in enumerate((("parent", there), ("change", here),
+                                       ("change", here), ("parent", there))):
+        out = os.path.join(ROOT, "build", "bench", f"w8a8_turn{i}_{tag}.json")
+        cmd = [sys.executable, script, "--out", out]
+        if sweep and tag == "change" and i == 1:
+            cmd.append("--sweep")
+        subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL)
+        with open(out) as fh:
+            turns.append({"tag": tag, **json.load(fh)})
+    return {"turns": turns}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "bench", "w8a8.json"))
     ap.add_argument("--sweep", action="store_true",
                     help="time the two routes against each other by rows")
+    ap.add_argument("--against", metavar="PARENT_ROOT",
+                    help="time PARENT_ROOT's checkout and this one in turns")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("bench_w8a8 needs a CUDA card")
-    from rag_inference_pipeline_tpu_torch.ops import _kernels
+    if args.against:
+        out = against(args.against, args.sweep)
+    else:
+        from rag_inference_pipeline_tpu_torch.ops import _kernels
 
-    _kernels.load_library()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    g = torch.Generator(device="cuda").manual_seed(0)
-    with torch.inference_mode():
-        out = {"root": ROOT, "card": smi, "shapes": bench_shapes(g)}
-        if args.sweep:
-            out["sweep"] = bench_sweep(g)
-        out["step_int8"] = bench_step("int8")
-        out["step_bf16"] = bench_step("bf16")
+        _kernels.load_library()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        with torch.inference_mode():
+            out = {"root": ROOT, "card": smi, "shapes": bench_shapes(g)}
+            if args.sweep:
+                out["sweep"] = bench_sweep(g)
+            out["model_order"] = bench_model_order(g)
+            out["step_int8"] = bench_step("int8")
+            out["step_bf16"] = bench_step("bf16")
+            for b in STEP_LANES:
+                out[f"step_int8_b{b}"] = bench_step("int8", b)
+            out["round_int8"] = bench_round()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=2)

@@ -171,15 +171,15 @@ def _w8a8_counts(rows: int, head_rows: int) -> tuple[int, int, int]:
     decoder over `rows` token rows whose head sees `head_rows`, by the
     route rule: a product of the small-row route is one launch a group
     (q/k/v, o, gate/up, down); one of the wgmma route quantizes once and
-    launches a GEMM a weight."""
+    launches one GEMM for the group."""
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     small = wgmma = quant = 0
-    products = [(rows, CFG.hidden, 3), (rows, CFG.heads * CFG.head_dim, 1),
-                (rows, CFG.hidden, 2), (rows, CFG.intermediate, 1)] * CFG.layers
-    for m, k, members in products + [(head_rows, CFG.hidden, 1)]:
+    products = [(rows, CFG.hidden), (rows, CFG.heads * CFG.head_dim),
+                (rows, CFG.hidden), (rows, CFG.intermediate)] * CFG.layers
+    for m, k in products + [(head_rows, CFG.hidden)]:
         if w8a8._route(m, k, True) == "wgmma":
-            wgmma, quant = wgmma + members, quant + 1
+            wgmma, quant = wgmma + 1, quant + 1
         else:
             small += 1
     return small, wgmma, quant
@@ -192,7 +192,8 @@ def test_int8_greedy_graph_matches_eager(dtype):
     launches, tokens bit for bit; the wrappers count the eager launches
     (prefill, the capture's warm-up), none of the replays, route by route.
     Prefill takes the small-row route at 2 x 12 rows and the wgmma route at
-    8 x 12; a step (2 or 8 rows) the small-row route."""
+    8 x 12, one GEMM launch a group; a step (2 or 8 rows) and the head the
+    small-row route."""
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     dev = _cuda()
@@ -207,7 +208,7 @@ def test_int8_greedy_graph_matches_eager(dtype):
                                       _w8a8_counts(b, b))]
         assert [w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
                 w8a8.quantize_rows.launches] == want
-        assert want[1] == (7 * CFG.layers if b == 8 else 0)
+        assert want[1] == (4 * CFG.layers if b == 8 else 0)
         eager = tqwen.greedy_generate_eager(params, CFG, ids, mask, 10, eos_token_id=EOS)
         assert torch.equal(got, eager)
     assert len(decode_graph.graphs_of(params)) == 2

@@ -965,6 +965,124 @@ def test_w8a8_plan_smem_matches_the_library_on_card():
             assert lib.ragtorch_w8a8_qgemm_smem(mt, k) == w8a8._qgemm_smem(mt, k)
 
 
+def _wgmma_group(g, k, ns, dtype):
+    """1-3 int8 weights [N, K] with scales, a bias on the first only."""
+    weights = [(torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                              dtype=torch.int8),
+                torch.rand(n, generator=g, device="cuda") * 1e-2) for n in ns]
+    biases = [(torch.randn(n, generator=g, device="cuda") * 0.1).to(dtype) if i == 0
+              else None for i, n in enumerate(ns)]
+    return weights, biases
+
+
+def _wgmma_plans(m, k, ns):
+    """The plan `_gemm_plan` gives on 132 SMs, then the others the kernel
+    takes: 64- and 128-row tiles by 128 columns and 64 x 64 tiles unsplit,
+    and 64 x 64 tiles with K split 2, 3 and over every 128-byte chunk (at
+    most 8 blocks)."""
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    chunks = -(-k // 128)
+    plans = [w8a8._gemm_plan(m, k, ns, 132)[:3]]
+    plans += [(64, 128, 1), (128, 128, 1), (64, 64, 1)]
+    plans += [(64, 64, s) for s in (2, 3, min(8, chunks)) if s <= chunks]
+    return list(dict.fromkeys(plans))
+
+
+# M in {33, 64, 65, 72, 128, 129, 288, 300}: one row tile of 64 rows (one
+# consumer warpgroup), one or several of 128 with 1 to 64 rows live in the
+# last; N 3 and 130 (tails in a 64- and a 128-column tile) and 896; K 48 (one
+# chunk, mostly past K), 912 (a 16-byte tail chunk) and 4,864; groups of 1 to
+# 3 weights; f32, bf16 and s32 out; every plan the kernel takes.
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [33, 64, 65, 72, 128, 129, 288, 300])
+def test_w8a8_wgmma_plans_match_plain_on_card(m, monkeypatch):
+    """The wgmma GEMM on each launch plan (split K through a cluster's
+    shared memory, narrow tiles, one launch a group) equals its plain
+    version bit for bit, and counts one launch a group (a few-tile one
+    where its tiles are 64 columns)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(500 + m)
+    for k, ns in ((48, (130,)), (912, (896, 3)), (4864, (896,)), (912, (896, 128, 130))):
+        xq, xs = w8a8.quantize_rows(_w8a8_rows(g, m, k, torch.float32))
+        for dtype in (torch.bfloat16, torch.float32, torch.int32):
+            weights, biases = _wgmma_group(g, k, ns, torch.float32 if dtype == torch.int32
+                                           else dtype)
+            if dtype == torch.int32:
+                weights, biases = [(wq, None) for wq, _ in weights], [None] * len(ns)
+                want = [w8a8.w8a8_acc_plain(xq, wq) for wq, _ in weights]
+                scales = None
+            else:
+                want = [w8a8.w8a8_gemm_plain(xq, xs, wq, ws, b, out_dtype=dtype)
+                        for (wq, ws), b in zip(weights, biases)]
+                scales = xs
+            for plan in _wgmma_plans(m, k, ns):
+                monkeypatch.setattr(w8a8, "_gemm_plan",
+                                    lambda *a, plan=plan: (*plan, 0))
+                fn = w8a8.w8a8_gemm_s32 if dtype == torch.int32 else w8a8.w8a8_gemm
+                before = (fn.launches, fn.few_tile_launches)
+                got = w8a8._gemm_launch(xq, scales, weights, biases, dtype)
+                torch.cuda.synchronize()
+                assert (fn.launches, fn.few_tile_launches) == (
+                    before[0] + 1, before[1] + int(plan[1] == 64))
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                    m, k, ns, dtype, plan)
+            monkeypatch.undo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [72, 288])
+def test_w8a8_wgmma_plans_replay_in_a_graph_on_card(m):
+    """The verify round's and the engine's groups (q/k/v, gate/up, down,
+    and down's s32 kind at tp = 2) on the plan `_gemm_plan` gives, captured
+    in one CUDA graph and replayed over new rows: the plain version's
+    outputs each time (the split's partials live in shared memory only, so
+    a replay needs nothing reset); the capture counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    xs_in = {k: torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+             for k in (896, 4864)}
+    groups = [(896, _wgmma_group(g, 896, (896, 128, 128), torch.bfloat16)),
+              (896, _wgmma_group(g, 896, (4864, 4864), torch.bfloat16)),
+              (4864, _wgmma_group(g, 4864, (896,), torch.bfloat16))]
+    wq_tp = torch.randint(-127, 128, (896, 2432), generator=g, device="cuda",
+                          dtype=torch.int8)
+    xq_tp = torch.empty((m, 2432), dtype=torch.int8, device="cuda")
+
+    def run():
+        outs = [w8a8.w8a8_dense(xs_in[k], ws, bs, out_dtype=torch.bfloat16)
+                for k, (ws, bs) in groups]
+        return outs + [[w8a8.w8a8_gemm_s32(xq_tp, wq_tp)]]
+
+    run()  # warm up: the library
+    torch.cuda.synchronize()
+    counts = (w8a8.quantize_rows.launches, w8a8.w8a8_gemm.launches,
+              w8a8.w8a8_gemm_s32.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = run()
+    assert (w8a8.quantize_rows.launches, w8a8.w8a8_gemm.launches,
+            w8a8.w8a8_gemm_s32.launches) == counts
+    for seed in (1, 2, 3):
+        for x in xs_in.values():
+            x.copy_(torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+                    * seed)
+        xq_tp.copy_(torch.randint(-127, 128, xq_tp.shape, generator=g, device="cuda",
+                                  dtype=torch.int8))
+        graph.replay()
+        want = [w8a8.w8a8_dense_plain(xs_in[k], ws, bs, out_dtype=torch.bfloat16)
+                for k, (ws, bs) in groups] + [[w8a8.w8a8_acc_plain(xq_tp, wq_tp)]]
+        torch.cuda.synchronize()
+        for got, exp in zip(ys, want):
+            assert all(torch.equal(a, b) for a, b in zip(got, exp)), seed
+
+
 # kernel against plain version on the card: both sum q.k and p.v in f32 in
 # another order, which moves a score by ~1e-7 of its size; in bf16 and f16
 # that can round a p to its neighbour before p.v and flip the output's last

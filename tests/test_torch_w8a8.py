@@ -133,6 +133,34 @@ def test_dense_plain_bit_for_bit(jdt, tdt, bias):
     assert torch.equal(got[1], tlayers.dense(xt, other))
 
 
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("k", [2432, 4864])
+@pytest.mark.parametrize("m", [72, 288])
+def test_plain_twin_at_verify_rows_bit_for_bit(m, k, jdt, tdt):
+    """At the verify round's 72 rows and the engine's 288, with down's K
+    (4,864) and its row shard at tp = 2 (2,432): the plain twin equals the
+    JAX `_qdense` (with a bias) and the tied int8 head (f32 logits), both
+    run op by op, and its s32 sums the reference's int32 dot."""
+    rng = np.random.default_rng(m + k)
+    xj, xt = _pair(rng.standard_normal((m, k)).astype(np.float32), jdt, tdt)
+    wj, wt = _pair(rng.standard_normal((k, 96)).astype(np.float32) * 0.05, jdt, tdt)
+    bj, bt = _pair(rng.standard_normal(96).astype(np.float32), jdt, tdt)
+    jw, tw = jlayers.quantize_linear(wj), tlayers.quantize_linear(wt)
+    (y,) = w8a8.w8a8_dense_plain(xt, [(tw.q, tw.s)], [bt], out_dtype=tdt)
+    np.testing.assert_array_equal(_np(y), np.asarray(jlayers.dense(xj, jw, bj)
+                                                     .astype(jnp.float32)))
+    ej, et = _pair(rng.standard_normal((80, k)).astype(np.float32), jdt, tdt)
+    je, te = jlayers.quantize_embed(ej), tlayers.quantize_embed(et)
+    yq, ys = jlayers.quantize_act_rows(xj)
+    acc = jax.lax.dot_general(yq, je.q, (((1,), (1,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    (logits,) = w8a8.w8a8_dense_plain(xt, [(te.q, te.s)], out_dtype=torch.float32)
+    np.testing.assert_array_equal(logits.numpy(),
+                                  np.asarray(acc.astype(jnp.float32) * ys * je.s))
+    xq, _ = w8a8.quantize_rows_plain(xt)
+    np.testing.assert_array_equal(w8a8.w8a8_acc_plain(xq, te.q).numpy(), np.asarray(acc))
+
+
 def test_gemm_plain_is_exact_past_f32():
     """K * 127^2 far past 2^24: the float64 product of the int8 values is
     the exact s32 sum (an f32 product would not be)."""
@@ -159,6 +187,11 @@ def test_gemm_plain_is_exact_past_f32():
     (4096, 896, False, "qgemm"),  # weights off a 16-byte boundary: no TMA
     (8, 14336, True, "qgemm"),  # Llama-3.1-8B's down: 8 rows fit a block
     (17, 14336, True, "wgmma"),  # 16 rows of it do not: any M takes the wgmma
+    # the re-swept M* = 32: decode steps of 8, 16 and 32 lanes stay on the
+    # small-row kernel, the verify round's 36 to 72 rows and a B = 1
+    # prefill take the wgmma route
+    (8, 4864, True, "qgemm"), (16, 896, True, "qgemm"), (32, 4864, True, "qgemm"),
+    (36, 896, True, "wgmma"), (72, 2432, True, "wgmma"), (128, 4864, True, "wgmma"),
 ])
 def test_route_rule(m, k, aligned, want):
     assert w8a8._route(m, k, aligned) == want
@@ -190,6 +223,61 @@ def test_qgemm_plan(m, k, ns, want):
     mt = want[0]
     assert w8a8._qgemm_smem(mt, k) <= w8a8._BLOCK_SMEM
     assert w8a8._qgemm_stride(k) % 128 == 64 and w8a8._qgemm_stride(k) >= k
+
+
+# Qwen2.5-0.5B's products on the wgmma route on 132 SMs: (M, K, N of each
+# weight) -> (bm, bn, split, blocks). 128-column tiles over all of K where
+# they give half as many blocks as SMs; else 64 x 64 tiles, K split over a
+# cluster where a block keeps four 128-byte chunks at least
+@pytest.mark.parametrize("m,k,ns,want", [
+    (72, 896, (896,), (64, 64, 1, 28)),  # the verify round's q/o: two row tiles
+    (72, 896, (896, 128, 128), (64, 64, 1, 36)),  # q/k/v: one launch, 18 tiles a row
+    (72, 896, (4864, 4864), (128, 128, 1, 76)),  # gate/up: wide tiles
+    (72, 4864, (896,), (64, 64, 4, 112)),  # down: 7 wide tiles became 112 blocks
+    (72, 2432, (896,), (64, 64, 4, 112)),  # down's row shard at tp = 2 (s32)
+    (72, 896, (151936,), (128, 128, 1, 1187)),  # the tied head fills the card wide
+    (33, 896, (896,), (64, 64, 1, 14)),
+    (48, 4864, (896,), (64, 64, 8, 112)),  # one row tile: 8 splits
+    (128, 4864, (896,), (64, 64, 4, 112)),  # a B = 1 prefill at bucket 128
+    (288, 896, (896, 128, 128), (64, 64, 1, 90)),  # the engine's 32 lanes x 9
+    (288, 4864, (896,), (64, 64, 1, 70)),  # 70 tiles: a split would pass an SM a block
+    (288, 896, (4864, 4864), (128, 128, 1, 228)),
+    (4096, 896, (4864, 4864), (128, 128, 1, 2432)),  # prefill: wide, a launch a group
+])
+def test_gemm_plan(m, k, ns, want):
+    assert w8a8._gemm_plan(m, k, ns, 132) == want
+
+
+@pytest.mark.parametrize("ns", [(896,), (4864, 4864), (896, 128, 128)])
+@pytest.mark.parametrize("k", [896, 2432, 4864])
+@pytest.mark.parametrize("m", [33, 72, 128, 288, 512, 4096])
+def test_gemm_plan_fills_the_card(m, k, ns):
+    """Every plan: wide tiles where they give half as many blocks as SMs
+    (64 rows where M fits them); else 64 x 64 tiles split over the most
+    blocks of a cluster (a power of two up to 8) that keep four chunks a
+    block and an SM a block."""
+    bm, bn, split, blocks = w8a8._gemm_plan(m, k, ns, 132)
+    wide_bm = 64 if m <= 64 else 128
+    wide = -(-m // wide_bm) * sum(-(-n // 128) for n in ns)
+    if 2 * wide >= 132:
+        assert (bm, bn, split, blocks) == (wide_bm, 128, 1, wide)
+        return
+    assert bm == bn == 64
+    tiles = -(-m // 64) * sum(-(-n // 64) for n in ns)
+    assert blocks == tiles * split and split in (1, 2, 4, 8)
+    most = min(8, -(-k // 128) // 4)
+    assert split <= most and blocks <= max(132, tiles)
+    assert 2 * split > most or 2 * blocks > 132  # the most splits the rule allows
+
+
+@pytest.mark.parametrize("bn,k,want", [
+    (64, 896, True), (64, 4864, False),  # few-tile plans: by K as the wide ones
+    (128, 768, True), (128, 896, True), (128, 3072, True),  # K under 4 KB
+    (128, 4096, False), (128, 4864, False),  # each block streams a long K
+])
+def test_pdl_rule(bn, k, want):
+    plan = w8a8._gemm_plan(72 if bn == 64 else 4096, k, (896,), 132)
+    assert plan[1] == bn and w8a8._pdl(k) is want
 
 
 def _group(rng, k, ns, jdt, tdt, bias):
@@ -300,15 +388,20 @@ def test_dense_launches_one_kernel_per_small_group(monkeypatch):
 
 def test_dense_takes_the_wgmma_route_for_many_rows(monkeypatch):
     card = _FakeCard(monkeypatch)
-    before = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
+    before = (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches,
+              w8a8.w8a8_gemm.few_tile_launches)
     weights = _int8_weights((4864, 4864), 896)
-    w8a8.w8a8_dense(torch.zeros(w8a8.M_STAR + 1, 896), weights,
-                    out_dtype=torch.float32)
-    assert card.names() == ["ragtorch_w8a8_quantize_rows"] + ["ragtorch_w8a8_gemm_wgmma"] * 2
-    m, n, k, kind = card.calls[1][1][-4:]
-    assert (m, n, k, kind) == (w8a8.M_STAR + 1, 4864, 896, 0)
-    assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches) == (
-        before[0] + 2, before[1] + 1)
+    m = w8a8.M_STAR + 1
+    w8a8.w8a8_dense(torch.zeros(m, 896), weights, out_dtype=torch.float32)
+    # the group in one launch, on the plan for its shape
+    assert card.names() == ["ragtorch_w8a8_quantize_rows", "ragtorch_w8a8_gemm_wgmma"]
+    args = card.calls[1][1]
+    assert list(args[6]) == [4864, 4864, 0]  # N of each member (3 slots)
+    plan = w8a8._gemm_plan(m, 896, (4864, 4864), 132)
+    assert args[7:] == (2, m, 896, 0, *plan[:3], 1)  # nmem, M, K, kind, plan, pdl
+    assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches,
+            w8a8.w8a8_gemm.few_tile_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(plan[1] == 64))
     # a weight off a 16-byte boundary, or K % 16 != 0: the small-row kernel
     card.calls.clear()
     w8a8.w8a8_dense(torch.zeros(300, 896), _int8_weights((64,), 896, offset=4),
@@ -317,6 +410,51 @@ def test_dense_takes_the_wgmma_route_for_many_rows(monkeypatch):
                     out_dtype=torch.float32)
     assert card.names() == ["ragtorch_w8a8_qgemm"] * 2
     assert card.calls[0][1][-4:] == (64, 1, 8, 8)  # m tiles of 64 rows, one cluster
+
+
+@pytest.mark.parametrize("m", [72, 288])
+def test_dense_sends_each_wgmma_group_as_one_launch(monkeypatch, m):
+    """The verify round's (72 rows) and the engine's (288) q/k/v and
+    gate/up groups: one quantize and one GEMM launch each, carrying every
+    member's weight, scales, bias and output, its N, and the plan
+    `_gemm_plan` gives; a row shard's s32 product the same way, with no
+    scales."""
+    card = _FakeCard(monkeypatch)
+    for ns, bias in (((896, 128, 128), True), ((4864, 4864), False)):
+        card.calls.clear()
+        weights = _int8_weights(ns, 896)
+        biases = [torch.zeros(n, dtype=torch.bfloat16) if bias else None for n in ns]
+        before = (w8a8.w8a8_gemm.launches, w8a8.w8a8_gemm.few_tile_launches,
+                  w8a8.quantize_rows.launches)
+        ys = w8a8.w8a8_dense(torch.zeros(m, 896, dtype=torch.bfloat16), weights, biases,
+                             out_dtype=torch.bfloat16)
+        assert [tuple(y.shape) for y in ys] == [(m, n) for n in ns]
+        assert card.names() == ["ragtorch_w8a8_quantize_rows", "ragtorch_w8a8_gemm_wgmma"]
+        args = card.calls[1][1]
+        plan = w8a8._gemm_plan(m, 896, ns, 132)
+        pad = [None] * (3 - len(ns))
+        assert list(args[2]) == [wq.data_ptr() for wq, _ in weights] + pad
+        assert list(args[3]) == [ws.data_ptr() for _, ws in weights] + pad
+        assert list(args[4]) == [None if b is None else b.data_ptr() for b in biases] + pad
+        assert list(args[5]) == [y.data_ptr() for y in ys] + pad
+        assert list(args[6]) == list(ns) + [0] * len(pad)
+        # nmem, M, K, kind, plan, and PDL (every launch at K = 896)
+        assert args[7:] == (len(ns), m, 896, 1, *plan[:3], 1)
+        assert (w8a8.w8a8_gemm.launches, w8a8.w8a8_gemm.few_tile_launches,
+                w8a8.quantize_rows.launches) == (
+            before[0] + 1, before[1] + int(plan[1] == 64), before[2] + 1)
+    card.calls.clear()
+    (wq, _), = _int8_weights((896,), 2432)
+    before = (w8a8.w8a8_gemm_s32.launches, w8a8.w8a8_gemm_s32.wgmma_launches,
+              w8a8.w8a8_gemm_s32.few_tile_launches)
+    w8a8.w8a8_gemm_s32(torch.zeros(m, 2432, dtype=torch.int8), wq)
+    assert card.names() == ["ragtorch_w8a8_gemm_wgmma"]
+    args = card.calls[0][1]
+    assert args[1] is None and list(args[3]) == [None] * 3
+    assert args[7:] == (1, m, 2432, 2, *w8a8._gemm_plan(m, 2432, (896,), 132)[:3], 1)
+    assert (w8a8.w8a8_gemm_s32.launches, w8a8.w8a8_gemm_s32.wgmma_launches,
+            w8a8.w8a8_gemm_s32.few_tile_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
 
 
 def test_card_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch):
