@@ -251,12 +251,13 @@ and exits non-zero before the last line:
              and 4096, Dh 128 (H 6) and Dh 256 (H 3) at T 1024, f16 and f32
              at T 1024; each case's max abs error, kernel, plain and SDPA
              ms (SDPA with the boolean segment-equality mask, timed only),
-             SDPA over the kernel, the bound and, in bf16 and f16, the
-             CUDA-core floor (tools/bench_flash.py's count from the SASS;
-             null where it fails: no figure fails the phase). Then
-             bert_embed at bge-base width (12 layers, random seeded bf16
-             weights, max_positions 2048) at B=4 and T 1024 and 2048, and
-             once with int8 weights at T 1024: the kernel
+             SDPA over the kernel, the bound (f32: six bf16 products, the
+             kernel's split) and the CUDA-core floor (tools/bench_flash.py's
+             count from the SASS; null where it fails: no figure fails the
+             phase). Then bert_embed at bge-base width (12 layers, random
+             seeded bf16 weights, max_positions 2048) at B=4 and T 1024 and
+             2048, once with int8 weights and once with f32 weights at T
+             1024: the kernel
              count, zeroed just before, must rise by exactly 12 a forward;
              the CLS embeddings against the same forward through the plain
              version (max abs error, min cosine); ms a forward.
@@ -434,8 +435,7 @@ HBM_BYTES_PER_S = 3.35e12
 # the anatomy probe's --length 128 and --reps 3, cut to fit the time limit
 # (the tensor-parallel phases took the probe's length from 32 to 8)
 ANATOMY_ARGS = ["--length", "8", "--reps", "2"]
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2,
-                  "f32_fma": 67e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
 # the decode slice: the staged ladder's largest prefill bucket, MAX_TOKENS,
 # alternated eager/graph rounds; speculation at the settings' gamma and the
 # benchmark-only acceptance rates of VERDICT.md item 4; a sequence may leave
@@ -768,11 +768,11 @@ def flash_masks(b: int, t: int):
 
 
 def flash_floors():
-    """(b, h, t, dh, dtype name) -> the 16-bit kernel's CUDA-core floor in
-    ms (tools/bench_flash.py: its main loop's FP32-pipe and MUFU
-    instructions a score from the built library's SASS, at the SM clock
-    nvidia-smi reports), or None for f32 or where the count fails: a
-    figure that never fails the phase."""
+    """(b, h, t, dh, dtype name) -> the kernel's CUDA-core floor in ms
+    (tools/bench_flash.py: its main loop's FP32-pipe and MUFU instructions
+    a score from the built library's SASS, at the SM clock nvidia-smi
+    reports), or None where the count fails: a figure that never fails the
+    phase."""
     from rag_inference_pipeline_tpu_torch.ops import _kernels
     from rag_inference_pipeline_tpu_torch.tools import bench_flash
 
@@ -784,8 +784,6 @@ def flash_floors():
     counts = {}
 
     def floor(b, h, t, dh, dtype_name):
-        if dtype_name == "float32":
-            return None
         if (dtype_name, dh) not in counts:
             try:
                 counts[dtype_name, dh] = bench_flash.per_score(sass, dtype_name, dh)
@@ -803,18 +801,19 @@ def flash_floors():
 def phase_flash():
     """The encoder flash kernel against its plain version at every case of
     FLASH_CASES, with its time, the plain version's, SDPA's (and SDPA over
-    the kernel), the bound and, in bf16 and f16, the CUDA-core floor;
-    then bert_embed at bge-base width through it at FLASH_PATH_T (and once
-    with int8 weights), 12 launches a forward, against the same forward
+    the kernel), the bound and the CUDA-core floor; then bert_embed at
+    bge-base width through it at FLASH_PATH_T (and once with int8 weights,
+    once with f32 weights), 12 launches a forward, against the same forward
     through the plain version."""
     import torch
     import torch.nn.functional as F
     from rag_inference_pipeline_tpu_torch.models import bert as tbert
     from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+    from rag_inference_pipeline_tpu_torch.tools import bench_flash
 
     t0 = time.perf_counter()
     g = torch.Generator(device=DEVICE).manual_seed(14)
-    b, cases, main = FLASH_B, {}, None
+    b, cases, main, main_f32 = FLASH_B, {}, None, None
     floors = flash_floors()
     for t, h, dh, dtype_name in FLASH_CASES:
         dtype = getattr(torch, dtype_name)
@@ -839,9 +838,10 @@ def phase_flash():
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         m["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed), 20)
+        # f32: each product six bf16 products of the kernel's split
+        products = bench_flash.F32_PRODUCTS if dtype == torch.float32 else 1
         m.update(bound(4 * b * t * h * dh * q.element_size() + 2 * b * t * 4,
-                       4.0 * b * h * t * t * dh,
-                       "f32_fma" if dtype == torch.float32 else "bf16"))
+                       4.0 * b * h * t * t * dh * products, "bf16"))
         name = f"t{t}_h{h}_d{dh}_{dtype_name}"
         floor = floors(b, h, t, dh, dtype_name)
         cases[name] = {"max_abs_err": m["max_abs_err"], "ms": round(m["ms"], 5),
@@ -854,11 +854,14 @@ def phase_flash():
                        "cuda_core_floor_ms": None if floor is None else round(floor, 5)}
         if main is None:  # bge-base heads, bf16, the gate's first length
             main = m
+        if dtype == torch.float32:  # the f32 kernel's line: bge-base heads, T 1024
+            main_f32 = m
         del q, k, v, out, ref, err, allowed, qt, kt, vt
         torch.cuda.empty_cache()
 
-    # the path: bert_embed at bge-base width (random seeded bf16 weights),
-    # max_positions 2048, through encoder_attention's flash branch
+    # the path: bert_embed at bge-base width (random seeded bf16 weights,
+    # their int8 tree, and f32 weights), max_positions 2048, through
+    # encoder_attention's flash branch
     cfg = tbert.BertConfig(max_positions=max(FLASH_PATH_T))
     params = tbert.init_bert_params(cfg, generator=g, dtype=torch.bfloat16, device=DEVICE)
     qparams = tbert.quantize_bert_params(params)
@@ -867,9 +870,10 @@ def phase_flash():
         mask = flash_masks(b, t)
         ids = torch.randint(1, cfg.vocab_size, (b, t), generator=g, device=DEVICE)
         inputs[t] = (ids * mask, mask)
+    f32params = tbert.init_bert_params(cfg, generator=g, dtype=torch.float32, device=DEVICE)
     t_int8 = FLASH_PATH_T[0]
     runs = [(f"t{t}", params, t) for t in FLASH_PATH_T] + [
-        (f"int8_t{t_int8}", qparams, t_int8)]
+        (f"int8_t{t_int8}", qparams, t_int8), (f"f32_t{t_int8}", f32params, t_int8)]
     embs, per_forward = {}, {}
     zero_launches()
     with torch.inference_mode():
@@ -902,13 +906,14 @@ def phase_flash():
         for name, p, t in runs:
             ms = cuda_ms(lambda: tbert.bert_embed(p, cfg, *inputs[t]), 3)
             stats[f"{name}_forward_ms"] = f"{ms:.3f}"
-    del params, qparams, inputs, embs
+    del params, qparams, f32params, inputs, embs
     gc.collect()
     torch.cuda.empty_cache()
     phase("flash", t0, launches_per_forward=cfg.layers, **stats,
           cases=json.dumps(cases, separators=(",", ":")))
-    main["launches"] = launches
-    return main
+    main_f32["launches"] = per_forward[f"f32_t{t_int8}"]
+    main["launches"] = launches - main_f32["launches"]
+    return main, main_f32
 
 
 # the int8 path's products (Qwen2.5-0.5B: H 896, kv 2 x 64, I 4,864, V
@@ -4303,7 +4308,7 @@ def main() -> int:
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
-    flash = phase_flash()
+    flash, flash_f32 = phase_flash()
     w8 = phase_w8a8()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
@@ -4421,6 +4426,9 @@ def main() -> int:
               mesh_tp["wgmma"], w8["wgmma_s32"], "w8a8_wgmma"),
         entry("flash_attention", "rag_inference_pipeline_tpu/models/layers.py:205",
               flash["launches"] + tp_encode["launches"], flash),
+        # its f32 instances (the three-way bf16 split): the f32 forward's
+        entry("flash_attention_f32", "rag_inference_pipeline_tpu/models/layers.py:205",
+              flash_f32["launches"], flash_f32, "flash_attention"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -13,28 +13,31 @@
 //   inv   = l' == 0 ? 1 : 1 / l'
 //   acc   = acc * (alpha l * inv) + (p cast to v's dtype . v, f32) * inv
 // and out = acc cast to q's dtype: the accumulator is normalised as it
-// goes, with no division at the end. Every product and sum of that update
-// is rounded as in the plain version (ops/flash_attention.py: __fmul_rn,
-// __fadd_rn, the IEEE 1 / l', the accurate expf), and p . v goes into a
-// fresh accumulator each block before the update, so only the sums of the
-// two matrix products and the row sums of p run in another order.
+// goes, with no division at the end. In bf16 and f16 every product and
+// sum of that update is rounded as in the plain version
+// (ops/flash_attention.py: __fmul_rn, __fadd_rn, the IEEE 1 / l', the
+// accurate expf), and p . v goes into a fresh accumulator each block before
+// the update, so only the sums of the two matrix products and the row sums
+// of p run in another order; f32 folds 1 / l' into p (below).
 //
 // q, k, v are [B, T, H, Dh] read through their strides (the head row
 // contiguous, 16-byte aligned), seg_q and seg_kv [B, T] int32 (seg_kv on
-// 16 bytes), out [B, T, H, Dh] contiguous. Dh is 64, 128 or 256 and T a
+// 16 bytes in bf16 and f16), out [B, T, H, Dh] contiguous. Dh is 64, 128 or 256 and T a
 // multiple of 128.
 //
 // Floors on the H100 (tools/bench_flash.py prints both a case):
 // - tensor: the two products, 4 B H T^2 Dh operations at 989 TFLOP/s; bge-
 //   base heads (H 12, Dh 64), B 4: 0.0130 ms at T 1024, 0.208 at T 4096
 //   (the bytes of q, k, v, out and the ids once take 0.0075 ms at T 1024);
+//   f32 does six bf16 products of that work: 0.0782 ms at T 1024;
 // - CUDA cores: the FP32-pipe instructions a score of the main loop (the
 //   scale, the mask where a block needs it, the max, the subtraction, the
-//   accurate expf's six, the sum, half a pack, and the update's three an
-//   output element a block) over 132 SMs x 128 lanes, and its MUFU.EX2 (one
-//   a score) over 132 x 16, at the SM clock: bench_flash.py counts them in
-//   this kernel's SASS. At Dh 64 this floor is the larger; at Dh 128 and
-//   256 the tensor floor is.
+//   accurate expf's six, the sum, half a pack (f32: the split of p and the
+//   fold of 1 / l'), and the update's three an output element a block)
+//   over 132 SMs x 128 lanes, and its MUFU.EX2 (one a score) over 132 x
+//   16, at the SM clock: bench_flash.py counts them in this kernel's SASS.
+//   In bf16 and f16 at Dh 64 this floor is the larger; at Dh 128 and 256
+//   the tensor floor is.
 //
 // Design of the bf16 and f16 kernel, against what held the mma.sync kernel
 // it replaces back:
@@ -83,10 +86,37 @@
 //   adds one constant a row; only mixed blocks read their ids key by key.
 //   The row max is a tree (a max is exact in any order); the row sum is
 //   four partial sums a row, 8 deep, not one chain of 32.
-// - f32: CUDA-core FMAs (no TF32, which would round the inputs). A block
-//   of 128 threads owns 64 query rows (32 at Dh 256); K and V stream in
-//   32-key chunks, the 128-key scores and p sit in shared memory, and each
-//   output sums its 128 products in key order before the update.
+//
+// Design of the f32 kernel: the same products on the tensor cores, exact
+// to f32's 24 bits by a three-way bf16 split (x = x1 + x2 + x3, x1 =
+// bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2), every difference
+// exact), where the CUDA-core FMA kernel it replaces reached 0.38 of the
+// FMA floor and lost to SDPA (TF32 would round the inputs; three TF32
+// products cost what six bf16 ones do, and TF32 wgmma takes no MN-major
+// V):
+// - each product a b is the sum of six, smallest first: a3 b1, a2 b2, a1
+//   b3, a2 b1, a1 b2, a1 b1, all into one f32 accumulator by wgmma (S: SS,
+//   m64n128k16; P V: RS, m64n64k16, V MN-major as in bf16). The dropped
+//   terms are ~2^-24 of a b.
+// - the producer warpgroup splits: one thread keeps two f32 boxes (32
+//   columns, 128 keys or Q's rows) in flight by TMA, unswizzled; its 128
+//   threads write each box's three parts in the 128-byte swizzle TMA
+//   gives the 16-bit kernel, then fence them for the async proxy. Q's parts
+//   stay for the block; each 64-column panel of K or V takes a ring slot
+//   of its three parts (48 KB; 3 slots at Dh 64, 2 above), and two key
+//   blocks' ids a buffer of their own. Shared memory (224 KB of 227) sets
+//   the shape: 128 query rows (two consumer warpgroups in turns, as bf16)
+//   at Dh 64 and 128, 64 rows (one) at Dh 256. Where K's panels all fit
+//   the ring (Dh 64, 128) S takes the six products smallest first over the
+//   whole head row; at Dh 256 its four panels stream through two slots,
+//   smallest first a panel (later panels' small terms then meet a larger
+//   sum: more error than one order over the row).
+// - P's parts are split in registers (pa[3][8][4], the layout pack_p
+//   uses); p is not rounded to v's dtype, which is f32. To free P V's
+//   fresh accumulator (acc 128 + pa 96 registers a thread at Dh 256),
+//   1 / l' is folded into p before the split and acc is scaled by alpha l
+//   / l' before P V adds to it: the update's roundings move, not its value.
+// - the softmax is the 16-bit kernel's (softmax_block), in f32.
 // Blocks are independent, there are no atomics, and the result is
 // deterministic.
 
@@ -135,19 +165,6 @@ __device__ __forceinline__ float update(float acc, float corr, float o, float in
 // masked, scaled score: the scale after the product, then the additive mask
 __device__ __forceinline__ float score(float dot, float sm_scale, bool same) {
   return __fadd_rn(__fmul_rn(dot, sm_scale), same ? 0.0f : kMaskValue);
-}
-
-// `rows` rows of `kDh` elements from global rows `rs` elements apart into
-// shared rows `kLd` elements apart, 16 bytes a cp.async
-template <typename T, int kDh, int kLd, int kRowsN, int kThreads>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs, int tid) {
-  constexpr int kPer = 16 / sizeof(T);
-  constexpr int kChunks = kDh / kPer;
-#pragma unroll
-  for (int i = tid; i < kRowsN * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * kPer;
-    ptx::cp_async<16>(ptx::smem_addr(dst + r * kLd + c), src + r * rs + c, 16);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -231,7 +248,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[kN / 2], const uint32_t (&pa
 // The online-softmax step of one key block on the scores s of a thread's
 // rows (s[4n + 2r + e]: row + 8r, key 8n + 2tq + e): scale and mask (block-
 // uniform ids take the short forms), then release the K tile and its ids
-// (`release`), the row statistics (m and l of each row), p = exp(s - m')
+// (`release`, unless null), the row statistics (m and l of each row), p = exp(s - m')
 // in s, and the update's factors of each row: sc = alpha l * inv and
 // inv = 1 / l'.
 __device__ __forceinline__ void softmax_block(float (&s)[64], const int* kid, uint64_t* release,
@@ -267,7 +284,7 @@ __device__ __forceinline__ void softmax_block(float (&s)[64], const int* kid, ui
     }
   }
   __syncwarp();
-  if (lane == 0) ptx::mbar_arrive(release);
+  if (release != nullptr && lane == 0) ptx::mbar_arrive(release);
 
   // the row max as a tree (a max is exact in any order), then over the quad
   // that holds the row
@@ -527,225 +544,339 @@ __global__ void __launch_bounds__(WgShape<kDh>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: the three-way bf16 split on wgmma
 // ---------------------------------------------------------------------------
 
 template <int kDh>
-struct F32Shape {
-  static constexpr int kThreads = 128;
-  // query rows a block: the output tile is 32 (Dh 64) or 64 registers a
-  // thread, and as many again for a block's products
-  static constexpr int kRows = kDh == 256 ? 32 : 64;
-  static constexpr int kChunk = 32;         // keys a staged K or V chunk
-  static constexpr int kLd = kDh + 4;       // shared row of q, k, v, floats
-  static constexpr int kLdS = kBlockK + 4;  // shared row of scores
-  // the products: kRows x kChunk scores, thread (qg = tid / 8, kg = tid % 8)
-  // owns rows qg + 16 i and keys kg + 8 j
-  static constexpr int kSRows = kRows / 16;
-  // the output: thread (rg, cg) owns rows rg + kRowGroups i, i < 4, and
-  // the float4 columns 4 cg + 4 kColGroups c
-  static constexpr int kRowGroups = kRows / 4;
-  static constexpr int kColGroups = kThreads / kRowGroups;
-  static constexpr int kCol4 = kDh / (4 * kColGroups);
-  static constexpr int smem() {
-    return (kRows * kLd + kRows * kLdS + kChunk * kLd) * 4 + kBlockK * 4 + 4 * kRows * 4;
-  }
+struct SplitShape {
+  // two consumer warpgroups of 64 rows; one at Dh 256, where Q's three
+  // parts of 128 rows would take 192 KB
+  static constexpr int kConsumers = kDh == 256 ? 1 : 2;
+  static constexpr int kRows = 64 * kConsumers;
+  static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+  static constexpr int kPanels = kDh / 64;                 // 64-column panels
+  static constexpr int kPart = kBlockK * 128;              // a part of a K or V panel
+  static constexpr int kSlot = 3 * kPart;                  // a ring slot: a panel's parts
+  static constexpr int kQPanel = kRows * 128;
+  static constexpr int kQPart = kPanels * kQPanel;
+  static constexpr int kQBytes = 3 * kQPart;
+  static constexpr int kSlots = kDh == 64 ? 3 : 2;
+  // f32 boxes of 32 columns (one 128-byte row a key) staged for the split
+  static constexpr int kUnits = kDh / 32;  // boxes a head row
+  static constexpr int kStages = 2;
+  static constexpr int kStage = kBlockK * 128;
+  // 1 KB to align the tiles on the swizzle's 1,024 bytes, Q's parts, the
+  // ring, the staging boxes, two key blocks' ids, the full and empty
+  // barriers of the ring, the staging barriers and Q's
+  static constexpr int kSmem = 1024 + kQBytes + kSlots * kSlot + kStages * kStage +
+                               2 * kBlockK * 4 + (2 * kSlots + kStages + 1) * 8;
+  static_assert(kSmem <= 232448, "over the 227 KB a block can have");
 };
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// the six products of the split, smallest first: a_i b_k with parts
+// (i, k) = (3, 1), (2, 2), (1, 3), (2, 1), (1, 2), (1, 1), 0-based here
+__device__ __forceinline__ constexpr int term_a(int t) { return t == 0 ? 2 : t == 1 || t == 3 ? 1 : 0; }
+__device__ __forceinline__ constexpr int term_b(int t) { return t == 2 ? 2 : t == 1 || t == 4 ? 1 : 0; }
+
+// x = x1 + x2 + x3 exactly (24 mantissa bits as three of 8) for a pair,
+// each part a packed bf16x2: x1 = bf16(x), x2 = bf16(x - x1), x3 =
+// bf16(x - x1 - x2); both differences are exact
+__device__ __forceinline__ void split2(float a, float b, uint32_t& w1, uint32_t& w2,
+                                       uint32_t& w3) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  w1 = *reinterpret_cast<uint32_t*>(&h);
+  float2 f = __bfloat1622float2(h);
+  a = __fsub_rn(a, f.x);
+  b = __fsub_rn(b, f.y);
+  h = __floats2bfloat162_rn(a, b);
+  w2 = *reinterpret_cast<uint32_t*>(&h);
+  f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(__fsub_rn(a, f.x), __fsub_rn(b, f.y));
+  w3 = *reinterpret_cast<uint32_t*>(&h);
+}
+
+// S (+)= Q K^T for a warpgroup's 64 rows and a 128-key block over kN
+// 64-column panels from panel p0 (K's at k_addr[0 .. kN)): the six
+// products, smallest first over all kN panels, 4 k16 steps a panel, into
+// one f32 accumulator (fresh at p0 = 0)
+template <int kN, int kQPanel, int kQPart, int kPart>
+__device__ __forceinline__ void issue_s_split(float (&s)[64], uint32_t q_addr,
+                                              const uint32_t (&k_addr)[kN], int p0) {
+#pragma unroll
+  for (int t = 0; t < 6; ++t)
+#pragma unroll
+    for (int p = 0; p < kN; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ptx::wgmma_m64n128k16_ss<true>(
+            s, ptx::wgmma_desc_sw128(q_addr + term_a(t) * kQPart + (p0 + p) * kQPanel) + 2 * kk,
+            ptx::wgmma_desc_sw128(k_addr[p] + term_b(t) * kPart) + 2 * kk, p0 + t + p + kk > 0);
+}
+
+// acc (64 output columns) += P . V over a 128-key V panel: the six products,
+// 8 k16 steps each, P's parts from registers
+template <int kPart>
+__device__ __forceinline__ void issue_pv_split(float (&acc)[32], const uint32_t (&pa)[3][8][4],
+                                               uint32_t v_addr) {
+#pragma unroll
+  for (int t = 0; t < 6; ++t)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      ptx::wgmma_m64k16_rs<true, 64>(
+          acc, pa[term_a(t)][kk],
+          ptx::wgmma_desc_sw128_mn(v_addr + term_b(t) * kPart + kk * 2048, kPart), 1);
+}
+
+// p's three parts: the A fragments of the 8 k16 steps of P . V, as pack_p
+__device__ __forceinline__ void split_p(const float (&s)[64], uint32_t (&pa)[3][8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      split2(s[8 * kk + 2 * w], s[8 * kk + 2 * w + 1], pa[0][kk][w], pa[1][kk][w], pa[2][kk][w]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ptx::fence_regs(pa[i][kk]);
+  }
 }
 
 template <int kDh>
-__global__ void __launch_bounds__(F32Shape<kDh>::kThreads)
-    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ seg_q,
+__global__ void __launch_bounds__(SplitShape<kDh>::kThreads, 1)
+    flash_f32_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg_q,
                      const int* __restrict__ seg_kv, float* __restrict__ out, int t_len,
-                     int heads, Strides st, float sm_scale) {
-  using S = F32Shape<kDh>;
-  constexpr int kLd = S::kLd, kLdS = S::kLdS, kThreads = S::kThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);
-  float* ss = sq + S::kRows * kLd;  // scores, then p
-  float* skv = ss + S::kRows * kLdS;
-  int* sseg = reinterpret_cast<int*>(skv + S::kChunk * kLd);
-  float* sm = reinterpret_cast<float*>(sseg + kBlockK);  // m, l, corr, inv a row
-  float* sl = sm + S::kRows;
-  float* scorr = sl + S::kRows;
-  float* sinv = scorr + S::kRows;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+                     int heads, int perms, float sm_scale) {
+  using S = SplitShape<kDh>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (ptx::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = smem;
+  uint8_t* tiles = sq + S::kQBytes;
+  uint8_t* stage = tiles + S::kSlots * S::kSlot;
+  int* ids = reinterpret_cast<int*>(stage + S::kStages * S::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ids + 2 * kBlockK);
+  uint64_t* empty = full + S::kSlots;
+  uint64_t* staged = empty + S::kSlots;
+  uint64_t* qbar = staged + S::kStages;
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * S::kRows;
-  const float* kg = k + b * st.kb + h * st.kh;
-  const float* vg = v + b * st.vb + h * st.vh;
-  const int* sqg = seg_q + (long long)b * t_len + row0;
-  const int* skg = seg_kv + (long long)b * t_len;
+  const int nb = t_len / kBlockK;
 
-  load_rows<float, kDh, kLd, S::kRows, kThreads>(
-      sq, q + b * st.qb + h * st.qh + row0 * st.qt, st.qt, tid);
-  ptx::cp_async_commit();
-  for (int r = tid; r < S::kRows; r += kThreads) {
-    sm[r] = -INFINITY;
-    sl[r] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kSlots; ++s) {
+      ptx::mbar_init(&full[s], 128);
+      ptx::mbar_init(&empty[s], 4 * S::kConsumers);
+    }
+    for (int s = 0; s < S::kStages; ++s) ptx::mbar_init(&staged[s], 1);
+    ptx::mbar_init(qbar, 128);
+    ptx::fence_barrier_init();
   }
+  __syncthreads();
 
-  const int qg = tid / 8, kgrp = tid % 8;
-  const int rg = tid / S::kColGroups, cg = tid % S::kColGroups;
-  float acc[4][S::kCol4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < S::kCol4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
-
-  for (int j0 = 0; j0 < t_len; j0 += kBlockK) {
-    // the raw products q . k of the block, a 32-key chunk at a time
-    if (tid < kBlockK) sseg[tid] = __ldg(skg + j0 + tid);
-    for (int c0 = 0; c0 < kBlockK; c0 += S::kChunk) {
-      __syncthreads();  // the chunk buffer is free
-      load_rows<float, kDh, kLd, S::kChunk, kThreads>(skv, kg + (j0 + c0) * st.kt, st.kt,
-                                                      tid);
-      ptx::cp_async_commit();
-      ptx::cp_async_wait<0>();
-      __syncthreads();
-      float d[S::kSRows][4];
-#pragma unroll
-      for (int i = 0; i < S::kSRows; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) d[i][jj] = 0.0f;
-#pragma unroll 4
-      for (int x = 0; x < kDh; x += 4) {
-        float4 qa[S::kSRows], kb[4];
-#pragma unroll
-        for (int i = 0; i < S::kSRows; ++i)
-          qa[i] = *reinterpret_cast<const float4*>(sq + (qg + 16 * i) * kLd + x);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          kb[jj] = *reinterpret_cast<const float4*>(skv + (kgrp + 8 * jj) * kLd + x);
-#pragma unroll
-        for (int i = 0; i < S::kSRows; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) d[i][jj] = dot4(qa[i], kb[jj], d[i][jj]);
+  const int wg = threadIdx.x / 128;
+  if (wg == S::kConsumers) {
+    // The producer warpgroup. Units of work, in order: Q's kUnits boxes,
+    // then for each key block K's and V's. Thread 0 keeps kStages boxes of
+    // f32 in flight by TMA; every thread splits its share of a staged box
+    // into the three bf16 parts, written in the 128-byte swizzle TMA would
+    // give them (16-byte chunk c of row r at chunk c ^ (r % 8)): Q's parts
+    // once, each K or V panel (two boxes) into a ring slot with, for K's
+    // first panel, the block's key ids (two blocks' apart).
+    if constexpr (S::kConsumers == 2) ptx::setmaxnreg_dec<56>();
+    const int pt = threadIdx.x - S::kConsumers * 128;
+    const int units = S::kUnits * (1 + 2 * nb);
+    const CUtensorMap *mq = &map_q, *mk = &map_k, *mv = &map_v;
+    auto issue = [&](int u) {
+      uint64_t* bar = &staged[u % S::kStages];
+      uint8_t* dst = stage + (u % S::kStages) * S::kStage;
+      if (u < S::kUnits) {
+        ptx::mbar_arrive_expect_tx(bar, S::kRows * 128);
+        load_box(dst, mq, perms & 63, 32 * u, h, row0, b, bar);
+      } else {
+        const int r = (u - S::kUnits) % (2 * S::kUnits), j = (u - S::kUnits) / (2 * S::kUnits);
+        const bool is_v = r >= S::kUnits;
+        ptx::mbar_arrive_expect_tx(bar, kBlockK * 128);
+        load_box(dst, is_v ? mv : mk, (perms >> (is_v ? 12 : 6)) & 63, 32 * (r % S::kUnits), h,
+                 j * kBlockK, b, bar);
       }
-#pragma unroll
-      for (int i = 0; i < S::kSRows; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) ss[(qg + 16 * i) * kLdS + c0 + kgrp + 8 * jj] = d[i][jj];
-    }
-    __syncthreads();
-    // the softmax update: a warp a row at a time, 4 keys a lane
-    for (int r = warp; r < S::kRows; r += kThreads / 32) {
-      const int segq = __ldg(sqg + r);
-      float x[4], mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = lane + 32 * i;
-        x[i] = score(ss[r * kLdS + key], sm_scale, sseg[key] == segq);
-        mx = fmaxf(mx, x[i]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sm[r], mn = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = expf(x[i] - mn);
-        sum += x[i];
-        ss[r * kLdS + lane + 32 * i] = x[i];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = __fmul_rn(expf(m_prev - mn), sl[r]);
-      const float l = __fadd_rn(sum, corr);
-      const float inv = l == 0.0f ? 1.0f : __fdiv_rn(1.0f, l);
-      __syncwarp();
-      if (lane == 0) {
-        sm[r] = mn;
-        sl[r] = l;
-        scorr[r] = __fmul_rn(corr, inv);
-        sinv[r] = inv;
-      }
-    }
-    // p . v over the block, a 32-key chunk at a time, each output's sum in
-    // key order
-    float o[4][S::kCol4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < S::kCol4; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][c][e] = 0.0f;
-    for (int c0 = 0; c0 < kBlockK; c0 += S::kChunk) {
-      __syncthreads();  // p is written and the chunk buffer is free
-      load_rows<float, kDh, kLd, S::kChunk, kThreads>(skv, vg + (j0 + c0) * st.vt, st.vt,
-                                                      tid);
-      ptx::cp_async_commit();
-      ptx::cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll 2
-      for (int x = 0; x < S::kChunk; x += 4) {
-        float4 p4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          p4[i] = *reinterpret_cast<const float4*>(ss + (rg + S::kRowGroups * i) * kLdS + c0 + x);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-          for (int c = 0; c < S::kCol4; ++c) {
-            const float4 vv = *reinterpret_cast<const float4*>(
-                skv + (x + kk) * kLd + 4 * cg + 4 * S::kColGroups * c);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float p = kk == 0 ? p4[i].x : kk == 1 ? p4[i].y : kk == 2 ? p4[i].z : p4[i].w;
-              o[i][c][0] = fmaf(p, vv.x, o[i][c][0]);
-              o[i][c][1] = fmaf(p, vv.y, o[i][c][1]);
-              o[i][c][2] = fmaf(p, vv.z, o[i][c][2]);
-              o[i][c][3] = fmaf(p, vv.w, o[i][c][3]);
-            }
-          }
+    };
+    if (pt == 0)
+      for (int u = 0; u < S::kStages && u < units; ++u) issue(u);
+    // thread pt takes float4 column c4 of the box, 16 rows a pass, two rows
+    // 4 apart in each half-warp so that its 8-byte stores meet no conflict
+    const int c4 = pt % 8, q16 = pt / 8;
+    const int rr = ((q16 & 1) << 2) | ((q16 >> 1) & 3) | (q16 & 8);
+    for (int u = 0; u < units; ++u) {
+      uint8_t* dst;
+      int rows, half, slot = -1;
+      if (u < S::kUnits) {
+        dst = sq + (u / 2) * S::kQPanel;
+        rows = S::kRows;
+        half = u % 2;
+      } else {
+        const int r = (u - S::kUnits) % (2 * S::kUnits), j = (u - S::kUnits) / (2 * S::kUnits);
+        const int panel = 2 * S::kPanels * j + r / 2;  // K_j's panels, then V_j's
+        slot = panel % S::kSlots;
+        half = r % 2;
+        rows = kBlockK;
+        dst = tiles + slot * S::kSlot;
+        if (half == 0) {
+          if (panel >= S::kSlots) ptx::mbar_wait(&empty[slot], (panel / S::kSlots - 1) & 1);
+          // block j's ids: block j - 2's were read before that slot's
+          // last panel was released
+          if (r == 0)
+            ids[(j % 2) * kBlockK + pt] = __ldg(seg_kv + (long long)b * t_len + j * kBlockK + pt);
         }
       }
+      const int part = u < S::kUnits ? S::kQPart : S::kPart;
+      const uint8_t* src = stage + (u % S::kStages) * S::kStage;
+      ptx::mbar_wait(&staged[u % S::kStages], (u / S::kStages) & 1);
+      for (int i = 0; i < rows / 16; ++i) {
+        const int row = 16 * i + rr;
+        const float4 x = *reinterpret_cast<const float4*>(src + row * 128 + c4 * 16);
+        uint2 w[3];
+        split2(x.x, x.y, w[0].x, w[1].x, w[2].x);
+        split2(x.z, x.w, w[0].y, w[1].y, w[2].y);
+        const int chunk = half * 4 + c4 / 2;
+        const int off = row * 128 + ((chunk ^ (row & 7)) << 4) + (c4 & 1) * 8;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) *reinterpret_cast<uint2*>(dst + p * part + off) = w[p];
+      }
+      ptx::bar_sync(3, 128);  // the staged box is read: refill it
+      if (pt == 0 && u + S::kStages < units) issue(u + S::kStages);
+      if (u == S::kUnits - 1 || (u >= S::kUnits && half == 1)) {
+        ptx::fence_proxy_async();  // the parts, for the consumers' wgmma
+        ptx::mbar_arrive(slot < 0 ? qbar : &full[slot]);
+      }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg + S::kRowGroups * i;
-      const float corr = scorr[r], inv = sinv[r];
-#pragma unroll
-      for (int c = 0; c < S::kCol4; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] = update(acc[i][c][e], corr, o[i][c][e], inv);
-    }
-    __syncthreads();  // every thread has read this block's p and row factors
+    return;
   }
+  if constexpr (S::kConsumers == 2) ptx::setmaxnreg_inc<224>();
 
-  const long long orow = (long long)heads * kDh;
+  // thread (warp, g, tq) of the warpgroup holds rows 16 warp + g and + 8 of
+  // its 64: s[4n + 2r + e] is row + 8r, key 8n + 2tq + e; acc[c][4n + 2r + e]
+  // the same rows at output column 64c + 8n + 2tq + e
+  const int t = threadIdx.x % 128, lane = t % 32, tq = lane % 4;
+  const int row = row0 + wg * 64 + (t / 32) * 16 + lane / 4;
+  const int* sqg = seg_q + (long long)b * t_len + row;
+  const int seg0 = __ldg(sqg), seg1 = __ldg(sqg + 8);
+  float acc[S::kPanels][32];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* og = out + ((long long)b * t_len + row0 + rg + S::kRowGroups * i) * orow +
-                (long long)h * kDh + 4 * cg;
+  for (int c = 0; c < S::kPanels; ++c)
 #pragma unroll
-    for (int c = 0; c < S::kCol4; ++c)
-      *reinterpret_cast<float4*>(og + 4 * S::kColGroups * c) =
-          make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]);
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, sc[2], inv[2];
+  uint32_t pa[3][8][4];
+  float s[64];
+  const uint32_t q_addr = ptx::smem_addr(sq) + wg * 64 * 128;
+  const uint32_t tiles_addr = ptx::smem_addr(tiles);
+  // panel i (K_j's at 2 kPanels j + p, V_j's kPanels later) sits in slot
+  // i % kSlots, in its (i / kSlots)-th use
+  auto wait_full = [&](int i) { ptx::mbar_wait(&full[i % S::kSlots], (i / S::kSlots) & 1); };
+  auto slot_addr = [&](int i) { return tiles_addr + (i % S::kSlots) * S::kSlot; };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) ptx::mbar_arrive(&empty[i % S::kSlots]);
+  };
+  // ping-pong, as the 16-bit kernel: consumer w issues S after barrier
+  // 1 + w, then lets the other go; consumer 0 goes first
+  if (S::kConsumers == 2 && wg == 0) ptx::bar_arrive(1, 256);
+  ptx::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < nb; ++j) {
+    const int pk = 2 * S::kPanels * j, pv = pk + S::kPanels;
+    if constexpr (S::kPanels <= S::kSlots) {
+      // K's panels all in the ring: the six products smallest first over
+      // the whole head row
+      uint32_t k_addr[S::kPanels];
+#pragma unroll
+      for (int p = 0; p < S::kPanels; ++p) {
+        wait_full(pk + p);
+        k_addr[p] = slot_addr(pk + p);
+      }
+      if constexpr (S::kConsumers == 2) ptx::bar_sync(1 + wg, 256);
+      ptx::wgmma_fence();
+      issue_s_split<S::kPanels, S::kQPanel, S::kQPart, S::kPart>(s, q_addr, k_addr, 0);
+      ptx::wgmma_commit();
+      if constexpr (S::kConsumers == 2) ptx::bar_arrive(2 - wg, 256);
+      ptx::wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < S::kPanels; ++p) release(pk + p);
+    } else {
+      // Dh 256: the panels stream through the ring, each released once its
+      // products are done while the next one's run (wait_group 1)
+#pragma unroll
+      for (int p = 0; p < S::kPanels; ++p) {
+        wait_full(pk + p);
+        const uint32_t k_addr[1] = {slot_addr(pk + p)};
+        ptx::wgmma_fence();
+        issue_s_split<1, S::kQPanel, S::kQPart, S::kPart>(s, q_addr, k_addr, p);
+        ptx::wgmma_commit();
+        if (p > 0) {
+          ptx::wgmma_wait<1>();
+          release(pk + p - 1);
+        }
+      }
+      ptx::wgmma_wait<0>();
+      release(pk + S::kPanels - 1);
+    }
+    ptx::fence_regs(s);
+    softmax_block(s, ids + (j % 2) * kBlockK, nullptr, seg0, seg1, sm_scale, m, l, sc, inv);
+    // the update acc * (alpha l / l') + (p . v) / l', with 1 / l' folded
+    // into p before the split and acc scaled before P . V adds to it
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = __fmul_rn(s[i], inv[(i / 2) % 2]);
+#pragma unroll
+    for (int c = 0; c < S::kPanels; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = __fmul_rn(acc[c][i], sc[(i / 2) % 2]);
+    split_p(s, pa);
+#pragma unroll
+    for (int p = 0; p < S::kPanels; ++p) {
+      wait_full(pv + p);
+      ptx::wgmma_fence();
+      issue_pv_split<S::kPart>(acc[p], pa, slot_addr(pv + p));
+      ptx::wgmma_commit();
+      if (p > 0) {
+        ptx::wgmma_wait<1>();
+        release(pv + p - 1);
+      }
+    }
+    ptx::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < S::kPanels; ++p) ptx::fence_regs(acc[p]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) ptx::fence_regs(pa[i][kk]);  // read until here
+    release(pv + S::kPanels - 1);
   }
+  // the other consumer's last turn, so that no arrival outlives the block
+  if (S::kConsumers == 2 && wg == 0) ptx::bar_sync(1, 256);
+
+  // out rows `row` and row + 8, two adjacent columns a store
+  const long long orow = (long long)heads * kDh;
+  float* og = out + ((long long)b * t_len + row) * orow + (long long)h * kDh + 2 * tq;
+#pragma unroll
+  for (int c = 0; c < S::kPanels; ++c)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(og + 64 * c + 8 * n) = make_float2(acc[c][4 * n], acc[c][4 * n + 1]);
+      *reinterpret_cast<float2*>(og + 8 * orow + 64 * c + 8 * n) =
+          make_float2(acc[c][4 * n + 2], acc[c][4 * n + 3]);
+    }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-// A [B, T, H, Dh] view of 16-bit elements with element strides (sb, st, sh)
-// as a 4-D tensor map: Dh innermost, then H, T and B in rising stride (a
-// dimension of size 1 never steps: it goes last), in boxes of 64 x 1 x
-// `rows` (along T) x 1 with the 128-byte swizzle. `perm` gets the map
+// A [B, T, H, Dh] view with element strides (sb, st, sh) as a 4-D tensor
+// map of `type` (`elem` bytes): Dh innermost, then H, T and B in rising
+// stride (a dimension of size 1 never steps: it goes last), in boxes of
+// `cols` x 1 x `rows` (along T) x 1 with `swizzle`. `perm` gets the map
 // dimension of H, T and B, 2 bits each.
-bool encode_heads(CUtensorMap* map, const void* base, bool bf16, int batch, int t_len,
-                  int heads, int dh, long long sb, long long st, long long sh, int rows,
-                  int* perm) {
+bool encode_heads(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
+                  int batch, int t_len, int heads, int dh, long long sb, long long st,
+                  long long sh, int cols, int rows, CUtensorMapSwizzle swizzle, int* perm) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   struct Dim {
@@ -764,21 +895,37 @@ bool encode_heads(CUtensorMap* map, const void* base, bool bf16, int batch, int 
     }
   cuuint64_t dims[4] = {(cuuint64_t)dh, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)cols, 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   int pos[3];
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = (cuuint64_t)d[i].size;
-    strides[i] = (cuuint64_t)(d[i].stride * 2);
+    strides[i] = (cuuint64_t)(d[i].stride * elem);
     if (d[i].which == 1) box[i + 1] = (cuuint32_t)rows;
     pos[d[i].which] = i + 1;
   }
   *perm = pos[0] | pos[1] << 2 | pos[2] << 4;
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            4, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the 16-bit kernel's maps: 64-element boxes with the 128-byte swizzle
+bool encode_16bit(CUtensorMap* map, const void* base, bool bf16, int batch, int t_len,
+                  int heads, int dh, long long sb, long long st, long long sh, int rows,
+                  int* perm) {
+  return encode_heads(map, base,
+                      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                      2, batch, t_len, heads, dh, sb, st, sh, 64, rows,
+                      CU_TENSOR_MAP_SWIZZLE_128B, perm);
+}
+
+// the f32 kernel's maps: boxes of 32 floats (one 128-byte row), unswizzled,
+// for the producer to split
+bool encode_f32(CUtensorMap* map, const void* base, int batch, int t_len, int heads, int dh,
+                long long sb, long long st, long long sh, int rows, int* perm) {
+  return encode_heads(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, batch, t_len, heads, dh,
+                      sb, st, sh, 32, rows, CU_TENSOR_MAP_SWIZZLE_NONE, perm);
 }
 
 template <typename T, int kDh>
@@ -790,11 +937,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* seg_q,
   CUtensorMap mq, mk, mv;
   int pq, pk, pv;
   if (reinterpret_cast<uintptr_t>(seg_kv) % 16 != 0 ||
-      !encode_heads(&mq, q, kBf16, batch, t_len, heads, kDh, st.qb, st.qt, st.qh, S::kRows,
+      !encode_16bit(&mq, q, kBf16, batch, t_len, heads, kDh, st.qb, st.qt, st.qh, S::kRows,
                     &pq) ||
-      !encode_heads(&mk, k, kBf16, batch, t_len, heads, kDh, st.kb, st.kt, st.kh, kBlockK,
+      !encode_16bit(&mk, k, kBf16, batch, t_len, heads, kDh, st.kb, st.kt, st.kh, kBlockK,
                     &pk) ||
-      !encode_heads(&mv, v, kBf16, batch, t_len, heads, kDh, st.vb, st.vt, st.vh, kBlockK,
+      !encode_16bit(&mv, v, kBf16, batch, t_len, heads, kDh, st.vb, st.vt, st.vh, kBlockK,
                     &pv))
     return (int)cudaErrorInvalidValue;
   // once a process: a launch captured in a CUDA graph makes no such call
@@ -813,16 +960,20 @@ template <int kDh>
 int launch_f32(const void* q, const void* k, const void* v, const int* seg_q,
                const int* seg_kv, void* out, int batch, int t_len, int heads,
                const Strides& st, float sm_scale, cudaStream_t stream) {
-  using S = F32Shape<kDh>;
-  const int smem = S::smem();
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<kDh>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  using S = SplitShape<kDh>;
+  CUtensorMap mq, mk, mv;
+  int pq, pk, pv;
+  if (!encode_f32(&mq, q, batch, t_len, heads, kDh, st.qb, st.qt, st.qh, S::kRows, &pq) ||
+      !encode_f32(&mk, k, batch, t_len, heads, kDh, st.kb, st.kt, st.kh, kBlockK, &pk) ||
+      !encode_f32(&mv, v, batch, t_len, heads, kDh, st.vb, st.vt, st.vh, kBlockK, &pv))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_f32_kernel<kDh>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(t_len / S::kRows, heads, batch);
-  flash_f32_kernel<kDh><<<grid, S::kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), seg_q, seg_kv, static_cast<float*>(out), t_len, heads,
-      st, sm_scale);
+  flash_f32_kernel<kDh><<<grid, S::kThreads, S::kSmem, stream>>>(
+      mq, mk, mv, seg_q, seg_kv, static_cast<float*>(out), t_len, heads,
+      pq | pk << 6 | pv << 12, sm_scale);
   return (int)cudaGetLastError();
 }
 

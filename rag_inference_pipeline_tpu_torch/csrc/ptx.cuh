@@ -2,7 +2,8 @@
 // global-to-shared copies with their commit and wait groups, ldmatrix,
 // mma.sync on bf16 and s8; and, for the wgmma kernels (the W8A8 GEMM and
 // the encoder flash attention), mbarriers, 2-D and 4-D TMA tile loads and
-// bulk copies, named barriers, setmaxnreg, shared-memory matrix
+// bulk copies, named barriers, setmaxnreg, the async-proxy fence,
+// shared-memory matrix
 // descriptors (K-major and MN-major) and the warpgroup products (s8, and
 // bf16/f16 with A from shared memory or registers) with their fence,
 // commit and wait; and, for the W8A8 GEMM's split K, the cluster barrier,
@@ -220,6 +221,13 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile) {
 __device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(uint32_t addr, uint32_t lbo) {
   return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// makes this thread's ordinary stores to shared memory visible to the async
+// proxy (a later wgmma or TMA store reading them), once an mbarrier or
+// named barrier passes them on
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

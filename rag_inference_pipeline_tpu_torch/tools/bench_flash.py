@@ -2,6 +2,7 @@
 alone, to compare checkouts.
 
     python3 rag_inference_pipeline_tpu_torch/tools/bench_flash.py [--out PATH] [--smoke]
+        [--against REF [--sources-only]]
 
 Imports `rag_inference_pipeline_tpu_torch` from the checkout this file sits
 in, builds its kernels and times on one card, with seeded random inputs:
@@ -10,20 +11,21 @@ in, builds its kernels and times on one card, with seeded random inputs:
   (B = `FLASH_B`, rows cycling through the four mask kinds), by CUDA
   events over many calls, beside SDPA (`scaled_dot_product_attention` with
   the boolean segment-equality mask: a yardstick the port never calls),
-  the tensor bound (4 B H T^2 Dh operations at the type's peak) and the
-  CUDA-core floor;
+  the tensor bound (4 B H T^2 Dh operations at 989 TFLOP/s; f32 runs six
+  bf16 products of them) and the CUDA-core floor;
 - `bert_embed` at bge-base width (random bf16 weights, `max_positions` the
   longest of `FLASH_PATH_T`) at each of `FLASH_PATH_T`, B = `FLASH_B`, ms a
   forward.
 
-The CUDA-core floor of a 16-bit case is the softmax and update work on the
-CUDA cores: the FP32-pipe instructions (FADD, FMUL, FFMA, FMNMX, FSEL,
-FSETP, F2FP) and the MUFU instructions of the main loop of the checkout's
-built kernel for that dtype and Dh, counted from its SASS (`cuobjdump
--sass`) on the path a block takes when every key shares the row's segment,
-divided by the scores a thread handles an iteration; times B H T^2 scores,
-over 132 SMs x 128 FP32 lanes (x 16 MUFU lanes) at the SM clock that
-`nvidia-smi --query-gpu=clocks.max.sm` prints; the larger of the two.
+The CUDA-core floor of a case is the softmax and update work on the CUDA
+cores: the FP32-pipe instructions (FADD, FMUL, FFMA, FMNMX, FSEL, FSETP,
+F2FP) and the MUFU instructions of the main loop of the checkout's built
+kernel for that dtype and Dh (f32: the split of p too), counted from its
+SASS (`cuobjdump -sass`) on the path a block takes when every key shares
+the row's segment, divided by the scores a thread handles an iteration;
+times B H T^2 scores, over 132 SMs x 128 FP32 lanes (x 16 MUFU lanes) at
+the SM clock that `nvidia-smi --query-gpu=clocks.max.sm` prints; the
+larger of the two.
 
 To compare two checkouts in one call on the same card, copy this file into
 the other checkout's `rag_inference_pipeline_tpu_torch/tools/` and run both
@@ -31,6 +33,17 @@ in turns (parent, change, change, parent). Prints one JSON line and writes
 it to `--out` (default `build/bench/flash.json`); needs a card. `--smoke`
 runs every case and forward once on the CPU (the plain version, at a tiny
 shape) and times nothing.
+
+`--against REF` times the f32 kernel of git ref REF beside this
+checkout's in one process instead, at `AGAINST_CASES`: REF's
+`csrc/flash_attention.cu` (and the headers it includes) built by `nvcc`
+into `build/against/REF/` and called through its C entry point, which has
+not changed since the kernel was first written. Each case checks both
+kernels against the plain version (`FLASH_TOL`) and times them in turns
+(REF, this, this, REF) beside SDPA, with the bound and the floor.
+REF's sources are read with `git show` into `build/against/REF/src/` the
+first time; `--sources-only` stops there, so that a copy of the checkout
+without its history (the card's machine) finds them.
 """
 
 from __future__ import annotations
@@ -44,18 +57,22 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PEAK_16BIT_OPS_PER_S = 989e12  # bf16 and f16 tensor cores, dense
-PEAK_F32_FMA_OPS_PER_S = 67e12
+# the f32 kernel's products: each a sum of six bf16 products of the three
+# parts its operands split into (csrc/flash_attention.cu)
+F32_PRODUCTS = 6
 SMS, FP32_LANES, MUFU_LANES = 132, 128, 16  # an H100 SXM's SMs and lanes an SM
 # the FP32-pipe opcodes the floor counts (SASS, before the first '.')
 FP32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "F2FP")
 SMOKE_CASES = [(256, 2, 64, "bfloat16"), (256, 2, 64, "float32")]
+# --against: the f32 cases (T, H, Dh) at B = chip_smoke.FLASH_B
+AGAINST_CASES = [(1024, 12, 64), (2048, 12, 64), (4096, 12, 64), (1024, 6, 128), (1024, 3, 256)]
+AGAINST_SOURCE = "rag_inference_pipeline_tpu_torch/csrc/flash_attention.cu"
 
 
 def tensor_bound_ms(b: int, h: int, t: int, dh: int, f32: bool = False) -> float:
-    """The two products' 4 B H T^2 Dh operations at the peak rate of the
-    inputs' type."""
-    rate = PEAK_F32_FMA_OPS_PER_S if f32 else PEAK_16BIT_OPS_PER_S
-    return 4.0 * b * h * t * t * dh / rate * 1e3
+    """The two products' 4 B H T^2 Dh operations at the 16-bit tensor
+    cores' peak rate, six times over in f32."""
+    return 4.0 * b * h * t * t * dh * (F32_PRODUCTS if f32 else 1) / PEAK_16BIT_OPS_PER_S * 1e3
 
 
 def cuda_core_floor_ms(b: int, h: int, t: int, fp32_per_score: float,
@@ -162,11 +179,12 @@ def _sass_dump(cmd: list[str]) -> dict[str, list[str]]:
 
 
 def per_score(sass: dict[str, list[str]], dtype_name: str, dh: int) -> dict:
-    """FP32-pipe and MUFU instructions a score of the checkout's 16-bit
-    flash kernel at `dh`: its main loop handles 64 scores a consumer thread
-    (64 rows x 128 keys a warpgroup), as the mma.sync kernel's warp handled
-    16 x 128 (Dh 256: two warps, each computing all 64 scores)."""
-    ctype = "13__nv_bfloat16" if dtype_name == "bfloat16" else "6__half"
+    """FP32-pipe and MUFU instructions a score of the checkout's flash
+    kernel for `dtype_name` at `dh`: its main loop handles 64 scores a
+    consumer thread (64 rows x 128 keys a warpgroup), as the mma.sync
+    kernel's warp handled 16 x 128 (Dh 256: two warps, each computing all
+    64 scores)."""
+    ctype = {"bfloat16": "13__nv_bfloat16", "float16": "6__half", "float32": ""}[dtype_name]
     names = [n for n in sass if re.search(rf"flash_\w*kernelI{ctype}Li{dh}E", n)]
     if len(names) != 1:
         raise ValueError(f"{len(names)} SASS functions for the {dtype_name} Dh {dh} kernel")
@@ -220,25 +238,150 @@ def bench_cases(cases, b: int, device: str, g, smoke: bool, sass, clock) -> dict
             row["sdpa_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed), 50)
             row["library_over_kernel"] = row["sdpa_ms"] / row["ms"]
-            if not f32:
-                key = (dtype_name, dh)
-                if key not in counts:
-                    try:
-                        counts[key] = per_score(sass, dtype_name, dh)
-                    except ValueError as err:
-                        counts[key] = {"error": repr(err)}
-                c = counts[key]
-                row["sass"] = c
-                if "error" not in c:
-                    row["cuda_core_floor_ms"] = cuda_core_floor_ms(
-                        b, h, t, c["fp32_per_score"], c["mufu_per_score"], clock)
-                    floor = max(row["tensor_bound_ms"], row["cuda_core_floor_ms"])
-                    row["of_floor"] = floor / row["ms"]
+            row.update(floor_row(sass, counts, dtype_name, b, h, t, dh, clock, row))
             del allowed, qt, kt, vt
         out[f"t{t}_h{h}_d{dh}_{dtype_name}"] = row
         del q, k, v
         if device == "cuda":
             torch.cuda.empty_cache()
+    return out
+
+
+def floor_row(sass, counts: dict, dtype_name: str, b: int, h: int, t: int, dh: int,
+              clock, row: dict) -> dict:
+    """The CUDA-core floor of a timed case (`row` holds its `ms` and
+    `tensor_bound_ms`) from the SASS counts, kept in `counts` by (dtype,
+    Dh): `sass`, `cuda_core_floor_ms` and `of_floor`, the larger floor over
+    the kernel's time; only `sass` (its error) where the count fails."""
+    key = (dtype_name, dh)
+    if key not in counts:
+        try:
+            counts[key] = per_score(sass, dtype_name, dh)
+        except ValueError as err:
+            counts[key] = {"error": repr(err)}
+    c = counts[key]
+    if "error" in c:
+        return {"sass": c}
+    floor = cuda_core_floor_ms(b, h, t, c["fp32_per_score"], c["mufu_per_score"], clock)
+    return {"sass": c, "cuda_core_floor_ms": floor,
+            "of_floor": max(row["tensor_bound_ms"], floor) / row["ms"]}
+
+
+def ref_sources(ref: str, root: str = ROOT) -> str:
+    """The directory that holds git ref `ref`'s flash source and the headers
+    it includes (`build/against/REF/src` under `root`), read with `git show`
+    the first time and found there after."""
+    dest = os.path.join(root, "build", "against", ref, "src")
+    name = os.path.basename(AGAINST_SOURCE)
+    if os.path.exists(os.path.join(dest, name)):
+        return dest
+    os.makedirs(dest, exist_ok=True)
+    csrc = os.path.dirname(AGAINST_SOURCE)
+    todo, seen = [name], set()
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.add(f)
+        got = subprocess.run(["git", "-C", root, "show", f"{ref}:{csrc}/{f}"],
+                             capture_output=True, text=True)
+        if got.returncode != 0:
+            raise RuntimeError(f"no {csrc}/{f} at {ref} (a copy without the history needs "
+                               f"--against {ref} --sources-only run first where it is): "
+                               f"{got.stderr.strip()}")
+        text = got.stdout
+        with open(os.path.join(dest, f), "w") as fh:
+            fh.write(text)
+        todo += re.findall(r'^#include "([^"/]+)"', text, re.M)
+    return dest
+
+
+def build_ref(src_dir: str) -> str:
+    """`nvcc` of REF's flash source alone into a shared library beside its
+    sources; returns its path."""
+    from rag_inference_pipeline_tpu_torch.ops import _kernels
+
+    lib = os.path.join(os.path.dirname(src_dir), "libflash_ref.so")
+    src = os.path.join(src_dir, os.path.basename(AGAINST_SOURCE))
+    flags = [f for f in _kernels.COMPILE_FLAGS if f != "-c"]
+    got = subprocess.run([_kernels._nvcc(), *flags, "-shared", "-o", lib, src],
+                         capture_output=True, text=True)
+    if got.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{got.stderr}")
+    return lib
+
+
+def ref_kernel(lib_path: str):
+    """REF's flash kernel as a function of (q, k, v, seg): the wrapper's
+    call of `ragtorch_flash_attention`, on the current stream."""
+    import ctypes
+
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    lib = ctypes.CDLL(lib_path)
+    fn = lib.ragtorch_flash_attention
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp] * 6 + [i32] * 4 + [i64] * 9 + [i32, vp]
+    fn.restype = i32
+
+    def call(q, k, v, seg):
+        b, t, h, dh = q.shape
+        out = torch.empty_like(q)
+        sq = seg.to(torch.int32).contiguous()
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), sq.data_ptr(), sq.data_ptr(),
+                out.data_ptr(), b, t, h, dh, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], fa._KINDS[q.dtype], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the reference's ragtorch_flash_attention failed: {rc}")
+        return out
+
+    return call
+
+
+def against(ref: str, b: int, g, sass, clock) -> dict:
+    """This checkout's f32 kernel and `ref`'s at AGAINST_CASES: both held to
+    the plain version, then timed in turns (ref, this, this, ref) beside
+    SDPA, with the bound, the floor and each kernel's share of the bound."""
+    import chip_smoke
+    import torch
+    import torch.nn.functional as F
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    parent = ref_kernel(build_ref(ref_sources(ref)))
+    atol, rtol = chip_smoke.FLASH_TOL["float32"]
+    out, counts = {}, {}
+    for t, h, dh in AGAINST_CASES:
+        q, k, v = (torch.randn((b, t, h, dh), generator=g, device="cuda") for _ in range(3))
+        seg = chip_smoke.flash_masks(b, t)
+        want = fa.flash_encoder_attention_plain(q, k, v, seg, seg)
+        row = {"tensor_bound_ms": tensor_bound_ms(b, h, t, dh, True)}
+        kernels = {"ref": lambda: parent(q, k, v, seg),
+                   "change": lambda: fa.flash_encoder_attention(q, k, v, seg, seg)}
+        for name, fn in kernels.items():
+            err = (fn() - want).abs()
+            torch.cuda.synchronize()
+            row[f"{name}_max_abs_err"] = err.max().item()
+            row[f"{name}_within_tol"] = bool((err <= atol + rtol * want.abs()).all())
+        del want, err
+        torch.cuda.empty_cache()
+        iters = max(3, 20 * 1024 * 1024 // (t * t))
+        turns = [(name, cuda_ms(kernels[name], iters))
+                 for name in ("ref", "change", "change", "ref")]
+        allowed = seg[:, None, :, None] == seg[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row["sdpa_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed), iters)
+        for name in ("ref", "change"):
+            row[f"{name}_ms"] = [ms for n, ms in turns if n == name]
+        row["ms"] = max(row["change_ms"])
+        row["of_bound"] = row["tensor_bound_ms"] / row["ms"]
+        row["change_over_ref"] = min(row["ref_ms"]) / row["ms"]
+        row["library_over_kernel"] = row["sdpa_ms"] / row["ms"]
+        row.update(floor_row(sass, counts, "float32", b, h, t, dh, clock, row))
+        out[f"t{t}_h{h}_d{dh}_float32"] = row
+        del q, k, v, allowed, qt, kt, vt
+        torch.cuda.empty_cache()
     return out
 
 
@@ -275,7 +418,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "bench", "flash.json"))
     ap.add_argument("--smoke", action="store_true",
                     help="every case and forward once on the CPU, at a tiny shape")
+    ap.add_argument("--against", metavar="REF",
+                    help="time git ref REF's f32 kernel beside this checkout's")
+    ap.add_argument("--sources-only", action="store_true",
+                    help="with --against: write REF's sources under build/against and stop")
     args = ap.parse_args(argv)
+    if args.sources_only:
+        if not args.against:
+            ap.error("--sources-only goes with --against")
+        return {"sources": ref_sources(args.against)}
     sys.path.insert(0, ROOT)
     import chip_smoke
     import torch
@@ -301,10 +452,14 @@ def main(argv=None) -> dict:
     chip_smoke.DEVICE = device
     try:
         g = torch.Generator(device=device).manual_seed(15)
-        out = {"root": ROOT, "card": smi, "sm_clock_mhz": clock,
-               "cases": bench_cases(cases, chip_smoke.FLASH_B, device, g, args.smoke,
-                                    sass, clock),
-               "bert_embed": bench_path(chip_smoke.FLASH_B, lengths, device, g, args.smoke)}
+        out = {"root": ROOT, "card": smi, "sm_clock_mhz": clock}
+        if args.against:
+            out["against"] = args.against
+            out["cases"] = against(args.against, chip_smoke.FLASH_B, g, sass, clock)
+        else:
+            out["cases"] = bench_cases(cases, chip_smoke.FLASH_B, device, g, args.smoke,
+                                       sass, clock)
+            out["bert_embed"] = bench_path(chip_smoke.FLASH_B, lengths, device, g, args.smoke)
     finally:
         chip_smoke.DEVICE = keep
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1151,7 +1151,7 @@ def test_flash_kernel_reads_strided_heads_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("dh", [64, 128, 256])
 def test_flash_kernel_places_each_key_on_card(dh, dtype):
     """q = k = 0, so every key of a row's segment weighs alike, and v one-hot
@@ -1177,7 +1177,7 @@ def test_flash_kernel_places_each_key_on_card(dh, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_flash_kernel_is_deterministic_on_card(dtype):
     """Two calls on the same inputs give the same bits."""
     if not torch.cuda.is_available():
@@ -1191,6 +1191,31 @@ def test_flash_kernel_is_deterministic_on_card(dtype):
         second = fa.flash_encoder_attention(q, k, v, seg, seg)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("t", [128, 256])
+def test_flash_kernel_f32_extreme_magnitudes_on_card(t, dh):
+    """f32 token rows of magnitude 1e30 and 1e-30 in q (a one-hot p, a flat
+    one), k (keys that score ~0) and v (1e-30, and 1e30 rows of one sign so
+    that the outputs they lead sum without cancelling): the kernel's bf16
+    parts keep f32's exponent range, and no product overflows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _flash_inputs(t * dh + 1, 4, t, 768 // dh, dh, torch.float32)
+    tok = torch.arange(t, device="cuda")[None, :, None, None]
+    q = q * torch.where(tok % 7 == 1, 1e30, torch.where(tok % 7 == 2, 1e-30, 1.0))
+    k = k * torch.where(tok % 5 == 3, 1e-30, 1.0)
+    v = torch.where(tok % 3 == 1, v.abs() * 1e30, torch.where(tok % 3 == 2, v * 1e-30, v))
+    seg = _flash_masks(4, t)
+    out = fa.flash_encoder_attention(q, k, v, seg, seg)
+    ref = fa.flash_encoder_attention_plain(q, k, v, seg, seg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and ref.abs().max() > 1e29
+    torch.testing.assert_close(out, ref, **FLASH_TOL[torch.float32])
 
 
 @pytest.mark.cuda

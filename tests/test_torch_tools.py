@@ -2,10 +2,13 @@
 stream kernel (K8) against the reference scripts' Pallas kernels, rebuilt
 here as the scripts launch them and run in interpret mode; the port's
 timing helpers; the tools' `--smoke` runs end to end on the CPU; and the
-flash bench's floors and SASS loop count.
+flash bench's floors, SASS loop count and `--against` sources.
 """
 
 import json
+import os
+import shutil
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -346,8 +349,9 @@ class TestBenchFlash:
         # 4 B H T^2 Dh at 989 TFLOP/s: bge-base heads, B 4, T 1024
         assert bench_flash.tensor_bound_ms(4, 12, 1024, 64) == pytest.approx(0.01303, abs=5e-6)
         assert bench_flash.tensor_bound_ms(4, 12, 4096, 64) == pytest.approx(0.20845, abs=5e-6)
+        # f32: six bf16 products of the same work
         assert bench_flash.tensor_bound_ms(4, 12, 1024, 64, f32=True) == pytest.approx(
-            0.19231, abs=5e-6)
+            0.07817, abs=5e-6)
 
     def test_cuda_core_floor(self):
         scores = 4 * 12 * 1024 * 1024
@@ -382,6 +386,57 @@ class TestBenchFlash:
         with pytest.raises(ValueError, match="no loop"):
             bench_flash.main_loop_counts(_sass(["FADD R0, R1, R2", "@P0 BRA 0x0", "EXIT"]))
 
+    @pytest.mark.parametrize("dtype_name", ["bfloat16", "float16", "float32"])
+    def test_per_score_finds_each_dtypes_kernel(self, dtype_name):
+        """The mangled names of the three kernels at Dh 64 and 256: each
+        (dtype, Dh) finds its own, 64 scores a thread an iteration."""
+        loop = ["HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ", "FADD R0, R1, R2",
+                "FMUL R0, R1, R2", "MUFU.EX2 R5, R3", "@P0 BRA 0x0", "EXIT"]
+        ns = "_ZN8ragtorch12_GLOBAL__N_1"
+        names = {("bfloat16", 64): f"{ns}18flash_wgmma_kernelI13__nv_bfloat16Li64EEEv",
+                 ("float16", 64): f"{ns}18flash_wgmma_kernelI6__halfLi64EEEv",
+                 ("float32", 64): f"{ns}16flash_f32_kernelILi64EEEv",
+                 ("bfloat16", 256): f"{ns}18flash_wgmma_kernelI13__nv_bfloat16Li256EEEv",
+                 ("float16", 256): f"{ns}18flash_wgmma_kernelI6__halfLi256EEEv",
+                 ("float32", 256): f"{ns}16flash_f32_kernelILi256EEEv"}
+        sass = {name: _sass(loop[:1] + ["FADD R0, R1, R2"] * i + loop[1:])
+                for i, name in enumerate(names.values())}
+        for dh in (64, 256):
+            got = bench_flash.per_score(sass, dtype_name, dh)
+            extra = list(names).index((dtype_name, dh))
+            assert got["fp32"] == 2 + extra and got["fp32_per_score"] == (2 + extra) / 64
+            assert got["mufu_per_score"] == 1 / 64
+        with pytest.raises(ValueError, match="0 SASS functions"):
+            bench_flash.per_score(sass, dtype_name, 128)
+
+    def test_ref_sources_reads_a_ref_and_its_headers(self, tmp_path):
+        """--against's sources: the ref's flash source and the headers it
+        includes, from git the first time and from build/against after."""
+        csrc = tmp_path / "rag_inference_pipeline_tpu_torch" / "csrc"
+        csrc.mkdir(parents=True)
+        (csrc / "flash_attention.cu").write_text('#include <cuda.h>\n#include "ptx.cuh"\n')
+        (csrc / "ptx.cuh").write_text('#pragma once\n#include "tma.cuh"\n')
+        (csrc / "tma.cuh").write_text("// the old map\n")
+        (csrc / "other.cu").write_text("// not read\n")
+        git = ["git", "-C", str(tmp_path), "-c", "user.name=t", "-c", "user.email=t@t"]
+        subprocess.run([*git, "init", "-q"], check=True)
+        subprocess.run([*git, "add", "-A"], check=True)
+        subprocess.run([*git, "commit", "-q", "-m", "parent"], check=True)
+        (csrc / "tma.cuh").write_text("// the new map\n")
+        subprocess.run([*git, "commit", "-qam", "change"], check=True)
+        src = bench_flash.ref_sources("HEAD~1", root=str(tmp_path))
+        assert src == str(tmp_path / "build" / "against" / "HEAD~1" / "src")
+        assert sorted(os.listdir(src)) == ["flash_attention.cu", "ptx.cuh", "tma.cuh"]
+        assert open(os.path.join(src, "tma.cuh")).read() == "// the old map\n"
+        shutil.rmtree(tmp_path / ".git")  # a copy without the history finds them
+        assert bench_flash.ref_sources("HEAD~1", root=str(tmp_path)) == src
+        with pytest.raises(RuntimeError, match="--sources-only"):
+            bench_flash.ref_sources("HEAD~2", root=str(tmp_path))
+
+    def test_sources_only_goes_with_against(self, tmp_path):
+        with pytest.raises(SystemExit):
+            bench_flash.main(["--sources-only", "--out", str(tmp_path / "x.json")])
+
     def test_smoke_runs_end_to_end(self, tmp_path):
         path = tmp_path / "flash.json"
         out = bench_flash.main(["--smoke", "--out", str(path)])
@@ -399,3 +454,8 @@ class TestBenchFlash:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             bench_flash.main(["--out", str(tmp_path / "x.json")])
+
+    def test_against_needs_a_card(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_flash.main(["--out", str(tmp_path / "x.json"), "--against", "HEAD"])
