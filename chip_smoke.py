@@ -133,10 +133,12 @@ and exits non-zero before the last line:
              engine's segments, tokens and peak lanes.
 20. decode_graph — greedy_generate at Qwen2.5-0.5B width (bf16, random
              weights), prompt bucket 512 (384-512 live tokens), 128 new tokens,
-             at B=8 and B=1: the step graph against greedy_generate_eager,
-             tokens bit for bit, ms per token of each in alternated rounds,
-             the graph's capture seconds and pool MB; at B=8 a torch.profiler
-             trace of 8 step replays (the device's busy share, kernels a step).
+             at B=8 and B=1 (_greedy_against_eager): the step graph against
+             greedy_generate_eager, tokens bit for bit, ms per token of the
+             eager call and of a second graph call, the graph's capture
+             seconds, pool and state MB, the device's peak over the first
+             call, no W8A8 launch; at B=8 a torch.profiler trace of 8 step
+             replays (the device's busy share, kernels a step).
 21. spec   — ngram_speculative_generate against greedy_generate in float32
              at B=8, gamma 8, 128 tokens: a row may leave greedy only at a
              step whose two top logits lie within NEAR_TIE (each such gap
@@ -144,9 +146,9 @@ and exits non-zero before the last line:
              at p in {0.7, 0.9}: ms per token and commits per call.
 22. engine — a DecodeEngine at full width in float32 (32 lanes, cache 1024,
              segment 8), plain and speculative, over 16 prompts of 64-512
-             tokens with budgets of 16-128: every sequence held to a solo
-             greedy_generate under the near-tie rule; wall, segments, tokens,
-             capture seconds and pool MB.
+             tokens with budgets of 16-128 (_engine_against_greedy): every
+             sequence held to a solo greedy_generate under the near-tie
+             rule; wall, segments, tokens, capture seconds and pool MB.
 23. w8a8   — the W8A8 kernels (ops/w8a8.py) against their plain versions,
              bit for bit: the small-row quantize-and-GEMM (csrc/w8a8_gemm.cu),
              the large-row wgmma GEMM (csrc/w8a8_wgmma.cu) and the
@@ -180,8 +182,9 @@ and exits non-zero before the last line:
              serve_spec.
 25. decode_w8a8 — greedy_generate over Qwen2.5-0.5B with int8 weights
              quantized at the source (seeded random bf16 draws), B = 8,
-             prompt bucket 512, 128 new tokens: the step graph against the
-             eager loop, tokens bit for bit; ms per token of each beside
+             prompt bucket 512, 128 new tokens (_greedy_against_eager): the
+             step graph against the eager loop, tokens bit for bit; ms per
+             token of each beside
              decode_graph's bf16 figures; each W8A8 kernel's launches (the
              prefill's and the capture's warm-up: a replay counts none),
              exactly those the route rule gives; the B = 8 step's busy
@@ -344,6 +347,51 @@ and exits non-zero before the last line:
              gather of position 0's keys only outside, ms a forward beside
              bert_encode's.
 
+The Llama family at full width and depth, random weights from a seed
+(phase w8a8 also holds every W8A8 kernel at the Llama-3.1-8B's and the
+Llama-3.2-1B's products, the `l8b_`/`l1b_` rows of W8A8_SHAPES: the 8B's
+decode step, verify round, prefill, engine step and engine verify round,
+the 1B's decode step, prefill and tied head):
+
+36. llama_serve — runs after spmd, over phase corpus's 1M x 768 int8 index
+             and 48-token documents drawn in the 8B's 128,256-token
+             vocabulary (phase line llama_doc_tokens): the fused server of
+             phase serve with LLM_MODEL=meta-llama/Llama-3.1-8B-Instruct and
+             LLM_WEIGHT_QUANT=int8, warm-up on: phase serve's 10 /query, 8
+             concurrent, well-formed bodies, K1 and every W8A8 kernel
+             launching; first and second /query, warm-up, graphs and the
+             ladder clamped to the card's free memory (/health's
+             llm_ladder), the buckets warmed within it.
+37. llama_8b_bf16, llama_8b_int8 — run after engine: Llama-3.1-8B (32
+             layers, an untied head) in bf16, then W8A8 quantized at the
+             source: greedy at B = 8 and 1, bucket 512, 128 tokens, the
+             step graph against the eager loop, tokens bit for bit; ms a
+             token of each, capture s, pool MB, the device's peak GB at load
+             and in the first call; each W8A8 kernel's launches the route
+             rule's (_greedy_against_eager); at B = 8 a trace of 8 step
+             replays (kernels and W8A8 kernels a step). bf16: speculation (gamma 8)
+             ms a token and commits a call. W8A8: decode_w8a8's int8
+             speculation and its hold (_int8_speculation) on the 8B; both
+             over LLAMA_SPEC_NEW tokens.
+38. llama_8b_f32_spec — Llama-3.1-8B in float32 from seed 1: speculation
+             at B = 8, gamma 8, LLAMA_SPEC_NEW tokens, against greedy, rows
+             held by the near-tie rule of phase spec; then on this tree
+             (phase line llama_8b_f32_engine) phase engine's DecodeEngine,
+             plain and speculative, over its 16 prompts in the 8B's
+             vocabulary, every sequence held to a solo greedy_generate
+             under the near-tie rule (32 layers x 8 kv heads x 128).
+39. llama_engine — within llama_8b_int8, on its tree: a DecodeEngine (32
+             lanes, cache 1024, segment 8), plain and speculative, over 16
+             prompts of 64-512 tokens: every sequence its budget long, in
+             the vocabulary, the W8A8 kernels launching; then one segment
+             replayed as the graph against the eager body from the same
+             admitted state, every state tensor bit for bit (the emission
+             buffer but the verify rounds' scratch column). Its launches
+             join the kernels line; the hold on the 8B engine's tokens is
+             llama_8b_f32_engine's.
+40. llama_1b — Llama-3.2-1B (16 layers, tied head), bf16 and W8A8: greedy
+             at B = 8 as llama_8b's.
+
 Then one JSON line of kernel results (each with its bound: the bytes or
 operations of the function over the card's peak rates, and the time of one
 PyTorch call computing the same function where there is one), and last the
@@ -433,15 +481,17 @@ PQ_RECALL_BAR = {"pq4": 0.95, "pq4_host": 0.9, "pq8": 0.95}
 # plain f32 adds issue at half that.
 HBM_BYTES_PER_S = 3.35e12
 # the anatomy probe's --length 128 and --reps 3, cut to fit the time limit
-# (the tensor-parallel phases took the probe's length from 32 to 8)
-ANATOMY_ARGS = ["--length", "8", "--reps", "2"]
+# (the tensor-parallel phases took the probe's length from 32 to 8, the
+# Llama phases its reps from 2 to 1)
+ANATOMY_ARGS = ["--length", "8", "--reps", "1"]
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
 # the decode slice: the staged ladder's largest prefill bucket, MAX_TOKENS,
-# alternated eager/graph rounds; speculation at the settings' gamma and the
-# benchmark-only acceptance rates of VERDICT.md item 4; a sequence may leave
-# greedy's only at a step whose two top f32 logits lie within NEAR_TIE; the
-# engine at the settings' defaults (32 lanes, cache 1024, segment 8)
-DECODE_BUCKET, DECODE_NEW, DECODE_ROUNDS = 512, 128, 2
+# alternated eager/graph rounds (one, for the time limit: PERF.md §4);
+# speculation at the settings' gamma and the benchmark-only acceptance
+# rates of VERDICT.md item 4; a sequence may leave greedy's only at a step
+# whose two top f32 logits lie within NEAR_TIE; the engine at the
+# settings' defaults (32 lanes, cache 1024, segment 8)
+DECODE_BUCKET, DECODE_NEW, DECODE_ROUNDS = 512, 128, 1
 SPEC_GAMMA, INJECT_P, NEAR_TIE = 8, (0.7, 0.9), 1e-4
 # the largest |difference| of the int8 decoder's f32 logits between the
 # verify round and the decode step on the same tokens, at most this many
@@ -934,6 +984,38 @@ W8A8_SHAPES = [
     ("prefill_gate_up", 4096, 896, (4864, 4864), False),
     ("prefill_down", 4096, 4864, (896,), False),
     ("encoder_ffn_in", 4096, 768, (3072,), True), ("classifier", 8, 768, (5,), True),
+    # Llama-3.1-8B (H 4,096, kv 8 x 128, I 14,336, an untied 128,256-row
+    # head; no biases): its decode step at 8 lanes (the head at 1 too), a
+    # verify round's 72 rows, a prefill of 8 x 512 tokens, the engine's
+    # step at 32 lanes and its verify round (32 x 9 rows); Llama-3.2-1B
+    # (H 2,048, kv 8 x 64, I 8,192, a tied head): its decode step at 8
+    # lanes and its prefill of 8 x 512 tokens
+    ("l8b_decode_qkv", 8, 4096, (4096, 1024, 1024), False),
+    ("l8b_decode_o", 8, 4096, (4096,), False),
+    ("l8b_decode_gate_up", 8, 4096, (14336, 14336), False),
+    ("l8b_decode_down", 8, 14336, (4096,), False),
+    ("l8b_decode_head", 8, 4096, (128256,), False),
+    ("l8b_decode_head_b1", 1, 4096, (128256,), False),
+    ("l8b_verify_qkv", 72, 4096, (4096, 1024, 1024), False),
+    ("l8b_verify_o", 72, 4096, (4096,), False),
+    ("l8b_verify_gate_up", 72, 4096, (14336, 14336), False),
+    ("l8b_verify_down", 72, 14336, (4096,), False),
+    ("l8b_verify_head", 72, 4096, (128256,), False),
+    ("l8b_prefill_gate_up", 4096, 4096, (14336, 14336), False),
+    ("l8b_prefill_down", 4096, 14336, (4096,), False),
+    ("l8b_engine_qkv", 32, 4096, (4096, 1024, 1024), False),
+    ("l8b_engine_down", 32, 14336, (4096,), False),
+    ("l8b_engine_verify_qkv", 288, 4096, (4096, 1024, 1024), False),
+    ("l8b_engine_verify_down", 288, 14336, (4096,), False),
+    ("l1b_decode_qkv", 8, 2048, (2048, 512, 512), False),
+    ("l1b_decode_o", 8, 2048, (2048,), False),
+    ("l1b_decode_gate_up", 8, 2048, (8192, 8192), False),
+    ("l1b_decode_down", 8, 8192, (2048,), False),
+    ("l1b_decode_head", 8, 2048, (128256,), False),
+    ("l1b_prefill_qkv", 4096, 2048, (2048, 512, 512), False),
+    ("l1b_prefill_o", 4096, 2048, (2048,), False),
+    ("l1b_prefill_gate_up", 4096, 2048, (8192, 8192), False),
+    ("l1b_prefill_down", 4096, 8192, (2048,), False),
 ]
 # the kernels line's shape of each kernel: the decode step's gate/up group
 # (24 launches a step), the prefill's gate/up and its activation quantize,
@@ -1426,11 +1508,16 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
         "w8a8_wgmma_launches": w8a8_launches[1],
         "quantize_rows_launches": w8a8_launches[2],
         "w8a8_few_tile_launches": w8a8_launches[3],
+        "llm_ladder": ",".join(map(str, health["llm_ladder"])),
     }
     ex = server.executor
     if settings.warmup_buckets:
-        check(ex.warmed_buckets == FUSED_WARM_BUCKETS,
-              f"warmed buckets {ex.warmed_buckets}, not {FUSED_WARM_BUCKETS}")
+        # the chunks pad to the LLM's ladder as /health reports it (a
+        # prefix of the configured one), up to the bucket of the chunk lanes
+        want = tuple(b for b in FUSED_WARM_BUCKETS if b <= max(health["llm_ladder"]))
+        check(ex.warmed_buckets == want,
+              f"warmed buckets {ex.warmed_buckets}, not {want} (/health's ladder "
+              f"{health['llm_ladder']})")
         check(health["decode_graphs"]["count"] == graphs_before["count"],
               f"decode graphs captured after warm-up: {graphs_before} -> "
               f"{health['decode_graphs']}")
@@ -2818,13 +2905,13 @@ def _decoder(dtype: str):
                                  device=torch.device(DEVICE))
 
 
-def _decode_prompts(b: int, seed: int):
+def _decode_prompts(b: int, seed: int, vocab: int = DOC_VOCAB):
     """[b, DECODE_BUCKET] right-padded prompts of 384-512 tokens."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    ids = rng.integers(1000, DOC_VOCAB - 1, (b, DECODE_BUCKET)).astype(np.int32)
+    ids = rng.integers(1000, vocab - 1, (b, DECODE_BUCKET)).astype(np.int32)
     lens = rng.integers(DECODE_BUCKET * 3 // 4, DECODE_BUCKET + 1, b)
     mask = (np.arange(DECODE_BUCKET)[None] < lens[:, None]).astype(np.int32)
     return (torch.from_numpy(ids * mask).to(DEVICE), torch.from_numpy(mask).to(DEVICE))
@@ -2840,46 +2927,83 @@ def _wall(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_decode_graph():
-    """greedy_generate eager and as the step graph, alternated; a trace of
-    the B=8 step graph's replays."""
+def _greedy_against_eager(tag: str, params, cfg, b: int, quantize: bool):
+    """greedy_generate at `b` lanes over DECODE_BUCKET-token prompts in the
+    decoder's vocabulary, DECODE_NEW new tokens: the step graph (its first
+    call captures it) against the eager loop, tokens bit for bit, and a
+    second graph call the first's; ms a token of the eager call and of the
+    second graph call, the capture's s, its pool and state MB, the device's
+    peak GB over the first call above what was allocated before. Each W8A8
+    kernel's launches over the first call (the prefill and the capture's
+    warm-up step: the replays count none) are the route rule's, none for a
+    tree without int8 weights (`quantize` False). At MAIN_B a
+    torch.profiler trace of step replays (`_profile_steps`), its W8A8
+    kernels a step the rule's. -> (stats, W8A8 launches, the prompts)."""
     import torch
     from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
 
+    n = DECODE_NEW
+    ids, mask = _decode_prompts(b, seed=b, vocab=cfg.vocab_size)
+    graphs = decode_graph.graphs_of(params)
+    before = len(graphs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    graph_toks, first_s = _wall(lambda: qwen.greedy_generate(
+        params, cfg, ids, mask, n, eos_token_id=-1))
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = _w8a8_counts()
+    step = w8a8_launches(cfg, b, b) if quantize else (0, 0, 0, 0)
+    want = tuple(p + q for p, q in zip(w8a8_launches(cfg, b * DECODE_BUCKET, b), step)) \
+        if quantize else (0, 0, 0, 0)
+    check(launches == want, f"{tag} B={b}: (small-row, wgmma, quantize, few-tile) "
+          f"launches {launches}, not {want}")
+    entry = graphs.entries()[before]
+    eager_toks, eager_s = _wall(lambda: qwen.greedy_generate_eager(
+        params, cfg, ids, mask, n, eos_token_id=-1))
+    check(torch.equal(graph_toks, eager_toks),
+          f"{tag} greedy at B={b}: graph and eager tokens differ")
+    again, graph_s = _wall(lambda: qwen.greedy_generate(
+        params, cfg, ids, mask, n, eos_token_id=-1))
+    check(torch.equal(again, graph_toks), f"{tag} B={b}: a second replay gave other tokens")
+    check(graph_toks.shape == (b, n) and bool(((graph_toks >= 0)
+                                              & (graph_toks < cfg.vocab_size)).all()),
+          f"{tag} B={b}: tokens out of the vocabulary")
+    cache = entry.state.cache
+    stats = {f"b{b}_eager_ms_per_token": f"{eager_s / n * 1e3:.3f}",
+             f"b{b}_graph_ms_per_token": f"{graph_s / n * 1e3:.3f}",
+             f"b{b}_first_call_s": f"{first_s:.3f}",
+             f"b{b}_capture_s": f"{entry.graph.capture_s:.3f}",
+             f"b{b}_pool_mb": f"{entry.graph.pool_bytes / 2**20:.1f}",
+             f"b{b}_state_mb": f"{sum(t.numel() * t.element_size() for t in (cache.k, cache.v)) / 2**20:.1f}",
+             f"b{b}_decode_peak_gb": f"{peak / 1e9:.3f}"}
+    if b == MAIN_B:
+        prof = _profile_steps(params, cfg, entry, ids, mask)
+        if "b8_step_w8a8_kernels" in prof:
+            check(prof["b8_step_w8a8_kernels"] == sum(step[:3]),
+                  f"{tag}: a step replays {prof['b8_step_w8a8_kernels']} W8A8 kernels, "
+                  f"not {sum(step[:3])}")
+        stats.update(prof)
+    return stats, launches, (ids, mask)
+
+
+def phase_decode_graph():
+    """greedy_generate eager and as the step graph at B = 8 and 1
+    (`_greedy_against_eager`), Qwen2.5-0.5B in bf16."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import decode_graph
+
     t0 = time.perf_counter()
     cfg, params = _decoder("bfloat16")
-    n = DECODE_NEW
     stats = {}
     with torch.inference_mode():
         for b in (MAIN_B, 1):
-            ids, mask = _decode_prompts(b, seed=b)
-            graphs = decode_graph.graphs_of(params)
-            before = len(graphs)
-            graph_toks, first_s = _wall(lambda: qwen.greedy_generate(
-                params, cfg, ids, mask, n, eos_token_id=-1))
-            entry = graphs.entries()[before]
-            eager_toks = qwen.greedy_generate_eager(params, cfg, ids, mask, n,
-                                                    eos_token_id=-1)
-            check(torch.equal(graph_toks, eager_toks),
-                  f"greedy at B={b}: graph and eager tokens differ")
-            walls = alternated(lambda f, _: _wall(f)[1], {
-                "eager": lambda: qwen.greedy_generate_eager(
-                    params, cfg, ids, mask, n, eos_token_id=-1),
-                "graph": lambda: qwen.greedy_generate(
-                    params, cfg, ids, mask, n, eos_token_id=-1),
-            }, 0, rounds=DECODE_ROUNDS)
-            stats[f"b{b}_eager_ms_per_token"] = f"{walls['eager'] / n * 1e3:.3f}"
-            stats[f"b{b}_graph_ms_per_token"] = f"{walls['graph'] / n * 1e3:.3f}"
-            stats[f"b{b}_first_call_s"] = f"{first_s:.3f}"
-            stats[f"b{b}_capture_s"] = f"{entry.graph.capture_s:.3f}"
-            stats[f"b{b}_pool_mb"] = f"{entry.graph.pool_bytes / 2**20:.1f}"
-            stats[f"b{b}_state_mb"] = f"{sum(t.numel() * t.element_size() for t in (entry.state.cache.k, entry.state.cache.v)) / 2**20:.1f}"
-        ids, mask = _decode_prompts(MAIN_B, seed=MAIN_B)
-        stats.update(_profile_steps(params, cfg, graphs.entries()[0], ids, mask))
+            stats.update(_greedy_against_eager("decode_graph", params, cfg, b, False)[0])
     graphs = decode_graph.graphs_of(params)
     stats["graphs"] = len(graphs)
     stats["graphs_pool_mb"] = f"{graphs.pool_bytes / 2**20:.1f}"
-    phase("decode_graph", t0, bit_identical=True, new_tokens=n,
+    phase("decode_graph", t0, bit_identical=True, new_tokens=DECODE_NEW,
           prompt_bucket=DECODE_BUCKET, **stats)
     return params, stats
 
@@ -2887,7 +3011,10 @@ def phase_decode_graph():
 def _profile_steps(params, cfg, entry, ids, mask, steps: int = 8) -> dict:
     """torch.profiler over `steps` replays of a greedy step graph: the
     device's busy share (kernel time over the host's wall) and the kernels
-    that take most of it."""
+    that take most of it. One replay before them runs as the profiler's
+    warm-up step, whose events are dropped: a trace that began on the
+    counted replays lost some of their first kernels (at Llama-3.1-8B's
+    ~5,000 a step, one W8A8 kernel in one run of three)."""
     import collections
 
     import torch
@@ -2896,21 +3023,28 @@ def _profile_steps(params, cfg, entry, ids, mask, steps: int = 8) -> dict:
     entry.state.start(params, cfg, ids, mask, -1)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        entry.graph.replay()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(steps):
             entry.graph.replay()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    # the device's events but the schedule's own span of the counted step
+    cuda_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")]
     by_name = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
+    for e in cuda_events:
+        by_name[e.name] += e.time_range.elapsed_us()
     busy = sum(by_name.values())
     if busy == 0:
         return {"b8_step_busy_share": "not measured (no device events)"}
     top = [(name[:48], round(us / busy, 3)) for name, us in by_name.most_common(6)]
-    cuda_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
     def per_step(*marks) -> int:
         return sum(1 for e in cuda_events if any(m in e.name for m in marks)) // steps
 
@@ -3221,10 +3355,10 @@ def _hold_int8_speculation(r: dict) -> dict:
                            what="its token and greedy's best logit lie")
 
 
-def _int8_speculation(cfg, params, ids, mask) -> dict:
-    """ngram_speculative_generate over int8 weights at B = 8, gamma 8: the
-    verify round's 72 rows take the wgmma route, q/k/v, o and down on the
-    plan for few row tiles. In float32 activations (weights quantized at
+def _int8_speculation(cfg, params, ids, mask, n: int = DECODE_NEW) -> dict:
+    """ngram_speculative_generate over int8 weights at B = 8, gamma 8, `n`
+    new tokens: the verify round's 72 rows take the wgmma route, q/k/v, o
+    and down on the plan for few row tiles. In float32 activations (weights quantized at
     the source from seed 1, so that the near-tie rule of phase spec
     applies): rows held to int8 greedy's; the W8A8 launches of the call
     (the prefill and the capture's warm-up round, counted from zero just
@@ -3235,7 +3369,7 @@ def _int8_speculation(cfg, params, ids, mask) -> dict:
     from torch.autograd import DeviceType
     from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
 
-    n, b, gamma = DECODE_NEW, ids.shape[0], SPEC_GAMMA
+    b, gamma = ids.shape[0], SPEC_GAMMA
     g = torch.Generator(device=DEVICE).manual_seed(1)
     fparams = qwen.init_qwen_params(cfg, generator=g, dtype=torch.float32,
                                     device=torch.device(DEVICE), quantize=True)
@@ -3308,15 +3442,14 @@ def _int8_speculation(cfg, params, ids, mask) -> dict:
         "int8_bf16_spec_rows_equal_greedy": sum(
             a == r for a, r in zip(bf_toks.tolist(), bf_greedy.tolist())),
     })
-    return {"stats": stats, "few_tile_launches": launches[3]}
+    return {"stats": stats, "launches": launches}
 
 
 def phase_decode_w8a8(bf16_stats: dict) -> dict:
     """greedy_generate over int8 weights quantized at the source: the step
     graph against the eager loop at B = 8, beside decode_graph's bf16."""
     import torch
-    from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
-    from rag_inference_pipeline_tpu_torch.ops import w8a8
+    from rag_inference_pipeline_tpu_torch.models import qwen
 
     t0 = time.perf_counter()
     cfg = qwen.QwenConfig.qwen25_05b()
@@ -3324,64 +3457,35 @@ def phase_decode_w8a8(bf16_stats: dict) -> dict:
     params = qwen.init_qwen_params(cfg, generator=g, dtype=torch.bfloat16,
                                    device=torch.device(DEVICE), quantize=True)
     n, b = DECODE_NEW, MAIN_B
-    stats = {}
     with torch.inference_mode():
-        ids, mask = _decode_prompts(b, seed=b)  # decode_graph's B = 8 prompts
-        zero_launches()
-        graph_toks, first_s = _wall(lambda: qwen.greedy_generate(
-            params, cfg, ids, mask, n, eos_token_id=-1))
-        launches = _w8a8_counts()
-        # the prefill (B x bucket rows, the head on B) and the capture's
-        # warm-up step (B rows), eagerly; the replays count none
-        step = w8a8_launches(cfg, b, b)
-        prefill = w8a8_launches(cfg, b * DECODE_BUCKET, b)
-        want = tuple(p + s for p, s in zip(prefill, step))
-        check(launches == want, f"decode_w8a8: (small-row, wgmma, quantize, few-tile) "
-              f"launches {launches}, not {want}")
-        eager_toks = qwen.greedy_generate_eager(params, cfg, ids, mask, n, eos_token_id=-1)
-        check(torch.equal(graph_toks, eager_toks),
-              "decode_w8a8: graph and eager tokens differ")
-        walls = alternated(lambda f, _: _wall(f)[1], {
-            "eager": lambda: qwen.greedy_generate_eager(params, cfg, ids, mask, n,
-                                                        eos_token_id=-1),
-            "graph": lambda: qwen.greedy_generate(params, cfg, ids, mask, n,
-                                                  eos_token_id=-1),
-        }, 0, rounds=DECODE_ROUNDS)
-        graphs = decode_graph.graphs_of(params)
-        entry = graphs.entries()[0]
-        prof = _profile_steps(params, cfg, entry, ids, mask)
+        # decode_graph's B = 8 prompts
+        st, launches, (ids, mask) = _greedy_against_eager("decode_w8a8", params, cfg, b, True)
         spec = _int8_speculation(cfg, params, ids, mask)
-    if "b8_step_w8a8_kernels" in prof:
-        check(prof["b8_step_w8a8_kernels"] == sum(step[:3]),
-              f"decode_w8a8: a step replays {prof['b8_step_w8a8_kernels']} W8A8 kernels, "
-              f"not {sum(step[:3])}")
+    step = w8a8_launches(cfg, b, b)
+    stats = {k.replace("b8_", "int8_b8_", 1): v for k, v in st.items()}
     stats.update({
-        "int8_b8_eager_ms_per_token": f"{walls['eager'] / n * 1e3:.3f}",
-        "int8_b8_graph_ms_per_token": f"{walls['graph'] / n * 1e3:.3f}",
         "bf16_b8_eager_ms_per_token": bf16_stats["b8_eager_ms_per_token"],
         "bf16_b8_graph_ms_per_token": bf16_stats["b8_graph_ms_per_token"],
-        "int8_b8_first_call_s": f"{first_s:.3f}",
-        "int8_b8_capture_s": f"{entry.graph.capture_s:.3f}",
-        "int8_b8_pool_mb": f"{entry.graph.pool_bytes / 2**20:.1f}",
         "bf16_b8_pool_mb": bf16_stats["b8_pool_mb"],
         "small_launches": launches[0], "wgmma_launches": launches[1],
         "quantize_launches": launches[2], "few_tile_launches": launches[3],
         "w8a8_kernels_a_step_by_rule": sum(step[:3]), **spec["stats"],
         "weights_mb": f"{sum(t.numel() * t.element_size() for t in params.state_dict().values()) / 2**20:.1f}",
     })
-    stats.update({k.replace("b8_", "int8_b8_", 1): v for k, v in prof.items()})
-    del params, graphs, entry
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     phase("decode_w8a8", t0, bit_identical=True, new_tokens=n, batch=b,
           prompt_bucket=DECODE_BUCKET, gamma=SPEC_GAMMA, **stats)
-    return {**stats, "few_tile_launches": spec["few_tile_launches"]}
+    return {**stats, "few_tile_launches": spec["launches"][3]}
 
 
-def phase_engine():
-    """A DecodeEngine at full width in float32 (32 lanes, cache 1024,
-    segment 8), plain and speculative: 16 mixed prompts and budgets, each
-    held to a solo greedy_generate under the near-tie rule."""
+def _engine_against_greedy(name: str, params, cfg) -> dict:
+    """A DecodeEngine over the float32 tree `params` (32 lanes, cache 1024,
+    segment 8), plain and speculative: ENGINE_REQUESTS prompts of 64-512
+    tokens in the decoder's vocabulary with budgets of 16-128, each
+    sequence its budget long and held to a solo greedy_generate under the
+    near-tie rule -> stats (wall, segments, tokens, capture s, pool MB)."""
     import asyncio
 
     import numpy as np
@@ -3389,12 +3493,10 @@ def phase_engine():
     from rag_inference_pipeline_tpu_torch.engine.decode_engine import DecodeEngine
     from rag_inference_pipeline_tpu_torch.models import qwen
 
-    t0 = time.perf_counter()
-    cfg, params = _decoder("float32")
     rng = np.random.default_rng(31)
     lens = rng.integers(64, 513, ENGINE_REQUESTS)
     budgets = rng.integers(16, 129, ENGINE_REQUESTS)
-    prompts = [rng.integers(1000, DOC_VOCAB - 1, int(k)).astype(np.int32) for k in lens]
+    prompts = [rng.integers(1000, cfg.vocab_size - 1, int(k)).astype(np.int32) for k in lens]
     eos = -1
     refs = []
     with torch.inference_mode():
@@ -3403,10 +3505,11 @@ def phase_engine():
             refs.append(qwen.greedy_generate(params, cfg, ids, torch.ones_like(ids),
                                              int(m), eos_token_id=eos)[0].tolist())
 
-    def gap_of(i, j):
+    def gap_of(i, j):  # the eager loop up to the step where row i diverges
         ids = torch.from_numpy(prompts[i][None]).to(DEVICE)
         with torch.inference_mode():
-            _, gaps = _top2_gaps(params, cfg, ids, torch.ones_like(ids), int(budgets[i]))
+            _, gaps = _top2_gaps(params, cfg, ids, torch.ones_like(ids), j + 1,
+                                 cache_len=ids.shape[1] + int(budgets[i]))
         return gaps[0, j]
 
     stats = {}
@@ -3428,8 +3531,8 @@ def phase_engine():
         outs, wall = _wall(lambda: asyncio.new_event_loop().run_until_complete(main()))
         tag = "spec" if spec else "plain"
         check(all(len(o) == m for o, m in zip(outs, budgets)),
-              f"engine ({tag}): a request returned other than its budget")
-        held = _hold_to_greedy(f"engine ({tag})", outs, refs, gap_of)
+              f"{name} ({tag}): a request returned other than its budget")
+        held = _hold_to_greedy(f"{name} ({tag})", outs, refs, gap_of)
         stats.update({f"{tag}_wall_s": f"{wall:.3f}",
                       f"{tag}_identical": held["identical"],
                       f"{tag}_near_ties": json.dumps(held["near_ties"]),
@@ -3438,6 +3541,19 @@ def phase_engine():
                       f"{tag}_capture_s": f"{eng.graph.capture_s:.3f}",
                       f"{tag}_pool_mb": f"{eng.graph.pool_bytes / 2**20:.1f}"})
         del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
+def phase_engine():
+    """`_engine_against_greedy` over Qwen2.5-0.5B at full width in
+    float32."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, params = _decoder("float32")
+    stats = _engine_against_greedy("engine", params, cfg)
     del params
     torch.cuda.empty_cache()
     phase("engine", t0, requests=ENGINE_REQUESTS, lanes=ENGINE_LANES,
@@ -3505,6 +3621,304 @@ def phase_engine_serve(ivf, db_path: str) -> dict:
                       f"{tag}_k5_launches": k5})
     phase("engine_serve", t0, **stats)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# The Llama family at full width, random weights from a seed
+# ---------------------------------------------------------------------------
+
+LLAMA_8B_NAME = "meta-llama/Llama-3.1-8B-Instruct"
+# the 8B's speculation holds (the int8 rule, the f32 near-tie rule) over
+# this many new tokens: their eager replays take ~0.1 s a token at 8B depth
+LLAMA_SPEC_NEW = 32
+def _llama_tree(cfg, quantize: bool, dtype, seed: int = 0):
+    """A Llama preset at full width from `seed`, int8 at the source with
+    `quantize` (each leaf quantized as it is drawn) -> (tree, its load
+    seconds, weight GB and the device's peak GB over the load above what
+    was allocated before)."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = qwen.init_qwen_params(cfg, generator=g, dtype=dtype,
+                                   device=torch.device(DEVICE), quantize=quantize)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in params.state_dict().values())
+    return params, {"load_s": f"{load_s:.3f}", "weights_gb": f"{weights / 1e9:.3f}",
+                    "load_peak_gb": f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}"}
+
+
+def _free_tree() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_llama_8b(quantize: bool) -> dict:
+    """Llama-3.1-8B at full width and depth (32 layers, bf16 activations),
+    bf16 weights or W8A8 quantized at the source: greedy at B = 8 and 1
+    (`_greedy_against_eager`), then speculation at B = 8, gamma 8. bf16: ms a
+    token (beside greedy's over as many tokens) and commits a call of its
+    verify-round graph over LLAMA_SPEC_NEW tokens (the hold runs in float32,
+    `phase_llama_8b_f32_spec`). W8A8:
+    decode_w8a8's int8 speculation over LLAMA_SPEC_NEW tokens
+    (`_int8_speculation`: in f32 activations every committed token its
+    verify window's argmax, the verify round's logits within
+    INT8_PATH_NOISE x the decoder's own noise of the decode step's, rows
+    leaving greedy's only within twice that gap; its launches the route
+    rule's; one replayed round's W8A8 kernels; then on this tree ms a token
+    and commits a call), then the decode engine on this tree
+    (`_llama_engine`)."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    t0 = time.perf_counter()
+    cfg = qwen.QwenConfig.llama31_8b()
+    tag = "int8" if quantize else "bf16"
+    params, stats = _llama_tree(cfg, quantize, torch.bfloat16)
+    launches = (0, 0, 0, 0)
+    with torch.inference_mode():
+        for b in (MAIN_B, 1):
+            st, counted, prompts = _greedy_against_eager(f"llama_8b_{tag}", params, cfg, b,
+                                                          quantize)
+            stats.update(st)
+            launches = tuple(a + c for a, c in zip(launches, counted))
+            if b == MAIN_B:
+                ids, mask = prompts
+        # greedy's step graph at the speculation's length, captured before
+        # either side is timed
+        n = LLAMA_SPEC_NEW
+        greedy = lambda: qwen.greedy_generate(  # noqa: E731
+            params, cfg, ids, mask, n, eos_token_id=-1)
+        greedy()
+        if quantize:
+            spec = _int8_speculation(cfg, params, ids, mask, n)
+            stats.update(spec["stats"])
+            launches = tuple(a + c for a, c in zip(launches, spec["launches"]))
+        else:
+            run = lambda: qwen.ngram_speculative_generate(  # noqa: E731
+                params, cfg, ids, mask, n, gamma=SPEC_GAMMA, eos_token_id=-1)
+            (first, _), capture_s = _wall(run)
+            (toks, mean), spec_s = _wall(run)
+            check(torch.equal(toks, first), "llama_8b bf16 speculation: a second replay gave "
+                  "other tokens")
+            _, greedy_s = _wall(greedy)
+            stats.update({"spec_first_call_s": f"{capture_s:.3f}",
+                          "spec_ms_per_token": f"{spec_s / n * 1e3:.3f}",
+                          "spec_greedy_ms_per_token": f"{greedy_s / n * 1e3:.3f}",
+                          "spec_commits_per_call": f"{float(mean):.4f}"})
+    phase(f"llama_8b_{tag}", t0, model=LLAMA_8B_NAME, layers=cfg.layers, new_tokens=DECODE_NEW,
+          prompt_bucket=DECODE_BUCKET, gamma=SPEC_GAMMA, spec_new_tokens=LLAMA_SPEC_NEW,
+          **stats)
+    if quantize:
+        engine = _llama_engine(params, cfg)
+        launches = tuple(a + c for a, c in zip(launches, engine["launches"]))
+    del params
+    _free_tree()
+    return {"launches": launches}
+
+
+def phase_llama_8b_f32_spec() -> dict:
+    """Llama-3.1-8B with float32 weights and activations from seed 1:
+    ngram_speculative_generate against greedy_generate at B = 8, gamma 8,
+    LLAMA_SPEC_NEW tokens, held as phase spec holds Qwen2.5-0.5B's: a row
+    may leave greedy's only at a step whose two top f32 logits lie within
+    NEAR_TIE. Then the decode engine on this tree, held to solo greedy as
+    phase engine holds Qwen2.5-0.5B's (`_engine_against_greedy`): the
+    check on the 8B engine's tokens from outside the engine, which the
+    W8A8 tree's random weights leave no room for (`_llama_engine`)."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    t0 = time.perf_counter()
+    cfg = qwen.QwenConfig.llama31_8b()
+    n = LLAMA_SPEC_NEW
+    params, stats = _llama_tree(cfg, False, torch.float32, seed=1)
+    with torch.inference_mode():
+        ids, mask = _decode_prompts(MAIN_B, seed=21, vocab=cfg.vocab_size)
+        (spec, mean), spec_s = _wall(lambda: qwen.ngram_speculative_generate(
+            params, cfg, ids, mask, n, gamma=SPEC_GAMMA, eos_token_id=-1))
+        greedy, greedy_s = _wall(lambda: qwen.greedy_generate(
+            params, cfg, ids, mask, n, eos_token_id=-1))
+        gaps = None
+        if not torch.equal(spec, greedy):
+            _, gaps = _top2_gaps(params, cfg, ids, mask, n)
+        held = _hold_to_greedy("llama_8b_f32_spec", spec.tolist(), greedy.tolist(),
+                               lambda i, j: gaps[i, j])
+    stats.update(identical_rows=held["identical"], near_ties=json.dumps(held["near_ties"]),
+                 commits_per_call=f"{float(mean):.4f}",
+                 spec_first_call_s=f"{spec_s:.3f}", greedy_first_call_s=f"{greedy_s:.3f}")
+    phase("llama_8b_f32_spec", t0, gamma=SPEC_GAMMA, new_tokens=n, batch=MAIN_B, **stats)
+    t1 = time.perf_counter()
+    engine = _engine_against_greedy("llama_8b_f32_engine", params, cfg)
+    del params
+    _free_tree()
+    phase("llama_8b_f32_engine", t1, model=LLAMA_8B_NAME, requests=ENGINE_REQUESTS,
+          lanes=ENGINE_LANES, cache_len=ENGINE_CACHE, segment=ENGINE_SEGMENT, **engine)
+    return stats
+
+
+def _llama_engine(params, cfg) -> dict:
+    """A DecodeEngine over the 8B W8A8 tree `params` at the settings' 32
+    lanes, cache 1024, segment 8, plain and speculative, over
+    ENGINE_REQUESTS prompts of 64-512 tokens with budgets of 16-128: every
+    sequence its budget long, in the vocabulary; then the 16 prompts
+    admitted again and one segment replayed as the engine's graph against
+    the same body run eagerly from the same state, every state tensor bit
+    for bit (the emission buffer but its scratch column): both sides run
+    the same kernels, so this holds the graph, not the arithmetic; the
+    8B engine's tokens are held to solo greedy in float32
+    (phase_llama_8b_f32_spec). Solo greedy is no yardstick for this tree:
+    at this depth the W8A8 decoder with random weights moves its logits by
+    more than a logit under a 2^-22 nudge of its inputs (phase
+    llama_8b_int8's int8_nudge_logit_gap), and the engine's attention over
+    1,024 keys sums in another order than a solo call's."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.engine.decode_engine import DecodeEngine, _Request
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(31)
+    lens = rng.integers(64, 513, ENGINE_REQUESTS)
+    budgets = rng.integers(16, 129, ENGINE_REQUESTS)
+    prompts = [rng.integers(1000, cfg.vocab_size - 1, int(k)).astype(np.int32) for k in lens]
+    stats, launches = {}, (0, 0, 0, 0)
+    for spec in (False, True):
+        tag = "spec" if spec else "plain"
+        eng = DecodeEngine(params, cfg, lanes=ENGINE_LANES, cache_len=ENGINE_CACHE,
+                           segment_steps=ENGINE_SEGMENT, eos_token_id=-1,
+                           admit_buckets=(1, 2, 4, 8, 16, 32),
+                           prefill_buckets=(128, 256, 512), speculative=spec,
+                           gamma=SPEC_GAMMA)
+
+        async def main():
+            await eng.start()
+            try:
+                return await asyncio.gather(*(eng.submit(p, int(m))
+                                              for p, m in zip(prompts, budgets)))
+            finally:
+                await eng.stop()
+
+        zero_launches()
+        outs, wall = _wall(lambda: asyncio.new_event_loop().run_until_complete(main()))
+        counted = _w8a8_counts()
+        launches = tuple(a + c for a, c in zip(launches, counted))
+        check(all(len(o) == m for o, m in zip(outs, budgets)),
+              f"llama_engine ({tag}): a request returned other than its budget")
+        check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+              f"llama_engine ({tag}): a token out of the vocabulary")
+        check(counted[0] > 0 and counted[1] > 0,
+              f"llama_engine ({tag}): the W8A8 kernels did not launch ({counted})")
+        # one segment: the graph against the eager body from the same state
+        for p, m in zip(prompts, budgets):
+            eng._waiting.put_nowait(_Request(p, int(m), None))
+        with torch.inference_mode():
+            eng._admit_waiting()
+            state = [eng.cache.k, eng.cache.v, eng.cache.length, eng.tokens, eng.done,
+                     eng.emit_buf, eng.counts, eng.limits, eng.prompts, eng.prompt_len]
+            before = [t.clone() for t in state]
+            eng.graph.replay()
+            replayed = [t.clone() for t in state]
+            for t, b in zip(state, before):
+                t.copy_(b)
+            eng._segment_body()
+            torch.cuda.synchronize()
+            # but the emission buffer's last column: a verify round's masked
+            # writes land there in no fixed order, and nothing reads it
+            scratch = eng.emit_buf.shape[1] - 1
+            replayed[5], state[5] = replayed[5][:, :scratch], state[5][:, :scratch]
+            check(all(torch.equal(a, b) for a, b in zip(replayed, state)),
+                  f"llama_engine ({tag}): the segment graph and the eager segment differ")
+            check(not torch.equal(replayed[5], before[5]),
+                  f"llama_engine ({tag}): the segment emitted nothing")
+        stats.update({f"{tag}_wall_s": f"{wall:.3f}",
+                      f"{tag}_segments": eng.segments,
+                      f"{tag}_tokens": eng.tokens_generated,
+                      f"{tag}_capture_s": f"{eng.graph.capture_s:.3f}",
+                      f"{tag}_pool_mb": f"{eng.graph.pool_bytes / 2**20:.1f}",
+                      f"{tag}_w8a8_launches": json.dumps(counted)})
+        del eng, state, before, replayed
+        _free_tree()
+    phase("llama_engine", t0, model=LLAMA_8B_NAME, requests=ENGINE_REQUESTS,
+          lanes=ENGINE_LANES, cache_len=ENGINE_CACHE, segment=ENGINE_SEGMENT,
+          segment_bit_identical=True, **stats)
+    return {"launches": launches}
+
+
+def phase_llama_serve(paths: dict, workdir: str) -> dict:
+    """The fused server of phase serve with LLM_MODEL=Llama-3.1-8B-Instruct
+    and LLM_WEIGHT_QUANT=int8 (the reference's one-chip deployment), warm-up
+    on, over phase corpus's 1M x 768 int8 index (bf16 re-score on the card)
+    and 48-token documents drawn in the 8B's 128,256-token vocabulary:
+    phase serve's 10 /query (8 concurrent) with well-formed bodies, K1 and
+    every W8A8 kernel launching; /health's clamped ladder (`llm_ladder`)
+    and decode graphs."""
+    import numpy as np
+    from rag_inference_pipeline_tpu_torch.models import qwen
+    from rag_inference_pipeline_tpu_torch.models.layers import QuantizedLinear
+
+    t0 = time.perf_counter()
+    vocab = qwen.QwenConfig.llama31_8b().vocab_size
+    rng = np.random.default_rng(4)
+    toks = rng.integers(1000, vocab, (N_ROWS, DOC_LEN), dtype=np.int32)
+    lengths = rng.integers(8, DOC_LEN + 1, N_ROWS)
+    mask = (np.arange(DOC_LEN)[None, :] < lengths[:, None]).astype(np.int32)
+    tok_path = os.path.join(workdir, "llama_doc_tokens.npy")
+    np.save(tok_path, toks * mask)
+    np.save(tok_path.replace(".npy", "_mask.npy"), mask)
+    del toks, mask
+    llama_paths = {"INDEX_PATH": paths["INDEX_PATH"], "DOC_TOKENS_PATH": tok_path}
+    phase("llama_doc_tokens", t0, rows=N_ROWS, doc_len=DOC_LEN, vocab=vocab)
+    tag = "llama_serve"
+    executor, _, stats, _, health = phase_serve(
+        llama_paths, {"LLM_MODEL": LLAMA_8B_NAME, "LLM_WEIGHT_QUANT": "int8",
+                      "WARMUP_BUCKETS": "1"}, tag)
+    llm = executor.llm
+    check(llm.cfg == qwen.QwenConfig.llama31_8b(), f"{tag}: the LLM is not the 8B")
+    check(isinstance(llm.params.lm_head, QuantizedLinear),
+          f"{tag}: the 8B's head is not int8")
+    check(tuple(health["llm_ladder"]) == llm.ladder and 1 in llm.ladder,
+          f"{tag}: /health's ladder {health['llm_ladder']} is not the LLM's {llm.ladder}")
+    check(stats["w8a8_small_launches"] > 0 and stats["w8a8_wgmma_launches"] > 0
+          and stats["quantize_rows_launches"] > 0,
+          f"{tag}: a W8A8 kernel did not launch on /query ({stats})")
+    del executor, llm
+    _free_tree()
+    return stats
+
+
+def phase_llama_1b() -> dict:
+    """Llama-3.2-1B at full width and depth (16 layers, tied 128,256-row
+    head), bf16 and W8A8 quantized at the source: `_greedy_against_eager` at B = 8
+    (graph against eager bit for bit, ms a token, capture, pool, kernels a
+    step)."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    t0 = time.perf_counter()
+    cfg = qwen.QwenConfig.llama32_1b()
+    stats, launches = {}, (0, 0, 0, 0)
+    with torch.inference_mode():
+        for quantize in (False, True):
+            tag = "int8" if quantize else "bf16"
+            params, load = _llama_tree(cfg, quantize, torch.bfloat16)
+            st, counted, _ = _greedy_against_eager(f"llama_1b_{tag}", params, cfg, MAIN_B,
+                                                 quantize)
+            stats.update({f"{tag}_{k}": v for k, v in {**load, **st}.items()})
+            launches = tuple(a + c for a, c in zip(launches, counted))
+            del params
+            _free_tree()
+    phase("llama_1b", t0, model="meta-llama/Llama-3.2-1B-Instruct", layers=cfg.layers,
+          new_tokens=DECODE_NEW, prompt_bucket=DECODE_BUCKET, **stats)
+    return {"launches": launches}
 
 
 # the data-parallel slice on one card: the mesh's positions repeat cuda:0
@@ -4354,6 +4768,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_spmd(paths, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        llama_serve = phase_llama_serve(paths, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     gc.collect()
@@ -4372,6 +4789,16 @@ def main() -> int:
     phase_engine()
     gc.collect()
     torch.cuda.empty_cache()
+    phase_llama_8b(False)
+    phase_llama_8b_f32_spec()
+    llama_int8 = phase_llama_8b(True)
+    llama_1b = phase_llama_1b()
+    # the Llama paths' W8A8 launches (small-row, wgmma, quantize, few-tile):
+    # the 8B's greedy, speculation and engine, the 1B's greedy, the server
+    llama = [sum(c) for c in zip(
+        llama_int8["launches"], llama_1b["launches"],
+        (llama_serve["w8a8_small_launches"], llama_serve["w8a8_wgmma_launches"],
+         llama_serve["quantize_rows_launches"], llama_serve["w8a8_few_tile_launches"]))]
     tp_encode = phase_tp_encode()
     phase_sp()
     check("jax" not in sys.modules, "jax was imported")
@@ -4394,7 +4821,7 @@ def main() -> int:
         # the main paths' launches, and the sharded paths' (one a shard)
         entry("binmax_int8gs", f"{jax_ops}/topk.py:442",
               k1_launches + mesh["int8_launches"] + mesh["int8_host_launches"]
-              + mesh_fused["launches"], k1),
+              + mesh_fused["launches"] + llama_serve["k1_launches"], k1),
         entry("binmax_bf16", f"{jax_ops}/topk.py:118",
               flat["launches"] + mesh["bf16_launches"], k2),
         entry("binmax_int8", f"{jax_ops}/topk.py:268", k3["launches"], k3),
@@ -4406,18 +4833,20 @@ def main() -> int:
         entry("stream", "scripts/bench_kernel.py:171", k8["launches"], k8),
         # no Pallas kernel: the reference's XLA _qdense and quantize_act_rows;
         # the GEMM on its two routes (small rows: the quantize folded in)
+        # (the Llama phases' launches added: the 8B's served /query, its
+        # greedy and speculation, its engine, the 1B's greedy)
         entry("w8a8_gemm_small_rows", "rag_inference_pipeline_tpu/models/layers.py:92",
-              w8_serve["w8a8_small_launches"], w8["small"], "w8a8_gemm"),
+              w8_serve["w8a8_small_launches"] + llama[0], w8["small"], "w8a8_gemm"),
         entry("w8a8_gemm_wgmma", "rag_inference_pipeline_tpu/models/layers.py:92",
-              w8_serve["w8a8_wgmma_launches"] - w8_serve["w8a8_few_tile_launches"],
-              w8["wgmma"], "w8a8_wgmma"),
+              w8_serve["w8a8_wgmma_launches"] - w8_serve["w8a8_few_tile_launches"]
+              + llama[1] - llama[3], w8["wgmma"], "w8a8_wgmma"),
         # the wgmma GEMM's instances for few row tiles (64-column tiles, K
         # split over a cluster): the int8 verify round's q/k/v, o and down,
-        # from decode_w8a8's speculative call
+        # from decode_w8a8's speculative call and the 8B's
         entry("w8a8_gemm_wgmma_few_tiles", "rag_inference_pipeline_tpu/models/layers.py:92",
-              w8_decode["few_tile_launches"], w8["few_tiles"], "w8a8_wgmma"),
+              w8_decode["few_tile_launches"] + llama[3], w8["few_tiles"], "w8a8_wgmma"),
         entry("w8a8_quant", "rag_inference_pipeline_tpu/models/layers.py:80",
-              w8_serve["quantize_rows_launches"], w8["quant"]),
+              w8_serve["quantize_rows_launches"] + llama[2], w8["quant"]),
         # the s32 kind of both GEMMs: a row-parallel shard's partial at tp = 2
         # (o and down; the reference's int32 psum over tp), from mesh_tp
         entry("w8a8_gemm_small_rows_s32", "rag_inference_pipeline_tpu/models/layers.py:92",

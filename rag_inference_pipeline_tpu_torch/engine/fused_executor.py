@@ -8,8 +8,13 @@ bucket exactly as the reference pads it: the query's int8 scale is
 batch-wide, so padded lanes take part in it and a different padding would
 change ids. On a mesh of dp > 1 the buckets and the chunk lanes are
 rounded up to dp multiples (the step splits the batch over dp), as the
-reference rounds them (`:126-130`, `:227-236`). Requires a document token
-store (`doc_tokens.npy`, decoder token space) beside the int8 flat index.
+reference rounds them (`:126-130`, `:227-236`). The buckets are the LLM's
+ladder (`LLMComponent.ladder`): the configured ones, cut at load to the
+lanes the card's free memory holds. The reference pads to the configured
+buckets here even where its clamp cut the ladder, so on a crowded card it
+would dispatch the lanes the clamp refused; unclamped, both pad alike.
+Requires a document token store (`doc_tokens.npy`, decoder token space)
+beside the int8 flat index, its ids within the decoder's vocabulary.
 
 Warm-up (`warmup_buckets`, reference `fused_executor.py:123-142`) runs one
 chunk of each bucket that `process_batch` can dispatch: the buckets up to
@@ -85,6 +90,17 @@ class FusedExecutor:
         if not s.doc_tokens_path:
             raise ValueError("use_fused_pipeline requires doc_tokens_path")
         self.doc_tokens = np.load(s.doc_tokens_path).astype(np.int32)
+        # the step embeds these ids by indexing the decoder's table: on the
+        # card an id past it is a device-side assert that poisons the
+        # process's CUDA context (a store tokenized for another decoder)
+        vocab = self.llm.cfg.vocab_size
+        top = int(self.doc_tokens.max(initial=0))
+        if top >= vocab or int(self.doc_tokens.min(initial=0)) < 0:
+            raise ValueError(
+                f"doc token store {s.doc_tokens_path} holds ids up to {top}, outside "
+                f"the vocabulary of {s.llm_model} ({vocab} ids): it was tokenized "
+                "for another decoder"
+            )
         # explicit validity mask written beside the tokens; `id > 0` is only
         # right for the hash tokenizer (id 0 can be a real token)
         mask_path = s.doc_tokens_path.replace(".npy", "_mask.npy")
@@ -115,9 +131,12 @@ class FusedExecutor:
             self.warmup()
 
     def _buckets(self) -> tuple[int, ...]:
-        """The shape buckets, each rounded up to a dp multiple."""
+        """The LLM's batch ladder (the shape buckets as the card's free
+        memory clamped them at load; the configured ones without an LLM),
+        each rounded up to a dp multiple."""
         dp = self.dp
-        return tuple(sorted({-(-b // dp) * dp for b in self.settings.shape_buckets}))
+        ladder = getattr(self.llm, "ladder", self.settings.shape_buckets)
+        return tuple(sorted({-(-b // dp) * dp for b in ladder}))
 
     def _max_chunk(self) -> int:
         s, dp = self.settings, self.dp

@@ -8,8 +8,10 @@ SHA-256-keyed cache, the reranker's sigmoid relevance sorted descending,
 the LLM's chat prompt from the top docs (`llm_doc_chars` each) with
 prefill buckets, the 5-star sentiment labels and the 0.5 toxicity
 threshold. Every forward runs over row chunks padded to the shape buckets,
-as the reference pads them; the LLM's ladder is the configured one (the
-reference clamps it to a 16 GB TPU's memory).
+as the reference pads them. The LLM's batch ladder is the configured one
+cut, once its weights are loaded, to the lanes the card's free memory
+holds (`utils/hbm.py`, the reference's `:400-411`); the generation path,
+its warm-up and the decode engine's admission take that ladder.
 
 Warm-up (`warmup_buckets`, reference `:175-183`, `:228-236`, `:412-430`):
 the four encoders run one forward of each shape bucket (eager: nothing is
@@ -55,6 +57,7 @@ from ..core.config import Settings
 from ..core.device import torch_dtype
 from ..core.mesh import MeshContext
 from ..utils.cache import LRUCache
+from ..utils.hbm import derive_llm_bucket_ladder, free_device_bytes
 from ..utils.shapes import chunk_spans, pad_rows, pick_bucket
 from . import decode_graph
 from .bert import (
@@ -436,6 +439,8 @@ class LLMComponent:
         # base checkpoints stop at end-of-text, instruct ones at the chat
         # turn delimiter
         self.is_instruct = "instruct" in lname or lname.startswith("tiny")
+        # the batch buckets the card's memory holds: set at load
+        self.ladder: tuple[int, ...] = settings.shape_buckets
         self.params = None
         self.tokenizer = None
         self.random_weights = False
@@ -487,6 +492,10 @@ class LLMComponent:
             vocab_size=self.cfg.vocab_size, pad_id=0, eos_id=2,
             eos_token=eos_token,
         )
+        # the lanes that fit beside the weights and whatever the node loaded
+        # before them (on a mesh, the front device's share)
+        self.ladder = derive_llm_bucket_ladder(self.cfg, s, free_device_bytes(self.device),
+                                               s.shape_buckets)
 
     def build_prompt(self, query: str, docs: Sequence[dict]) -> str:
         """Chat-template prompt from the top `llm_context_docs` docs, each
@@ -533,7 +542,7 @@ class LLMComponent:
         prompts = [self.build_prompt(q, d) for q, d in zip(queries, docs_batch)]
         plen_cap = self._prompt_cap(max_new)
         all_ids, all_mask = self.tokenizer.encode_batch(prompts, plen_cap)
-        ladder = s.shape_buckets
+        ladder = self.ladder
         out: list[str] = []
         for cs, ce in chunk_spans(len(prompts), max(ladder)):
             ids, mask = all_ids[cs:ce], all_mask[cs:ce]
@@ -574,7 +583,7 @@ class LLMComponent:
     def dispatched_buckets(self) -> tuple[int, ...]:
         """The batch buckets the generation scheduler can hand this LLM:
         the ladder up to the one that holds GENERATION_BATCH_SIZE rows."""
-        ladder = self.settings.shape_buckets
+        ladder = self.ladder
         top = pick_bucket(self.settings.generation_batch_size, ladder)
         return tuple(b for b in sorted(ladder) if b <= top)
 
@@ -632,7 +641,7 @@ class LLMComponent:
             cache_len=s.kv_cache_max_len,
             segment_steps=s.decode_segment_steps,
             eos_token_id=self.tokenizer.eos_id,
-            admit_buckets=s.shape_buckets,
+            admit_buckets=self.ladder,
             prefill_buckets=s.prefill_bucket_list,
             pipeline_segments=s.decode_pipeline_segments,
             speculative=s.use_speculative_decoding,

@@ -48,7 +48,8 @@ Routes and wire shapes are the JAX package's (`serve/http.py`,
   `random_weights` and the `checkpoint_dir` it loaded from), and, fields
   of the port only, the launch count of each hand-written kernel in this
   process and, on a node with an LLM, its captured decode graphs
-  (`decode_graphs`: `count` and the MB of their shared pool);
+  (`decode_graphs`: `count` and the MB of their shared pool) and its batch
+  ladder as the card's free memory clamped it at load (`llm_ladder`);
 - `GET /metrics` -> the reference's 16 Prometheus metrics
   (`telemetry/metrics.py`) as `text/plain; version=0.0.4`;
 - `POST /profile/start` -> `{"status": "tracing", "log_dir"}` (409 while a
@@ -337,6 +338,7 @@ class FusedApp:
             "weights": weights_health(named),
             "kernel_launches": kernel_launches(),
             "decode_graphs": decode_graph_health(self.executor.llm),
+            "llm_ladder": list(self.executor.llm.ladder),
         }
 
     def close(self) -> None:
@@ -705,6 +707,7 @@ class StagedApp:
         llm = self.components.get("llm")
         if llm is not None and llm.is_loaded:
             body["decode_graphs"] = decode_graph_health(llm)
+            body["llm_ladder"] = list(llm.ladder)
         return (200 if ok else 503), body
 
     def close(self) -> None:

@@ -31,6 +31,16 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 SIX = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
 
+@pytest.fixture(autouse=True)
+def _ieee_subnormals():
+    """The card keeps f32 subnormals, and so must the emulation: a library
+    linked with -ffast-math that an earlier test of the same process
+    loaded (the JAX package's native code: its Makefile links
+    crtfastmath.o, whose constructor sets flush-to-zero and
+    denormals-are-zero) would flush the third part's small values."""
+    torch.set_flush_denormal(False)
+
+
 def _split(x):
     """x's three bf16 parts, as f32 tensors."""
     x1 = x.bfloat16().float()
