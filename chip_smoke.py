@@ -58,8 +58,9 @@ and exits non-zero before the last line:
 10. serve_staged — the staged path (TOTAL_NODES=1, profile
              single_node_full) over the 1M IVF-Flat index at full width
              (BGE-base, bge-reranker-base, Qwen2.5-0.5B, the two BERT-base
-             classifiers), MAX_TOKENS=128: 10 POST /query, 8 of them
-             concurrent, then one 64-item /retrieve at RETRIEVAL_BATCH_SIZE=64.
+             classifiers), MAX_TOKENS=32 (NODES_MAX_TOKENS): 10 POST /query,
+             8 of them concurrent, then one 64-item /retrieve at
+             RETRIEVAL_BATCH_SIZE=64.
              /health must show the K5 count rising on /query and the K4
              count on /retrieve; recall@10 of the /retrieve ids against
              the exact scan of the bf16 corpus.
@@ -134,7 +135,8 @@ and exits non-zero before the last line:
 20. decode_graph — greedy_generate at Qwen2.5-0.5B width (bf16, random
              weights), prompt bucket 512 (384-512 live tokens), 128 new tokens,
              at B=8 and B=1 (_greedy_against_eager): the step graph against
-             greedy_generate_eager, tokens bit for bit, ms per token of the
+             greedy_generate_eager over the first 32 of them (the eager loop
+             on the graph's cache length), tokens bit for bit, ms per token of the
              eager call and of a second graph call, the graph's capture
              seconds, pool and state MB, the device's peak over the first
              call, no W8A8 launch; at B=8 a torch.profiler trace of 8 step
@@ -221,7 +223,7 @@ and exits non-zero before the last line:
              built-in gateway_default, retrieval_default and
              generation_default profiles, NODE_*_IP=127.0.0.1, a free
              BASE_PORT, serve_staged's INDEX_KIND, nprobe,
-             RETRIEVAL_BATCH_SIZE=64 and MAX_TOKENS=128; models at full
+             RETRIEVAL_BATCH_SIZE=64 and MAX_TOKENS=32; models at full
              width, random seeded weights; COMPRESSION_ALGORITHM zstd where
              zstandard imports, else none). Through the gateway: the two
              sequential /query of serve_staged, whose bodies must be
@@ -357,15 +359,16 @@ the 1B's decode step, prefill and tied head):
              and 48-token documents drawn in the 8B's 128,256-token
              vocabulary (phase line llama_doc_tokens): the fused server of
              phase serve with LLM_MODEL=meta-llama/Llama-3.1-8B-Instruct and
-             LLM_WEIGHT_QUANT=int8, warm-up on: phase serve's 10 /query, 8
-             concurrent, well-formed bodies, K1 and every W8A8 kernel
+             LLM_WEIGHT_QUANT=int8, warm-up on: phase serve's /query, two
+             then 4 concurrent, well-formed bodies, K1 and every W8A8 kernel
              launching; first and second /query, warm-up, graphs and the
              ladder clamped to the card's free memory (/health's
              llm_ladder), the buckets warmed within it.
 37. llama_8b_bf16, llama_8b_int8 — run after engine: Llama-3.1-8B (32
              layers, an untied head) in bf16, then W8A8 quantized at the
              source: greedy at B = 8 and 1, bucket 512, 128 tokens, the
-             step graph against the eager loop, tokens bit for bit; ms a
+             step graph against the eager loop over the first 16, tokens
+             bit for bit; ms a
              token of each, capture s, pool MB, the device's peak GB at load
              and in the first call; each W8A8 kernel's launches the route
              rule's (_greedy_against_eager); at B = 8 a trace of 8 step
@@ -377,8 +380,8 @@ the 1B's decode step, prefill and tied head):
              at B = 8, gamma 8, LLAMA_SPEC_NEW tokens, against greedy, rows
              held by the near-tie rule of phase spec; then on this tree
              (phase line llama_8b_f32_engine) phase engine's DecodeEngine,
-             plain and speculative, over its 16 prompts in the 8B's
-             vocabulary, every sequence held to a solo greedy_generate
+             plain and speculative, over the first 8 of its prompts in the
+             8B's vocabulary, every sequence held to a solo greedy_generate
              under the near-tie rule (32 layers x 8 kv heads x 128).
 39. llama_engine — within llama_8b_int8, on its tree: a DecodeEngine (32
              lanes, cache 1024, segment 8), plain and speculative, over 16
@@ -442,6 +445,10 @@ STAGED_ENV = {
     "DEVICE_PLATFORM": DEVICE, "MODEL_WEIGHTS_DIR": "", "WARMUP_BUCKETS": "0",
     "DOC_STORE_BACKEND": "sqlite", "RETRIEVAL_BATCH_SIZE": "64",
 }
+# serve_staged's and serve_3node's answers (the three nodes' bodies held to
+# serve_staged's): 32 tokens, so node 2's traced /query replays a quarter
+# of the 128 steps' ~240,000 kernels
+NODES_MAX_TOKENS = "32"
 # the fused executor's dispatched buckets at FUSED_CHUNK_LANES=8, which
 # phase serve warms
 FUSED_WARM_BUCKETS = (1, 2, 4, 8)
@@ -492,6 +499,9 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32_add": 67e12 / 2}
 # whose two top f32 logits lie within NEAR_TIE; the engine at the
 # settings' defaults (32 lanes, cache 1024, segment 8)
 DECODE_BUCKET, DECODE_NEW, DECODE_ROUNDS = 512, 128, 1
+# the greedy checks' eager loops run the first DECODE_EAGER_NEW of the
+# graph's DECODE_NEW tokens (Qwen2.5-0.5B: ~45 ms a token eagerly)
+DECODE_EAGER_NEW = 32
 SPEC_GAMMA, INJECT_P, NEAR_TIE = 8, (0.7, 0.9), 1e-4
 # the largest |difference| of the int8 decoder's f32 logits between the
 # verify round and the decode step on the same tokens, at most this many
@@ -587,6 +597,7 @@ def zero_launches() -> None:
         fn.launches = 0
     w8a8.w8a8_gemm_s32.wgmma_launches = 0
     w8a8.w8a8_gemm.few_tile_launches = w8a8.w8a8_gemm_s32.few_tile_launches = 0
+    w8a8.quantize_rows.long_row_launches = 0
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -1025,6 +1036,14 @@ W8A8_SHAPES = [
 W8A8_MAIN = {"small": "decode_gate_up", "wgmma": "prefill_gate_up",
              "quant": "prefill_gate_up", "few_tiles": "verify_qo",
              "small_s32": "decode_down_tp2", "wgmma_s32": "prefill_down_tp2"}
+# `quantize_rows` on its long-row kernel at Llama-3.1-8B's down (K 14,336):
+# the engine step's 32 rows, a verify round's 72, the engine's verify
+# round's 288 and a prefill's 4,096 in bf16; 72 and 4,096 rows in f32 (the
+# int8 speculation hold's activations); the kernels line's is the prefill's
+W8A8_LONG_K = 14336
+W8A8_LONG_ROWS = [(32, "bfloat16"), (72, "bfloat16"), (288, "bfloat16"),
+                  (4096, "bfloat16"), (72, "float32"), (4096, "float32")]
+W8A8_LONG_MAIN = (4096, "bfloat16")
 # the row-parallel products of Qwen2.5-0.5B at tp = 2 (each shard's columns
 # of the int8 rows by its weight rows, exact s32): name, M, K/tp, N
 W8A8_TP_SHAPES = [("decode_o_tp2", 8, 448, 896), ("decode_down_tp2", 8, 2432, 896),
@@ -1166,6 +1185,32 @@ def phase_w8a8():
         rows[name] = row
         del x, weights, biases, q, sc, want, got
         torch.cuda.empty_cache()
+    long_rows = {}
+    for m, dtype in W8A8_LONG_ROWS:
+        k, dt = W8A8_LONG_K, getattr(torch, dtype)
+        x = (torch.randn(m, k, generator=g, device=DEVICE) * 3).to(dt)
+        plan = w8a8._quant_plan(m, k, w8a8._IN_KINDS[dt], w8a8._sms(0))
+        check(plan[0] == w8a8._Q_LONG, f"{m} x {k} {dtype} is not on the long-row "
+              f"kernel: {plan}")
+        q, sc = w8a8.quantize_rows(x)
+        pq, ps = w8a8.quantize_rows_plain(x)
+        check(torch.equal(q, pq) and torch.equal(sc, ps),
+              f"quantize_rows' long-row kernel differs from its plain version at {m} x {k} "
+              f"{dtype} on {plan}")
+        it, pit = (20, 3) if m >= 4096 else (100, 20)
+        km = {"ms": graph_ms(lambda: w8a8.quantize_rows(x), it),
+              "plain_ms": cuda_ms(lambda: w8a8.quantize_rows_plain(x), pit),
+              "max_abs_err": 0.0, "library_ms": None}
+        km.update(bound(m * k * (dt.itemsize + 1) + 4 * m, 0, "int8"))
+        long_rows[f"{dtype}_m{m}"] = {
+            "plan": list(plan), "us": round(km["ms"] * 1e3, 3),
+            "bound_us": round(km["bound_ms"] * 1e3, 3),
+            "of_bound": round(km["bound_ms"] / km["ms"], 3),
+            "plain_ms": round(km["plain_ms"], 4), "bit_identical": True}
+        if (m, dtype) == W8A8_LONG_MAIN:
+            out["quant_long"] = km
+        del x, q, sc, pq, ps
+    torch.cuda.empty_cache()
     # the s32 kind (a row-parallel shard's partial) on both routes, at
     # every row-parallel shape, bit for bit against its plain twin
     s32 = {}
@@ -1204,6 +1249,7 @@ def phase_w8a8():
     phase("w8a8", t0, bit_identical=True, ragged_cases=cases, m_star=w8a8.M_STAR,
           main=json.dumps(W8A8_MAIN, separators=(",", ":")), **host,
           shapes=json.dumps(rows, separators=(",", ":")),
+          quant_long_rows=json.dumps(long_rows, separators=(",", ":")),
           s32_tp2=json.dumps(s32, separators=(",", ":")))
     return out
 
@@ -1436,7 +1482,10 @@ def _post(port: int, query: str, rid: str):
         return r.status, body, time.perf_counter() - t0
 
 
-def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
+def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve",
+                concurrent: int = 8):
+    """A fused server on `paths` with `extra` settings: two /query, then
+    `concurrent` at once; bodies, K1 and the W8A8 launches, warm-up."""
     from rag_inference_pipeline_tpu_torch.core.config import load_settings
     from rag_inference_pipeline_tpu_torch.ops import w8a8
     from rag_inference_pipeline_tpu_torch.ops.topk import binmax_partial_topk_int8gs
@@ -1456,16 +1505,16 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
             health = json.loads(r.read())
         check(all(health["components"].values()), f"not loaded: {health}")
         graphs_before = health["decode_graphs"]
-        queries = [f"what does the corpus say about topic {i}?" for i in range(10)]
+        queries = [f"what does the corpus say about topic {i}?" for i in range(2 + concurrent)]
         # warm-up launched the kernels too: the counts start after /health
         zero_launches()
         results = [_post(port, queries[0], "q0"), _post(port, queries[1], "q1")]
-        conc = [None] * 8
+        conc = [None] * concurrent
 
         def ask(i):
             conc[i] = _post(port, queries[2 + i], f"q{2 + i}")
 
-        threads = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(concurrent)]
         tc = time.perf_counter()
         for t in threads:
             t.start()
@@ -1502,12 +1551,13 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve"):
         "second_s": round(results[1][2], 4),
         "p50_s": round(statistics.median(lat), 4),
         "max_s": round(lat[-1], 4),
-        "concurrent8_wall_s": round(conc_wall, 4),
+        f"concurrent{concurrent}_wall_s": round(conc_wall, 4),
         "k1_launches": launches,
         "w8a8_small_launches": w8a8_launches[0],
         "w8a8_wgmma_launches": w8a8_launches[1],
         "quantize_rows_launches": w8a8_launches[2],
         "w8a8_few_tile_launches": w8a8_launches[3],
+        "quantize_rows_long_launches": w8a8_launches[4],
         "llm_ladder": ",".join(map(str, health["llm_ladder"])),
     }
     ex = server.executor
@@ -1813,7 +1863,7 @@ def phase_serve_staged(ivf, corpus, queries, db_path: str):
     from rag_inference_pipeline_tpu_torch.ops.topk import exact_topk
 
     t0 = time.perf_counter()
-    env = {**STAGED_ENV, "DOCUMENT_DB_PATH": db_path}
+    env = {**STAGED_ENV, "DOCUMENT_DB_PATH": db_path, "MAX_TOKENS": NODES_MAX_TOKENS}
     server, th = _serve(env, ivf)
     port = server.server_address[1]
     load_s = time.perf_counter() - t0
@@ -2005,7 +2055,7 @@ def phase_serve_3node(ivf, queries, db_path: str, workdir: str, staged: dict):
     base = _free_base()
     # the nodes take the serving default: WARMUP_BUCKETS unset is on
     env = {k: v for k, v in STAGED_ENV.items() if k != "WARMUP_BUCKETS"}
-    env.update({"TOTAL_NODES": "3", "BASE_PORT": str(base),
+    env.update({"TOTAL_NODES": "3", "BASE_PORT": str(base), "MAX_TOKENS": NODES_MAX_TOKENS,
                 "NODE_0_IP": "127.0.0.1", "NODE_1_IP": "127.0.0.1", "NODE_2_IP": "127.0.0.1",
                 "INDEX_PATH": index_path, "INDEX_NPROBE": str(ivf.nprobe),
                 "DOCUMENT_DB_PATH": db_path,
@@ -2927,10 +2977,13 @@ def _wall(fn):
     return out, time.perf_counter() - t0
 
 
-def _greedy_against_eager(tag: str, params, cfg, b: int, quantize: bool):
+def _greedy_against_eager(tag: str, params, cfg, b: int, quantize: bool,
+                          eager_new: int = DECODE_EAGER_NEW):
     """greedy_generate at `b` lanes over DECODE_BUCKET-token prompts in the
     decoder's vocabulary, DECODE_NEW new tokens: the step graph (its first
-    call captures it) against the eager loop, tokens bit for bit, and a
+    call captures it) against the eager loop over the first `eager_new` of
+    them (on a cache of the graph's length, so every step runs the same
+    shapes), tokens bit for bit, and a
     second graph call the first's; ms a token of the eager call and of the
     second graph call, the capture's s, its pool and state MB, the device's
     peak GB over the first call above what was allocated before. Each W8A8
@@ -2954,15 +3007,14 @@ def _greedy_against_eager(tag: str, params, cfg, b: int, quantize: bool):
         params, cfg, ids, mask, n, eos_token_id=-1))
     peak = torch.cuda.max_memory_allocated() - base
     launches = _w8a8_counts()
-    step = w8a8_launches(cfg, b, b) if quantize else (0, 0, 0, 0)
+    step = w8a8_launches(cfg, b, b) if quantize else W8A8_NONE
     want = tuple(p + q for p, q in zip(w8a8_launches(cfg, b * DECODE_BUCKET, b), step)) \
-        if quantize else (0, 0, 0, 0)
-    check(launches == want, f"{tag} B={b}: (small-row, wgmma, quantize, few-tile) "
-          f"launches {launches}, not {want}")
+        if quantize else W8A8_NONE
+    check(launches == want, f"{tag} B={b}: {W8A8_COUNTS} launches {launches}, not {want}")
     entry = graphs.entries()[before]
     eager_toks, eager_s = _wall(lambda: qwen.greedy_generate_eager(
-        params, cfg, ids, mask, n, eos_token_id=-1))
-    check(torch.equal(graph_toks, eager_toks),
+        params, cfg, ids, mask, eager_new, eos_token_id=-1, cache_len=DECODE_BUCKET + n))
+    check(torch.equal(graph_toks[:, :eager_new], eager_toks),
           f"{tag} greedy at B={b}: graph and eager tokens differ")
     again, graph_s = _wall(lambda: qwen.greedy_generate(
         params, cfg, ids, mask, n, eos_token_id=-1))
@@ -2971,7 +3023,7 @@ def _greedy_against_eager(tag: str, params, cfg, b: int, quantize: bool):
                                               & (graph_toks < cfg.vocab_size)).all()),
           f"{tag} B={b}: tokens out of the vocabulary")
     cache = entry.state.cache
-    stats = {f"b{b}_eager_ms_per_token": f"{eager_s / n * 1e3:.3f}",
+    stats = {f"b{b}_eager_ms_per_token": f"{eager_s / eager_new * 1e3:.3f}",
              f"b{b}_graph_ms_per_token": f"{graph_s / n * 1e3:.3f}",
              f"b{b}_first_call_s": f"{first_s:.3f}",
              f"b{b}_capture_s": f"{entry.graph.capture_s:.3f}",
@@ -3171,16 +3223,25 @@ def phase_serve_w8a8(paths: dict) -> dict:
     return {**stats, "bodies": bodies}
 
 
-def w8a8_launches(cfg, rows: int, head_rows: int) -> tuple[int, int, int, int]:
-    """(small-row, wgmma, quantize, few-tile) launches of one Qwen forward
-    pass over `rows` token rows whose head sees `head_rows`, by
-    ops/w8a8.py's route rule: a product is one launch a group (q/k/v, o,
-    gate/up, down, the head) on either route, and a wgmma one quantizes x
-    first; few-tile counts the wgmma launches whose plan (`_gemm_plan`)
-    takes 64-column tiles."""
+# the W8A8 launch counts, in this order, and none of them
+W8A8_COUNTS = "(small-row, wgmma, quantize, few-tile, long-row quantize)"
+W8A8_NONE = (0, 0, 0, 0, 0)
+
+
+def w8a8_launches(cfg, rows: int, head_rows: int,
+                  dtype: str = "bfloat16") -> tuple[int, int, int, int, int]:
+    """W8A8_COUNTS launches of one Qwen forward pass over `rows` token rows
+    of `dtype` activations whose head sees `head_rows`, by ops/w8a8.py's
+    route rule: a product is one launch a group (q/k/v, o, gate/up, down,
+    the head) on either route, and a wgmma one quantizes x first; few-tile
+    counts the wgmma launches whose plan (`_gemm_plan`) takes 64-column
+    tiles, long-row quantize the quantizes whose plan (`_quant_plan`) takes
+    the long-row kernel."""
+    import torch
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
-    small = wgmma = quant = few = 0
+    kind = w8a8._IN_KINDS[getattr(torch, dtype)]
+    small = wgmma = quant = few = long = 0
     q, kv, inter = cfg.heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim, cfg.intermediate
     layer = [(cfg.hidden, (q, kv, kv)), (q, (cfg.hidden,)), (cfg.hidden, (inter, inter)),
              (inter, (cfg.hidden,))]
@@ -3189,18 +3250,20 @@ def w8a8_launches(cfg, rows: int, head_rows: int) -> tuple[int, int, int, int]:
         if w8a8._route(m, k, True) == "wgmma":
             wgmma, quant = wgmma + 1, quant + 1
             few += w8a8._gemm_plan(m, k, ns, w8a8._sms(0))[1] == 64
+            long += w8a8._quant_plan(m, k, kind, w8a8._sms(0))[0] >= w8a8._Q_LONG
         else:
             small += 1
-    return small, wgmma, quant, few
+    return small, wgmma, quant, few, long
 
 
-def _w8a8_counts() -> tuple[int, int, int, int]:
-    """(small-row, wgmma, quantize, few-tile) launches counted by the W8A8
-    wrappers since zero_launches()."""
+def _w8a8_counts() -> tuple[int, int, int, int, int]:
+    """W8A8_COUNTS launches counted by the W8A8 wrappers since
+    zero_launches()."""
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     return (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
-            w8a8.quantize_rows.launches, w8a8.w8a8_gemm.few_tile_launches)
+            w8a8.quantize_rows.launches, w8a8.w8a8_gemm.few_tile_launches,
+            w8a8.quantize_rows.long_row_launches)
 
 
 def _path_logit_gap(params, cfg, ids, mask, toks, gamma: int):
@@ -3380,10 +3443,11 @@ def _int8_speculation(cfg, params, ids, mask, n: int = DECODE_NEW) -> dict:
                                               eos_token_id=-1)
     launches = _w8a8_counts()
     rows = b * (gamma + 1)
-    round_rule = w8a8_launches(cfg, rows, rows)
-    want = tuple(p + r for p, r in zip(w8a8_launches(cfg, ids.numel(), b), round_rule))
-    check(launches == want, f"decode_w8a8 spec: (small-row, wgmma, quantize, few-tile) "
-          f"launches {launches}, not {want}")
+    round_rule = w8a8_launches(cfg, rows, rows, "float32")
+    want = tuple(p + r for p, r in zip(w8a8_launches(cfg, ids.numel(), b, "float32"),
+                                       round_rule))
+    check(launches == want, f"decode_w8a8 spec: {W8A8_COUNTS} launches {launches}, "
+          f"not {want}")
     check(launches[3] > 0, "decode_w8a8 spec: no launch on the plan for few row tiles")
     readings = _int8_spec_readings(fparams, cfg, ids, mask, greedy, toks, gamma)
     held = _hold_int8_speculation(readings)
@@ -3480,9 +3544,9 @@ def phase_decode_w8a8(bf16_stats: dict) -> dict:
     return {**stats, "few_tile_launches": spec["launches"][3]}
 
 
-def _engine_against_greedy(name: str, params, cfg) -> dict:
+def _engine_against_greedy(name: str, params, cfg, requests: int = ENGINE_REQUESTS) -> dict:
     """A DecodeEngine over the float32 tree `params` (32 lanes, cache 1024,
-    segment 8), plain and speculative: ENGINE_REQUESTS prompts of 64-512
+    segment 8), plain and speculative: `requests` prompts of 64-512
     tokens in the decoder's vocabulary with budgets of 16-128, each
     sequence its budget long and held to a solo greedy_generate under the
     near-tie rule -> stats (wall, segments, tokens, capture s, pool MB)."""
@@ -3494,8 +3558,8 @@ def _engine_against_greedy(name: str, params, cfg) -> dict:
     from rag_inference_pipeline_tpu_torch.models import qwen
 
     rng = np.random.default_rng(31)
-    lens = rng.integers(64, 513, ENGINE_REQUESTS)
-    budgets = rng.integers(16, 129, ENGINE_REQUESTS)
+    lens = rng.integers(64, 513, requests)
+    budgets = rng.integers(16, 129, requests)
     prompts = [rng.integers(1000, cfg.vocab_size - 1, int(k)).astype(np.int32) for k in lens]
     eos = -1
     refs = []
@@ -3631,6 +3695,16 @@ LLAMA_8B_NAME = "meta-llama/Llama-3.1-8B-Instruct"
 # the 8B's speculation holds (the int8 rule, the f32 near-tie rule) over
 # this many new tokens: their eager replays take ~0.1 s a token at 8B depth
 LLAMA_SPEC_NEW = 32
+# the Llama greedy checks' eager loops: the first 16 of the graph's
+# DECODE_NEW tokens (~0.1 s a token eagerly at the 8B)
+LLAMA_EAGER_NEW = 16
+# the f32 8B engine's prompts, each held to a solo f32 greedy call (~22 ms
+# a token at B = 1)
+LLAMA_F32_ENGINE_REQUESTS = 8
+# llama_serve's concurrent /query after its first two (~2.7 s each)
+LLAMA_SERVE_CONCURRENT = 4
+
+
 def _llama_tree(cfg, quantize: bool, dtype, seed: int = 0):
     """A Llama preset at full width from `seed`, int8 at the source with
     `quantize` (each leaf quantized as it is drawn) -> (tree, its load
@@ -3682,11 +3756,11 @@ def phase_llama_8b(quantize: bool) -> dict:
     cfg = qwen.QwenConfig.llama31_8b()
     tag = "int8" if quantize else "bf16"
     params, stats = _llama_tree(cfg, quantize, torch.bfloat16)
-    launches = (0, 0, 0, 0)
+    launches = W8A8_NONE
     with torch.inference_mode():
         for b in (MAIN_B, 1):
             st, counted, prompts = _greedy_against_eager(f"llama_8b_{tag}", params, cfg, b,
-                                                          quantize)
+                                                          quantize, LLAMA_EAGER_NEW)
             stats.update(st)
             launches = tuple(a + c for a, c in zip(launches, counted))
             if b == MAIN_B:
@@ -3756,10 +3830,11 @@ def phase_llama_8b_f32_spec() -> dict:
                  spec_first_call_s=f"{spec_s:.3f}", greedy_first_call_s=f"{greedy_s:.3f}")
     phase("llama_8b_f32_spec", t0, gamma=SPEC_GAMMA, new_tokens=n, batch=MAIN_B, **stats)
     t1 = time.perf_counter()
-    engine = _engine_against_greedy("llama_8b_f32_engine", params, cfg)
+    engine = _engine_against_greedy("llama_8b_f32_engine", params, cfg,
+                                    LLAMA_F32_ENGINE_REQUESTS)
     del params
     _free_tree()
-    phase("llama_8b_f32_engine", t1, model=LLAMA_8B_NAME, requests=ENGINE_REQUESTS,
+    phase("llama_8b_f32_engine", t1, model=LLAMA_8B_NAME, requests=LLAMA_F32_ENGINE_REQUESTS,
           lanes=ENGINE_LANES, cache_len=ENGINE_CACHE, segment=ENGINE_SEGMENT, **engine)
     return stats
 
@@ -3790,7 +3865,7 @@ def _llama_engine(params, cfg) -> dict:
     lens = rng.integers(64, 513, ENGINE_REQUESTS)
     budgets = rng.integers(16, 129, ENGINE_REQUESTS)
     prompts = [rng.integers(1000, cfg.vocab_size - 1, int(k)).astype(np.int32) for k in lens]
-    stats, launches = {}, (0, 0, 0, 0)
+    stats, launches = {}, W8A8_NONE
     for spec in (False, True):
         tag = "spec" if spec else "plain"
         eng = DecodeEngine(params, cfg, lanes=ENGINE_LANES, cache_len=ENGINE_CACHE,
@@ -3815,7 +3890,7 @@ def _llama_engine(params, cfg) -> dict:
               f"llama_engine ({tag}): a request returned other than its budget")
         check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
               f"llama_engine ({tag}): a token out of the vocabulary")
-        check(counted[0] > 0 and counted[1] > 0,
+        check(counted[0] > 0 and counted[1] > 0 and counted[4] > 0,
               f"llama_engine ({tag}): the W8A8 kernels did not launch ({counted})")
         # one segment: the graph against the eager body from the same state
         for p, m in zip(prompts, budgets):
@@ -3858,7 +3933,7 @@ def phase_llama_serve(paths: dict, workdir: str) -> dict:
     and LLM_WEIGHT_QUANT=int8 (the reference's one-chip deployment), warm-up
     on, over phase corpus's 1M x 768 int8 index (bf16 re-score on the card)
     and 48-token documents drawn in the 8B's 128,256-token vocabulary:
-    phase serve's 10 /query (8 concurrent) with well-formed bodies, K1 and
+    two /query and LLAMA_SERVE_CONCURRENT at once with well-formed bodies, K1 and
     every W8A8 kernel launching; /health's clamped ladder (`llm_ladder`)
     and decode graphs."""
     import numpy as np
@@ -3880,7 +3955,7 @@ def phase_llama_serve(paths: dict, workdir: str) -> dict:
     tag = "llama_serve"
     executor, _, stats, _, health = phase_serve(
         llama_paths, {"LLM_MODEL": LLAMA_8B_NAME, "LLM_WEIGHT_QUANT": "int8",
-                      "WARMUP_BUCKETS": "1"}, tag)
+                      "WARMUP_BUCKETS": "1"}, tag, LLAMA_SERVE_CONCURRENT)
     llm = executor.llm
     check(llm.cfg == qwen.QwenConfig.llama31_8b(), f"{tag}: the LLM is not the 8B")
     check(isinstance(llm.params.lm_head, QuantizedLinear),
@@ -3905,13 +3980,13 @@ def phase_llama_1b() -> dict:
 
     t0 = time.perf_counter()
     cfg = qwen.QwenConfig.llama32_1b()
-    stats, launches = {}, (0, 0, 0, 0)
+    stats, launches = {}, W8A8_NONE
     with torch.inference_mode():
         for quantize in (False, True):
             tag = "int8" if quantize else "bf16"
             params, load = _llama_tree(cfg, quantize, torch.bfloat16)
             st, counted, _ = _greedy_against_eager(f"llama_1b_{tag}", params, cfg, MAIN_B,
-                                                 quantize)
+                                                 quantize, LLAMA_EAGER_NEW)
             stats.update({f"{tag}_{k}": v for k, v in {**load, **st}.items()})
             launches = tuple(a + c for a, c in zip(launches, counted))
             del params
@@ -4793,12 +4868,14 @@ def main() -> int:
     phase_llama_8b_f32_spec()
     llama_int8 = phase_llama_8b(True)
     llama_1b = phase_llama_1b()
-    # the Llama paths' W8A8 launches (small-row, wgmma, quantize, few-tile):
-    # the 8B's greedy, speculation and engine, the 1B's greedy, the server
+    # the Llama paths' W8A8_COUNTS launches: the 8B's greedy, speculation
+    # and engine, the 1B's greedy, the server
     llama = [sum(c) for c in zip(
         llama_int8["launches"], llama_1b["launches"],
         (llama_serve["w8a8_small_launches"], llama_serve["w8a8_wgmma_launches"],
-         llama_serve["quantize_rows_launches"], llama_serve["w8a8_few_tile_launches"]))]
+         llama_serve["quantize_rows_launches"], llama_serve["w8a8_few_tile_launches"],
+         llama_serve["quantize_rows_long_launches"]))]
+    check(llama[4] > 0, "the Llama phases launched no long-row quantize")
     tp_encode = phase_tp_encode()
     phase_sp()
     check("jax" not in sys.modules, "jax was imported")
@@ -4846,7 +4923,13 @@ def main() -> int:
         entry("w8a8_gemm_wgmma_few_tiles", "rag_inference_pipeline_tpu/models/layers.py:92",
               w8_decode["few_tile_launches"] + llama[3], w8["few_tiles"], "w8a8_wgmma"),
         entry("w8a8_quant", "rag_inference_pipeline_tpu/models/layers.py:80",
-              w8_serve["quantize_rows_launches"] + llama[2], w8["quant"]),
+              w8_serve["quantize_rows_launches"] - w8_serve["quantize_rows_long_launches"]
+              + llama[2] - llama[4], w8["quant"]),
+        # its long-row kernel (rows past 8,192 bf16: the 8B's down), from the
+        # Llama phases
+        entry("w8a8_quant_long_rows", "rag_inference_pipeline_tpu/models/layers.py:80",
+              w8_serve["quantize_rows_long_launches"] + llama[4], w8["quant_long"],
+              "w8a8_quant"),
         # the s32 kind of both GEMMs: a row-parallel shard's partial at tp = 2
         # (o and down; the reference's int32 psum over tp), from mesh_tp
         entry("w8a8_gemm_small_rows_s32", "rag_inference_pipeline_tpu/models/layers.py:92",

@@ -6,8 +6,9 @@
 // shared-memory matrix
 // descriptors (K-major and MN-major) and the warpgroup products (s8, and
 // bf16/f16 with A from shared memory or registers) with their fence,
-// commit and wait; and, for the W8A8 GEMM's split K, the cluster barrier,
-// mapa and stores into another block's shared memory; and programmatic
+// commit and wait; and, for the W8A8 GEMM's split K and the long-row
+// quantize, the cluster barrier, mapa and stores into another block's
+// shared memory; and programmatic
 // dependent launch's wait and trigger.
 //
 // Every helper is `asm volatile` with a "memory" clobber where it touches
@@ -318,6 +319,11 @@ __device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
 __device__ __forceinline__ void st_cluster_v2(uint32_t addr, int a, int b) {
   asm volatile("st.shared::cluster.v2.s32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b)
                : "memory");
+}
+
+// one f32 value to a shared::cluster address
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 
 // a TMA descriptor (a __grid_constant__ parameter, by generic address)

@@ -160,8 +160,8 @@ def load_library() -> ctypes.CDLL:
             + [ctypes.POINTER(i32)] + [i32] * 9 + [vp],
             # mt, K -> a block's shared memory (no stream: a host query)
             "ragtorch_w8a8_qgemm_smem": [i32] * 2,
-            # x, q, s, M, K, in_kind, stream
-            "ragtorch_w8a8_quantize_rows": [vp] * 3 + [i32] * 3 + [vp],
+            # x, q, s, M, K, in_kind, path, warps, cluster, stream
+            "ragtorch_w8a8_quantize_rows": [vp] * 3 + [i32] * 6 + [vp],
             # q, k, v, seg_q, seg_kv, out, B, T, H, dh, the (b, t, h)
             # element strides of q, k and v, kind, stream
             "ragtorch_flash_attention": [vp] * 6 + [i32] * 4 + [i64] * 9 + [i32, vp],

@@ -14,7 +14,9 @@ kernels written by hand for Hopper, on two routes that `_route` chooses by
 shape:
 
 - large row counts (M > `M_STAR`, K % 16 == 0, 16-byte-aligned weights):
-  `quantize_rows` (`csrc/w8a8_quant.cu`, one warp a row), then `w8a8_gemm`
+  `quantize_rows` (`csrc/w8a8_quant.cu`, on the plan `_quant_plan` gives:
+  1 to 8 warps a row up to 8,192 bf16, a block of up to 32 warps a row, or
+  a cluster of 2 to 8 such blocks, past that), then `w8a8_gemm`
   (`csrc/w8a8_wgmma.cu`: s8 wgmma fed by TMA), one launch for the group
   on the plan `_gemm_plan` gives: 128-column tiles over all of K where
   they fill the card, else 64 x 64 tiles, and there K split across the
@@ -39,7 +41,8 @@ by the plain version, and no route picks it); on CPU tensors it runs
 `quantize_rows_plain` / `w8a8_gemm_plain` / `w8a8_dense_plain`, the
 kernels' oracles, which the tests hold to the JAX package bit for bit. Each
 kernel counts the launches it makes outside a CUDA graph capture
-(`quantize_rows.launches`, `w8a8_gemm.launches`, `w8a8_qgemm.launches`,
+(`quantize_rows.launches`, of which `quantize_rows.long_row_launches`
+took the long-row kernel, `w8a8_gemm.launches`, `w8a8_qgemm.launches`,
 and for the s32 kind `w8a8_gemm_s32.launches`, of which
 `w8a8_gemm_s32.wgmma_launches` took the wgmma route; of the wgmma launches
 of either kind, `few_tile_launches` took the plan for few row tiles): a
@@ -79,6 +82,12 @@ _BLOCK_SMEM, _SM_SMEM, _SM_RESERVED = 232_448, 233_472, 1024
 # warpgroup (one or two), 128 or 64 columns; K split over at most 8 blocks
 # of a cluster (the portable cluster size)
 _WG_BLOCK_K, _WG_MAX_SPLIT = 128, 8
+# csrc/w8a8_quant.cu's kernels (`Path`): the scalar fallback, the short-row
+# kernel (1 to 8 warps a row, 8-warp blocks), the long-row kernel with the
+# row in registers or streamed twice; at most 4 16-byte pieces a lane in
+# registers, 32 warps a block, 8 blocks a row (the portable cluster size)
+_Q_SCALAR, _Q_SHORT, _Q_LONG, _Q_STREAMED = 0, 1, 2, 3
+_Q_VECS, _Q_SHORT_WARPS, _Q_MAX_WARPS, _Q_MAX_CLUSTER = 4, 8, 32, 8
 
 Weights = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -275,6 +284,53 @@ def _pdl(k: int) -> bool:
     return k < 32 * _WG_BLOCK_K
 
 
+@functools.lru_cache(maxsize=256)
+def _quant_plan(m: int, k: int, in_kind: int, sms: int,
+                aligned: bool = True) -> tuple[int, int, int]:
+    """(path, warps, cluster) of a `quantize_rows` launch over x [M, K] of
+    `in_kind` (`_IN_KINDS`) on `sms` SMs, x 16-byte aligned or not
+    (`csrc/w8a8_quant.cu`'s paths):
+
+    - a K that is not a whole number of 16-byte pieces, or an x off 16
+      bytes: the scalar kernel, one warp a row (no model's product);
+    - a row of at most 8 warps x 32 lanes x 4 pieces (8,192 bf16, 4,096
+      f32): the short-row kernel on the fewest warps (1, 2, 4, 8) that
+      hold it at 4 pieces a lane;
+    - a longer row: the long-row kernel on the fewest blocks a row (a
+      cluster of 1, 2, 4, 8) that hold it in registers, 32 warps x 32
+      lanes x 4 pieces a block, and each block on the fewest warps that
+      hold its slice. Where one block holds the row and the rows outnumber
+      the SMs, two blocks a row when that evens the SMs' load by a tenth
+      or more (the most rows' worth on one SM, all blocks resident):
+      Llama-3.1-8B's down (K 14,336) at the engine's verify round's 288
+      rows takes 2 blocks of 7 warps a row, every other row count one of
+      14. Measured on an H100 (`tools/bench_w8a8.py` `quant`, PERF.md):
+      two blocks a row 7.45 us against one's 8.24 at 288 rows; at 32 and
+      72 rows, 2 to 8 blocks a row gain nothing or lose up to 1.1 us (the
+      cluster barrier), at 4,096 rows they lose 4% to 93%. Past what 8
+      blocks hold (262,144 bf16), 8 blocks of 32 warps stream the row and
+      read it twice."""
+    elems = 16 // (2 if in_kind == _IN_KINDS[torch.bfloat16] else 4)
+    if not aligned or k % elems:
+        return _Q_SCALAR, 1, 1
+    pieces, warp = k // elems, 32 * _Q_VECS
+    if pieces <= _Q_SHORT_WARPS * warp:
+        g = 1
+        while g * warp < pieces:
+            g *= 2
+        return _Q_SHORT, g, 1
+    block = _Q_MAX_WARPS * warp
+    cluster = 1
+    while cluster < _Q_MAX_CLUSTER and cluster * block < pieces:
+        cluster *= 2
+    if cluster == 1 and m > sms and -(-2 * m // sms) / 2 <= 0.9 * -(-m // sms):
+        cluster = 2
+    per = -(-pieces // cluster)
+    if per > block:
+        return _Q_STREAMED, _Q_MAX_WARPS, cluster
+    return _Q_LONG, -(-per // warp), cluster
+
+
 @functools.lru_cache(maxsize=16)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -286,9 +342,10 @@ def _sms(index: int) -> int:
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x [M, K] (bf16 or f32, contiguous) -> (q [M, K] int8, s [M] f32).
 
-    On CUDA tensors this launches csrc/w8a8_quant.cu (or raises); on CPU
-    tensors it runs `quantize_rows_plain`. The checks come cheapest first:
-    the wrapper sits on every large-row product."""
+    On CUDA tensors this launches csrc/w8a8_quant.cu on the plan
+    `_quant_plan` gives (or raises); on CPU tensors it runs
+    `quantize_rows_plain`. The checks come cheapest first: the wrapper
+    sits on every large-row product."""
     shape = x.shape
     kind = _IN_KINDS.get(x.dtype)
     if len(shape) != 2:
@@ -303,9 +360,13 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     q = torch.empty(shape, dtype=torch.int8, device=x.device)
     s = torch.empty(m, dtype=torch.float32, device=x.device)
     if m and k:
-        _kernels.launch("ragtorch_w8a8_quantize_rows", x.get_device(), x.data_ptr(),
-                        q.data_ptr(), s.data_ptr(), m, k, kind)
-        _counted(quantize_rows)
+        index = x.get_device()
+        path, warps, cluster = _quant_plan(m, k, kind, _sms(index), x.data_ptr() % 16 == 0)
+        _kernels.launch("ragtorch_w8a8_quantize_rows", index, x.data_ptr(), q.data_ptr(),
+                        s.data_ptr(), m, k, kind, path, warps, cluster)
+        if not torch.cuda.is_current_stream_capturing():
+            quantize_rows.launches += 1
+            quantize_rows.long_row_launches += path >= _Q_LONG
     return q, s
 
 
@@ -568,6 +629,7 @@ def w8a8_row_dense(
 # kernel launches, for chip_smoke.py: a call under a CUDA graph capture
 # records the launch into the graph and runs nothing, so it counts nothing
 quantize_rows.launches = 0
+quantize_rows.long_row_launches = 0
 w8a8_gemm.launches = 0
 w8a8_qgemm.launches = 0
 w8a8_gemm_s32.launches = 0

@@ -2,7 +2,7 @@
 checkouts.
 
     python3 rag_inference_pipeline_tpu_torch/tools/bench_w8a8.py [--out PATH] [--sweep]
-        [--against PARENT_ROOT]
+        [--llama8b] [--against PARENT_ROOT]
 
 Imports `rag_inference_pipeline_tpu_torch` from the checkout this file sits
 in, builds its kernels and times on one card, with seeded random inputs:
@@ -15,10 +15,17 @@ in, builds its kernels and times on one card, with seeded random inputs:
   M > 16, `torch._int_mm` on the quantized rows as a yardstick; where the
   product takes the wgmma route, its first weight's GEMM alone (`gemm_ms`,
   `w8a8_gemm`, the same call in any checkout) beside `_int_mm` on it;
-- the products of few row tiles in the order a Qwen layer runs them
-  (`model_order`): an elementwise kernel writing x, `quantize_rows`, then
-  the group's wgmma GEMM (or `torch._int_mm` a weight), as a replayed
-  graph: the GEMM no longer follows another GEMM;
+- `quantize_rows` alone (`quant`) at Qwen2.5-0.5B's and Llama-3.2-1B's
+  rows and at Llama-3.1-8B's down (K 14,336: 32, 72, 288 and 4,096 rows,
+  bf16, and f32 at 72 and 4,096), as a replayed graph, with its bound
+  (the row read once, q and s written once) and share; where the
+  checkout has `_quant_plan`, its plan and, at the 8B's down, the
+  long-row kernel's time on every cluster size and streamed (keys
+  "path,warps,cluster");
+- the products of few row tiles, and the 8B's down, in the order a layer
+  runs them (`model_order`): an elementwise kernel writing x,
+  `quantize_rows`, then the group's wgmma GEMM (or `torch._int_mm` a
+  weight), as a replayed graph: the GEMM no longer follows another GEMM;
 - the B = 8 greedy step of Qwen2.5-0.5B at full width (random weights
   from seed 0, prompt bucket 512) in int8 (W8A8) and in bf16: device ms a
   step over replays of the step graph, ms a token of a whole
@@ -29,6 +36,13 @@ in, builds its kernels and times on one card, with seeded random inputs:
   (72 rows; bf16 activations): device ms a round over replays of its
   graph, and from a torch.profiler trace the kernel time a round, its
   W8A8 kernels' share and their count.
+
+`--llama8b` adds Llama-3.1-8B in W8A8 at full width and depth (random
+weights from seed 0): its greedy step at 32 lanes (the engine's step, the
+down on the wgmma route) and its verify round at B = 8, gamma 8, each as
+above (device ms, W8A8 ms and kernels from a trace); speculation's ms a
+token over LLAMA_SPEC_NEW tokens at B = 8; the decode engine's wall over
+`chip_smoke.py`'s 16 prompts, plain and speculative.
 
 `--sweep` times the two routes of the checkout's `ops/w8a8.py` against each
 other at 8 to 512 rows for Qwen2.5-0.5B's groups (the small-row kernel, and
@@ -43,8 +57,9 @@ shapes (`plans`), against which `_gemm_plan`'s rule is set.
 `--against PARENT_ROOT` compares two checkouts on one card in one call: it
 copies this file into PARENT_ROOT's `rag_inference_pipeline_tpu_torch/
 tools/` and runs it there and here in turns (parent, change, change,
-parent), each in a process of its own (the sweep only here), then prints
-and writes the four runs as one JSON. Without it, prints one JSON line and
+parent), each in a process of its own (the sweep only here, `--llama8b`
+in every turn), then prints and writes the four runs as one JSON.
+Without it, prints one JSON line and
 writes it to `--out` (default `build/bench/w8a8.json`); needs a card.
 """
 
@@ -97,13 +112,34 @@ PDL_SHAPES = [("prefill_gate", 4096, 896, (4864,)), ("prefill_down", 4096, 4864,
               ("engine_gate_up", 288, 896, (4864, 4864)),
               ("prefill_down_tp2", 4096, 2432, (896,)),
               ("encoder_ffn_out", 4096, 3072, (768,))]
-# the products of few row tiles timed in a layer's order (`model_order`)
+# the products of few row tiles, and Llama-3.1-8B's down (K 14,336: its
+# engine step's 32 rows, a verify round's 72, the engine's verify round's
+# 288, a prefill's 4,096), timed in a layer's order (`model_order`)
 ORDER_SHAPES = [("verify_qo", 72, 896, (896,)), ("verify_qkv", 72, 896, (896, 128, 128)),
                 ("verify_gate_up", 72, 896, (4864, 4864)),
                 ("verify_down", 72, 4864, (896,)), ("engine_qkv", 288, 896, (896, 128, 128)),
-                ("engine_down", 288, 4864, (896,)), ("prefill_b1_down", 128, 4864, (896,))]
+                ("engine_down", 288, 4864, (896,)), ("prefill_b1_down", 128, 4864, (896,)),
+                ("l8b_engine_down", 32, 14336, (4096,)),
+                ("l8b_verify_down", 72, 14336, (4096,)),
+                ("l8b_engine_verify_down", 288, 14336, (4096,)),
+                ("l8b_prefill_down", 4096, 14336, (4096,))]
+# `quantize_rows` alone: name, M, K, input dtype; the 8B's down also on
+# every plan of the long-row kernel
+QUANT_SHAPES = [("prefill_q", 4096, 896, "bfloat16"), ("verify_q", 72, 896, "bfloat16"),
+                ("l1b_prefill_down", 4096, 8192, "bfloat16"),
+                ("l8b_prefill_qkv", 4096, 4096, "bfloat16"),
+                ("l8b_engine_down", 32, 14336, "bfloat16"),
+                ("l8b_verify_down", 72, 14336, "bfloat16"),
+                ("l8b_engine_verify_down", 288, 14336, "bfloat16"),
+                ("l8b_prefill_down", 4096, 14336, "bfloat16"),
+                ("l8b_verify_down_f32", 72, 14336, "float32"),
+                ("l8b_prefill_down_f32", 4096, 14336, "float32")]
 DECODE_BUCKET, DECODE_NEW, STEP_REPLAYS = 512, 64, 48
 STEP_LANES, ROUND_GAMMA, ROUND_REPLAYS = (16, 32), 8, 16
+# the 8B's engine step (32 lanes), speculation's tokens and the engine's
+# load, as chip_smoke.py's llama_8b_int8 and llama_engine phases run them
+LLAMA_STEP_LANES, LLAMA_SPEC_NEW = 32, 32
+ENGINE_REQUESTS, ENGINE_LANES, ENGINE_CACHE, ENGINE_SEGMENT = 16, 32, 1024, 8
 
 
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
@@ -202,6 +238,42 @@ def bench_shapes(g) -> dict:
                 row["gemm_int_mm_ms"] = graph_ms(lambda: torch._int_mm(xq, w0.q.t()), it)
         out[name] = row
         del x, ws, bs, fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_quant(g) -> dict:
+    """`quantize_rows` alone at each QUANT_SHAPES row, ms a call, beside its
+    bound; where the checkout has `_quant_plan`, its plan and, at the 8B's
+    K, the long-row kernel's other plans (`_quant_plan` forced): the row in
+    registers over 1, 2, 4 and 8 blocks, and streamed over 8 blocks of 32
+    warps."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    out = {}
+    for name, m, k, dtype in QUANT_SHAPES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(m, k, generator=g, device="cuda").to(dt)
+        it = 20 if m * k > 1e7 else 100
+        ms = graph_ms(lambda: w8a8.quantize_rows(x), it)
+        bound_ms = (m * k * (dt.itemsize + 1) + 4 * m) / HBM_BYTES_PER_S * 1e3
+        row = {"ms": ms, "bound_ms": bound_ms, "of_bound": bound_ms / ms}
+        plan_of = getattr(w8a8, "_quant_plan", None)
+        if plan_of is not None:
+            row["plan"] = list(plan_of(m, k, w8a8._IN_KINDS[dt], w8a8._sms(0)))
+            if k == 14336:
+                pieces = k * dt.itemsize // 16
+                plans = [(w8a8._Q_LONG, -(-pieces // (c * 128)), c) for c in (1, 2, 4, 8)]
+                try:
+                    for plan in plans + [(w8a8._Q_STREAMED, 32, 8)]:
+                        w8a8._quant_plan = lambda *a, plan=plan: plan
+                        row[",".join(map(str, plan))] = graph_ms(
+                            lambda: w8a8.quantize_rows(x), it)
+                finally:
+                    w8a8._quant_plan = plan_of
+        out[name] = row
+        del x
         torch.cuda.empty_cache()
     return out
 
@@ -338,24 +410,58 @@ def bench_model_order(g) -> dict:
     return out
 
 
-def bench_round() -> dict:
-    """One int8 verify round of ngram_speculative_generate at B = 8, gamma
-    8 (72 rows, bf16 activations): device ms a round over replays of its
-    graph (CUDA events), and from a torch.profiler trace of 8 replays the
-    kernel ms a round, the W8A8 kernels' ms and their count."""
-    import numpy as np
+def _decoder(name: str, weights: str):
+    """(cfg, params): Qwen2.5-0.5B ("qwen05b") or Llama-3.1-8B ("llama8b")
+    at full width and depth, random bf16 weights from seed 0, W8A8
+    quantized at the source for `weights` "int8"."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    cfg = (qwen.QwenConfig.qwen25_05b() if name == "qwen05b"
+           else qwen.QwenConfig.llama31_8b())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, qwen.init_qwen_params(cfg, generator=g, dtype=torch.bfloat16,
+                                      device=torch.device("cuda"),
+                                      quantize=weights == "int8")
+
+
+def _trace(entry) -> dict:
+    """From a torch.profiler trace of 8 replays of `entry`'s graph: kernel
+    ms a replay, the W8A8 kernels' ms, and the count of each."""
     import torch
     from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(8):
+            entry.graph.replay()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    w8 = [e for e in kern if "w8a8" in e.name or "quantize_rows" in e.name]
+    if not kern:
+        return {"kernel_ms": "not measured (no device events)"}
+    return {"kernel_ms": sum(e.time_range.elapsed_us() for e in kern) / 8e3,
+            "w8a8_ms": sum(e.time_range.elapsed_us() for e in w8) / 8e3,
+            "kernels": len(kern) // 8, "w8a8_kernels": len(w8) // 8}
+
+
+def bench_round(model=None) -> dict:
+    """One int8 verify round of ngram_speculative_generate at B = 8, gamma
+    8 (72 rows, bf16 activations) of `model` (cfg, params; default
+    Qwen2.5-0.5B): device ms a round over replays of its graph (CUDA
+    events), and from a torch.profiler trace of 8 replays the kernel ms a
+    round, the W8A8 kernels' ms and their count."""
+    import numpy as np
+    import torch
     from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
 
-    cfg = qwen.QwenConfig.qwen25_05b()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    params = qwen.init_qwen_params(cfg, generator=g, dtype=torch.bfloat16,
-                                   device=torch.device("cuda"), quantize=True)
-    ids, mask = _prompts(np, torch, 8)
+    cfg, params = model or _decoder("qwen05b", "int8")
+    ids, mask = _prompts(np, torch, 8, cfg.vocab_size)
+    before = len(decode_graph.graphs_of(params))
     qwen.ngram_speculative_generate(params, cfg, ids, mask, DECODE_NEW,
                                     gamma=ROUND_GAMMA, eos_token_id=-1)
-    entry = next(e for e in decode_graph.graphs_of(params).entries() if hasattr(e, "flag"))
+    entry = next(e for e in decode_graph.graphs_of(params).entries()[before:]
+                 if hasattr(e, "flag"))
 
     def restart():
         entry.state.cache.zero_()
@@ -371,57 +477,31 @@ def bench_round() -> dict:
     torch.cuda.synchronize()
     out = {"round_ms": start.elapsed_time(end) / ROUND_REPLAYS}
     restart()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(8):
-            entry.graph.replay()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    w8 = [e for e in kern if "w8a8" in e.name or "quantize_rows" in e.name]
-    if kern:
-        out.update(
-            kernel_ms=sum(e.time_range.elapsed_us() for e in kern) / 8e3,
-            w8a8_ms=sum(e.time_range.elapsed_us() for e in w8) / 8e3,
-            kernels=len(kern) // 8, w8a8_kernels=len(w8) // 8)
-    else:
-        out["kernel_ms"] = "not measured (no device events)"
+    out.update(_trace(entry))
     del params, entry
     torch.cuda.empty_cache()
     return out
 
 
-def _prompts(np, torch, b: int):
+def _prompts(np, torch, b: int, vocab: int = 151936):
     rng = np.random.default_rng(8)
-    ids = rng.integers(1000, 151935, (b, DECODE_BUCKET)).astype(np.int32)
+    ids = rng.integers(1000, vocab - 1, (b, DECODE_BUCKET)).astype(np.int32)
     lens = rng.integers(DECODE_BUCKET * 3 // 4, DECODE_BUCKET + 1, b)
     mask = (np.arange(DECODE_BUCKET)[None] < lens[:, None]).astype(np.int32)
     return torch.from_numpy(ids * mask).cuda(), torch.from_numpy(mask).cuda()
 
 
-def _kernels_a_step(entry) -> int:
-    import torch
-    from torch.autograd import DeviceType
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(8):
-            entry.graph.replay()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) // 8
-
-
-def bench_step(weights: str, b: int = 8) -> dict:
-    """The greedy step of Qwen2.5-0.5B at B lanes: step graph replays, a
-    whole call's ms a token, kernels a step."""
+def bench_step(weights: str, b: int = 8, model=None) -> dict:
+    """The greedy step of `model` (cfg, params; default Qwen2.5-0.5B in
+    `weights`) at B lanes: step graph replays, a whole call's ms a token,
+    and from a trace the kernels, W8A8 kernels and their ms a step."""
     import numpy as np
     import torch
     from rag_inference_pipeline_tpu_torch.models import decode_graph, qwen
 
-    cfg = qwen.QwenConfig.qwen25_05b()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    params = qwen.init_qwen_params(cfg, generator=g, dtype=torch.bfloat16,
-                                   device=torch.device("cuda"), quantize=weights == "int8")
-    ids, mask = _prompts(np, torch, b)
+    cfg, params = model or _decoder("qwen05b", weights)
+    ids, mask = _prompts(np, torch, b, cfg.vocab_size)
+    before = len(decode_graph.graphs_of(params))
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -429,7 +509,7 @@ def bench_step(weights: str, b: int = 8) -> dict:
         qwen.greedy_generate(params, cfg, ids, mask, DECODE_NEW, eos_token_id=-1)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    entry = decode_graph.graphs_of(params).entries()[0]
+    entry = decode_graph.graphs_of(params).entries()[before]
     entry.state.start(params, cfg, ids, mask, -1)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -440,15 +520,80 @@ def bench_step(weights: str, b: int = 8) -> dict:
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / STEP_REPLAYS
     entry.state.start(params, cfg, ids, mask, -1)
-    kernels = _kernels_a_step(entry)
+    trace = _trace(entry)
     out = {"step_ms": step_ms, "ms_per_token": min(walls[1:]) / DECODE_NEW * 1e3,
-           "kernels_a_step": kernels}
+           "kernels_a_step": trace.pop("kernels", None), **trace}
     del params, entry
     torch.cuda.empty_cache()
     return out
 
 
-def against(parent: str, sweep: bool) -> dict:
+def bench_llama8b() -> dict:
+    """Llama-3.1-8B in W8A8 (`--llama8b`): its greedy step at 32 lanes and
+    its verify round at B = 8, gamma 8 (`bench_step`, `bench_round`);
+    speculation's ms a token over LLAMA_SPEC_NEW tokens at B = 8 (the third
+    call's wall: the first captures its graph); the decode engine's wall
+    over chip_smoke.py's 16 prompts (lengths 64-512, budgets 16-128 from
+    seed 31), plain and speculative, each after its construction's
+    capture."""
+    import asyncio
+    import gc
+
+    import numpy as np
+    import torch
+    from rag_inference_pipeline_tpu_torch.engine.decode_engine import DecodeEngine
+    from rag_inference_pipeline_tpu_torch.models import qwen
+
+    cfg, params = _decoder("llama8b", "int8")
+    model = (cfg, params)
+    out = {"step_b32": bench_step("int8", LLAMA_STEP_LANES, model),
+           "round_b8": bench_round(model)}
+    ids, mask = _prompts(np, torch, 8, cfg.vocab_size)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qwen.ngram_speculative_generate(params, cfg, ids, mask, LLAMA_SPEC_NEW,
+                                        gamma=ROUND_GAMMA, eos_token_id=-1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["spec_ms_per_token"] = min(walls[1:]) / LLAMA_SPEC_NEW * 1e3
+    rng = np.random.default_rng(31)
+    lens = rng.integers(64, 513, ENGINE_REQUESTS)
+    budgets = rng.integers(16, 129, ENGINE_REQUESTS)
+    prompts = [rng.integers(1000, cfg.vocab_size - 1, int(k)).astype(np.int32) for k in lens]
+    for spec in (False, True):
+        eng = DecodeEngine(params, cfg, lanes=ENGINE_LANES, cache_len=ENGINE_CACHE,
+                           segment_steps=ENGINE_SEGMENT, eos_token_id=-1,
+                           admit_buckets=(1, 2, 4, 8, 16, 32),
+                           prefill_buckets=(128, 256, 512), speculative=spec,
+                           gamma=ROUND_GAMMA)
+
+        async def serve():
+            await eng.start()
+            try:
+                return await asyncio.gather(*(eng.submit(p, int(n))
+                                              for p, n in zip(prompts, budgets)))
+            finally:
+                await eng.stop()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asyncio.new_event_loop().run_until_complete(serve())
+        torch.cuda.synchronize()
+        tag = "spec" if spec else "plain"
+        out[f"engine_{tag}_wall_s"] = time.perf_counter() - t0
+        out[f"engine_{tag}_tokens"] = eng.tokens_generated
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def against(parent: str, sweep: bool, llama8b: bool = False) -> dict:
     """This checkout and `parent` in turns (parent, change, change,
     parent), each run a process of its own on this file."""
     import shutil
@@ -465,6 +610,8 @@ def against(parent: str, sweep: bool) -> dict:
         cmd = [sys.executable, script, "--out", out]
         if sweep and tag == "change" and i == 1:
             cmd.append("--sweep")
+        if llama8b:
+            cmd.append("--llama8b")
         subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL)
         with open(out) as fh:
             turns.append({"tag": tag, **json.load(fh)})
@@ -476,6 +623,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "bench", "w8a8.json"))
     ap.add_argument("--sweep", action="store_true",
                     help="time the two routes against each other by rows")
+    ap.add_argument("--llama8b", action="store_true",
+                    help="also time Llama-3.1-8B's W8A8 step, verify round, "
+                         "speculation and engine")
     ap.add_argument("--against", metavar="PARENT_ROOT",
                     help="time PARENT_ROOT's checkout and this one in turns")
     args = ap.parse_args(argv)
@@ -485,7 +635,7 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("bench_w8a8 needs a CUDA card")
     if args.against:
-        out = against(args.against, args.sweep)
+        out = against(args.against, args.sweep, args.llama8b)
     else:
         from rag_inference_pipeline_tpu_torch.ops import _kernels
 
@@ -496,7 +646,8 @@ def main(argv=None) -> dict:
         ).stdout.strip().splitlines()[0]
         g = torch.Generator(device="cuda").manual_seed(0)
         with torch.inference_mode():
-            out = {"root": ROOT, "card": smi, "shapes": bench_shapes(g)}
+            out = {"root": ROOT, "card": smi, "shapes": bench_shapes(g),
+                   "quant": bench_quant(g)}
             if args.sweep:
                 out["sweep"] = bench_sweep(g)
             out["model_order"] = bench_model_order(g)
@@ -505,6 +656,8 @@ def main(argv=None) -> dict:
             for b in STEP_LANES:
                 out[f"step_int8_b{b}"] = bench_step("int8", b)
             out["round_int8"] = bench_round()
+            if args.llama8b:
+                out["llama8b"] = bench_llama8b()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=2)

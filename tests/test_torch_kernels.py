@@ -714,18 +714,73 @@ def _w8a8_rows(g, m, k, dtype):
     x = torch.randn(m, k, generator=g, device="cuda") * 3
     x[0] = 0
     if m > 1:
-        x[1] = torch.tensor([127.0, 0.5, 1.5, -2.5, 125.5] * k, device="cuda")[:k]
+        ties = torch.tensor([127.0, 0.5, 1.5, -2.5, 125.5], device="cuda")
+        x[1] = ties.repeat(-(-k // 5))[:k]
     return x.to(dtype)
 
 
-# M in {1, 5, 8, 17, 32, 33, 64, 65, 72, 300} (32 is M_STAR): one m tile of 8
-# rows, tiles of 16 to 64 rows and several of them (the small-row kernel),
-# one to three 128-row tiles (wgmma); N in {2, 3} (the classifiers' few labels: tails in N), 128
-# and 4,864; K 36 (4-byte copies, a ragged 64-byte K block; no wgmma), 896
-# and 4,864; bf16 and f32 in and out, with and without a bias. Each kernel
-# is called directly, whatever the route would pick.
+# rows past the short-row kernel's 8,192 bf16 (4,096 f32) a row, by input
+# dtype: Llama-3.1-8B's down (K 14,336) on the long-row kernel in
+# registers, a K past what a cluster of 8 blocks holds in registers
+# (32,784 pieces: streamed and read twice), and a K that is no whole
+# number of 16-byte pieces (the scalar kernel)
+LONG_ROWS = {torch.bfloat16: (14_336, 262_272, 14_338),
+             torch.float32: (14_336, 131_136, 14_338)}
+
+
+def _hold_long_rows(g, m):
+    """`quantize_rows` at every LONG_ROWS K and on an x one element off a
+    16-byte boundary at K 14,336 (the scalar kernel) against its plain
+    version, with its launches and long-row launches; the wgmma GEMM on
+    its output at K 14,336."""
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    for dtype, ks in LONG_ROWS.items():
+        for k in ks + (None,):
+            if k is None:  # x off 16 bytes at K 14,336
+                k = 14_336
+                flat = (torch.randn(m * k + 1, generator=g, device="cuda") * 3).to(dtype)
+                x = flat[1:].view(m, k)
+                assert x.data_ptr() % 16
+                path = w8a8._Q_SCALAR
+            else:
+                x = _w8a8_rows(g, m, k, dtype)
+                path = {14_336: w8a8._Q_LONG, 14_338: w8a8._Q_SCALAR}.get(
+                    k, w8a8._Q_STREAMED)
+            plan = w8a8._quant_plan(m, k, w8a8._IN_KINDS[dtype], w8a8._sms(0),
+                                    x.data_ptr() % 16 == 0)
+            assert plan[0] == path, (m, k, dtype, plan)
+            before = (w8a8.quantize_rows.launches, w8a8.quantize_rows.long_row_launches)
+            q, s = w8a8.quantize_rows(x)
+            pq, ps = w8a8.quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            assert (w8a8.quantize_rows.launches, w8a8.quantize_rows.long_row_launches) == (
+                before[0] + 1, before[1] + int(path >= w8a8._Q_LONG))
+            assert torch.equal(q, pq) and torch.equal(s, ps), (m, k, dtype, plan)
+            if k == 14_336 and path == w8a8._Q_LONG:
+                wq = torch.randint(-127, 128, (128, k), generator=g, device="cuda",
+                                   dtype=torch.int8)
+                ws = torch.rand(128, generator=g, device="cuda") * 1e-3
+                bias = (torch.randn(128, generator=g, device="cuda") * 0.1).to(dtype)
+                for b in (None, bias):
+                    got = w8a8.w8a8_gemm(q, s, wq, ws, b, out_dtype=dtype)
+                    want = w8a8.w8a8_gemm_plain(pq, ps, wq, ws, b, out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), ("wgmma", m, k, dtype, b is None)
+            del x, q, s, pq, ps
+    torch.cuda.empty_cache()
+
+
+# M in {1, 5, 8, 17, 32, 33, 64, 65, 72, 288, 300, 4096} (32 is M_STAR): one
+# m tile of 8 rows, tiles of 16 to 64 rows and several of them (the
+# small-row kernel), one to three 128-row tiles and prefill's 32 (wgmma); N
+# in {2, 3} (the classifiers' few labels: tails in N), 128 and 4,864; K 36
+# (4-byte copies, a ragged 64-byte K block; no wgmma), 896 and 4,864; bf16
+# and f32 in and out, with and without a bias; then `quantize_rows` at the
+# long rows of LONG_ROWS (`_hold_long_rows`). Each kernel is called
+# directly, whatever the route would pick.
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 5, 8, 17, 32, 33, 64, 65, 72, 300])
+@pytest.mark.parametrize("m", [1, 5, 8, 17, 32, 33, 64, 65, 72, 288, 300, 4096])
 def test_w8a8_kernels_match_plain_on_card(m):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
@@ -760,6 +815,7 @@ def test_w8a8_kernels_match_plain_on_card(m):
                     torch.cuda.synchronize()
                     assert w8a8.w8a8_gemm.launches == before + 1
                     assert torch.equal(got, want), ("wgmma", m, n, k, dtype, b is None)
+    _hold_long_rows(g, m)
 
 
 @pytest.mark.cuda
@@ -869,26 +925,121 @@ def _near_ties(g, m, k, device):
 @pytest.mark.cuda
 def test_w8a8_quantize_near_ties_on_card():
     """x / s near and on half-integers: the quantizing kernels (the
-    activation quantize and the small-row kernel's prologue) round as the
-    IEEE quotient does, bit for bit with the plain version."""
+    activation quantize on each of its kernels, and the small-row kernel's
+    prologue where it holds the rows) round as the IEEE quotient does, bit
+    for bit with the plain version: short rows; Llama-3.1-8B's down (K
+    14,336) at 1 to 4,096 rows, in registers over 1 to 8 blocks a row; a
+    row streamed twice; a ragged K on the scalar kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     g = torch.Generator(device="cuda").manual_seed(11)
-    for m, k in ((8, 896), (300, 4864), (64, 36)):
+    for m, k in ((8, 896), (300, 4864), (64, 36), (1, 14_336), (32, 14_336), (72, 14_336),
+                 (288, 14_336), (4096, 14_336), (32, 262_272), (72, 14_338)):
         x = _near_ties(g, m, k, "cuda")
         pq, ps = w8a8.quantize_rows_plain(x)
         assert ((x / ps[:, None] - pq.float()).abs() > 0.49).float().mean() > 0.5
         q, s = w8a8.quantize_rows(x)
         torch.cuda.synchronize()
         assert torch.equal(q, pq) and torch.equal(s, ps), (m, k)
-        w = torch.eye(k, device="cuda", dtype=torch.int8)[: min(k, 128)].contiguous()
-        ones = torch.ones(w.shape[0], device="cuda")
+        if k % 4 or w8a8._qgemm_rows(m, k) is None:
+            continue
+        n = min(k, 128)  # the first n columns of x, each once
+        w = torch.zeros(n, k, device="cuda", dtype=torch.int8)
+        w[torch.arange(n), torch.arange(n)] = 1
+        ones = torch.ones(n, device="cuda")
         (got,) = w8a8.w8a8_qgemm(x, [(w, ones)], out_dtype=torch.float32)
         want = w8a8.w8a8_gemm_plain(pq, ps, w, ones, out_dtype=torch.float32)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (m, k)
+
+
+# every plan the long-row kernel takes at Llama-3.1-8B's down (K 14,336),
+# beside the one `_quant_plan` picks: the row in registers over 1, 2, 4 and
+# 8 blocks (the fewest warps that hold a block's slice), and streamed over 1
+# block of 1 warp, 2 of 4 and 8 of 32
+def _quant_plans(m, k, dtype):
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    pieces = k * dtype.itemsize // 16
+    plans = [w8a8._quant_plan(m, k, w8a8._IN_KINDS[dtype], w8a8._sms(0))]
+    plans += [(w8a8._Q_LONG, -(-pieces // (c * 128)), c) for c in (1, 2, 4, 8)]
+    plans += [(w8a8._Q_STREAMED, w, c) for w, c in ((1, 1), (4, 2), (32, 8))]
+    return list(dict.fromkeys(plans))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 32, 72, 288, 4096])
+def test_w8a8_quantize_plans_match_plain_on_card(m, monkeypatch):
+    """`quantize_rows` on each plan of the long-row kernel (blocks of a
+    cluster meeting in distributed shared memory, the row streamed twice)
+    equals its plain version bit for bit, bf16 and f32, and counts one
+    long-row launch; the entry refuses a plan its kernel cannot run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(700 + m)
+    k = 14_336
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _w8a8_rows(g, m, k, dtype)
+        pq, ps = w8a8.quantize_rows_plain(x)
+        for plan in _quant_plans(m, k, dtype):
+            monkeypatch.setattr(w8a8, "_quant_plan", lambda *a, plan=plan: plan)
+            before = w8a8.quantize_rows.long_row_launches
+            q, s = w8a8.quantize_rows(x)
+            torch.cuda.synchronize()
+            assert w8a8.quantize_rows.long_row_launches == before + 1
+            assert torch.equal(q, pq) and torch.equal(s, ps), (m, dtype, plan)
+        # a row too long for the plan's registers, or for the short-row kernel
+        for plan in ((w8a8._Q_LONG, 1, 1), (w8a8._Q_SHORT, 8, 1), (w8a8._Q_LONG, 4, 16)):
+            monkeypatch.setattr(w8a8, "_quant_plan", lambda *a, plan=plan: plan)
+            with pytest.raises(RuntimeError, match="ragtorch_w8a8_quantize_rows"):
+                w8a8.quantize_rows(x)
+        monkeypatch.undo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [32, 72, 288])
+def test_w8a8_long_rows_replay_in_a_graph_on_card(m):
+    """Llama-3.1-8B's down (K 14,336: `quantize_rows` on the long-row
+    kernel, one block a row at 32 and 72 rows, two at 288, then the wgmma
+    GEMM)
+    captured in a CUDA graph and replayed over new rows, bf16 and f32: the
+    plain version's outputs each time; the capture counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(900 + m)
+    k = 14_336
+    xs = {dtype: torch.randn(m, k, generator=g, device="cuda").to(dtype)
+          for dtype in (torch.bfloat16, torch.float32)}
+    weights = [(torch.randint(-127, 128, (4096, k), generator=g, device="cuda",
+                              dtype=torch.int8),
+                torch.rand(4096, generator=g, device="cuda") * 1e-3)]
+
+    def run():
+        return [w8a8.w8a8_dense(x, weights, out_dtype=dtype)[0] for dtype, x in xs.items()]
+
+    run()  # warm up: the library
+    torch.cuda.synchronize()
+    counts = (w8a8.quantize_rows.launches, w8a8.quantize_rows.long_row_launches,
+              w8a8.w8a8_gemm.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = run()
+    assert (w8a8.quantize_rows.launches, w8a8.quantize_rows.long_row_launches,
+            w8a8.w8a8_gemm.launches) == counts
+    for seed in (1, 2):
+        for x in xs.values():
+            x.copy_(torch.randn(x.shape, generator=g, device="cuda") * seed)
+        graph.replay()
+        want = [w8a8.w8a8_dense_plain(x, weights, out_dtype=dtype)[0]
+                for dtype, x in xs.items()]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ys, want)), seed
 
 
 @pytest.mark.cuda

@@ -63,17 +63,20 @@ def _group(card, seed, m, k, ns, head):
 @pytest.mark.parametrize("name,m,k,ns", LLAMA_PRODUCTS, ids=[p[0] for p in LLAMA_PRODUCTS])
 def test_w8a8_at_llama_shapes_matches_plain(card, name, m, k, ns):
     """`w8a8_dense` (the models' entry) one launch for the group on its
-    route; on the wgmma route also `quantize_rows` and the GEMM a weight,
-    each bit for bit against its plain twin."""
+    route; on the wgmma route also `quantize_rows` (on the long-row kernel
+    at the 8B's down, K 14,336) and the GEMM a weight, each bit for bit
+    against its plain twin."""
     x, weights, out_dtype = _group(card, len(name) * 131 + m, m, k, ns, "head" in name)
     want = w8a8.w8a8_dense_plain(x, weights, out_dtype=out_dtype)
     route = w8a8._route(m, k, True)
-    before = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
+    long = int(k == 14336)
+    counters = (w8a8.w8a8_qgemm, w8a8.w8a8_gemm, w8a8.quantize_rows)
+    before = [f.launches for f in counters] + [w8a8.quantize_rows.long_row_launches]
     got = w8a8.w8a8_dense(x, weights, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    after = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches)
-    assert [a - b for a, b in zip(after, before)] == ([1, 0, 0] if route == "qgemm"
-                                                      else [0, 1, 1])
+    after = [f.launches for f in counters] + [w8a8.quantize_rows.long_row_launches]
+    assert [a - b for a, b in zip(after, before)] == ([1, 0, 0, 0] if route == "qgemm"
+                                                      else [0, 1, 1, long])
     for a, b in zip(got, want):
         assert a.dtype == out_dtype and torch.equal(a, b)
     if route == "wgmma":

@@ -26,6 +26,7 @@ from rag_inference_pipeline_tpu_torch.ops import w8a8
 from rag_inference_pipeline_tpu_torch.tools import bench_decode_anatomy as anatomy
 from rag_inference_pipeline_tpu_torch.tools import bench_flash
 from rag_inference_pipeline_tpu_torch.tools import bench_kernel as lab
+from rag_inference_pipeline_tpu_torch.tools import bench_w8a8
 
 
 # --- the reference kernels, as scripts/bench_decode_anatomy.py:88-117 and
@@ -459,3 +460,39 @@ class TestBenchFlash:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             bench_flash.main(["--out", str(tmp_path / "x.json"), "--against", "HEAD"])
+
+
+class TestBenchW8a8:
+    def test_against_takes_llama8b_to_every_turn(self, monkeypatch, tmp_path):
+        """--against: parent, change, change, parent, each a process on this
+        file (copied into the parent's tools/), --sweep on the first change
+        turn only, --llama8b on every turn; the four outputs in order."""
+        tools = tmp_path / "parent" / "rag_inference_pipeline_tpu_torch" / "tools"
+        tools.mkdir(parents=True)
+        monkeypatch.setattr(bench_w8a8, "ROOT", str(tmp_path))
+        cmds = []
+
+        def run(cmd, check, stdout):
+            cmds.append(cmd)
+            out = cmd[cmd.index("--out") + 1]
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w") as fh:
+                json.dump({"turn": len(cmds) - 1}, fh)
+
+        monkeypatch.setattr(bench_w8a8.subprocess, "run", run)
+        got = bench_w8a8.against(str(tmp_path / "parent"), sweep=True, llama8b=True)
+        assert [(t["tag"], t["turn"]) for t in got["turns"]] == [
+            ("parent", 0), ("change", 1), ("change", 2), ("parent", 3)]
+        here = os.path.abspath(bench_w8a8.__file__)
+        there = str(tools / "bench_w8a8.py")
+        assert open(there).read() == open(here).read()
+        assert [c[1] for c in cmds] == [there, here, here, there]
+        assert all("--llama8b" in c for c in cmds)
+        assert ["--sweep" in c for c in cmds] == [False, True, False, False]
+        bench_w8a8.against(str(tmp_path / "parent"), sweep=False)
+        assert not any("--llama8b" in c or "--sweep" in c for c in cmds[4:])
+
+    def test_needs_a_card(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_w8a8.main(["--llama8b", "--out", str(tmp_path / "x.json")])

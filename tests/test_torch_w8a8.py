@@ -112,6 +112,38 @@ def test_quantize_act_rows_bit_for_bit(jdt, tdt):
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
+def _near_tie_rows(rng, m, k):
+    """Rows whose every x / s lies within a few ulps of a half-integer (and
+    some exactly on one): each row's abs-max is 127 s for an awkward s, the
+    others (j + 0.5) s nudged by a relative 0, +-2^-23 or +-2^-22."""
+    s = (rng.random((m, 1)) * 10 + 1e-3).astype(np.float32)
+    j = rng.integers(-127, 127, (m, k)).astype(np.float32)
+    nudge = np.array([0.0, 2.0**-23, -(2.0**-23), 2.0**-22, -(2.0**-22)], np.float32)
+    x = (j + np.float32(0.5)) * s * (np.float32(1) + nudge[rng.integers(0, 5, (m, k))])
+    x[:, 0] = np.float32(127) * s[:, 0]
+    return x
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+@pytest.mark.parametrize("k", [14336, 16392])
+def test_quantize_act_rows_long_rows_bit_for_bit(k, jdt, tdt):
+    """Rows past the short-row kernel's 8,192 bf16: Llama-3.1-8B's down (K
+    14,336) and a K of 2,049 16-byte pieces (no whole warp's), built on
+    near-ties, with a zero row and a row of exact ties: the plain version
+    equals the JAX `quantize_act_rows` run op by op, q and s."""
+    rng = np.random.default_rng(k)
+    a = _near_tie_rows(rng, 6, k)
+    a[1] = 0.0
+    a[2] = np.resize(np.array([127.0, 0.5, 1.5, -2.5, 125.5], np.float32), k)
+    xj, xt = _pair(a, jdt, tdt)
+    jq, js = jlayers.quantize_act_rows(xj)
+    pq, ps = w8a8.quantize_rows_plain(xt)
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js)[:, 0])
+    if tdt == torch.float32:  # the near-ties survive in f32
+        assert (np.abs(a[3:] / ps.numpy()[3:, None] - pq.numpy()[3:]) > 0.49).mean() > 0.5
+
+
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("jdt,tdt", DTYPES)
 def test_dense_plain_bit_for_bit(jdt, tdt, bias):
@@ -268,6 +300,100 @@ def test_gemm_plan_fills_the_card(m, k, ns):
     most = min(8, -(-k // 128) // 4)
     assert split <= most and blocks <= max(132, tiles)
     assert 2 * split > most or 2 * blocks > 132  # the most splits the rule allows
+
+
+# `quantize_rows`' plans on 132 SMs: (M, K, input dtype) -> (path, warps,
+# cluster). Rows of at most 8,192 bf16 (4,096 f32) on the short-row kernel,
+# the fewest warps (1, 2, 4, 8) at 4 pieces a lane; longer rows on the
+# long-row kernel over the fewest blocks (a cluster of 1, 2, 4, 8) that
+# hold the row, two where one would and they even the SMs' load by a tenth
+# (more rows than SMs); past 8 blocks' registers, 8 blocks of 32 warps
+# stream the row twice
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("m,k,dtype,want", [
+    (8, 896, _BF16, (1, 1, 1)), (4096, 896, _BF16, (1, 1, 1)),  # the 0.5B's hidden
+    (72, 4864, _BF16, (1, 8, 1)), (4096, 4864, _F32, (2, 10, 1)),  # its MLP
+    (4096, 8192, _BF16, (1, 8, 1)),  # the 1B's down: 1,024 pieces, the register cap
+    (4096, 8192, _F32, (2, 16, 1)),
+    # Llama-3.1-8B's down (K 14,336): 1,792 pieces bf16, 3,584 f32
+    (1, 14336, _BF16, (2, 14, 1)), (8, 14336, _BF16, (2, 14, 1)),
+    (32, 14336, _BF16, (2, 14, 1)), (72, 14336, _BF16, (2, 14, 1)),
+    (128, 14336, _BF16, (2, 14, 1)), (133, 14336, _BF16, (2, 7, 2)),
+    (288, 14336, _BF16, (2, 7, 2)), (512, 14336, _BF16, (2, 14, 1)),
+    (4096, 14336, _BF16, (2, 14, 1)),
+    (32, 14336, _F32, (2, 28, 1)), (72, 14336, _F32, (2, 28, 1)),
+    (288, 14336, _F32, (2, 14, 2)), (4096, 14336, _F32, (2, 28, 1)),
+    (4096, 65536, _BF16, (2, 32, 2)),  # 8,192 pieces: two blocks hold a row
+    (72, 262_144, _BF16, (2, 32, 8)),  # the most a cluster holds
+    (72, 262_272, _BF16, (3, 32, 8)), (4096, 131_136, _F32, (3, 32, 8)),  # streamed
+    (72, 14338, _BF16, (0, 1, 1)), (72, 14338, _F32, (0, 1, 1)),  # no whole pieces
+    (72, 36, _BF16, (0, 1, 1)), (72, 36, _F32, (1, 1, 1)),
+])
+def test_quant_plan(m, k, dtype, want):
+    assert w8a8._quant_plan(m, k, w8a8._IN_KINDS[dtype], 132) == want
+    assert w8a8._quant_plan(m, k, w8a8._IN_KINDS[dtype], 132, False)[0] == w8a8._Q_SCALAR
+
+
+# every activation width the models quantize on the card: Qwen2.5-0.5B
+# (hidden 896, MLP 4,864), Llama-3.2-1B (2,048, 8,192), Llama-3.1-8B
+# (4,096, 14,336), BERT-base (768, 3,072); a row-parallel product at tp 2
+# quantizes the whole row, so the same widths
+_MODEL_KS = (896, 4864, 2048, 8192, 4096, 14336, 768, 3072)
+
+
+@pytest.mark.parametrize("dtype", [_BF16, _F32])
+@pytest.mark.parametrize("m", [1, 8, 17, 32, 33, 72, 128, 288, 512, 4096])
+def test_quant_plan_at_every_model_shape(m, dtype):
+    """No model's product reaches the scalar kernel or streams its row; each
+    plan is one its kernel runs (the entry refuses the rest): the
+    short-row kernel on the fewest warps that hold the row, the long-row
+    kernel with its slice in registers on the fewest warps, one block a
+    row, or two where the rows outnumber the SMs and that evens their
+    load."""
+    esz = dtype.itemsize
+    for k in _MODEL_KS:
+        path, warps, cluster = w8a8._quant_plan(m, k, w8a8._IN_KINDS[dtype], 132)
+        pieces = k * esz // 16
+        assert path != w8a8._Q_SCALAR and path != w8a8._Q_STREAMED, (m, k, dtype)
+        if path == w8a8._Q_SHORT:
+            assert pieces <= 8 * 128 and cluster == 1 and warps in (1, 2, 4, 8)
+            assert warps * 128 >= pieces and (warps == 1 or warps * 64 < pieces)
+            continue
+        assert pieces > 8 * 128 and 1 <= warps <= 32
+        per = -(-pieces // cluster)
+        assert warps * 128 >= per > (warps - 1) * 128
+        load = [-(-m * c // 132) / c for c in (1, 2)]
+        assert cluster == (2 if m > 132 and load[1] <= 0.9 * load[0] else 1)
+
+
+def test_quantize_rows_launches_on_its_plan(monkeypatch):
+    """The wrapper hands the entry point `_quant_plan`'s plan for x's
+    shape, dtype and alignment, and counts a long-row launch where the
+    plan takes the long-row kernel."""
+    card = _FakeCard(monkeypatch)
+    for x, plan in ((torch.zeros(288, 14336, dtype=torch.bfloat16), (2, 7, 2)),
+                    (torch.zeros(4096, 14336), (2, 28, 1)),
+                    (torch.zeros(72, 896, dtype=torch.bfloat16), (1, 1, 1)),
+                    (torch.zeros(72 * 14338), (0, 1, 1))):
+        x = x.view(72, 14338) if x.dim() == 1 else x
+        card.calls.clear()
+        before = (w8a8.quantize_rows.launches, w8a8.quantize_rows.long_row_launches)
+        q, s = w8a8.quantize_rows(x)
+        assert q.shape == x.shape and q.dtype == torch.int8 and s.shape == (x.shape[0],)
+        (name, args), = card.calls
+        assert name == "ragtorch_w8a8_quantize_rows"
+        kind = w8a8._IN_KINDS[x.dtype]
+        assert args[3:] == (*x.shape, kind, *plan)
+        assert (w8a8.quantize_rows.launches, w8a8.quantize_rows.long_row_launches) == (
+            before[0] + 1, before[1] + int(plan[0] >= w8a8._Q_LONG))
+    # an x off a 16-byte boundary: the scalar kernel
+    card.calls.clear()
+    flat = torch.zeros(32 * 14336 + 1, dtype=torch.bfloat16)
+    x = flat[1:].view(32, 14336)
+    w8a8.quantize_rows(x)
+    assert card.calls[0][1][6:] == (w8a8._Q_SCALAR, 1, 1)
 
 
 @pytest.mark.parametrize("bn,k,want", [
