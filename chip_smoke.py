@@ -166,7 +166,10 @@ and exits non-zero before the last line:
              8 x 512, a classifier) on the route `_route` picks, each kernel
              there against its plain version (the wgmma GEMM a weight and
              for the whole group in one launch); per shape the route and
-             the wgmma GEMM's plan (`_gemm_plan`), each kernel's device time
+             the wgmma GEMM's plan (`_gemm_plan`) and its kind
+             (`_plan_kind`: wide, bands, shared, few_rows, few_tiles; the
+             kernels line times each kind at a W8A8_MAIN shape, the new
+             ones at Llama-3.1-8B's), each kernel's device time
              (CUDA events over replays of one captured graph of many calls:
              an eager loop of microsecond launches times the host), the
              plain version's time, the bound and the share of it, and, as a
@@ -597,6 +600,8 @@ def zero_launches() -> None:
         fn.launches = 0
     w8a8.w8a8_gemm_s32.wgmma_launches = 0
     w8a8.w8a8_gemm.few_tile_launches = w8a8.w8a8_gemm_s32.few_tile_launches = 0
+    for fn in (w8a8.w8a8_gemm, w8a8.w8a8_gemm_s32):
+        fn.plan_launches = dict.fromkeys(w8a8.PLAN_KINDS, 0)
     w8a8.quantize_rows.long_row_launches = 0
 
 
@@ -1029,13 +1034,22 @@ W8A8_SHAPES = [
     ("l1b_prefill_down", 4096, 8192, (2048,), False),
 ]
 # the kernels line's shape of each kernel: the decode step's gate/up group
-# (24 launches a step), the prefill's gate/up and its activation quantize,
-# the verify round's o on the wgmma GEMM's plan for few row tiles; the s32
-# kind's at tp = 2: decode down on the small-row route, prefill down on the
-# wgmma route
-W8A8_MAIN = {"small": "decode_gate_up", "wgmma": "prefill_gate_up",
+# (24 launches a step), the prefill's down on the wgmma GEMM's wide plan and
+# the prefill's gate/up activation quantize, the verify round's o on its
+# 64 x 64 tiles; Llama-3.1-8B's shapes on the wgmma GEMM's other plan
+# kinds: the prefill's gate/up group in bands of column tiles, the engine's
+# verify down on a weight tile shared by its row tiles, the verify round's
+# down on 128-column tiles with K split over a cluster; the s32 kind's at
+# tp = 2: decode down on the small-row route, prefill down on the wgmma route
+W8A8_MAIN = {"small": "decode_gate_up", "wgmma": "prefill_down",
              "quant": "prefill_gate_up", "few_tiles": "verify_qo",
+             "bands": "l8b_prefill_gate_up", "shared": "l8b_engine_verify_down",
+             "few_rows": "l8b_verify_down",
              "small_s32": "decode_down_tp2", "wgmma_s32": "prefill_down_tp2"}
+# the plan kind (ops/w8a8.py::_plan_kind) each W8A8_MAIN shape of the wgmma
+# GEMM must take
+W8A8_MAIN_KINDS = {"wgmma": "wide", "few_tiles": "few_tiles", "bands": "bands",
+                   "shared": "shared", "few_rows": "few_rows"}
 # `quantize_rows` on its long-row kernel at Llama-3.1-8B's down (K 14,336):
 # the engine step's 32 rows, a verify round's 72, the engine's verify
 # round's 288 and a prefill's 4,096 in bf16; 72 and 4,096 rows in f32 (the
@@ -1152,7 +1166,8 @@ def phase_w8a8():
                   "max_abs_err": 0.0, "library_ms": None}
             qm.update(bound(2 * m * k + m * k + 4 * m, 0, "int8"))
             plan = w8a8._gemm_plan(m, k, ns, w8a8._sms(0))
-            row.update({"plan": list(plan[:3]),
+            kind = w8a8._plan_kind(plan, ns)
+            row.update({"plan": [int(v) for v in plan[:6]], "plan_kind": kind,
                         "wgmma_us": round(gm["ms"] * 1e3, 3),
                         "wgmma_bound_us": round(gm["bound_ms"] * 1e3, 3),
                         "wgmma_of_bound": round(gm["bound_ms"] / gm["ms"], 3),
@@ -1163,19 +1178,26 @@ def phase_w8a8():
                         "quant_of_bound": round(qm["bound_ms"] / qm["ms"], 3),
                         "quant_plain_ms": round(qm["plain_ms"], 4)})
             if len(ns) > 1:  # the group in one launch, beside _int_mm a weight
-                gb = bound(m * k + 4 * m + nbytes, ops, "int8")["bound_ms"]
-                g_ms = graph_ms(lambda: w8a8._gemm_launch(xq, xs, weights, biases,
-                                                          out_dtype), it)
-                row.update({"group_us": round(g_ms * 1e3, 3),
-                            "group_bound_us": round(gb * 1e3, 3),
-                            "group_of_bound": round(gb / g_ms, 3),
-                            "group_int_mm_us": round(graph_ms(lambda: [
-                                torch._int_mm(xq, w.t()) for w, _ in weights], it) * 1e3, 3)})
-            if name == W8A8_MAIN["wgmma"]:
-                out["wgmma"], out["quant"] = gm, qm
-            if name == W8A8_MAIN["few_tiles"]:
-                check(plan[1] == 64, f"{name} is not on the plan for few row tiles: {plan}")
-                out["few_tiles"] = gm
+                gp = {"ms": graph_ms(lambda: w8a8._gemm_launch(xq, xs, weights, biases,
+                                                               out_dtype), it),
+                      "plain_ms": cuda_ms(lambda: [w8a8.w8a8_gemm_plain(
+                          xq, xs, w, s, bb, out_dtype=out_dtype)
+                          for (w, s), bb in zip(weights, biases)], pit)
+                      if name == W8A8_MAIN["bands"] else None,
+                      "max_abs_err": 0.0,
+                      "library_ms": graph_ms(lambda: [
+                          torch._int_mm(xq, w.t()) for w, _ in weights], it)}
+                gp.update(bound(m * k + 4 * m + nbytes, ops, "int8"))
+                row.update({"group_us": round(gp["ms"] * 1e3, 3),
+                            "group_bound_us": round(gp["bound_ms"] * 1e3, 3),
+                            "group_of_bound": round(gp["bound_ms"] / gp["ms"], 3),
+                            "group_int_mm_us": round(gp["library_ms"] * 1e3, 3)})
+            if name == W8A8_MAIN["quant"]:
+                out["quant"] = qm
+            for key, want_kind in W8A8_MAIN_KINDS.items():
+                if name == W8A8_MAIN[key]:
+                    check(kind == want_kind, f"{name} is not on the {want_kind} plan: {plan}")
+                    out[key] = gp if len(ns) > 1 else gm
         # the product as the model runs it, on its route
         row["dense_ms"] = round(graph_ms(lambda: w8a8.w8a8_dense(
             x, weights, biases, out_dtype=out_dtype), it), 5)
@@ -1225,7 +1247,7 @@ def phase_w8a8():
         got = w8a8.w8a8_gemm_s32(xq, wq)
         check(torch.equal(got, want), f"the s32 product differs from its plain twin at {name}")
         row = {"route": w8a8._route(m, k, True),
-               "plan": list(w8a8._gemm_plan(m, k, (n,), w8a8._sms(0))[:3])}
+               "plan": [int(v) for v in w8a8._gemm_plan(m, k, (n,), w8a8._sms(0))[:6]]}
         big = m > 1000
         it, pit = (20, 3) if big else (100, 20)
         plain_ms = cuda_ms(lambda: w8a8.w8a8_acc_plain(xq, wq), pit)
@@ -1558,6 +1580,9 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve",
         "quantize_rows_launches": w8a8_launches[2],
         "w8a8_few_tile_launches": w8a8_launches[3],
         "quantize_rows_long_launches": w8a8_launches[4],
+        "w8a8_bands_launches": w8a8_launches[5],
+        "w8a8_shared_launches": w8a8_launches[6],
+        "w8a8_few_rows_launches": w8a8_launches[7],
         "llm_ladder": ",".join(map(str, health["llm_ladder"])),
     }
     ex = server.executor
@@ -3224,24 +3249,27 @@ def phase_serve_w8a8(paths: dict) -> dict:
 
 
 # the W8A8 launch counts, in this order, and none of them
-W8A8_COUNTS = "(small-row, wgmma, quantize, few-tile, long-row quantize)"
-W8A8_NONE = (0, 0, 0, 0, 0)
+W8A8_COUNTS = ("(small-row, wgmma, quantize, few-tile, long-row quantize, wgmma in bands, "
+               "wgmma shared weight, few-tile on 128 columns)")
+W8A8_NONE = (0,) * 8
 
 
-def w8a8_launches(cfg, rows: int, head_rows: int,
-                  dtype: str = "bfloat16") -> tuple[int, int, int, int, int]:
+def w8a8_launches(cfg, rows: int, head_rows: int, dtype: str = "bfloat16") -> tuple:
     """W8A8_COUNTS launches of one Qwen forward pass over `rows` token rows
     of `dtype` activations whose head sees `head_rows`, by ops/w8a8.py's
     route rule: a product is one launch a group (q/k/v, o, gate/up, down,
     the head) on either route, and a wgmma one quantizes x first; few-tile
-    counts the wgmma launches whose plan (`_gemm_plan`) takes 64-column
-    tiles, long-row quantize the quantizes whose plan (`_quant_plan`) takes
-    the long-row kernel."""
+    counts the wgmma launches on a plan for few rows (`_few_rows`: 64 x 64
+    tiles, or K split over a cluster), long-row quantize the quantizes whose
+    plan (`_quant_plan`) takes the long-row kernel, and the last three the
+    wgmma launches whose plan is of the kind "bands", "shared" and
+    "few_rows" (`_plan_kind`)."""
     import torch
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     kind = w8a8._IN_KINDS[getattr(torch, dtype)]
     small = wgmma = quant = few = long = 0
+    kinds = dict.fromkeys(w8a8.PLAN_KINDS, 0)
     q, kv, inter = cfg.heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim, cfg.intermediate
     layer = [(cfg.hidden, (q, kv, kv)), (q, (cfg.hidden,)), (cfg.hidden, (inter, inter)),
              (inter, (cfg.hidden,))]
@@ -3249,21 +3277,36 @@ def w8a8_launches(cfg, rows: int, head_rows: int,
     for m, k, ns in products + [(head_rows, cfg.hidden, (cfg.vocab_size,))]:
         if w8a8._route(m, k, True) == "wgmma":
             wgmma, quant = wgmma + 1, quant + 1
-            few += w8a8._gemm_plan(m, k, ns, w8a8._sms(0))[1] == 64
+            plan = w8a8._gemm_plan(m, k, ns, w8a8._sms(0))
+            few += w8a8._few_rows(plan)
+            kinds[w8a8._plan_kind(plan, ns)] += 1
             long += w8a8._quant_plan(m, k, kind, w8a8._sms(0))[0] >= w8a8._Q_LONG
         else:
             small += 1
-    return small, wgmma, quant, few, long
+    return small, wgmma, quant, few, long, kinds["bands"], kinds["shared"], kinds["few_rows"]
 
 
-def _w8a8_counts() -> tuple[int, int, int, int, int]:
+def _w8a8_counts() -> tuple:
     """W8A8_COUNTS launches counted by the W8A8 wrappers since
     zero_launches()."""
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
+    kinds = w8a8.w8a8_gemm.plan_launches
     return (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
             w8a8.quantize_rows.launches, w8a8.w8a8_gemm.few_tile_launches,
-            w8a8.quantize_rows.long_row_launches)
+            w8a8.quantize_rows.long_row_launches, kinds["bands"], kinds["shared"],
+            kinds["few_rows"])
+
+
+def _few_rows_kernel(name: str) -> bool:
+    """Whether a profiler's kernel name is an instance of the wgmma GEMM
+    for few rows: 64 columns, or K split over a cluster (mode 1, or 3 with
+    the operands swapped), as the demangled "w8a8_wgmma_kernel<consumers,
+    bn, mode, ..." or the mangled "w8a8_wgmma_kernelILi..ELi..ELi..E"
+    names it."""
+    found = (re.search(r"w8a8_wgmma_kernel<(\d+), (\d+), (\d+)", name)
+             or re.search(r"w8a8_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name))
+    return bool(found) and (found.group(2) == "64" or found.group(3) in ("1", "3"))
 
 
 def _path_logit_gap(params, cfg, ids, mask, toks, gamma: int):
@@ -3455,8 +3498,8 @@ def _int8_speculation(cfg, params, ids, mask, n: int = DECODE_NEW) -> dict:
         fparams, cfg, ids, mask, n, gamma=gamma, eos_token_id=-1))
     _, f32_greedy_s = _wall(lambda: qwen.greedy_generate(fparams, cfg, ids, mask, n,
                                                          eos_token_id=-1))
-    # one replayed verify round: its W8A8 kernels, and those on the plan for
-    # few row tiles (the GEMM's 64-column instances)
+    # one replayed verify round: its W8A8 kernels, and those on a plan for
+    # few rows (the GEMM's 64-column and split-K instances)
     entry = next(e for e in decode_graph.graphs_of(fparams).entries() if hasattr(e, "flag"))
     entry.state.cache.zero_()
     entry.state.start(fparams, cfg, ids, mask, -1, n)
@@ -3468,8 +3511,7 @@ def _int8_speculation(cfg, params, ids, mask, n: int = DECODE_NEW) -> dict:
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     if names:
         w8 = sum("w8a8" in x or "quantize_rows" in x for x in names)
-        few = sum("w8a8_wgmma_kernel" in x and (", 64, " in x or "ELi64E" in x)
-                  for x in names)
+        few = sum(_few_rows_kernel(x) for x in names)
         check((w8, few) == (sum(round_rule[:3]), round_rule[3]),
               f"decode_w8a8 spec: a replayed round runs {w8} W8A8 kernels, {few} of them "
               f"few-tile, not {sum(round_rule[:3])} and {round_rule[3]}")
@@ -3541,7 +3583,7 @@ def phase_decode_w8a8(bf16_stats: dict) -> dict:
     torch.cuda.empty_cache()
     phase("decode_w8a8", t0, bit_identical=True, new_tokens=n, batch=b,
           prompt_bucket=DECODE_BUCKET, gamma=SPEC_GAMMA, **stats)
-    return {**stats, "few_tile_launches": spec["launches"][3]}
+    return {**stats, "spec_launches": spec["launches"]}
 
 
 def _engine_against_greedy(name: str, params, cfg, requests: int = ENGINE_REQUESTS) -> dict:
@@ -4874,8 +4916,10 @@ def main() -> int:
         llama_int8["launches"], llama_1b["launches"],
         (llama_serve["w8a8_small_launches"], llama_serve["w8a8_wgmma_launches"],
          llama_serve["quantize_rows_launches"], llama_serve["w8a8_few_tile_launches"],
-         llama_serve["quantize_rows_long_launches"]))]
+         llama_serve["quantize_rows_long_launches"], llama_serve["w8a8_bands_launches"],
+         llama_serve["w8a8_shared_launches"], llama_serve["w8a8_few_rows_launches"]))]
     check(llama[4] > 0, "the Llama phases launched no long-row quantize")
+    spec = w8_decode["spec_launches"]  # decode_w8a8's int8 speculation
     tp_encode = phase_tp_encode()
     phase_sp()
     check("jax" not in sys.modules, "jax was imported")
@@ -4894,7 +4938,7 @@ def main() -> int:
     jax_ops = "rag_inference_pipeline_tpu/ops"
     print(smi, flush=True)  # the card beside the numbers, at the end of the log too
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
-    print(json.dumps({"kernels": [
+    kernels = [
         # the main paths' launches, and the sharded paths' (one a shard)
         entry("binmax_int8gs", f"{jax_ops}/topk.py:442",
               k1_launches + mesh["int8_launches"] + mesh["int8_host_launches"]
@@ -4914,14 +4958,28 @@ def main() -> int:
         # greedy and speculation, its engine, the 1B's greedy)
         entry("w8a8_gemm_small_rows", "rag_inference_pipeline_tpu/models/layers.py:92",
               w8_serve["w8a8_small_launches"] + llama[0], w8["small"], "w8a8_gemm"),
+        # the wgmma GEMM by plan kind: wide tiles in the order by rows
         entry("w8a8_gemm_wgmma", "rag_inference_pipeline_tpu/models/layers.py:92",
               w8_serve["w8a8_wgmma_launches"] - w8_serve["w8a8_few_tile_launches"]
-              + llama[1] - llama[3], w8["wgmma"], "w8a8_wgmma"),
-        # the wgmma GEMM's instances for few row tiles (64-column tiles, K
-        # split over a cluster): the int8 verify round's q/k/v, o and down,
-        # from decode_w8a8's speculative call and the 8B's
+              - w8_serve["w8a8_bands_launches"] - w8_serve["w8a8_shared_launches"]
+              + llama[1] - llama[3] - llama[5] - llama[6], w8["wgmma"], "w8a8_wgmma"),
+        # wide tiles in bands of column tiles (prefill's gate/up groups)
+        entry("w8a8_gemm_wgmma_bands", "rag_inference_pipeline_tpu/models/layers.py:92",
+              w8_serve["w8a8_bands_launches"] + llama[5], w8["bands"], "w8a8_wgmma"),
+        # a weight tile shared by a cluster's row tiles (the 8B engine's
+        # verify round, 288 rows)
+        entry("w8a8_gemm_wgmma_shared_weight",
+              "rag_inference_pipeline_tpu/models/layers.py:92",
+              w8_serve["w8a8_shared_launches"] + spec[6] + llama[6], w8["shared"],
+              "w8a8_wgmma"),
+        # 64 x 64 tiles, K split or not: the 0.5B's int8 verify round's q/k/v,
+        # o and down, from decode_w8a8's speculative call, and the 8B's q/k/v
         entry("w8a8_gemm_wgmma_few_tiles", "rag_inference_pipeline_tpu/models/layers.py:92",
-              w8_decode["few_tile_launches"] + llama[3], w8["few_tiles"], "w8a8_wgmma"),
+              spec[3] - spec[7] + llama[3] - llama[7], w8["few_tiles"], "w8a8_wgmma"),
+        # 128-column tiles over one row tile, K split over a cluster: the 8B's
+        # verify round (72 rows) and engine step (32 rows)
+        entry("w8a8_gemm_wgmma_few_rows", "rag_inference_pipeline_tpu/models/layers.py:92",
+              spec[7] + llama[7], w8["few_rows"], "w8a8_wgmma"),
         entry("w8a8_quant", "rag_inference_pipeline_tpu/models/layers.py:80",
               w8_serve["quantize_rows_launches"] - w8_serve["quantize_rows_long_launches"]
               + llama[2] - llama[4], w8["quant"]),
@@ -4941,7 +4999,10 @@ def main() -> int:
         # its f32 instances (the three-way bf16 split): the f32 forward's
         entry("flash_attention_f32", "rag_inference_pipeline_tpu/models/layers.py:205",
               flash_f32["launches"], flash_f32, "flash_attention"),
-    ]}), flush=True)
+    ]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    check(not idle, f"kernels the main paths never launched: {idle}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

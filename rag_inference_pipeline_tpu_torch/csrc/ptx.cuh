@@ -8,8 +8,9 @@
 // bf16/f16 with A from shared memory or registers) with their fence,
 // commit and wait; and, for the W8A8 GEMM's split K and the long-row
 // quantize, the cluster barrier, mapa and stores into another block's
-// shared memory; and programmatic
-// dependent launch's wait and trigger.
+// shared memory; for its weight tiles shared across a cluster, the
+// multicast TMA load and the arrival on another block's mbarrier; and
+// programmatic dependent launch's wait and trigger.
 //
 // Every helper is `asm volatile` with a "memory" clobber where it touches
 // memory, so the compiler keeps a copy, its wait and the reads of what it
@@ -112,6 +113,16 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// one arrival on the mbarrier at `bar`'s offset in block `rank` of the
+// cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
 // one arrival that also expects `bytes` from asynchronous copies
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
@@ -147,6 +158,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the tile of `map` at (c0, c1) into shared `dst` of every block of the
+// cluster whose rank is set in `mask`, at the same offset in each; each
+// block's mbarrier at `bar`'s offset gets the bytes it received
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const void* map, int c0,
+                                                      int c1, uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "h"(mask)
       : "memory");
 }
 
@@ -280,6 +304,37 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 80 s32: 40 registers a thread) += a (64 x 32 s8, K-major, shared)
+// . b (32 x 80 s8, K-major, shared); exact s32 sums, as the n128 form
+__device__ __forceinline__ void wgmma_m64n80k32_s8(int (&d)[40], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %42, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 32 s32: 16 registers a thread) += a (64 x 32 s8, K-major, shared)
+// . b (32 x 32 s8, K-major, shared); exact s32 sums, as the n128 form
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // --- thread block clusters -------------------------------------------------
 
 // this block's rank in its cluster
@@ -319,6 +374,11 @@ __device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
 __device__ __forceinline__ void st_cluster_v2(uint32_t addr, int a, int b) {
   asm volatile("st.shared::cluster.v2.s32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b)
                : "memory");
+}
+
+// one s32 value to a shared::cluster address
+__device__ __forceinline__ void st_cluster_s32(uint32_t addr, int v) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // one f32 value to a shared::cluster address

@@ -151,9 +151,12 @@ def load_library() -> ctypes.CDLL:
             # stream
             "ragtorch_ivfpq4_adc": [vp] * 5 + [i32] * 5 + [vp],
             # xq, xs, wq[3], ws[3], bias[3], out[3], N[3], nmem, M, K,
-            # out_kind, bm, bn, split, pdl, stream
+            # out_kind, bm, bn, split, share, band, deep, pdl, stream
             "ragtorch_w8a8_gemm_wgmma": [vp] * 2 + [ctypes.POINTER(vp)] * 4
-            + [ctypes.POINTER(i32)] + [i32] * 8 + [vp],
+            + [ctypes.POINTER(i32)] + [i32] * 11 + [vp],
+            # bm, bn, split, share, deep -> the clusters the card holds at
+            # once (out; no stream: a host query)
+            "ragtorch_w8a8_gemm_clusters": [i32] * 5 + [ctypes.POINTER(i32)],
             # x, wq[3], ws[3], bias[3], out[3], N[3], nmem, M, K, in_kind,
             # out_kind, mt, nt8, grid_x, cluster, stream
             "ragtorch_w8a8_qgemm": [vp] + [ctypes.POINTER(vp)] * 4

@@ -19,9 +19,11 @@ shape:
   a cluster of 2 to 8 such blocks, past that), then `w8a8_gemm`
   (`csrc/w8a8_wgmma.cu`: s8 wgmma fed by TMA), one launch for the group
   on the plan `_gemm_plan` gives: 128-column tiles over all of K where
-  they fill the card, else 64 x 64 tiles, and there K split across the
-  blocks of a cluster where a block would stream a long K (exact int32
-  partial sums);
+  they fill the card (a cluster of 2 to 4 row tiles sharing each weight
+  tile, or bands of column tiles that keep a wave's weights in L2, where
+  the weights are large); else, where one tile holds the rows, 128-column
+  tiles with K split across the blocks of a cluster (exact int32 partial
+  sums); else 64 x 64 tiles, K split or not;
 - everything else (K % 4 == 0): `w8a8_qgemm` (`csrc/w8a8_gemm.cu`), the
   quantize and the GEMM of up to three weights that share x (q/k/v,
   gate/up) in one launch.
@@ -45,7 +47,8 @@ kernel counts the launches it makes outside a CUDA graph capture
 took the long-row kernel, `w8a8_gemm.launches`, `w8a8_qgemm.launches`,
 and for the s32 kind `w8a8_gemm_s32.launches`, of which
 `w8a8_gemm_s32.wgmma_launches` took the wgmma route; of the wgmma launches
-of either kind, `few_tile_launches` took the plan for few row tiles): a
+of either kind, `few_tile_launches` took a plan for few rows, `_few_rows`,
+and `plan_launches` counts them by plan kind, `_plan_kind`): a
 call under a capture records its kernel into the graph and counts nothing,
 as the K7 wrappers do (`ops/kv.py`).
 """
@@ -54,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -80,8 +83,15 @@ _QG_WARPS, _QG_DEPTH, _QG_BLOCK_K, _QG_MAX_ROWS, _QG_CLUSTER = 8, 8, 64, 64, 8
 _BLOCK_SMEM, _SM_SMEM, _SM_RESERVED = 232_448, 233_472, 1024
 # csrc/w8a8_wgmma.cu's tiles: 128 bytes of K a stage, 64 rows a consumer
 # warpgroup (one or two), 128 or 64 columns; K split over at most 8 blocks
-# of a cluster (the portable cluster size)
-_WG_BLOCK_K, _WG_MAX_SPLIT = 128, 8
+# of a cluster (the portable cluster size); a weight tile shared by the
+# blocks of at most 4 row tiles
+_WG_BLOCK_K, _WG_MAX_SPLIT, _WG_MAX_SHARE = 128, 8, 4
+# the token rows of a swapped tile (the wgmma's n side); the weight bytes of
+# a group from which two row tiles share each weight tile at prefill; the
+# H100's GPCs (a cluster's blocks share one: clusters of 2, 3 and 4 blocks
+# one an SM run 66, 39 and 30 at once on its 132 SMs,
+# cudaOccupancyMaxActiveClusters, PERF.md)
+_WG_TOKEN_TILES, _WG_SHARE_BYTES, _GPCS = (32, 64, 80, 128), 1 << 24, 8
 # csrc/w8a8_quant.cu's kernels (`Path`): the scalar fallback, the short-row
 # kernel (1 to 8 warps a row, 8-warp blocks), the long-row kernel with the
 # row in registers or streamed twice; at most 4 16-byte pieces a lane in
@@ -244,44 +254,152 @@ def _qgemm_plan(m: int, k: int, ns: Sequence[int],
     return mt, nt8, grid, cluster
 
 
-def _gemm_plan(m: int, k: int, ns: Sequence[int],
-               sms: int) -> tuple[int, int, int, int]:
-    """(bm, bn, split, blocks) of a wgmma-route launch over the weights of
-    N `ns` that share xq [M, K]: the rows a tile (64: one consumer
-    warpgroup; 128: two), the columns a tile, the blocks of a cluster that
-    split K, and the blocks of the grid.
+class GemmPlan(NamedTuple):
+    """A wgmma-route launch plan (`_gemm_plan`): the rows a tile (64: one
+    consumer warpgroup; 128: two), the columns a tile, the blocks of a
+    cluster that split K, the blocks of a cluster that share each weight
+    tile (one a row tile), the column tiles a band of the tile order
+    (`_gemm_tiles`), one block an SM with the deepest ring (`deep`), and
+    the blocks of the grid."""
 
-    Where 128-column tiles give at least half as many blocks as SMs
-    (prefill, the tied head, gate/up from 72 rows), a block takes its tile
-    over all of K, on 64-row tiles where M fits one, else 128. Else the
-    tiles are 64 x 64, and K splits over the most blocks of a cluster (a
-    power of two, at most 8) that keep at least four of K's 128-byte
-    chunks a block and the grid within an SM a block: the verify round's
-    down (72 x 4,864 -> 896) takes 28 tiles x 4 splits, where 128 x 128
-    tiles gave 7 blocks. Measured on an H100 (`tools/bench_w8a8.py
-    --sweep`, PERF.md): 64-row tiles beat 128-row ones at 72 to 288 rows,
-    and a split pays only where a block would stream a long K."""
+    bm: int
+    bn: int
+    split: int
+    share: int
+    band: int
+    deep: bool
+    blocks: int
+
+
+def _gemm_plan(m: int, k: int, ns: Sequence[int], sms: int) -> GemmPlan:
+    """The launch plan of a wgmma-route product over the weights of N `ns`
+    that share xq [M, K] on `sms` SMs (measured on an H100 with
+    `tools/bench_w8a8.py --plans`, PERF.md):
+
+    - wide: where 128-column tiles give at least half as many blocks as
+      SMs (prefill, the heads, gate/up from 72 rows), a block takes its
+      tile over all of K, on 64-row tiles where M fits one, else 128.
+      Where the group's weights pass 16 MB, row tiles share each weight
+      tile in a cluster: with 2 to 4 row tiles (the engine's verify round,
+      288 rows) all of them, one block an SM where the grid fits the card
+      (the 8B's engine verify down 48 µs against 71 on the order by rows);
+      with more (prefill), pairs (the 8B's prefill down 357 against 420
+      µs). Below 16 MB (Qwen2.5-0.5B's weights) the cluster costs more than
+      it saves. Where the weights are wider than the rows (prefill's
+      gate/up) the tiles go in bands of about a wave's blocks
+      (`_gemm_tiles`), so each weight byte comes from HBM once, not once a
+      row tile (the 8B's gate/up group 800 against 1,324 µs);
+    - few rows: where one tile of 32, 64, 80 or 128 token rows holds M and
+      128 weight rows split K over a cluster of 2 to 8 blocks (each at
+      least four of K's 128-byte chunks, the grid within one wave of
+      clusters, one block an SM: a GPC of the card's `_GPCS` leaves up to
+      split - 1 of its SMs idle) fill at least half the card: Llama-3.1-8B's
+      verify round (72 rows) and engine step (32 rows). The product is
+      swapped (the weight rows are the wgmma's 64-row side, the tokens its
+      n side), so 72 rows cost 80 columns of products, not 128 rows; each
+      weight byte leaves L2 once, xq's re-reads stay M / 128 of the weights;
+    - else (Qwen2.5-0.5B's narrow weights) 64 x 64 tiles, and K splits over
+      the most blocks of a cluster (a power of two, as above) that keep the
+      grid within an SM a block: the verify round's down (72 x 4,864 ->
+      896) takes 28 tiles x 4 splits, where 128 x 128 tiles gave 7 blocks;
+      64-row tiles beat 128-row ones at 72 to 288 rows there."""
+    chunks = -(-k // _WG_BLOCK_K)
+    most = min(_WG_MAX_SPLIT, chunks // 4)
     bm = 64 if m <= 64 else 128
-    wide = -(-m // bm) * sum(-(-n // 128) for n in ns)
-    if 2 * wide >= sms:
-        return bm, 128, 1, wide
+    rows = -(-m // bm)
+    tiles = sum(-(-n // 128) for n in ns)
+    if 2 * rows * tiles >= sms:
+        share = 1
+        if sum(ns) * k >= _WG_SHARE_BYTES:  # two or more row tiles are 128 rows each
+            share = rows if rows <= _WG_MAX_SHARE else 2
+        deep = share > 1 and rows * tiles <= sms
+        band = tiles
+        if rows > share and sum(ns) > m:
+            band = max(1, min(tiles, (1 if deep else 2) * sms // rows))
+        return GemmPlan(bm, 128, 1, share, band, deep, rows * tiles)
+    if m <= _WG_TOKEN_TILES[-1]:
+        split = 1
+        while split < most and tiles * (split + 1) <= sms - _GPCS * split:
+            split += 1
+        if split > 1 and 2 * split * tiles >= sms:
+            tok = next(t for t in _WG_TOKEN_TILES if m <= t)
+            return GemmPlan(tok, 128, split, 1, tiles, True, tiles * split)
     tiles = -(-m // 64) * sum(-(-n // 64) for n in ns)
-    most = min(_WG_MAX_SPLIT, -(-k // _WG_BLOCK_K) // 4)
     split = 1
     while 2 * split <= most and 2 * split * tiles <= sms:
         split *= 2
-    return 64, 64, split, tiles * split
+    return GemmPlan(64, 64, split, 1, sum(-(-n // 64) for n in ns), False, tiles * split)
 
 
-def _pdl(k: int) -> bool:
+def _few_rows(plan) -> bool:
+    """Whether a plan is one of the plans for few rows (64 x 64 tiles, or K
+    split over a cluster): the launches `few_tile_launches` counts."""
+    return plan[1] == 64 or plan[2] > 1
+
+
+PLAN_KINDS = ("wide", "bands", "shared", "few_rows", "few_tiles")
+
+
+def _plan_kind(plan, ns: Sequence[int]) -> str:
+    """The kind of a plan over weights of N `ns`, as `plan_launches` counts
+    it: "few_tiles" (64 x 64 tiles), "few_rows" (128 weight rows by the
+    token rows, K split), "bands" (wide tiles in bands narrower than the
+    column tiles, a weight tile shared or not), "shared" (a weight tile
+    shared by a cluster's row tiles, in the order by rows), "wide"."""
+    bn, split, share, band = plan[1:5]
+    if bn == 64:
+        return "few_tiles"
+    if split > 1:
+        return "few_rows"
+    if band < sum(-(-n // bn) for n in ns):
+        return "bands"
+    return "shared" if share > 1 else "wide"
+
+
+def _gemm_tiles(m: int, k: int, ns: Sequence[int],
+                plan) -> list[tuple[int, int, int, int, int]]:
+    """What each block of a launch on `plan` computes, by block index:
+    (weight, row tile, column tile of that weight, first and end 128-byte
+    chunk of K), as csrc/w8a8_wgmma.cu's kernel works it out. A cluster of
+    split x share consecutive blocks takes one column tile (the blocks of a
+    split one range of K each, those of a shared weight tile one row tile
+    each); the clusters walk bands of `band` column tiles, every column of
+    a band for one group of `share` row tiles, then the next group. Rows
+    past M make no tile: a shared weight tile's last group may hold some."""
+    bm, bn, split, share, band = plan[:5]
+    chunks = -(-k // _WG_BLOCK_K)
+    tiles = [-(-n // bn) for n in ns]
+    ntiles = sum(tiles)
+    groups = -(-(-(-m // bm)) // share)
+    band = min(band, ntiles)
+    cluster = split * share
+    out = []
+    for b in range(ntiles * groups * cluster):
+        rank, q = b % cluster, b // cluster
+        which, j = divmod(q, band * groups)
+        bw = min(band, ntiles - which * band)
+        t, mem = which * band + j % bw, 0
+        while t >= tiles[mem]:
+            t -= tiles[mem]
+            mem += 1
+        row = j // bw * share + (rank if share > 1 else 0)
+        s = rank if split > 1 else 0
+        out.append((mem, row, t, s * chunks // split, (s + 1) * chunks // split))
+    return out
+
+
+def _pdl(k: int, plan) -> bool:
     """Whether a wgmma-route launch goes out under programmatic dependent
     launch (its start overlapping the end of the kernel before it): for K
-    under 4,096 bytes. On an H100 (`tools/bench_w8a8.py`, PERF.md), after
-    an elementwise kernel and `quantize_rows` as in a layer, it sped up
-    every product at K 896 and slowed every one at K 4,864 (the split
+    under 4,096 bytes, and on the plans of one block an SM (`deep`). On an
+    H100 (`tools/bench_w8a8.py`, PERF.md), after an elementwise kernel and
+    `quantize_rows` as in a layer, it sped up every product at K 896 and
+    slowed every one of two blocks an SM at K 4,864 (the 0.5B's split
     verify down, the engine's and a B = 1 prefill's down); alone it slowed
-    prefill's down by 4%."""
-    return k < 32 * _WG_BLOCK_K
+    prefill's down by 4%; on the 8B's deep plans (the
+    verify round's down and o, the engine's down and verify down) it saved
+    1.0 to 1.6 µs each."""
+    return k < 32 * _WG_BLOCK_K or bool(plan[5])
 
 
 @functools.lru_cache(maxsize=256)
@@ -408,7 +526,7 @@ def _gemm_launch(xq, xs, weights, biases, out_dtype) -> list[torch.Tensor]:
     if m and live:
         index = xq.get_device()
         ns = [weights[i][0].shape[0] for i in live]
-        bm, bn, split, _ = _gemm_plan(m, k, ns, _sms(index))
+        plan = _gemm_plan(m, k, ns, _sms(index))
         ptrs = ctypes.c_void_p * 3
         _kernels.launch(
             "ragtorch_w8a8_gemm_wgmma", index, xq.data_ptr(),
@@ -418,15 +536,15 @@ def _gemm_launch(xq, xs, weights, biases, out_dtype) -> list[torch.Tensor]:
                    for i in live)),
             ptrs(*(None if biases[i] is None else biases[i].data_ptr() for i in live)),
             ptrs(*(outs[i].data_ptr() for i in live)), (ctypes.c_int * 3)(*ns),
-            len(live), m, k, _OUT_KINDS[out_dtype], bm, bn, split,
-            int(_pdl(k)))
+            len(live), m, k, _OUT_KINDS[out_dtype], *plan[:5], int(plan[5]),
+            int(_pdl(k, plan)))
         if not torch.cuda.is_current_stream_capturing():
             fn = w8a8_gemm_s32 if out_dtype == torch.int32 else w8a8_gemm
             fn.launches += 1
             if fn is w8a8_gemm_s32:
                 fn.wgmma_launches += 1
-            if bn == 64:
-                fn.few_tile_launches += 1
+            fn.few_tile_launches += _few_rows(plan)
+            fn.plan_launches[_plan_kind(plan, ns)] += 1
     return outs
 
 
@@ -636,3 +754,6 @@ w8a8_gemm_s32.launches = 0
 w8a8_gemm_s32.wgmma_launches = 0
 w8a8_gemm.few_tile_launches = 0
 w8a8_gemm_s32.few_tile_launches = 0
+# of the wgmma launches of either kind, by plan kind (`_plan_kind`)
+w8a8_gemm.plan_launches = dict.fromkeys(PLAN_KINDS, 0)
+w8a8_gemm_s32.plan_launches = dict.fromkeys(PLAN_KINDS, 0)

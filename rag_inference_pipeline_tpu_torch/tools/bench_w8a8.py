@@ -2,7 +2,7 @@
 checkouts.
 
     python3 rag_inference_pipeline_tpu_torch/tools/bench_w8a8.py [--out PATH] [--sweep]
-        [--llama8b] [--against PARENT_ROOT]
+        [--plans] [--llama8b] [--against PARENT_ROOT]
 
 Imports `rag_inference_pipeline_tpu_torch` from the checkout this file sits
 in, builds its kernels and times on one card, with seeded random inputs:
@@ -14,7 +14,11 @@ in, builds its kernels and times on one card, with seeded random inputs:
   bound (`chip_smoke.py::bound`'s rule), its share of the bound and, where
   M > 16, `torch._int_mm` on the quantized rows as a yardstick; where the
   product takes the wgmma route, its first weight's GEMM alone (`gemm_ms`,
-  `w8a8_gemm`, the same call in any checkout) beside `_int_mm` on it;
+  `w8a8_gemm`, the same call in any checkout) beside `_int_mm` on it, the
+  group's GEMM alone in one launch (`group_ms`) and as one launch a weight
+  in turn (`singles_ms`), and its plan (Qwen2.5-0.5B,
+  BERT-base, and the wgmma-route products of Llama-3.1-8B and
+  Llama-3.2-1B);
 - `quantize_rows` alone (`quant`) at Qwen2.5-0.5B's and Llama-3.2-1B's
   rows and at Llama-3.1-8B's down (K 14,336: 32, 72, 288 and 4,096 rows,
   bf16, and f32 at 72 and 4,096), as a replayed graph, with its bound
@@ -51,8 +55,12 @@ groups), each call after an elementwise kernel that writes x, as in a
 layer; beside them `torch._int_mm`, the
 wgmma GEMM's plan, and the small-row kernel with its quantize shared by a
 cluster of 8 blocks (where the plan clusters) and done by each block alone;
-then the wgmma GEMM alone on every plan its kernel takes at the few-tile
-shapes (`plans`), against which `_gemm_plan`'s rule is set.
+then the wgmma GEMM alone on every plan kind its kernel takes (`plans`:
+wide tiles, 64 x 64 tiles, either split over a cluster, a weight tile
+shared by a cluster's row tiles, bands of column tiles) at the 0.5B's
+few-tile shapes and the 8B's and the 1B's
+(`PLAN_SHAPES`), beside `torch._int_mm`, against which `_gemm_plan`'s rule
+is set. `--plans` times that alone.
 
 `--against PARENT_ROOT` compares two checkouts on one card in one call: it
 copies this file into PARENT_ROOT's `rag_inference_pipeline_tpu_torch/
@@ -96,6 +104,25 @@ SHAPES = [
     ("prefill_gate_up", 4096, 896, (4864, 4864), False),
     ("prefill_down", 4096, 4864, (896,), False),
     ("encoder_ffn_in", 4096, 768, (3072,), True), ("classifier", 8, 768, (5,), True),
+    # the wgmma-route products of Llama-3.1-8B (H 4,096, kv 8 x 128, I
+    # 14,336, a 128,256-row head) at a verify round (72 rows), a prefill of
+    # 8 x 512 tokens, its engine step (32 lanes) and the engine's verify
+    # round (32 x 9), and of Llama-3.2-1B (H 2,048, kv 8 x 64, I 8,192) at
+    # a prefill: chip_smoke.py's W8A8_SHAPES
+    ("l8b_verify_qkv", 72, 4096, (4096, 1024, 1024), False),
+    ("l8b_verify_o", 72, 4096, (4096,), False),
+    ("l8b_verify_gate_up", 72, 4096, (14336, 14336), False),
+    ("l8b_verify_down", 72, 14336, (4096,), False),
+    ("l8b_verify_head", 72, 4096, (128256,), False),
+    ("l8b_prefill_gate_up", 4096, 4096, (14336, 14336), False),
+    ("l8b_prefill_down", 4096, 14336, (4096,), False),
+    ("l8b_engine_down", 32, 14336, (4096,), False),
+    ("l8b_engine_verify_qkv", 288, 4096, (4096, 1024, 1024), False),
+    ("l8b_engine_verify_down", 288, 14336, (4096,), False),
+    ("l1b_prefill_qkv", 4096, 2048, (2048, 512, 512), False),
+    ("l1b_prefill_o", 4096, 2048, (2048,), False),
+    ("l1b_prefill_gate_up", 4096, 2048, (8192, 8192), False),
+    ("l1b_prefill_down", 4096, 8192, (2048,), False),
 ]
 SWEEP_ROWS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 96, 128, 192, 256, 288, 384, 512)
 SWEEP_SHAPES = [("qkv", 896, (896, 128, 128)), ("o", 896, (896,)),
@@ -106,7 +133,22 @@ PLAN_SHAPES = [("verify_o", 72, 896, (896,)), ("verify_qkv", 72, 896, (896, 128,
                ("verify_gate_up", 72, 896, (4864, 4864)), ("verify_down", 72, 4864, (896,)),
                ("engine_qkv", 288, 896, (896, 128, 128)), ("engine_down", 288, 4864, (896,)),
                ("prefill_b1_down", 128, 4864, (896,)), ("m33_o", 33, 896, (896,)),
-               ("m48_down", 48, 4864, (896,))]
+               ("m48_down", 48, 4864, (896,)), ("engine_gate_up", 288, 896, (4864, 4864)),
+               ("prefill_gate_up", 4096, 896, (4864, 4864)),
+               # Llama-3.1-8B's verify round, engine step, engine verify
+               # round and prefill; Llama-3.2-1B's prefill gate/up
+               ("l8b_verify_down", 72, 14336, (4096,)), ("l8b_verify_o", 72, 4096, (4096,)),
+               ("l8b_verify_qkv", 72, 4096, (4096, 1024, 1024)),
+               ("l8b_verify_gate_up", 72, 4096, (14336, 14336)),
+               ("l8b_engine_down", 32, 14336, (4096,)),
+               ("l8b_engine_verify_down", 288, 14336, (4096,)),
+               ("l8b_engine_verify_qkv", 288, 4096, (4096, 1024, 1024)),
+               ("l8b_prefill_gate_up", 4096, 4096, (14336, 14336)),
+               ("l8b_prefill_down", 4096, 14336, (4096,)),
+               ("l8b_prefill_qkv", 4096, 4096, (4096, 1024, 1024)),
+               ("l1b_prefill_gate_up", 4096, 2048, (8192, 8192)),
+               ("l1b_prefill_down", 4096, 8192, (2048,)), ("prefill_down", 4096, 4864, (896,)),
+               ("encoder_ffn_out", 4096, 3072, (768,))]
 PDL_SHAPES = [("prefill_gate", 4096, 896, (4864,)), ("prefill_down", 4096, 4864, (896,)),
               ("prefill_o", 4096, 896, (896,)), ("verify_head", 72, 896, (151936,)),
               ("engine_gate_up", 288, 896, (4864, 4864)),
@@ -114,13 +156,16 @@ PDL_SHAPES = [("prefill_gate", 4096, 896, (4864,)), ("prefill_down", 4096, 4864,
               ("encoder_ffn_out", 4096, 3072, (768,))]
 # the products of few row tiles, and Llama-3.1-8B's down (K 14,336: its
 # engine step's 32 rows, a verify round's 72, the engine's verify round's
-# 288, a prefill's 4,096), timed in a layer's order (`model_order`)
+# 288, a prefill's 4,096) and its verify round's o, timed in a layer's
+# order (`model_order`): between them the other layers' weights evict a
+# product's weights from L2, which back-to-back replays keep there
 ORDER_SHAPES = [("verify_qo", 72, 896, (896,)), ("verify_qkv", 72, 896, (896, 128, 128)),
                 ("verify_gate_up", 72, 896, (4864, 4864)),
                 ("verify_down", 72, 4864, (896,)), ("engine_qkv", 288, 896, (896, 128, 128)),
                 ("engine_down", 288, 4864, (896,)), ("prefill_b1_down", 128, 4864, (896,)),
                 ("l8b_engine_down", 32, 14336, (4096,)),
                 ("l8b_verify_down", 72, 14336, (4096,)),
+                ("l8b_verify_o", 72, 4096, (4096,)),
                 ("l8b_engine_verify_down", 288, 14336, (4096,)),
                 ("l8b_prefill_down", 4096, 14336, (4096,))]
 # `quantize_rows` alone: name, M, K, input dtype; the 8B's down also on
@@ -236,6 +281,12 @@ def bench_shapes(g) -> dict:
                 row["gemm_ms"] = graph_ms(lambda: w8a8.w8a8_gemm(
                     xq, xs, w0.q, w0.s, b0, out_dtype=out_dtype), it)
                 row["gemm_int_mm_ms"] = graph_ms(lambda: torch._int_mm(xq, w0.q.t()), it)
+                row["plan"] = list(w8a8._gemm_plan(m, k, ns, w8a8._sms(0)))[:-1]
+                if len(ns) > 1:  # the group's GEMM alone: one launch, and one a weight
+                    weights = [(w.q, w.s) for w in ws]
+                    row["group_ms"] = graph_ms(_wgmma_group(xq, xs, weights), it)
+                    row["singles_ms"] = graph_ms(lambda: [w8a8.w8a8_gemm(
+                        xq, xs, wq, s, out_dtype=out_dtype) for wq, s in weights], it)
         out[name] = row
         del x, ws, bs, fn
         torch.cuda.empty_cache()
@@ -326,10 +377,56 @@ def bench_sweep(g) -> dict:
     return out
 
 
+def _plan_kinds(m: int, k: int, ns) -> dict:
+    """The plans the kernel takes that `bench_plans` times at [M, K] x
+    `ns`, by name: (bm, bn, split, share, band, deep); the few-row plans on
+    the smallest swapped token tile (32, 64, 80, 128 rows) that holds M."""
+    chunks = -(-k // 128)
+    bm, rows = (64 if m <= 64 else 128), -(-m // 128)
+    tok = next((t for t in (32, 64, 80, 128) if m <= t), 128)  # a swapped tile's rows
+    wide = sum(-(-n // 128) for n in ns)
+    narrow = sum(-(-n // 64) for n in ns)
+    out = {"wide": (bm, 128, 1, 1, wide, False), "narrow": (64, 64, 1, 1, narrow, False)}
+    for s in (2, 3, 4, 8):
+        if s <= chunks:
+            out[f"narrow_split{s}"] = (64, 64, s, 1, narrow, False)
+            out[f"few_rows_split{s}"] = (tok, 128, s, 1, wide, True)
+    for sh in ((2, 3, 4) if 1 < rows <= 4 else (2, 4) if rows > 4 else ()):
+        for deep in (False, True):
+            out[f"share{sh}{'_deep' if deep else ''}"] = (128, 128, 1, sh, wide, deep)
+    if rows >= 8:
+        for band in (4, 8, 16):
+            out[f"band{band}"] = (128, 128, 1, 1, band, False)
+        for sh in (2, 4):
+            out[f"band8_share{sh}"] = (128, 128, 1, sh, 8, False)
+            out[f"band8_share{sh}_deep"] = (128, 128, 1, sh, 8, True)
+    return out
+
+
+def _clusters(plan) -> int:
+    """The clusters of a plan's instance the card holds at once
+    (`ragtorch_w8a8_gemm_clusters`: cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from rag_inference_pipeline_tpu_torch.ops import _kernels
+
+    bm, bn, split, share, _, deep = plan
+    out = ctypes.c_int()
+    rc = _kernels.load_library().ragtorch_w8a8_gemm_clusters(bm, bn, split, share,
+                                                            int(deep), ctypes.byref(out))
+    if rc:
+        raise RuntimeError(f"ragtorch_w8a8_gemm_clusters failed: cudaError {rc}")
+    return out.value
+
+
 def bench_plans(g) -> dict:
-    """The wgmma GEMM of each PLAN_SHAPES group on each plan its kernel
-    takes: 64- and 128-row tiles by 128 columns and 64 x 64 tiles over all
-    of K, and 64 x 64 tiles with K split 2, 4 and 8 ways; then, on the plan
+    """The wgmma GEMM of each PLAN_SHAPES group on each plan kind its
+    kernel takes (`_plan_kinds`: wide 128-column tiles over all of K; 64 x
+    64 tiles; either split over a cluster of 2, 3, 4, 8 blocks, the
+    128-column split swapped; a weight tile shared by 2 to 4 row tiles'
+    blocks, two blocks an SM or one; bands of column tiles), beside
+    `torch._int_mm` on each weight and, for each plan of a cluster, the
+    clusters the card holds at once; then, on the plan
     `_gemm_plan` picks, with programmatic dependent launch off and on
     (`_pdl` forced), there and at prefill's shapes; ms a launch."""
     import torch
@@ -341,17 +438,22 @@ def bench_plans(g) -> dict:
         weights = [(w.q, w.s) for w in ws]
         xq, xs = w8a8.quantize_rows(torch.randn(m, k, generator=g, device="cuda")
                                     .to(torch.bfloat16))
-        chunks = -(-k // 128)
-        plans = [(64, 128, 1), (128, 128, 1), (64, 64, 1)]
-        plans += [(64, 64, sp) for sp in (2, 4, 8) if sp <= chunks]
-        row = {"picked": list(pick(m, k, ns, w8a8._sms(0))[:3])}
+        it = 10 if m * k * sum(ns) > 1e10 else 50
+        row = {"picked": list(pick(m, k, ns, w8a8._sms(0)))[:-1],
+               "int_mm": graph_ms(lambda: [torch._int_mm(xq, wq.t()) for wq, _ in weights],
+                                  it)}
         try:
-            for plan in plans:
+            for kind, plan in _plan_kinds(m, k, ns).items():
                 w8a8._gemm_plan = lambda *a, plan=plan: (*plan, 0)
-                row[",".join(map(str, plan))] = graph_ms(_wgmma_group(xq, xs, weights), 50)
+                key = f"{kind}={','.join(str(int(v)) for v in plan)}"
+                row[key] = graph_ms(_wgmma_group(xq, xs, weights), it)
+                if plan[2] * plan[3] > 1:
+                    row[f"clusters_{key}"] = _clusters(plan)
         finally:
             w8a8._gemm_plan = pick
         out[name] = row
+        del ws, weights, xq, xs
+        torch.cuda.empty_cache()
     # the picked plan with programmatic dependent launch forced off and on
     for name, m, k, ns in PLAN_SHAPES[:4] + PDL_SHAPES:
         ws, _ = _weights(g, k, ns, False, torch.bfloat16)
@@ -374,7 +476,8 @@ def bench_model_order(g) -> dict:
     writing x (bf16), `quantize_rows`, then the group's wgmma GEMM
     (`gemm_ms`), or `torch._int_mm` a weight instead (`int_mm_ms`), or
     nothing (`quant_ms`); where the checkout has `_pdl`, the GEMM with
-    programmatic dependent launch forced off too (`gemm_pdl_off_ms`).
+    programmatic dependent launch forced off and on too
+    (`gemm_pdl_off_ms`, `gemm_pdl_on_ms`).
     ms a call of the three or two kernels."""
     import torch
     from rag_inference_pipeline_tpu_torch.ops import w8a8
@@ -401,9 +504,10 @@ def bench_model_order(g) -> dict:
                "quant_ms": graph_ms(front, 50)}
         if hasattr(w8a8, "_pdl"):
             pdl = w8a8._pdl
-            w8a8._pdl = lambda *a: False
             try:
-                row["gemm_pdl_off_ms"] = graph_ms(with_gemm, 50)
+                for on in (False, True):
+                    w8a8._pdl = lambda *a, on=on: on
+                    row[f"gemm_pdl_{'on' if on else 'off'}_ms"] = graph_ms(with_gemm, 50)
             finally:
                 w8a8._pdl = pdl
         out[name] = row
@@ -623,6 +727,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "bench", "w8a8.json"))
     ap.add_argument("--sweep", action="store_true",
                     help="time the two routes against each other by rows")
+    ap.add_argument("--plans", action="store_true",
+                    help="time only the wgmma GEMM on every plan kind")
     ap.add_argument("--llama8b", action="store_true",
                     help="also time Llama-3.1-8B's W8A8 step, verify round, "
                          "speculation and engine")
@@ -646,6 +752,9 @@ def main(argv=None) -> dict:
         ).stdout.strip().splitlines()[0]
         g = torch.Generator(device="cuda").manual_seed(0)
         with torch.inference_mode():
+            if args.plans:
+                out = {"root": ROOT, "card": smi, "plans": bench_plans(g)}
+                return _write(out, args.out)
             out = {"root": ROOT, "card": smi, "shapes": bench_shapes(g),
                    "quant": bench_quant(g)}
             if args.sweep:
@@ -658,8 +767,12 @@ def main(argv=None) -> dict:
             out["round_int8"] = bench_round()
             if args.llama8b:
                 out["llama8b"] = bench_llama8b()
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as fh:
+    return _write(out, args.out)
+
+
+def _write(out: dict, path: str) -> dict:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
         json.dump(out, fh, indent=2)
     print(json.dumps(out), flush=True)
     return out

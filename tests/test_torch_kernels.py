@@ -1128,15 +1128,26 @@ def _wgmma_group(g, k, ns, dtype):
 
 def _wgmma_plans(m, k, ns):
     """The plan `_gemm_plan` gives on 132 SMs, then the others the kernel
-    takes: 64- and 128-row tiles by 128 columns and 64 x 64 tiles unsplit,
-    and 64 x 64 tiles with K split 2, 3 and over every 128-byte chunk (at
-    most 8 blocks)."""
+    takes (bm, bn, split, share, band, deep): 64- and 128-row tiles by 128
+    columns over all of K, in bands of 3 column tiles too; 64 x 64 tiles unsplit; K split 2, 3 and over every
+    128-byte chunk (at most 8 blocks) on 64 x 64 tiles and on 128 weight
+    rows by 32, 64, 80 or 128 token rows (the swapped product); and the
+    weight tile shared by 2, 3 and 4 row tiles' blocks (rows past M in the
+    last group where M has fewer tiles), two blocks an SM or one, in bands
+    of 3 too."""
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     chunks = -(-k // 128)
-    plans = [w8a8._gemm_plan(m, k, ns, 132)[:3]]
-    plans += [(64, 128, 1), (128, 128, 1), (64, 64, 1)]
-    plans += [(64, 64, s) for s in (2, 3, min(8, chunks)) if s <= chunks]
+    wide = sum(-(-n // 128) for n in ns)
+    narrow = sum(-(-n // 64) for n in ns)
+    splits = [s for s in (2, 3, min(8, chunks)) if 1 < s <= chunks]
+    plans = [tuple(w8a8._gemm_plan(m, k, ns, 132)[:6])]
+    plans += [(64, 128, 1, 1, wide, False), (128, 128, 1, 1, wide, False),
+              (128, 128, 1, 1, 3, False), (64, 64, 1, 1, narrow, False)]
+    plans += [(64, 64, s, 1, narrow, False) for s in splits]
+    plans += [(bm, 128, s, 1, wide, True) for bm in (32, 64, 80, 128) for s in splits]
+    plans += [(128, 128, 1, 2, wide, False), (128, 128, 1, 3, wide, True),
+              (128, 128, 1, 2, 3, True), (128, 128, 1, 4, 3, False)]
     return list(dict.fromkeys(plans))
 
 
@@ -1149,9 +1160,10 @@ def _wgmma_plans(m, k, ns):
 @pytest.mark.parametrize("m", [33, 64, 65, 72, 128, 129, 288, 300])
 def test_w8a8_wgmma_plans_match_plain_on_card(m, monkeypatch):
     """The wgmma GEMM on each launch plan (split K through a cluster's
-    shared memory, narrow tiles, one launch a group) equals its plain
+    shared memory, a weight tile shared by a cluster's row tiles, bands of
+    column tiles, narrow tiles, one launch a group) equals its plain
     version bit for bit, and counts one launch a group (a few-tile one
-    where its tiles are 64 columns)."""
+    where the plan is one for few rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
     from rag_inference_pipeline_tpu_torch.ops import w8a8
@@ -1178,7 +1190,7 @@ def test_w8a8_wgmma_plans_match_plain_on_card(m, monkeypatch):
                 got = w8a8._gemm_launch(xq, scales, weights, biases, dtype)
                 torch.cuda.synchronize()
                 assert (fn.launches, fn.few_tile_launches) == (
-                    before[0] + 1, before[1] + int(plan[1] == 64))
+                    before[0] + 1, before[1] + int(w8a8._few_rows(plan)))
                 assert all(torch.equal(a, b) for a, b in zip(got, want)), (
                     m, k, ns, dtype, plan)
             monkeypatch.undo()

@@ -533,26 +533,34 @@ LLAMA_PRODUCTS = [
     ("1b_prefill_down", 4096, 8192, (2048,)),
 ]
 # route, then the small-row plan (mt, nt8, grid, cluster) or the wgmma plan
-# (bm, bn, split, blocks)
+# (bm, bn, split, share, band, deep, blocks)
 LLAMA_PLANS = {
-    "decode_qkv": ("qgemm", (8, 4, 192, 8)), "decode_o": ("qgemm", (8, 2, 256, 8)),
-    "decode_gate_up": ("qgemm", (8, 8, 264, 8)), "decode_down": ("qgemm", (8, 2, 128, 8)),
-    "decode_head": ("qgemm", (8, 8, 264, 1)), "decode_head_b1": ("qgemm", (8, 8, 264, 1)),
-    "engine_down": ("wgmma", (64, 64, 2, 128)), "engine_qkv": ("qgemm", (32, 4, 128, 8)),
-    "verify_qkv": ("wgmma", (64, 64, 1, 192)), "verify_o": ("wgmma", (64, 64, 1, 128)),
-    "verify_gate_up": ("wgmma", (128, 128, 1, 224)),
-    "verify_down": ("wgmma", (64, 64, 1, 128)),
-    "verify_head": ("wgmma", (128, 128, 1, 1002)),
-    "prefill_gate_up": ("wgmma", (128, 128, 1, 7168)),
-    "prefill_down": ("wgmma", (128, 128, 1, 1024)),
-    "engine_verify_qkv": ("wgmma", (128, 128, 1, 144)),
-    "engine_verify_down": ("wgmma", (128, 128, 1, 96)),
+    "decode_qkv": ("qgemm", (8, 4, 192, 8)),
+    "decode_o": ("qgemm", (8, 2, 256, 8)),
+    "decode_gate_up": ("qgemm", (8, 8, 264, 8)),
+    "decode_down": ("qgemm", (8, 2, 128, 8)),
+    "decode_head": ("qgemm", (8, 8, 264, 1)),
+    "decode_head_b1": ("qgemm", (8, 8, 264, 1)),
+    "engine_down": ("wgmma", (32, 128, 3, 1, 32, True, 96)),
+    "engine_qkv": ("qgemm", (32, 4, 128, 8)),
+    "verify_qkv": ("wgmma", (80, 128, 2, 1, 48, True, 96)),
+    "verify_o": ("wgmma", (80, 128, 3, 1, 32, True, 96)),
+    "verify_gate_up": ("wgmma", (128, 128, 1, 1, 224, False, 224)),
+    "verify_down": ("wgmma", (80, 128, 3, 1, 32, True, 96)),
+    "verify_head": ("wgmma", (128, 128, 1, 1, 1002, False, 1002)),
+    "prefill_gate_up": ("wgmma", (128, 128, 1, 2, 8, False, 7168)),
+    "prefill_down": ("wgmma", (128, 128, 1, 2, 32, False, 1024)),
+    "engine_verify_qkv": ("wgmma", (128, 128, 1, 3, 48, False, 144)),
+    "engine_verify_down": ("wgmma", (128, 128, 1, 3, 32, True, 96)),
     "1b_decode_head": ("qgemm", (8, 8, 264, 1)),
-    "1b_decode_qkv": ("qgemm", (8, 2, 192, 8)), "1b_decode_o": ("qgemm", (8, 1, 256, 8)),
-    "1b_decode_gate_up": ("qgemm", (8, 8, 256, 8)), "1b_decode_down": ("qgemm", (8, 1, 128, 8)),
-    "1b_prefill_qkv": ("wgmma", (128, 128, 1, 768)), "1b_prefill_o": ("wgmma", (128, 128, 1, 512)),
-    "1b_prefill_gate_up": ("wgmma", (128, 128, 1, 4096)),
-    "1b_prefill_down": ("wgmma", (128, 128, 1, 512)),
+    "1b_decode_qkv": ("qgemm", (8, 2, 192, 8)),
+    "1b_decode_o": ("qgemm", (8, 1, 256, 8)),
+    "1b_decode_gate_up": ("qgemm", (8, 8, 256, 8)),
+    "1b_decode_down": ("qgemm", (8, 1, 128, 8)),
+    "1b_prefill_qkv": ("wgmma", (128, 128, 1, 1, 24, False, 768)),
+    "1b_prefill_o": ("wgmma", (128, 128, 1, 1, 16, False, 512)),
+    "1b_prefill_gate_up": ("wgmma", (128, 128, 1, 2, 8, False, 4096)),
+    "1b_prefill_down": ("wgmma", (128, 128, 1, 2, 16, False, 512)),
 }
 
 

@@ -108,6 +108,60 @@ def test_w8a8_at_the_8b_down_replays_in_a_graph(card, name):
         assert torch.equal(out, w8a8.w8a8_dense_plain(x, weights, out_dtype=out_dtype)[0])
 
 
+# the 8B's products whose plans move off the 0.5B's: the verify round's
+# down and o on 128 weight rows by 80 token rows (the swapped product) with
+# K split over a cluster of 3, the engine's verify down on a weight tile
+# shared by its three row tiles, the prefill's gate/up group in bands of 8
+# column tiles with pairs of row tiles sharing each weight tile
+LLAMA_PLAN_PRODUCTS = {"verify_down": (80, 128, 3, 1, 32, True),
+                       "verify_o": (80, 128, 3, 1, 32, True),
+                       "engine_verify_down": (128, 128, 1, 3, 32, True),
+                       "prefill_gate_up": (128, 128, 1, 2, 8, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LLAMA_PLAN_PRODUCTS))
+def test_w8a8_8b_plans_match_plain_eager_and_in_a_graph(card, name):
+    """Each of those products on its plan (`_gemm_plan` on the card's SMs,
+    the plan pinned for 132): the wgmma GEMM's launch for the group bit for
+    bit against the plain version, eagerly and captured in a CUDA graph
+    replayed on new rows, in bf16 and in the s32 kind."""
+    _, m, k, ns = next(p for p in LLAMA_PRODUCTS if p[0] == name)
+    assert tuple(w8a8._gemm_plan(m, k, ns, 132)[:6]) == LLAMA_PLAN_PRODUCTS[name]
+    x, weights, out_dtype = _group(card, 11, m, k, ns, False)
+    xq, xs = w8a8.quantize_rows(x)
+    s32 = [(wq, None) for wq, _ in weights]
+    nones = [None] * len(ns)
+
+    def run():
+        return (w8a8._gemm_launch(xq, xs, weights, nones, out_dtype),
+                w8a8._gemm_launch(xq, None, s32, nones, torch.int32))
+
+    def check(got):
+        want = w8a8.w8a8_dense_plain(x, weights, out_dtype=out_dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want))
+        assert all(torch.equal(a, w8a8.w8a8_acc_plain(xq, wq))
+                   for a, (wq, _) in zip(got[1], s32))
+
+    before = w8a8.w8a8_gemm.few_tile_launches
+    check(run())
+    torch.cuda.synchronize()
+    assert w8a8.w8a8_gemm.few_tile_launches - before == int(
+        w8a8._few_rows(LLAMA_PLAN_PRODUCTS[name]))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed in (1, 2):
+        g = torch.Generator(device=card).manual_seed(seed)
+        x.copy_((torch.randn(m, k, generator=g, device=card) * seed).to(torch.bfloat16))
+        q, sc = w8a8.quantize_rows_plain(x)
+        xq.copy_(q)
+        xs.copy_(sc)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(outs)
+
+
 def _wide_2layer():
     """The 8B at its full widths, cut to 2 layers."""
     return dataclasses.replace(tqwen.QwenConfig.llama31_8b(), layers=2)

@@ -258,48 +258,160 @@ def test_qgemm_plan(m, k, ns, want):
 
 
 # Qwen2.5-0.5B's products on the wgmma route on 132 SMs: (M, K, N of each
-# weight) -> (bm, bn, split, blocks). 128-column tiles over all of K where
-# they give half as many blocks as SMs; else 64 x 64 tiles, K split over a
-# cluster where a block keeps four 128-byte chunks at least
+# weight) -> (bm, bn, split, share, band, deep, blocks). 128-column tiles
+# over all of K where they give half as many blocks as SMs (bands of 8
+# column tiles at prefill's gate/up, whose weights are wider than its
+# rows; no weight tile shared: the weights stay under 16 MB); else 64 x 64
+# tiles (the 0.5B's weights are too narrow for 128 columns split over a
+# cluster to fill half the card), K split over a cluster where a block
+# keeps four 128-byte chunks at least
 @pytest.mark.parametrize("m,k,ns,want", [
-    (72, 896, (896,), (64, 64, 1, 28)),  # the verify round's q/o: two row tiles
-    (72, 896, (896, 128, 128), (64, 64, 1, 36)),  # q/k/v: one launch, 18 tiles a row
-    (72, 896, (4864, 4864), (128, 128, 1, 76)),  # gate/up: wide tiles
-    (72, 4864, (896,), (64, 64, 4, 112)),  # down: 7 wide tiles became 112 blocks
-    (72, 2432, (896,), (64, 64, 4, 112)),  # down's row shard at tp = 2 (s32)
-    (72, 896, (151936,), (128, 128, 1, 1187)),  # the tied head fills the card wide
-    (33, 896, (896,), (64, 64, 1, 14)),
-    (48, 4864, (896,), (64, 64, 8, 112)),  # one row tile: 8 splits
-    (128, 4864, (896,), (64, 64, 4, 112)),  # a B = 1 prefill at bucket 128
-    (288, 896, (896, 128, 128), (64, 64, 1, 90)),  # the engine's 32 lanes x 9
-    (288, 4864, (896,), (64, 64, 1, 70)),  # 70 tiles: a split would pass an SM a block
-    (288, 896, (4864, 4864), (128, 128, 1, 228)),
-    (4096, 896, (4864, 4864), (128, 128, 1, 2432)),  # prefill: wide, a launch a group
+    (72, 896, (896,), (64, 64, 1, 1, 14, False, 28)),  # the verify round's q/o
+    (72, 896, (896, 128, 128), (64, 64, 1, 1, 18, False, 36)),  # q/k/v: one launch
+    (72, 896, (4864, 4864), (128, 128, 1, 1, 76, False, 76)),  # gate/up: wide tiles
+    (72, 4864, (896,), (64, 64, 4, 1, 14, False, 112)),  # down: 7 wide tiles, 112 blocks
+    (72, 2432, (896,), (64, 64, 4, 1, 14, False, 112)),  # down's row shard at tp = 2
+    (72, 896, (151936,), (128, 128, 1, 1, 1187, False, 1187)),  # the tied head
+    (33, 896, (896,), (64, 64, 1, 1, 14, False, 14)),
+    (48, 4864, (896,), (64, 64, 8, 1, 14, False, 112)),  # one row tile: 8 splits
+    (128, 4864, (896,), (64, 64, 4, 1, 14, False, 112)),  # a B = 1 prefill, bucket 128
+    (288, 896, (896, 128, 128), (64, 64, 1, 1, 18, False, 90)),  # the engine's 32 x 9
+    (288, 4864, (896,), (64, 64, 1, 1, 14, False, 70)),  # a split would pass an SM a block
+    (288, 896, (4864, 4864), (128, 128, 1, 1, 76, False, 228)),
+    (4096, 896, (4864, 4864), (128, 128, 1, 1, 8, False, 2432)),  # prefill: bands of 8
 ])
 def test_gemm_plan(m, k, ns, want):
     assert w8a8._gemm_plan(m, k, ns, 132) == want
 
 
-@pytest.mark.parametrize("ns", [(896,), (4864, 4864), (896, 128, 128)])
-@pytest.mark.parametrize("k", [896, 2432, 4864])
+@pytest.mark.parametrize("ns", [(896,), (4864, 4864), (896, 128, 128), (4096,),
+                                (14336, 14336), (4096, 1024, 1024)])
+@pytest.mark.parametrize("k", [896, 2432, 4864, 14336])
 @pytest.mark.parametrize("m", [33, 72, 128, 288, 512, 4096])
 def test_gemm_plan_fills_the_card(m, k, ns):
     """Every plan: wide tiles where they give half as many blocks as SMs
-    (64 rows where M fits them); else 64 x 64 tiles split over the most
-    blocks of a cluster (a power of two up to 8) that keep four chunks a
-    block and an SM a block."""
-    bm, bn, split, blocks = w8a8._gemm_plan(m, k, ns, 132)
+    (64 rows where M fits them; where the weights pass 16 MB, 2 to 4 row
+    tiles share each weight tile, one block an SM where the grid fits the
+    card, and more row tiles share in pairs; bands of a wave's blocks under
+    weights wider than the rows); else, one tile of 32, 64, 80 or 128
+    token rows by 128 weight rows, K split over the most blocks of a
+    cluster (2 to 8) that keep four chunks a block and one wave of clusters
+    of one block an SM, where that fills half the card; else 64 x 64 tiles
+    split over the most blocks (a power of two) that keep an SM a block."""
+    bm, bn, split, share, band, deep, blocks = w8a8._gemm_plan(m, k, ns, 132)
     wide_bm = 64 if m <= 64 else 128
-    wide = -(-m // wide_bm) * sum(-(-n // 128) for n in ns)
-    if 2 * wide >= 132:
-        assert (bm, bn, split, blocks) == (wide_bm, 128, 1, wide)
-        return
-    assert bm == bn == 64
-    tiles = -(-m // 64) * sum(-(-n // 64) for n in ns)
-    assert blocks == tiles * split and split in (1, 2, 4, 8)
+    rows = -(-m // wide_bm)
+    wide = sum(-(-n // 128) for n in ns)
     most = min(8, -(-k // 128) // 4)
-    assert split <= most and blocks <= max(132, tiles)
-    assert 2 * split > most or 2 * blocks > 132  # the most splits the rule allows
+    if 2 * rows * wide >= 132:
+        assert (bm, bn, split, blocks) == (wide_bm, 128, 1, rows * wide)
+        if sum(ns) * k < 1 << 24 or rows == 1:
+            assert share == 1
+        else:
+            assert share == (rows if wide_bm == 128 and rows <= 4 else 2)
+        assert deep == (share > 1 and blocks <= 132)
+        if rows > share and sum(ns) > m:
+            assert band == max(1, min(wide, (1 if deep else 2) * 132 // rows))
+        else:
+            assert band == wide
+        return
+    assert share == 1
+    # clusters of `split` blocks one an SM fit one wave: at most split - 1
+    # idle SMs in each of the H100's 8 GPCs
+    fits = [s for s in range(2, most + 1) if wide * s <= 132 - 8 * (s - 1)]
+    if m <= 128 and fits and 2 * max(fits) * wide >= 132:
+        assert (bm, bn, split, deep, band) == (
+            next(t for t in (32, 64, 80, 128) if m <= t), 128, max(fits), True, wide)
+        assert blocks == wide * split
+        return
+    assert (bm, bn, deep) == (64, 64, False) and split in (1, 2, 4, 8)
+    tiles = -(-m // 64) * sum(-(-n // 64) for n in ns)
+    assert blocks == tiles * split and blocks <= max(132, tiles)
+    assert split <= max(1, most) and (2 * split > most or 2 * blocks > 132)
+
+
+# the plan kinds the launch counters and chip_smoke.py's kernels line name
+@pytest.mark.parametrize("m,k,ns,kind", [
+    (4096, 4864, (896,), "wide"), (72, 4096, (14336, 14336), "wide"),
+    (4096, 896, (4864, 4864), "bands"), (4096, 4096, (14336, 14336), "bands"),
+    (288, 14336, (4096,), "shared"), (288, 4096, (4096, 1024, 1024), "shared"),
+    (288, 896, (4864, 4864), "wide"),
+    (4096, 14336, (4096,), "shared"),
+    (72, 14336, (4096,), "few_rows"), (32, 14336, (4096,), "few_rows"),
+    (72, 896, (896,), "few_tiles"), (72, 4864, (896,), "few_tiles"),
+])
+def test_plan_kind(m, k, ns, kind):
+    plan = w8a8._gemm_plan(m, k, ns, 132)
+    assert w8a8._plan_kind(plan, ns) == kind
+    assert w8a8._few_rows(plan) is (kind in ("few_rows", "few_tiles"))
+
+
+# every pinned shape and ragged ones: rows past a tile (M 33, 65, 129,
+# 300), a ragged column tile (N 130), one to three weights; each plan kind
+_TILE_SHAPES = [
+    (72, 896, (896,)), (72, 4864, (896,)), (288, 896, (4864, 4864)),
+    (4096, 896, (4864, 4864)), (72, 14336, (4096,)), (72, 4096, (4096, 1024, 1024)),
+    (288, 14336, (4096,)), (32, 14336, (4096,)), (4096, 4096, (14336, 14336)),
+    (33, 912, (130,)), (65, 912, (896, 3)), (129, 4864, (896, 128, 130)),
+    (300, 48, (130,)), (300, 912, (896, 130)),
+]
+
+
+@pytest.mark.parametrize("m,k,ns", _TILE_SHAPES)
+def test_gemm_tiles_cover_each_tile_once(m, k, ns):
+    """The twin of the kernel's block -> tile mapping covers each (weight,
+    row tile, column tile) once over all of K (split plans: K's chunks in
+    disjoint ranges that join to all of them) and nothing else but rows
+    past M in a shared weight tile's last group, on `_gemm_plan`'s plan and
+    on every plan kind the kernel takes (bands of 1 to all column tiles)."""
+    chunks = -(-k // 128)
+    wide = sum(-(-n // 128) for n in ns)
+    plans = [tuple(w8a8._gemm_plan(m, k, ns, 132))]
+    for split in (1, 2, 3, 8) if m < 4096 else (1,):
+        if split <= chunks:
+            for band in (1, 3, wide):
+                for bm in (32, 80, 128) if split > 1 else (128,):
+                    plans.append((bm, 128, split, 1, band, split > 1))
+                plans.append((64, 64, split, 1, band, False))
+    for share in (2, 3, 4):
+        for band in (1, 3, wide):
+            plans.append((128, 128, 1, share, band, False))
+    for plan in plans:
+        bm, bn, split, share = plan[:4]
+        got = w8a8._gemm_tiles(m, k, ns, plan)
+        tiles = [-(-n // bn) for n in ns]
+        rows = -(-m // bm)
+        assert len(got) == sum(tiles) * -(-rows // share) * share * split
+        seen = {}
+        for mem, row, t, c0, c1 in got:
+            assert 0 <= mem < len(ns) and 0 <= t < tiles[mem] and 0 <= c0 < c1 <= chunks
+            if row >= rows:  # a shared weight tile's group past M
+                assert share > 1 and row < -(-rows // share) * share and (c0, c1) == (0, chunks)
+                continue
+            seen.setdefault((mem, row, t), []).append((c0, c1))
+        assert len(seen) == sum(tiles) * rows
+        for ranges in seen.values():
+            ranges.sort()
+            assert ranges[0][0] == 0 and ranges[-1][1] == chunks and len(ranges) == split
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_gemm_tiles_walk_bands_of_column_tiles():
+    """The 8B's prefill gate/up group (32 row tiles, 224 column tiles, bands
+    of 8, pairs of row tiles sharing each weight tile): the first 256
+    blocks take the first 8 column tiles of the gate for every row tile, so
+    a wave of 264 reads 4 MB of weights, not all 117 MB; the verify down's
+    plan for few rows splits each column tile's K over 3 blocks in turn."""
+    plan = w8a8._gemm_plan(4096, 4096, (14336, 14336), 132)
+    got = w8a8._gemm_tiles(4096, 4096, (14336, 14336), plan)
+    assert {(mem, t) for mem, _, t, _, _ in got[:256]} == {(0, t) for t in range(8)}
+    assert {row for _, row, _, _, _ in got[:256]} == set(range(32))
+    assert got[256][:3] == (0, 0, 8)
+    # band 14 holds the gate's last tiles (112 of them: 14 bands of 8)
+    assert {(mem, t) for mem, _, t, _, _ in got[14 * 256:15 * 256]} == {
+        (1, t) for t in range(8)}
+    down = w8a8._gemm_tiles(72, 14336, (4096,), w8a8._gemm_plan(72, 14336, (4096,), 132))
+    assert [b[2:] for b in down[:4]] == [(0, 0, 37), (0, 37, 74), (0, 74, 112), (1, 0, 37)]
 
 
 # `quantize_rows`' plans on 132 SMs: (M, K, input dtype) -> (path, warps,
@@ -396,14 +508,20 @@ def test_quantize_rows_launches_on_its_plan(monkeypatch):
     assert card.calls[0][1][6:] == (w8a8._Q_SCALAR, 1, 1)
 
 
-@pytest.mark.parametrize("bn,k,want", [
-    (64, 896, True), (64, 4864, False),  # few-tile plans: by K as the wide ones
-    (128, 768, True), (128, 896, True), (128, 3072, True),  # K under 4 KB
-    (128, 4096, False), (128, 4864, False),  # each block streams a long K
+@pytest.mark.parametrize("m,k,ns,bn,want", [
+    (72, 896, (896,), 64, True), (72, 4864, (896,), 64, False),  # the 0.5B's few tiles
+    (4096, 768, (896,), 128, True), (4096, 896, (896,), 128, True),  # K under 4 KB
+    (4096, 3072, (896,), 128, True),
+    (4096, 4096, (896,), 128, False), (4096, 4864, (896,), 128, False),  # a long K
+    (4096, 14336, (4096,), 128, False),  # the 8B's prefill down: two blocks an SM
+    # one block an SM (deep): the 8B's verify down and o, engine down and
+    # engine verify down
+    (72, 14336, (4096,), 128, True), (72, 4096, (4096,), 128, True),
+    (32, 14336, (4096,), 128, True), (288, 14336, (4096,), 128, True),
 ])
-def test_pdl_rule(bn, k, want):
-    plan = w8a8._gemm_plan(72 if bn == 64 else 4096, k, (896,), 132)
-    assert plan[1] == bn and w8a8._pdl(k) is want
+def test_pdl_rule(m, k, ns, bn, want):
+    plan = w8a8._gemm_plan(m, k, ns, 132)
+    assert plan[1] == bn and w8a8._pdl(k, plan) is want
 
 
 def _group(rng, k, ns, jdt, tdt, bias):
@@ -524,10 +642,11 @@ def test_dense_takes_the_wgmma_route_for_many_rows(monkeypatch):
     args = card.calls[1][1]
     assert list(args[6]) == [4864, 4864, 0]  # N of each member (3 slots)
     plan = w8a8._gemm_plan(m, 896, (4864, 4864), 132)
-    assert args[7:] == (2, m, 896, 0, *plan[:3], 1)  # nmem, M, K, kind, plan, pdl
+    # nmem, M, K, kind, the plan (bm, bn, split, share, band, deep), pdl
+    assert args[7:] == (2, m, 896, 0, *plan[:5], int(plan[5]), 1)
     assert (w8a8.w8a8_gemm.launches, w8a8.quantize_rows.launches,
             w8a8.w8a8_gemm.few_tile_launches) == (
-        before[0] + 1, before[1] + 1, before[2] + int(plan[1] == 64))
+        before[0] + 1, before[1] + 1, before[2] + int(w8a8._few_rows(plan)))
     # a weight off a 16-byte boundary, or K % 16 != 0: the small-row kernel
     card.calls.clear()
     w8a8.w8a8_dense(torch.zeros(300, 896), _int8_weights((64,), 896, offset=4),
@@ -552,6 +671,7 @@ def test_dense_sends_each_wgmma_group_as_one_launch(monkeypatch, m):
         biases = [torch.zeros(n, dtype=torch.bfloat16) if bias else None for n in ns]
         before = (w8a8.w8a8_gemm.launches, w8a8.w8a8_gemm.few_tile_launches,
                   w8a8.quantize_rows.launches)
+        kinds = dict(w8a8.w8a8_gemm.plan_launches)
         ys = w8a8.w8a8_dense(torch.zeros(m, 896, dtype=torch.bfloat16), weights, biases,
                              out_dtype=torch.bfloat16)
         assert [tuple(y.shape) for y in ys] == [(m, n) for n in ns]
@@ -565,10 +685,12 @@ def test_dense_sends_each_wgmma_group_as_one_launch(monkeypatch, m):
         assert list(args[5]) == [y.data_ptr() for y in ys] + pad
         assert list(args[6]) == list(ns) + [0] * len(pad)
         # nmem, M, K, kind, plan, and PDL (every launch at K = 896)
-        assert args[7:] == (len(ns), m, 896, 1, *plan[:3], 1)
+        assert args[7:] == (len(ns), m, 896, 1, *plan[:5], int(plan[5]), 1)
         assert (w8a8.w8a8_gemm.launches, w8a8.w8a8_gemm.few_tile_launches,
                 w8a8.quantize_rows.launches) == (
-            before[0] + 1, before[1] + int(plan[1] == 64), before[2] + 1)
+            before[0] + 1, before[1] + int(w8a8._few_rows(plan)), before[2] + 1)
+        kinds[w8a8._plan_kind(plan, ns)] += 1
+        assert w8a8.w8a8_gemm.plan_launches == kinds
     card.calls.clear()
     (wq, _), = _int8_weights((896,), 2432)
     before = (w8a8.w8a8_gemm_s32.launches, w8a8.w8a8_gemm_s32.wgmma_launches,
@@ -577,7 +699,8 @@ def test_dense_sends_each_wgmma_group_as_one_launch(monkeypatch, m):
     assert card.names() == ["ragtorch_w8a8_gemm_wgmma"]
     args = card.calls[0][1]
     assert args[1] is None and list(args[3]) == [None] * 3
-    assert args[7:] == (1, m, 2432, 2, *w8a8._gemm_plan(m, 2432, (896,), 132)[:3], 1)
+    plan = w8a8._gemm_plan(m, 2432, (896,), 132)
+    assert args[7:] == (1, m, 2432, 2, *plan[:5], int(plan[5]), 1)
     assert (w8a8.w8a8_gemm_s32.launches, w8a8.w8a8_gemm_s32.wgmma_launches,
             w8a8.w8a8_gemm_s32.few_tile_launches) == (
         before[0] + 1, before[1] + 1, before[2] + 1)
