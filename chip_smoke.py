@@ -163,7 +163,9 @@ and exits non-zero before the last line:
              head at 72 rows, the engine's speculative q/k/v and down at 288
              rows, a B = 1 prefill's q/k/v and down at 128 rows, prefill
              q/k/v, gate/up and down at 8 x 512 tokens, a BERT-base FFN at
-             8 x 512, a classifier) on the route `_route` picks, each kernel
+             8 x 512, a classifier, the engine step's products at 32
+             lanes) on the route `_route` picks, and on the small-row route
+             the kernel `_qgemm_short` picks, each kernel
              there against its plain version (the wgmma GEMM a weight and
              for the whole group in one launch); per shape the route and
              the wgmma GEMM's plan (`_gemm_plan`) and its kind
@@ -174,11 +176,16 @@ and exits non-zero before the last line:
              an eager loop of microsecond launches times the host), the
              plain version's time, the bound and the share of it, and, as a
              yardstick only, torch._int_mm where M > 16 (a call a weight
-             beside a group's one launch); the wrapper's host us a call.
+             beside a group's one launch; on the small-row route, after
+             quantize_rows); the wrapper's host us a call. The kernels
+             line has an entry for each small-row kernel: the short-K one
+             at Qwen2.5-0.5B's decode gate/up, the streaming one at
+             Llama-3.1-8B's decode down.
              Then the s32 kind (a row-parallel shard's exact sum) on both
              kernels at Qwen2.5-0.5B's tp = 2 shapes (W8A8_TP_SHAPES: decode
-             o and down, the verify round's down, prefill down), bit for bit
-             against its plain twin, µs, bound and torch._int_mm. Runs
+             o and down, the verify round's down, prefill down; decode o
+             on the short-K kernel), bit for bit against its plain twin,
+             µs, bound and torch._int_mm. Runs
              after k2.
 24. serve_w8a8 — the fused server of phase 6 with LLM_WEIGHT_QUANT=int8 and
              ENCODER_WEIGHT_QUANT=int8: 10 POST /query, 8 of them
@@ -603,6 +610,7 @@ def zero_launches() -> None:
     for fn in (w8a8.w8a8_gemm, w8a8.w8a8_gemm_s32):
         fn.plan_launches = dict.fromkeys(w8a8.PLAN_KINDS, 0)
     w8a8.quantize_rows.long_row_launches = 0
+    w8a8.w8a8_qgemm.short_launches = w8a8.w8a8_gemm_s32.short_launches = 0
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -1000,6 +1008,10 @@ W8A8_SHAPES = [
     ("prefill_gate_up", 4096, 896, (4864, 4864), False),
     ("prefill_down", 4096, 4864, (896,), False),
     ("encoder_ffn_in", 4096, 768, (3072,), True), ("classifier", 8, 768, (5,), True),
+    # the engine's step at 32 lanes
+    ("lanes32_qkv", 32, 896, (896, 128, 128), True), ("lanes32_o", 32, 896, (896,), False),
+    ("lanes32_gate_up", 32, 896, (4864, 4864), False),
+    ("lanes32_down", 32, 4864, (896,), False), ("lanes32_head", 32, 896, (151936,), False),
     # Llama-3.1-8B (H 4,096, kv 8 x 128, I 14,336, an untied 128,256-row
     # head; no biases): its decode step at 8 lanes (the head at 1 too), a
     # verify round's 72 rows, a prefill of 8 x 512 tokens, the engine's
@@ -1020,7 +1032,10 @@ W8A8_SHAPES = [
     ("l8b_prefill_gate_up", 4096, 4096, (14336, 14336), False),
     ("l8b_prefill_down", 4096, 14336, (4096,), False),
     ("l8b_engine_qkv", 32, 4096, (4096, 1024, 1024), False),
+    ("l8b_engine_o", 32, 4096, (4096,), False),
+    ("l8b_engine_gate_up", 32, 4096, (14336, 14336), False),
     ("l8b_engine_down", 32, 14336, (4096,), False),
+    ("l8b_engine_head", 32, 4096, (128256,), False),
     ("l8b_engine_verify_qkv", 288, 4096, (4096, 1024, 1024), False),
     ("l8b_engine_verify_down", 288, 14336, (4096,), False),
     ("l1b_decode_qkv", 8, 2048, (2048, 512, 512), False),
@@ -1034,18 +1049,22 @@ W8A8_SHAPES = [
     ("l1b_prefill_down", 4096, 8192, (2048,), False),
 ]
 # the kernels line's shape of each kernel: the decode step's gate/up group
-# (24 launches a step), the prefill's down on the wgmma GEMM's wide plan and
+# on the short-K kernel (24 launches a step), Llama-3.1-8B's decode down on
+# the streaming small-row kernel, the prefill's down on the wgmma GEMM's wide plan and
 # the prefill's gate/up activation quantize, the verify round's o on its
 # 64 x 64 tiles; Llama-3.1-8B's shapes on the wgmma GEMM's other plan
 # kinds: the prefill's gate/up group in bands of column tiles, the engine's
 # verify down on a weight tile shared by its row tiles, the verify round's
 # down on 128-column tiles with K split over a cluster; the s32 kind's at
-# tp = 2: decode down on the small-row route, prefill down on the wgmma route
-W8A8_MAIN = {"small": "decode_gate_up", "wgmma": "prefill_down",
+# tp = 2: decode o on the short-K kernel, decode down on the streaming one,
+# prefill down on the wgmma route
+W8A8_MAIN = {"short": "decode_gate_up", "small": "l8b_decode_down",
+             "wgmma": "prefill_down",
              "quant": "prefill_gate_up", "few_tiles": "verify_qo",
              "bands": "l8b_prefill_gate_up", "shared": "l8b_engine_verify_down",
              "few_rows": "l8b_verify_down",
-             "small_s32": "decode_down_tp2", "wgmma_s32": "prefill_down_tp2"}
+             "short_s32": "decode_o_tp2", "small_s32": "decode_down_tp2",
+             "wgmma_s32": "prefill_down_tp2"}
 # the plan kind (ops/w8a8.py::_plan_kind) each W8A8_MAIN shape of the wgmma
 # GEMM must take
 W8A8_MAIN_KINDS = {"wgmma": "wide", "few_tiles": "few_tiles", "bands": "bands",
@@ -1133,13 +1152,25 @@ def phase_w8a8():
                                                          out_dtype=out_dtype), it),
                   "plain_ms": cuda_ms(lambda: w8a8.w8a8_dense_plain(
                       x, weights, biases, out_dtype=out_dtype), pit),
-                  "max_abs_err": 0.0, "library_ms": None}
+                  "max_abs_err": 0.0,
+                  # yardstick only, where _int_mm takes the rows: the
+                  # quantize, then the library's s8 GEMM a weight
+                  "library_ms": graph_ms(lambda: [
+                      torch._int_mm(q8, w.t()) for q8 in (w8a8.quantize_rows(x)[0],)
+                      for w, _ in weights], it) if m > 16 else None}
             km.update(bound(m * k * 2 + nbytes, ops, "int8"))
+            short = w8a8._qgemm_short(k, ns)
+            plan = (w8a8._qshort_plan if short else w8a8._qgemm_plan)(m, k, ns, w8a8._sms(0))
             row.update({"small_ms": round(km["ms"], 5), "small_bound_ms": round(km["bound_ms"], 5),
                         "small_of_bound": round(km["bound_ms"] / km["ms"], 3),
-                        "small_plain_ms": round(km["plain_ms"], 4)})
-            if name == W8A8_MAIN["small"]:
-                out["small"] = km
+                        "small_plain_ms": round(km["plain_ms"], 4),
+                        "small_kernel": "short_k" if short else "streaming",
+                        "small_plan": [int(v) for v in plan]})
+            if km["library_ms"] is not None:
+                row["small_int_mm_ms"] = round(km["library_ms"], 5)
+            key = "short" if short else "small"
+            if name == W8A8_MAIN[key]:
+                out[key] = km
         else:
             xq, xs = w8a8.quantize_rows(x)
             check(torch.equal(xq, q) and torch.equal(xs, sc),
@@ -1260,8 +1291,10 @@ def phase_w8a8():
                   "library_ms": library_ms, **b}
             row.update({f"{route}_us": round(km["ms"] * 1e3, 3),
                         f"{route}_of_bound": round(km["bound_ms"] / km["ms"], 3)})
-            if name == W8A8_MAIN[("small" if route == "qgemm" else "wgmma") + "_s32"]:
-                out[("small" if route == "qgemm" else "wgmma") + "_s32"] = km
+            key = ("wgmma" if route == "wgmma" else "short" if w8a8._qgemm_short(k, (n,))
+                   else "small") + "_s32"
+            if name == W8A8_MAIN[key]:
+                out[key] = km
         row.update({"bound_us": round(b["bound_ms"] * 1e3, 3),
                     "plain_ms": round(plain_ms, 4),
                     "int_mm_us": None if library_ms is None else round(library_ms * 1e3, 3)})
@@ -1583,6 +1616,7 @@ def phase_serve(paths: dict, extra: dict | None = None, name: str = "serve",
         "w8a8_bands_launches": w8a8_launches[5],
         "w8a8_shared_launches": w8a8_launches[6],
         "w8a8_few_rows_launches": w8a8_launches[7],
+        "w8a8_short_launches": w8a8_launches[8],
         "llm_ladder": ",".join(map(str, health["llm_ladder"])),
     }
     ex = server.executor
@@ -3125,14 +3159,18 @@ def _profile_steps(params, cfg, entry, ids, mask, steps: int = 8) -> dict:
     def per_step(*marks) -> int:
         return sum(1 for e in cuda_events if any(m in e.name for m in marks)) // steps
 
-    # the s32 kind of the small-row GEMM is its int8-row instance (in_kind 2,
-    # T = int8_t: "signed char", "Ia" mangled)
+    # the s32 kind of the small-row GEMMs is their int8-row instance (in_kind
+    # 2, T = int8_t: "signed char", "Ia" mangled); the short-K kernel's among
+    # them
     return {"b8_step_busy_share": f"{busy / wall_us:.3f}",
             "b8_step_kernel_ms": f"{busy / steps / 1e3:.3f}",
             "b8_step_kernels": len(cuda_events) // steps,
             "b8_step_w8a8_kernels": per_step("w8a8", "quantize_rows"),
-            "b8_step_s32_small_kernels": per_step("w8a8_qgemm_kernel<signed char",
-                                                  "w8a8_qgemm_kernelIa"),
+            "b8_step_s32_small_kernels": per_step(
+                "w8a8_qgemm_kernel<signed char", "w8a8_qgemm_kernelIa",
+                "w8a8_qshort_kernel<signed char", "w8a8_qshort_kernelIa"),
+            "b8_step_s32_short_kernels": per_step("w8a8_qshort_kernel<signed char",
+                                                  "w8a8_qshort_kernelIa"),
             "b8_step_wgmma_kernels": per_step("w8a8_wgmma_kernel"),
             "b8_step_top_kernels": json.dumps(top)}
 
@@ -3250,8 +3288,8 @@ def phase_serve_w8a8(paths: dict) -> dict:
 
 # the W8A8 launch counts, in this order, and none of them
 W8A8_COUNTS = ("(small-row, wgmma, quantize, few-tile, long-row quantize, wgmma in bands, "
-               "wgmma shared weight, few-tile on 128 columns)")
-W8A8_NONE = (0,) * 8
+               "wgmma shared weight, few-tile on 128 columns, short-K small-row)")
+W8A8_NONE = (0,) * 9
 
 
 def w8a8_launches(cfg, rows: int, head_rows: int, dtype: str = "bfloat16") -> tuple:
@@ -3261,14 +3299,15 @@ def w8a8_launches(cfg, rows: int, head_rows: int, dtype: str = "bfloat16") -> tu
     the head) on either route, and a wgmma one quantizes x first; few-tile
     counts the wgmma launches on a plan for few rows (`_few_rows`: 64 x 64
     tiles, or K split over a cluster), long-row quantize the quantizes whose
-    plan (`_quant_plan`) takes the long-row kernel, and the last three the
+    plan (`_quant_plan`) takes the long-row kernel, the next three the
     wgmma launches whose plan is of the kind "bands", "shared" and
-    "few_rows" (`_plan_kind`)."""
+    "few_rows" (`_plan_kind`), and the last the small-row launches on the
+    short-K kernel (`_qgemm_short`)."""
     import torch
     from rag_inference_pipeline_tpu_torch.ops import w8a8
 
     kind = w8a8._IN_KINDS[getattr(torch, dtype)]
-    small = wgmma = quant = few = long = 0
+    small = wgmma = quant = few = long = short = 0
     kinds = dict.fromkeys(w8a8.PLAN_KINDS, 0)
     q, kv, inter = cfg.heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim, cfg.intermediate
     layer = [(cfg.hidden, (q, kv, kv)), (q, (cfg.hidden,)), (cfg.hidden, (inter, inter)),
@@ -3283,7 +3322,9 @@ def w8a8_launches(cfg, rows: int, head_rows: int, dtype: str = "bfloat16") -> tu
             long += w8a8._quant_plan(m, k, kind, w8a8._sms(0))[0] >= w8a8._Q_LONG
         else:
             small += 1
-    return small, wgmma, quant, few, long, kinds["bands"], kinds["shared"], kinds["few_rows"]
+            short += w8a8._qgemm_short(k, ns)
+    return (small, wgmma, quant, few, long, kinds["bands"], kinds["shared"], kinds["few_rows"],
+            short)
 
 
 def _w8a8_counts() -> tuple:
@@ -3295,7 +3336,7 @@ def _w8a8_counts() -> tuple:
     return (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
             w8a8.quantize_rows.launches, w8a8.w8a8_gemm.few_tile_launches,
             w8a8.quantize_rows.long_row_launches, kinds["bands"], kinds["shared"],
-            kinds["few_rows"])
+            kinds["few_rows"], w8a8.w8a8_qgemm.short_launches)
 
 
 def _few_rows_kernel(name: str) -> bool:
@@ -4488,7 +4529,7 @@ def phase_mesh_tp(paths: dict, w8_bodies: list):
                 "tp2": lambda: qwen.greedy_generate(tree, cfg, ids, mask, n, eos_token_id=-1),
             }, 0, rounds=DECODE_ROUNDS)
             counted = (w8a8.w8a8_gemm_s32.launches - w8a8.w8a8_gemm_s32.wgmma_launches,
-                       w8a8.w8a8_gemm_s32.wgmma_launches)
+                       w8a8.w8a8_gemm_s32.wgmma_launches, w8a8.w8a8_gemm_s32.short_launches)
             entries = {"tp1": decode_graph.graphs_of(solo).entries()[0],
                        "tp2": decode_graph.graphs_of(tree).entries()[0]}
             prof = {k: _profile_steps(p, cfg, entries[k], ids, mask)
@@ -4502,11 +4543,15 @@ def phase_mesh_tp(paths: dict, w8_bodies: list):
                       f"{want}) and {prof['tp2'].get('b8_step_wgmma_kernels')} wgmma ones")
                 # the eager prefills launch through the wrappers; the replays
                 # (n - 1 a call) through the graph
-                s32 = {"small": counted[0] + per * DECODE_ROUNDS * (n - 1), "wgmma": counted[1]}
-                check(s32["small"] > 0 and s32["wgmma"] > 0,
-                      f"mesh_tp: the s32 kind did not launch on both routes ({s32})")
+                short = prof["tp2"].get("b8_step_s32_short_kernels")
+                s32 = {"small": counted[0] + per * DECODE_ROUNDS * (n - 1), "wgmma": counted[1],
+                       "short": counted[2] + short * DECODE_ROUNDS * (n - 1)}
+                check(s32["small"] > s32["short"] > 0 and s32["wgmma"] > 0,
+                      f"mesh_tp: the s32 kind did not launch on both routes and both "
+                      f"small-row kernels ({s32})")
                 stats.update({"s32_small_launches": s32["small"],
                               "s32_wgmma_launches": s32["wgmma"],
+                              "s32_short_launches": s32["short"],
                               "s32_small_a_step": per})
             stats.update({
                 f"{dtype}_tp1_ms_per_token": f"{walls['tp1'] / n * 1e3:.3f}",
@@ -4917,7 +4962,8 @@ def main() -> int:
         (llama_serve["w8a8_small_launches"], llama_serve["w8a8_wgmma_launches"],
          llama_serve["quantize_rows_launches"], llama_serve["w8a8_few_tile_launches"],
          llama_serve["quantize_rows_long_launches"], llama_serve["w8a8_bands_launches"],
-         llama_serve["w8a8_shared_launches"], llama_serve["w8a8_few_rows_launches"]))]
+         llama_serve["w8a8_shared_launches"], llama_serve["w8a8_few_rows_launches"],
+         llama_serve["w8a8_short_launches"]))]
     check(llama[4] > 0, "the Llama phases launched no long-row quantize")
     spec = w8_decode["spec_launches"]  # decode_w8a8's int8 speculation
     tp_encode = phase_tp_encode()
@@ -4953,11 +4999,19 @@ def main() -> int:
         entry("kv_row_insert", "scripts/bench_decode_anatomy.py:88", k7["launches"], k7),
         entry("stream", "scripts/bench_kernel.py:171", k8["launches"], k8),
         # no Pallas kernel: the reference's XLA _qdense and quantize_act_rows;
-        # the GEMM on its two routes (small rows: the quantize folded in)
-        # (the Llama phases' launches added: the 8B's served /query, its
-        # greedy and speculation, its engine, the 1B's greedy)
+        # the GEMM on its two routes (every entry adds the Llama phases'
+        # launches: the 8B's served /query, its greedy and speculation, its
+        # engine, the 1B's greedy). Small rows, the quantize folded in: the
+        # short-K kernel (rows of at most 1,024 under 16 MB of weights:
+        # Qwen2.5-0.5B's q/k/v, o and gate/up, the classifiers), timed at
+        # the 0.5B's decode gate/up
+        entry("w8a8_gemm_short_k", "rag_inference_pipeline_tpu/models/layers.py:92",
+              w8_serve["w8a8_short_launches"] + llama[8], w8["short"], "w8a8_short_k"),
+        # the streaming kernel (the rest: long rows, the heads), timed at
+        # Llama-3.1-8B's decode down
         entry("w8a8_gemm_small_rows", "rag_inference_pipeline_tpu/models/layers.py:92",
-              w8_serve["w8a8_small_launches"] + llama[0], w8["small"], "w8a8_gemm"),
+              w8_serve["w8a8_small_launches"] - w8_serve["w8a8_short_launches"]
+              + llama[0] - llama[8], w8["small"], "w8a8_gemm"),
         # the wgmma GEMM by plan kind: wide tiles in the order by rows
         entry("w8a8_gemm_wgmma", "rag_inference_pipeline_tpu/models/layers.py:92",
               w8_serve["w8a8_wgmma_launches"] - w8_serve["w8a8_few_tile_launches"]
@@ -4991,7 +5045,9 @@ def main() -> int:
         # the s32 kind of both GEMMs: a row-parallel shard's partial at tp = 2
         # (o and down; the reference's int32 psum over tp), from mesh_tp
         entry("w8a8_gemm_small_rows_s32", "rag_inference_pipeline_tpu/models/layers.py:92",
-              mesh_tp["small"], w8["small_s32"], "w8a8_gemm"),
+              mesh_tp["small"] - mesh_tp["short"], w8["small_s32"], "w8a8_gemm"),
+        entry("w8a8_gemm_short_k_s32", "rag_inference_pipeline_tpu/models/layers.py:92",
+              mesh_tp["short"], w8["short_s32"], "w8a8_short_k"),
         entry("w8a8_gemm_wgmma_s32", "rag_inference_pipeline_tpu/models/layers.py:92",
               mesh_tp["wgmma"], w8["wgmma_s32"], "w8a8_wgmma"),
         entry("flash_attention", "rag_inference_pipeline_tpu/models/layers.py:205",

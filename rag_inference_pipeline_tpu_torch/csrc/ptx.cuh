@@ -197,6 +197,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// the same, to the shared address `dst` with the mbarrier at shared address
+// `bar`
+__device__ __forceinline__ void bulk_load_to(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // --- named barriers and register reallocation ------------------------------
 
 // waits until `threads` threads (a multiple of 32) have arrived at barrier
@@ -384,6 +395,11 @@ __device__ __forceinline__ void st_cluster_s32(uint32_t addr, int v) {
 // one f32 value to a shared::cluster address
 __device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// adds v to the s32 at a shared::cluster address (no value returned)
+__device__ __forceinline__ void red_cluster_add(uint32_t addr, int v) {
+  asm volatile("red.shared::cluster.add.s32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // a TMA descriptor (a __grid_constant__ parameter, by generic address)

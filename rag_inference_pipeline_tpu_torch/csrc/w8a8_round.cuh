@@ -1,5 +1,5 @@
 // The activation quantize of the W8A8 product, shared by the kernels that
-// quantize (w8a8_quant.cu, and w8a8_gemm.cu's prologue).
+// quantize (w8a8_quant.cu, and w8a8_gemm.cu's prologue, 16 values at once).
 //
 // The reference (rag_inference_pipeline_tpu/models/layers.py::
 // quantize_act_rows, :80-89) computes q = clip(rint(x / s), -127, 127) with
@@ -40,6 +40,42 @@ __device__ __forceinline__ int8_t quantize_exact(float v, float s, float r) {
   const float ry = rintf(y);
   const float q = fabsf(__fsub_rn(y, ry)) < 0.49996f ? ry : rintf(__fdiv_rn(v, s));
   return (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
+}
+
+// 4 quantized values packed as int8 in element order (their low bytes)
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// quantize_exact on each of 16 values, packed: the rare path of
+// quantize16_exact, kept out of line (its 16 divisions are most of the
+// code, which the instruction cache would otherwise refetch every launch)
+static __device__ __noinline__ uint4 quantize16_slow(const float* f, float s, float r) {
+  int q[16];
+  for (int i = 0; i < 16; ++i) q[i] = quantize_exact(f[i], s, r);
+  return make_uint4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                    pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+}
+
+// quantize_exact of 16 values, packed as int8 in element order: the
+// quotient by the reciprocal product for all 16 with one test for a
+// half-integer within reach among them, then (rarely) quantize_exact on
+// each. One branch for the 16, not one a value: the values' arithmetic
+// overlaps. No clip on the fast path: |x / s| <= 127.00001 (see above),
+// so a finite y rounds into [-127, 127]; a NaN (an infinite x, or s)
+// fails the test and takes quantize_exact.
+__device__ __forceinline__ uint4 quantize16_exact(const float (&f)[16], float s, float r) {
+  int q[16];
+  bool near = false;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float y = __fmul_rn(f[i], r);
+    near |= !(fabsf(__fsub_rn(y, rintf(y))) < 0.49996f);  // NaN too
+    q[i] = __float2int_rn(y);
+  }
+  if (near) return quantize16_slow(f, s, r);
+  return make_uint4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
+                    pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
 }
 
 }  // namespace w8a8

@@ -158,11 +158,21 @@ def load_library() -> ctypes.CDLL:
             # once (out; no stream: a host query)
             "ragtorch_w8a8_gemm_clusters": [i32] * 5 + [ctypes.POINTER(i32)],
             # x, wq[3], ws[3], bias[3], out[3], N[3], nmem, M, K, in_kind,
-            # out_kind, mt, nt8, grid_x, cluster, stream
+            # out_kind, mt, kc, depth, grid_x, cluster, stream
             "ragtorch_w8a8_qgemm": [vp] + [ctypes.POINTER(vp)] * 4
+            + [ctypes.POINTER(i32)] + [i32] * 10 + [vp],
+            # mt, K, cluster, slots, kc, depth -> a block's shared memory
+            # (no stream: a host query)
+            "ragtorch_w8a8_qgemm_smem": [i32] * 6,
+            # mt, smem, cluster -> the clusters the card holds at once (out;
+            # no stream: a host query)
+            "ragtorch_w8a8_qgemm_clusters": [i32] * 3 + [ctypes.POINTER(i32)],
+            # the short-K kernel: x, wq[3], ws[3], bias[3], out[3], N[3],
+            # nmem, M, K, in_kind, out_kind, mt, nt8, grid_x, cluster, stream
+            "ragtorch_w8a8_qshort": [vp] + [ctypes.POINTER(vp)] * 4
             + [ctypes.POINTER(i32)] + [i32] * 9 + [vp],
             # mt, K -> a block's shared memory (no stream: a host query)
-            "ragtorch_w8a8_qgemm_smem": [i32] * 2,
+            "ragtorch_w8a8_qshort_smem": [i32] * 2,
             # x, q, s, M, K, in_kind, path, warps, cluster, stream
             "ragtorch_w8a8_quantize_rows": [vp] * 3 + [i32] * 6 + [vp],
             # q, k, v, seg_q, seg_kv, out, B, T, H, dh, the (b, t, h)

@@ -24,9 +24,12 @@ shape:
   the weights are large); else, where one tile holds the rows, 128-column
   tiles with K split across the blocks of a cluster (exact int32 partial
   sums); else 64 x 64 tiles, K split or not;
-- everything else (K % 4 == 0): `w8a8_qgemm` (`csrc/w8a8_gemm.cu`), the
-  quantize and the GEMM of up to three weights that share x (q/k/v,
-  gate/up) in one launch.
+- everything else (K % 4 == 0): `w8a8_qgemm`, the quantize and the GEMM
+  of up to three weights that share x (q/k/v, gate/up) in one launch:
+  `csrc/w8a8_short_k.cu` on `_qshort_plan`'s plan where K is at most 1,024
+  and the weights a few MB (`_qgemm_short`: Qwen2.5-0.5B's q/k/v, o and
+  gate/up, the classifiers), else `csrc/w8a8_gemm.cu` on `_qgemm_plan`'s
+  (long rows and the heads: its weights stream at the card's rate).
 
 `w8a8_dense` is the entry the models call. Under a row split over tp (o
 and down, BERT's ffn_out: `models/layers.py::row_dense`) they call
@@ -46,10 +49,11 @@ kernel counts the launches it makes outside a CUDA graph capture
 (`quantize_rows.launches`, of which `quantize_rows.long_row_launches`
 took the long-row kernel, `w8a8_gemm.launches`, `w8a8_qgemm.launches`,
 and for the s32 kind `w8a8_gemm_s32.launches`, of which
-`w8a8_gemm_s32.wgmma_launches` took the wgmma route; of the wgmma launches
-of either kind, `few_tile_launches` took a plan for few rows, `_few_rows`,
-and `plan_launches` counts them by plan kind, `_plan_kind`): a
-call under a capture records its kernel into the graph and counts nothing,
+`w8a8_gemm_s32.wgmma_launches` took the wgmma route; of the small-row
+launches of either kind, `short_launches` took the short-K kernel; of the
+wgmma launches of either kind, `few_tile_launches` took a plan for few
+rows, `_few_rows`, and `plan_launches` counts them by plan kind,
+`_plan_kind`): a call under a capture records its kernel into the graph and counts nothing,
 as the K7 wrappers do (`ops/kv.py`).
 """
 
@@ -75,12 +79,31 @@ _S32 = 2  # the s32 kind: int8 rows in (the small-row kernel), int32 sums out
 # no faster for it in every turn: decode steps up to 32 lanes keep the
 # small-row kernel, one launch a group
 M_STAR = 32
-# csrc/w8a8_gemm.cu's block: 8 warps, rings of 8 slots of 32 x 32 bytes, K
-# in 64-byte blocks, m tiles of at most 64 rows, clusters of 8 blocks; the
+# csrc/w8a8_gemm.cu's block: 16 warps, K in 64-byte blocks, m tiles of at
+# most 64 rows, tiles of 16 weight rows, units of 512, 256 or 128 bytes of K (a stage row padded by 64), rings of
+# up to 8 stages a warp; the
 # card's shared memory a block may take and an SM holds (1 KB of it
 # reserved a block)
-_QG_WARPS, _QG_DEPTH, _QG_BLOCK_K, _QG_MAX_ROWS, _QG_CLUSTER = 8, 8, 64, 64, 8
+_QG_WARPS, _QG_BLOCK_K, _QG_MAX_ROWS, _QG_TILE_ROWS = 16, 64, 64, 16
+_QG_ROW_PAD, _QG_MAX_DEPTH, _QG_UNITS = 64, 8, (512, 256, 128)
+# rows of at most _QG_SHORT_K elements: the short-K kernel's (under
+# _QS_MAX_BYTES of weights), else quantized whole by each block of the
+# streaming kernel (no cluster) where a thread keeps at most 2 of its
+# row's 16-element units (a row goes to 512 / G threads, G its rows
+# rounded up to a power of two)
+_QG_SHORT_K = 1024
+# csrc/w8a8_short_k.cu's block: 8 warps, rings of 8 slots of 32 x 32
+# bytes, clusters of 8 blocks; the weight bytes of a group below which a product
+# of rows of at most _QG_SHORT_K takes it (Qwen2.5-0.5B's gate/up is 8.7
+# MB, its head 136 MB)
+_QS_WARPS, _QS_DEPTH, _QS_CLUSTER, _QS_MAX_BYTES = 8, 8, 8, 1 << 24
 _BLOCK_SMEM, _SM_SMEM, _SM_RESERVED = 232_448, 233_472, 1024
+# the blocks of a small-row cluster (sharing the quantize of x), and the
+# clusters of 1, 2 and 8 one-an-SM blocks an H100 runs at once
+# (cudaOccupancyMaxActiveClusters, `ragtorch_w8a8_qgemm_clusters`;
+# PERF.md): pairs fill its 132 SMs, larger clusters leave SMs of a GPC
+# idle
+_QG_CLUSTER, _QG_WAVE = 2, {1: 132, 2: 66, 8: 15}
 # csrc/w8a8_wgmma.cu's tiles: 128 bytes of K a stage, 64 rows a consumer
 # warpgroup (one or two), 128 or 64 columns; K split over at most 8 blocks
 # of a cluster (the portable cluster size); a weight tile shared by the
@@ -170,11 +193,6 @@ def _off_card(what: str, tensors) -> bool:
     return False
 
 
-def _counted(fn) -> None:
-    if not torch.cuda.is_current_stream_capturing():
-        fn.launches += 1
-
-
 # --- the route and the small-row kernel's plan (host arithmetic, reached by
 # the CPU tests) -------------------------------------------------------------
 
@@ -186,16 +204,83 @@ def _qgemm_stride(k: int) -> int:
     return kp if kp % 128 == 64 else kp + 64
 
 
-def _qgemm_smem(mt: int, k: int) -> int:
-    """Shared memory of a small-row block (`csrc/w8a8_gemm.cu::smem_bytes`)."""
-    return (mt * _qgemm_stride(k) + _QG_WARPS * 8 * mt * 4 + 2 * mt * 4 + 2 * 64 * 4
-            + _QG_WARPS * _QG_DEPTH * 32 * 32)
+def _qgemm_slice(k: int, cluster: int) -> int:
+    """Bytes of K in a small-row block's slice at most, K split over a
+    cluster's blocks in 64-byte blocks (`csrc/w8a8_gemm.cu::slice_max`)."""
+    return -(-(-(-k // _QG_BLOCK_K)) // cluster) * _QG_BLOCK_K
+
+
+def _qgemm_smem(mt: int, k: int, slots: int = 1, kc: int = _QG_UNITS[-1],
+                depth: int = 1, cluster: int = 1) -> int:
+    """Shared memory of a small-row block (`csrc/w8a8_gemm.cu::Layout`): the
+    quantized m tile of its K slice (K split over `cluster` blocks), the
+    int32 sums of the `slots` tiles it stores and their columns' scales,
+    biases and places, the row scales and maxima, the
+    warps' mbarriers and (on 128 bytes) their rings of `depth` stages of
+    16 rows of kc + 64 bytes. The defaults are the most a row takes
+    (all of K) beside the smallest ring: a stage of 128 bytes of K a
+    warp."""
+    ring = -(-(mt * _qgemm_stride(_qgemm_slice(k, cluster))
+               + slots * (mt + 3) * _QG_TILE_ROWS * 4 + 2 * mt * 4 + _QG_WARPS * depth * 8)
+             // 128) * 128
+    return ring + _QG_WARPS * depth * _QG_TILE_ROWS * (kc + _QG_ROW_PAD)
+
+
+def _qshort_smem(mt: int, k: int) -> int:
+    """Shared memory of a short-K block (`csrc/w8a8_short_k.cu::smem_bytes`):
+    the quantized m tile, the K splits' partial sums, the row scales and
+    maxima, a tile's column scales and biases, and the warps' rings."""
+    return (mt * _qgemm_stride(k) + _QS_WARPS * 8 * mt * 4 + 2 * mt * 4 + 2 * 64 * 4
+            + _QS_WARPS * _QS_DEPTH * 32 * 32)
+
+
+def _qgemm_short(k: int, ns: Sequence[int]) -> bool:
+    """Whether a small-row product over weights of N `ns` takes the
+    short-K kernel (csrc/w8a8_short_k.cu): rows of at most _QG_SHORT_K
+    elements and a group of less than _QS_MAX_BYTES of weights. There a
+    product moves a few MB and the launch's latency sets its time: the
+    short-K kernel's is lower (Qwen2.5-0.5B's q/k/v, o and gate/up ran
+    5-62% slower on csrc/w8a8_gemm.cu's at 8 to 32 rows on an H100,
+    PERF.md); its down (K 4,864) and its head (136 MB) ran 9-32% faster
+    there."""
+    return k <= _QG_SHORT_K and k * sum(ns) < _QS_MAX_BYTES
+
+
+def _qshort_plan(m: int, k: int, ns: Sequence[int], sms: int) -> tuple[int, int, int, int]:
+    """(mt, nt8, grid_x, cluster) of a short-K launch: the m tile
+    (`_qgemm_rows`); n8 tiles a block tile (8 weight rows each); the blocks
+    that share the tiles, at most as many as the card holds at once (in
+    whole clusters, rounded up within that, else down); and the blocks a
+    cluster, which share the quantize of the m tile: 8 where each block
+    takes at most two tiles, else 1.
+
+    nt8 is the largest of 8, 4, 2, 1 that gives at least one block tile an
+    SM (1 if none does): at 8 each warp owns whole 8-row tiles over all of
+    K with no block barrier; below it the warps split K, which spreads a
+    few-row weight over more SMs."""
+    mt = _qgemm_rows(m, k)
+    if mt is None:
+        raise ValueError(f"w8a8_qgemm: K = {k} leaves no room for an m tile")
+    per_sm = 2 if 2 * (_qshort_smem(mt, k) + _SM_RESERVED) <= _SM_SMEM else 1
+    for nt8 in (8, 4, 2, 1):
+        tiles = sum(-(-n // (8 * nt8)) for n in ns)
+        if tiles >= sms:
+            break
+    cap = per_sm * sms
+    blocks = min(tiles, cap)
+    cluster = _QS_CLUSTER if tiles <= 2 * blocks else 1
+    grid = -(-blocks // cluster) * cluster  # whole clusters, within one wave
+    if grid > cap:
+        grid = max(cluster, blocks // cluster * cluster)
+    return mt, nt8, grid, cluster
 
 
 def _qgemm_rows(m: int, k: int) -> Optional[int]:
     """Token rows an m tile of the small-row kernel holds at K: 8 for M <=
-    8, else M rounded up to 16 rows and at most 64, fewer where K leaves no
-    room; None when not even the smallest tile fits a block."""
+    8, else M rounded up to 16 rows and at most 64, fewer where all of K
+    leaves no room beside the smallest ring (a cluster's split of K only
+    deepens the ring); None when not even the smallest tile fits a
+    block."""
     mt = 8 if m <= 8 else min(-(-m // 16) * 16, _QG_MAX_ROWS)
     while _qgemm_smem(mt, k) > _BLOCK_SMEM:
         if mt <= 16:
@@ -221,37 +306,123 @@ def _route(m: int, k: int, aligned: bool) -> str:
     return "qgemm"
 
 
-def _qgemm_plan(m: int, k: int, ns: Sequence[int],
-                sms: int) -> tuple[int, int, int, int]:
-    """(mt, nt8, grid_x, cluster) of a small-row launch: the m tile; n8
-    tiles a block tile (8 weight rows each); the blocks that share the
-    tiles, at most as many as the card holds at once (in whole clusters,
-    rounded up within that, else down); and the blocks a
-    cluster, which share the quantize of the m tile: 8 where each block
-    takes at most two tiles, else 1 (a block quantizes once, however many
-    tiles it takes; on an H100 a cluster of blocks that loop over many
-    tiles, as the head's do, measured slower: PERF.md). The grid is whole
-    clusters.
+class QgemmPlan(NamedTuple):
+    """A small-row launch plan (`_qgemm_plan`): the token rows an m tile,
+    the bytes of K a unit, the ring stages a warp, the blocks of the grid
+    (one an SM) and the blocks of a cluster."""
 
-    nt8 is the largest of 8, 4, 2, 1 that gives at least one block tile an
-    SM (1 if none does): at 8 each warp owns whole 8-row tiles over all of
-    K with no block barrier; below it the warps split K, which spreads a
-    few-row weight over more SMs."""
+    mt: int
+    kc: int
+    depth: int
+    grid: int
+    cluster: int
+
+
+def _qgemm_plan(m: int, k: int, ns: Sequence[int], sms: int,
+                cluster: Optional[int] = None) -> QgemmPlan:
+    """The launch plan of a small-row product over the weights of N `ns`
+    that share x [M, K] on `sms` SMs:
+
+    - one block an SM, in pairs (`_QG_CLUSTER`; 66 fill an H100, clusters
+      of 8 fit 15, `_QG_WAVE`) that split K between them: each block
+      quantizes its half of x's rows (the abs-maxima meet through
+      distributed shared memory) and streams that half of K of every tile
+      of the pair; a pair takes the contiguous tiles [c T / P, (c + 1) T /
+      P) of its P pairs, at most one more than any other pair
+      (`_qgemm_tiles`). Clusters of 8 where a pair's slice of a row of x
+      gives its threads more than 2 units of 16 elements each (the 8B's
+      down at 8 rows, its engine's 32 rows at K 4,096, the 1B's and the
+      0.5B's down: the quantize then outweighs 12 idle SMs), one block
+      alone (every block quantizes all of x) where K is at most 1,024 and
+      that gives a thread at most 2 units (Qwen2.5-0.5B's head up to 16
+      rows), or the `cluster` the caller asks for (1, 2 or 8: a wave of
+      them);
+    - tiles of 16 weight rows (the mma's A side) and the m tile of
+      `_qgemm_rows`;
+    - units of 512 bytes of K where each warp gets two of them at least,
+      else 256, else 128, and the ring as deep as the shared memory left
+      after the m tile and the sums holds (2 to 8 stages a warp; 1 where
+      a block's sums leave room for no more, as a head's 67-80 tiles a
+      block do at 17 to 32 rows); where not even 128-byte units give each
+      warp two (Qwen2.5-0.5B's down, Llama-3.2-1B's q/k/v and o: a few
+      MB, whose time is latency) the largest unit a stage holds, the
+      fewest copies."""
     mt = _qgemm_rows(m, k)
     if mt is None:
         raise ValueError(f"w8a8_qgemm: K = {k} leaves no room for an m tile")
-    per_sm = 2 if 2 * (_qgemm_smem(mt, k) + _SM_RESERVED) <= _SM_SMEM else 1
-    for nt8 in (8, 4, 2, 1):
-        tiles = sum(-(-n // (8 * nt8)) for n in ns)
-        if tiles >= sms:
+    if cluster is None:
+        # a short row's block quantizes all of it where that gives a thread
+        # at most 2 units of its row; else pairs, or 8 blocks where a
+        # pair's slice gives a thread more than 2
+        lanes = _QG_WARPS * 32 // (1 << (min(m, mt) - 1).bit_length())  # threads a row
+
+        def units(c):
+            return -(-(_qgemm_slice(k, c) // 16) // lanes)
+
+        cluster = (1 if k <= _QG_SHORT_K and units(1) <= 2
+                   else _QG_CLUSTER if units(_QG_CLUSTER) <= 2 else 8)
+    # the clusters one wave holds: pairs fill the SMs (`_QG_WAVE`)
+    fit = _QG_WAVE[cluster] * sms // 132
+    tiles = sum(-(-n // _QG_TILE_ROWS) for n in ns)
+    clusters = min(tiles, fit)
+    per_cluster = -(-tiles // clusters)  # tiles a cluster at most
+    slots = -(-per_cluster // cluster)  # the tiles a block owns (stores)
+    # fewer than two 128-byte units a warp: latency, not bytes, sets the
+    # time; the largest unit (the fewest copies) a stage can hold
+    kslice = _qgemm_slice(k, cluster)
+    few = per_cluster * -(-kslice // _QG_UNITS[-1]) < 2 * _QG_WARPS
+    for kc in _QG_UNITS:
+        depth = _QG_MAX_DEPTH
+        while depth and _qgemm_smem(mt, k, slots, kc, depth, cluster) > _BLOCK_SMEM:
+            depth -= 1
+        if depth >= (1 if few else 2) and (
+                few or per_cluster * -(-kslice // kc) >= 2 * _QG_WARPS):
             break
-    cap = per_sm * sms
-    blocks = min(tiles, cap)
-    cluster = _QG_CLUSTER if tiles <= 2 * blocks else 1
-    grid = -(-blocks // cluster) * cluster  # whole clusters, within one wave
-    if grid > cap:
-        grid = max(cluster, blocks // cluster * cluster)
-    return mt, nt8, grid, cluster
+    if depth < 1:
+        raise ValueError(f"w8a8_qgemm: {tiles} tiles at K = {k} leave no room for a ring")
+    return QgemmPlan(mt, kc, depth, clusters * cluster, cluster)
+
+
+def _qgemm_plan_smem(m: int, k: int, ns: Sequence[int], plan) -> int:
+    """A small-row block's shared memory on `plan` (the launch asks for
+    more: one block an SM)."""
+    tiles = sum(-(-n // _QG_TILE_ROWS) for n in ns)
+    slots = -(-(-(-tiles // (plan.grid // plan.cluster))) // plan.cluster)
+    return _qgemm_smem(plan.mt, k, slots, plan.kc, plan.depth, plan.cluster)
+
+
+def _qgemm_tiles(m: int, k: int, ns: Sequence[int],
+                 plan) -> list[tuple[int, int, int, int, int, int]]:
+    """What each warp of a small-row launch on `plan` streams, unit by
+    unit: (block, warp, weight, first row of its tile, first and end byte
+    of K), as csrc/w8a8_gemm.cu's kernel works it out. Cluster c of the P
+    clusters takes the tiles [c T / P, (c + 1) T / P) of the T tiles of
+    every weight in turn; its block of rank r takes the 64-byte K blocks
+    [r B / C, (r + 1) B / C) of the B of K (C blocks a cluster); the
+    block's (tile, chunk of kc bytes of its slice) units, tile by tile, go
+    to its 16 warps in 16 even runs. Every m tile's blocks (the grid's y)
+    repeat the map."""
+    kc, grid, cluster = plan.kc, plan.grid, plan.cluster
+    tiles = [-(-n // _QG_TILE_ROWS) for n in ns]
+    total, nclusters, blocks64 = sum(tiles), grid // cluster, -(-k // _QG_BLOCK_K)
+    out = []
+    for b in range(grid):
+        c, r = divmod(b, cluster)
+        t0, t1 = c * total // nclusters, (c + 1) * total // nclusters
+        kbeg = r * blocks64 // cluster * _QG_BLOCK_K
+        kend = min(k, (r + 1) * blocks64 // cluster * _QG_BLOCK_K)
+        chunks = -(-(kend - kbeg) // kc) if kend > kbeg else 0
+        units = (t1 - t0) * chunks
+        for w in range(_QG_WARPS):
+            for u in range(w * units // _QG_WARPS, (w + 1) * units // _QG_WARPS):
+                tl, ch = divmod(u, chunks)
+                t, mem = t0 + tl, 0
+                while t >= tiles[mem]:
+                    t -= tiles[mem]
+                    mem += 1
+                k0 = kbeg + ch * kc
+                out.append((b, w, mem, t * _QG_TILE_ROWS, k0, min(kend, k0 + kc)))
+    return out
 
 
 class GemmPlan(NamedTuple):
@@ -595,17 +766,21 @@ def _qgemm_launch(x, weights, biases, out_dtype) -> list[torch.Tensor]:
     if m:
         index = x.get_device()
         ns = [wq.shape[0] for wq, _ in weights]
-        mt, nt8, grid_x, cluster = _qgemm_plan(m, k, ns, _sms(index))
+        short = _qgemm_short(k, ns)
+        plan = (_qshort_plan if short else _qgemm_plan)(m, k, ns, _sms(index))
         ptrs = ctypes.c_void_p * 3
         _kernels.launch(
-            "ragtorch_w8a8_qgemm", index, x.data_ptr(),
+            "ragtorch_w8a8_qshort" if short else "ragtorch_w8a8_qgemm", index, x.data_ptr(),
             ptrs(*(wq.data_ptr() for wq, _ in weights)),
             ptrs(*(None if ws is None else ws.data_ptr() for _, ws in weights)),
             ptrs(*(None if b is None else b.data_ptr() for b in biases)),
             ptrs(*(o.data_ptr() for o in outs)), (ctypes.c_int * 3)(*ns),
             len(weights), m, k, _S32 if x.dtype == torch.int8 else _IN_KINDS[x.dtype],
-            _OUT_KINDS[out_dtype], mt, nt8, grid_x, cluster)
-        _counted(w8a8_gemm_s32 if out_dtype == torch.int32 else w8a8_qgemm)
+            _OUT_KINDS[out_dtype], *plan)
+        if not torch.cuda.is_current_stream_capturing():
+            fn = w8a8_gemm_s32 if out_dtype == torch.int32 else w8a8_qgemm
+            fn.launches += 1
+            fn.short_launches += short
     return outs
 
 
@@ -637,9 +812,10 @@ def w8a8_qgemm(
     """x's rows quantized, then each weight's W8A8 product -> [M, N_i] of
     `out_dtype` each: the small-row route, one launch for the group.
 
-    On CUDA tensors this launches csrc/w8a8_gemm.cu (or raises: K must be a
-    multiple of 4, the weights 4-byte aligned, and an m tile of x must fit a
-    block); on CPU tensors it runs `w8a8_dense_plain`."""
+    On CUDA tensors this launches csrc/w8a8_short_k.cu where `_qgemm_short`
+    says so, else csrc/w8a8_gemm.cu (or raises: K must be a multiple of 4,
+    the weights 4-byte aligned, and an m tile of x must fit a block); on
+    CPU tensors it runs `w8a8_dense_plain`."""
     biases, on_cpu = _check_group("w8a8_qgemm", x, weights, biases, out_dtype)
     if on_cpu:
         return w8a8_dense_plain(x, weights, biases, out_dtype=out_dtype)
@@ -750,6 +926,8 @@ quantize_rows.launches = 0
 quantize_rows.long_row_launches = 0
 w8a8_gemm.launches = 0
 w8a8_qgemm.launches = 0
+w8a8_qgemm.short_launches = 0
+w8a8_gemm_s32.short_launches = 0
 w8a8_gemm_s32.launches = 0
 w8a8_gemm_s32.wgmma_launches = 0
 w8a8_gemm.few_tile_launches = 0

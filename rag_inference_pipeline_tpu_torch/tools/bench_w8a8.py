@@ -30,6 +30,8 @@ in, builds its kernels and times on one card, with seeded random inputs:
   runs them (`model_order`): an elementwise kernel writing x,
   `quantize_rows`, then the group's wgmma GEMM (or `torch._int_mm` a
   weight), as a replayed graph: the GEMM no longer follows another GEMM;
+  and the 8B's decode products on the small-row route (B 8 and 1) after
+  the elementwise kernel (`small_ms`; `front_ms` that kernel alone);
 - the B = 8 greedy step of Qwen2.5-0.5B at full width (random weights
   from seed 0, prompt bucket 512) in int8 (W8A8) and in bf16: device ms a
   step over replays of the step graph, ms a token of a whole
@@ -42,25 +44,38 @@ in, builds its kernels and times on one card, with seeded random inputs:
   W8A8 kernels' share and their count.
 
 `--llama8b` adds Llama-3.1-8B in W8A8 at full width and depth (random
-weights from seed 0): its greedy step at 32 lanes (the engine's step, the
-down on the wgmma route) and its verify round at B = 8, gamma 8, each as
-above (device ms, W8A8 ms and kernels from a trace); speculation's ms a
+weights from seed 0): its greedy step at 8 and 1 lanes (every product on
+the small-row route) and at 32 lanes (the engine's step, the down on the
+wgmma route) and its verify round at B = 8, gamma 8, each as above
+(device ms, W8A8 ms and kernels from a trace, each W8A8 kernel's full
+name with its launches and ms a replay); speculation's ms a
 token over LLAMA_SPEC_NEW tokens at B = 8; the decode engine's wall over
 `chip_smoke.py`'s 16 prompts, plain and speculative.
+
+Each small-row product carries its plan (`small_plan`: the short-K
+kernel's where the checkout has it and `_qgemm_short` picks it, else the
+streaming kernel's) and, at 32 rows,
+`quantize_rows` then `torch._int_mm` a weight as the library's column
+(`quant_int_mm_ms`).
 
 `--sweep` times the two routes of the checkout's `ops/w8a8.py` against each
 other at 8 to 512 rows for Qwen2.5-0.5B's groups (the small-row kernel, and
 `quantize_rows` + the wgmma GEMM, one launch a group where the checkout
 groups), each call after an elementwise kernel that writes x, as in a
 layer; beside them `torch._int_mm`, the
-wgmma GEMM's plan, and the small-row kernel with its quantize shared by a
-cluster of 8 blocks (where the plan clusters) and done by each block alone;
+wgmma GEMM's plan, and the streaming small-row kernel with its quantize
+done by each block alone (a cluster of one);
 then the wgmma GEMM alone on every plan kind its kernel takes (`plans`:
 wide tiles, 64 x 64 tiles, either split over a cluster, a weight tile
 shared by a cluster's row tiles, bands of column tiles) at the 0.5B's
 few-tile shapes and the 8B's and the 1B's
 (`PLAN_SHAPES`), beside `torch._int_mm`, against which `_gemm_plan`'s rule
-is set. `--plans` times that alone.
+is set. `--plans` times that alone, after the small-row kernel's plans
+(`small_plans`: each streaming small-row shape's plan, the clusters the
+card holds at once by the library's query and how many of the grid's run
+in the first wave, the most weight bytes an SM streams beside the mean,
+ms a launch alone and after an elementwise kernel that writes x, and both
+on clusters of 1, 2 and 8 blocks).
 
 `--against PARENT_ROOT` compares two checkouts on one card in one call: it
 copies this file into PARENT_ROOT's `rag_inference_pipeline_tpu_torch/
@@ -104,6 +119,10 @@ SHAPES = [
     ("prefill_gate_up", 4096, 896, (4864, 4864), False),
     ("prefill_down", 4096, 4864, (896,), False),
     ("encoder_ffn_in", 4096, 768, (3072,), True), ("classifier", 8, 768, (5,), True),
+    # Qwen2.5-0.5B's engine step at 32 lanes (chip_smoke.py's lanes32_ rows)
+    ("lanes32_qkv", 32, 896, (896, 128, 128), True), ("lanes32_o", 32, 896, (896,), False),
+    ("lanes32_gate_up", 32, 896, (4864, 4864), False),
+    ("lanes32_down", 32, 4864, (896,), False), ("lanes32_head", 32, 896, (151936,), False),
     # the wgmma-route products of Llama-3.1-8B (H 4,096, kv 8 x 128, I
     # 14,336, a 128,256-row head) at a verify round (72 rows), a prefill of
     # 8 x 512 tokens, its engine step (32 lanes) and the engine's verify
@@ -123,7 +142,26 @@ SHAPES = [
     ("l1b_prefill_o", 4096, 2048, (2048,), False),
     ("l1b_prefill_gate_up", 4096, 2048, (8192, 8192), False),
     ("l1b_prefill_down", 4096, 8192, (2048,), False),
+    # the small-row products of the Llama family (chip_smoke.py's
+    # W8A8_SHAPES): the 8B's decode step at 8 and 1 lanes and its engine's
+    # 32, the 1B's decode step at 8 lanes
+    *((f"l8b_decode{tag}_{name}", m, k, ns, False) for tag, m in (("", 8), ("_b1", 1))
+      for name, k, ns in (("qkv", 4096, (4096, 1024, 1024)), ("o", 4096, (4096,)),
+                          ("gate_up", 4096, (14336, 14336)), ("down", 14336, (4096,)),
+                          ("head", 4096, (128256,)))),
+    ("l8b_engine_qkv", 32, 4096, (4096, 1024, 1024), False),
+    ("l8b_engine_o", 32, 4096, (4096,), False),
+    ("l8b_engine_gate_up", 32, 4096, (14336, 14336), False),
+    ("l8b_engine_head", 32, 4096, (128256,), False),
+    ("l1b_decode_qkv", 8, 2048, (2048, 512, 512), False),
+    ("l1b_decode_o", 8, 2048, (2048,), False),
+    ("l1b_decode_gate_up", 8, 2048, (8192, 8192), False),
+    ("l1b_decode_down", 8, 8192, (2048,), False),
+    ("l1b_decode_head", 8, 2048, (128256,), False),
 ]
+# the shapes of SHAPES at most M_STAR rows: the small-row route's, but
+# for the 8B engine's down (32 x 14,336: the wgmma route)
+SMALL_SHAPES = [(name, m, k, ns) for name, m, k, ns, _ in SHAPES if m <= 32]
 SWEEP_ROWS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 96, 128, 192, 256, 288, 384, 512)
 SWEEP_SHAPES = [("qkv", 896, (896, 128, 128)), ("o", 896, (896,)),
                 ("gate_up", 896, (4864, 4864)), ("down", 4864, (896,))]
@@ -168,6 +206,10 @@ ORDER_SHAPES = [("verify_qo", 72, 896, (896,)), ("verify_qkv", 72, 896, (896, 12
                 ("l8b_verify_o", 72, 4096, (4096,)),
                 ("l8b_engine_verify_down", 288, 14336, (4096,)),
                 ("l8b_prefill_down", 4096, 14336, (4096,))]
+# the 8B's decode step in a layer's order on the small-row route: an
+# elementwise kernel writing x, then the group's one launch
+SMALL_ORDER_SHAPES = [(name, m, k, ns) for name, m, k, ns in SMALL_SHAPES
+                      if name.startswith("l8b_decode_") and "head" not in name]
 # `quantize_rows` alone: name, M, K, input dtype; the 8B's down also on
 # every plan of the long-row kernel
 QUANT_SHAPES = [("prefill_q", 4096, 896, "bfloat16"), ("verify_q", 72, 896, "bfloat16"),
@@ -183,7 +225,7 @@ DECODE_BUCKET, DECODE_NEW, STEP_REPLAYS = 512, 64, 48
 STEP_LANES, ROUND_GAMMA, ROUND_REPLAYS = (16, 32), 8, 16
 # the 8B's engine step (32 lanes), speculation's tokens and the engine's
 # load, as chip_smoke.py's llama_8b_int8 and llama_engine phases run them
-LLAMA_STEP_LANES, LLAMA_SPEC_NEW = 32, 32
+LLAMA_STEP_LANES, LLAMA_SPEC_NEW, LLAMA_GREEDY_LANES = 32, 32, (8, 1)
 ENGINE_REQUESTS, ENGINE_LANES, ENGINE_CACHE, ENGINE_SEGMENT = 16, 32, 1024, 8
 
 
@@ -273,9 +315,18 @@ def bench_shapes(g) -> dict:
                                   for n in ns))
         bound_ms = max(nbytes / HBM_BYTES_PER_S, 2.0 * m * k * sum(ns) / INT8_OPS_PER_S) * 1e3
         row = {"ms": ms, "bound_ms": bound_ms, "of_bound": bound_ms / ms}
+        if w8a8._route(m, k, True) == "qgemm":
+            # the short-K kernel's plan where the checkout has that kernel
+            short = getattr(w8a8, "_qgemm_short", lambda k, ns: False)(k, ns)
+            pick = w8a8._qshort_plan if short else w8a8._qgemm_plan
+            row["small_plan"] = [int(v) for v in pick(m, k, ns, w8a8._sms(0))]
         if m > 16:
             xq, xs = w8a8.quantize_rows(x)
             row["int_mm_ms"] = graph_ms(lambda: [torch._int_mm(xq, w.q.t()) for w in ws], it)
+            # the library's column at the small-row route's rows: the
+            # quantize, then one _int_mm a weight
+            row["quant_int_mm_ms"] = graph_ms(lambda: [
+                torch._int_mm(q, w.q.t()) for q in (w8a8.quantize_rows(x)[0],) for w in ws], it)
             if w8a8._route(m, k, True) == "wgmma":
                 w0, b0 = ws[0], bs[0]
                 row["gemm_ms"] = graph_ms(lambda: w8a8.w8a8_gemm(
@@ -362,15 +413,15 @@ def bench_sweep(g) -> dict:
                                                      for wq, _ in weights], 50)
             if hasattr(w8a8, "_gemm_plan"):
                 row["plan"] = list(w8a8._gemm_plan(m, k, ns, w8a8._sms(0))[:3])
-            # the small-row kernel with its m tile's quantize shared by a
-            # cluster of 8 blocks (where the plan clusters), and done by
-            # each block alone
-            keep = w8a8._QG_CLUSTER
-            w8a8._QG_CLUSTER = 1
+            # the streaming small-row kernel with every block quantizing
+            # all of x (a cluster of one)
+            pick, short = w8a8._qgemm_plan, w8a8._qgemm_short
+            one = pick(m, k, ns, w8a8._sms(0), cluster=1)
+            w8a8._qgemm_plan, w8a8._qgemm_short = (lambda *a, one=one: one), (lambda k, ns: False)
             try:
                 row["qgemm_cluster1_ms"] = graph_ms(qgemm, 50)
             finally:
-                w8a8._QG_CLUSTER = keep
+                w8a8._qgemm_plan, w8a8._qgemm_short = pick, short
             out[f"{name}_m{m}"] = row
     if hasattr(w8a8, "_gemm_plan"):
         out["plans"] = bench_plans(g)
@@ -417,6 +468,96 @@ def _clusters(plan) -> int:
     if rc:
         raise RuntimeError(f"ragtorch_w8a8_gemm_clusters failed: cudaError {rc}")
     return out.value
+
+
+def _small_load(m: int, k: int, ns, plan) -> int:
+    """The most weight bytes one SM streams on a streaming small-row plan
+    (one block an SM), from the block -> unit map `_qgemm_tiles`."""
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    per = {}
+    for b, _, mem, n0, k0, k1 in w8a8._qgemm_tiles(m, k, ns, plan):
+        per[b] = per.get(b, 0) + min(w8a8._QG_TILE_ROWS, ns[mem] - n0) * (k1 - k0)
+    return max(per.values())
+
+
+def _small_clusters(mt: int, smem: int, cluster: int) -> int:
+    """The clusters of the streaming small-row kernel the card holds at once
+    (`ragtorch_w8a8_qgemm_clusters`: cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from rag_inference_pipeline_tpu_torch.ops import _kernels
+
+    lib = _kernels.load_library()
+    out = ctypes.c_int()
+    rc = lib.ragtorch_w8a8_qgemm_clusters(mt, smem, cluster, ctypes.byref(out))
+    if rc:
+        raise RuntimeError(f"ragtorch_w8a8_qgemm_clusters failed: cudaError {rc}")
+    return out.value
+
+
+def bench_small_plans(g) -> dict:
+    """Each SMALL_SHAPES product of the streaming small-row kernel (not
+    `_qgemm_short`'s) on the plan `_qgemm_plan` picks: the plan, a block's
+    shared memory, the clusters the card holds at once (the library's
+    query), the grid's clusters and how many of them run in the first
+    wave, the most weight bytes one SM streams beside the average over the
+    SMs, and ms a launch (a replayed graph), alone and after an elementwise
+    kernel that writes x (`order_ms`, as in a step; `front_ms` that kernel
+    alone); also ms on clusters of 1, 2 and 8 blocks (its plan for each: a
+    wave of them) and the clusters of each the card holds."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    out, pick, sms = {}, w8a8._qgemm_plan, w8a8._sms(0)
+    for name, m, k, ns in SMALL_SHAPES:
+        if w8a8._route(m, k, True) != "qgemm" or w8a8._qgemm_short(k, ns):
+            continue
+        plan = pick(m, k, ns, sms)
+        smem = w8a8._qgemm_plan_smem(m, k, ns, plan)
+        grid, cluster = plan.grid, plan.cluster
+        fits = _small_clusters(plan.mt, smem, cluster)
+        row = {"plan": [int(v) for v in plan], "smem": smem,
+               "clusters": grid // cluster, "clusters_fit": fits,
+               "first_wave": min(fits, grid // cluster),
+               "most_sm_bytes": _small_load(m, k, ns, plan),
+               "mean_sm_bytes": sum(ns) * k / sms}
+        x0 = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        x = x0.clone()
+        ws, _ = _weights(g, k, ns, False, torch.bfloat16)
+        weights = [(w.q, w.s) for w in ws]
+        out_dtype = torch.float32 if "head" in name else torch.bfloat16
+        it = 10 if sum(ns) * k > 1e8 else 50
+
+        def run():
+            return w8a8.w8a8_qgemm(x, weights, out_dtype=out_dtype)
+
+        def front():  # the layer's elementwise kernel writing x, as in a step
+            torch.mul(x0, 1.0, out=x)
+
+        def in_order():
+            front()
+            return run()
+
+        row.update({"ms": graph_ms(run, it), "order_ms": graph_ms(in_order, it),
+                    "front_ms": graph_ms(front, it)})
+        try:
+            for c in (1, 2, 8):
+                try:
+                    forced = pick(m, k, ns, sms, cluster=c)
+                except ValueError:  # a wave of them leaves no room for a ring
+                    continue
+                w8a8._qgemm_plan = lambda *a, forced=forced: forced
+                row[f"cluster{c}_ms"] = graph_ms(run, it)
+                row[f"cluster{c}_order_ms"] = graph_ms(in_order, it)
+                row[f"cluster{c}_fit"] = _small_clusters(
+                    forced.mt, w8a8._qgemm_plan_smem(m, k, ns, forced), c)
+        finally:
+            w8a8._qgemm_plan = pick
+        out[name] = row
+        del x0, x, ws, weights
+        torch.cuda.empty_cache()
+    return out
 
 
 def bench_plans(g) -> dict:
@@ -511,6 +652,19 @@ def bench_model_order(g) -> dict:
             finally:
                 w8a8._pdl = pdl
         out[name] = row
+    for name, m, k, ns in SMALL_ORDER_SHAPES:
+        ws, _ = _weights(g, k, ns, False, torch.bfloat16)
+        x0 = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        x = x0.clone()
+
+        def small():
+            torch.mul(x0, 1.0, out=x)
+            return _product(x, ws, [None] * len(ws))()
+
+        out[name] = {"small_ms": graph_ms(small, 50),
+                     "front_ms": graph_ms(lambda: torch.mul(x0, 1.0, out=x), 50)}
+        del ws, x0, x
+        torch.cuda.empty_cache()
     return out
 
 
@@ -544,9 +698,16 @@ def _trace(entry) -> dict:
     w8 = [e for e in kern if "w8a8" in e.name or "quantize_rows" in e.name]
     if not kern:
         return {"kernel_ms": "not measured (no device events)"}
+    by_name = {}
+    for e in w8:
+        row = by_name.setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += e.time_range.elapsed_us()
     return {"kernel_ms": sum(e.time_range.elapsed_us() for e in kern) / 8e3,
             "w8a8_ms": sum(e.time_range.elapsed_us() for e in w8) / 8e3,
-            "kernels": len(kern) // 8, "w8a8_kernels": len(w8) // 8}
+            "kernels": len(kern) // 8, "w8a8_kernels": len(w8) // 8,
+            # each W8A8 kernel's full name: launches and ms a replay
+            "w8a8_by_name": {n: [c // 8, us / 8e3] for n, (c, us) in by_name.items()}}
 
 
 def bench_round(model=None) -> dict:
@@ -650,8 +811,9 @@ def bench_llama8b() -> dict:
 
     cfg, params = _decoder("llama8b", "int8")
     model = (cfg, params)
-    out = {"step_b32": bench_step("int8", LLAMA_STEP_LANES, model),
-           "round_b8": bench_round(model)}
+    out = {f"step_b{b}": bench_step("int8", b, model) for b in LLAMA_GREEDY_LANES}
+    out.update({"step_b32": bench_step("int8", LLAMA_STEP_LANES, model),
+                "round_b8": bench_round(model)})
     ids, mask = _prompts(np, torch, 8, cfg.vocab_size)
     walls = []
     for _ in range(3):
@@ -753,7 +915,8 @@ def main(argv=None) -> dict:
         g = torch.Generator(device="cuda").manual_seed(0)
         with torch.inference_mode():
             if args.plans:
-                out = {"root": ROOT, "card": smi, "plans": bench_plans(g)}
+                out = {"root": ROOT, "card": smi, "small_plans": bench_small_plans(g),
+                       "plans": bench_plans(g)}
                 return _write(out, args.out)
             out = {"root": ROOT, "card": smi, "shapes": bench_shapes(g),
                    "quant": bench_quant(g)}

@@ -1042,11 +1042,72 @@ def test_w8a8_long_rows_replay_in_a_graph_on_card(m):
         assert all(torch.equal(a, b) for a, b in zip(ys, want)), seed
 
 
+# the streaming small-row kernel's shapes on every cluster size its plan
+# takes (K split over 1, 2 or 8 blocks, the partial sums reduced into each
+# tile's owner): Llama-3.1-8B's decode products at B 1 and 8, its engine's
+# 17 and 32 rows, its down (K 14,336), Qwen2.5-0.5B's tied head at 32 rows
+# (a ring of one stage), and, forced onto it, the 0.5B's q/k/v group with
+# biases and a classifier (the short-K kernel's shapes), a ragged K of
+# 4-byte copies; and the s32 kind at Qwen2.5-0.5B's tp = 2 row shards (8 x
+# 448, 8 x 2,432, 72 x 2,432)
+_SMALL_CLUSTER_SHAPES = [
+    (1, 4096, (4096, 1024, 1024)), (8, 4096, (4096,)), (8, 14336, (4096,)),
+    (17, 4096, (4096,)), (32, 4096, (14336,)), (32, 896, (151936,)),
+    (8, 896, (896, 128, 128)), (8, 768, (5,)), (5, 36, (130,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,ns", _SMALL_CLUSTER_SHAPES)
+def test_w8a8_small_rows_every_cluster_on_card(m, k, ns, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(m * 31 + k)
+    x = _w8a8_rows(g, m, k, torch.bfloat16)
+    weights = [(torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                              dtype=torch.int8),
+                torch.rand(n, generator=g, device="cuda") * 1e-2) for n in ns]
+    biases = [(torch.randn(n, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+              if i == 0 else None for i, n in enumerate(ns)]
+    want = w8a8.w8a8_dense_plain(x, weights, biases, out_dtype=torch.bfloat16)
+    pick = w8a8._qgemm_plan
+    monkeypatch.setattr(w8a8, "_qgemm_short", lambda k, ns: False)
+    ran = 0
+    for c in (1, 2, 8):
+        try:
+            plan = pick(m, k, ns, w8a8._sms(0), cluster=c)
+        except ValueError:  # a wave of them leaves no room for a ring (the head)
+            continue
+        ran += 1
+        monkeypatch.setattr(w8a8, "_qgemm_plan", lambda *a, plan=plan: plan)
+        got = w8a8.w8a8_qgemm(x, weights, biases, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (m, k, ns, plan)
+    assert ran == (1 if ns == (151936,) else 3)  # the head at 32 rows plans on pairs alone
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(8, 448), (8, 2432), (72, 2432)])
+def test_w8a8_small_rows_s32_at_tp_shapes_on_card(m, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    g = torch.Generator(device="cuda").manual_seed(m + k)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (896, k), generator=g, device="cuda", dtype=torch.int8)
+    got = w8a8._qgemm_launch(xq, [(wq, None)], [None], torch.int32)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, w8a8.w8a8_acc_plain(xq, wq))
+
+
 @pytest.mark.cuda
 def test_w8a8_small_kernel_on_two_streams_on_card():
-    """Two streams run the small-row kernel at once, many times over: no
-    state is shared between launches, so each stream's outputs equal its
-    plain version."""
+    """Two streams run the small-row kernels at once (the streaming one at
+    K 4,864, the short-K one at K 896), many times over: no state is shared
+    between launches, so each stream's outputs equal its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
     from rag_inference_pipeline_tpu_torch.ops import w8a8
@@ -1104,8 +1165,8 @@ def test_w8a8_routes_replay_in_a_graph_on_card(m):
 
 @pytest.mark.cuda
 def test_w8a8_plan_smem_matches_the_library_on_card():
-    """The wrapper's shared-memory arithmetic (which picks the m tile and
-    the blocks an SM) is the kernel's own."""
+    """The wrapper's shared-memory arithmetic (which picks the m tile, the
+    unit and the ring's depth) is the kernel's own."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the W8A8 kernels have no CPU mode")
     from rag_inference_pipeline_tpu_torch.ops import _kernels, w8a8
@@ -1113,7 +1174,11 @@ def test_w8a8_plan_smem_matches_the_library_on_card():
     lib = _kernels.load_library()
     for mt in (8, 16, 32, 48, 64):
         for k in (4, 36, 64, 768, 896, 4864, 14336):
-            assert lib.ragtorch_w8a8_qgemm_smem(mt, k) == w8a8._qgemm_smem(mt, k)
+            assert lib.ragtorch_w8a8_qshort_smem(mt, k) == w8a8._qshort_smem(mt, k)
+            for cluster, slots, kc, depth in ((1, 1, 128, 2), (2, 122, 512, 2),
+                                              (2, 3, 256, 8), (8, 14, 128, 1)):
+                assert lib.ragtorch_w8a8_qgemm_smem(mt, k, cluster, slots, kc, depth) == \
+                    w8a8._qgemm_smem(mt, k, slots, kc, depth, cluster)
 
 
 def _wgmma_group(g, k, ns, dtype):

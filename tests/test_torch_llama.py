@@ -519,7 +519,8 @@ LLAMA_PRODUCTS = [
     ("decode_gate_up", 8, 4096, (14336, 14336)), ("decode_down", 8, 14336, (4096,)),
     ("decode_head", 8, 4096, (128256,)), ("decode_head_b1", 1, 4096, (128256,)),
     ("engine_down", 32, 14336, (4096,)), ("engine_qkv", 32, 4096, (4096, 1024, 1024)),
-    ("verify_qkv", 72, 4096, (4096, 1024, 1024)), ("verify_o", 72, 4096, (4096,)),
+    ("engine_o", 32, 4096, (4096,)), ("engine_gate_up", 32, 4096, (14336, 14336)),
+    ("engine_head", 32, 4096, (128256,)), ("verify_qkv", 72, 4096, (4096, 1024, 1024)), ("verify_o", 72, 4096, (4096,)),
     ("verify_gate_up", 72, 4096, (14336, 14336)), ("verify_down", 72, 14336, (4096,)),
     ("verify_head", 72, 4096, (128256,)),
     ("prefill_gate_up", 4096, 4096, (14336, 14336)), ("prefill_down", 4096, 14336, (4096,)),
@@ -532,17 +533,20 @@ LLAMA_PRODUCTS = [
     ("1b_prefill_gate_up", 4096, 2048, (8192, 8192)),
     ("1b_prefill_down", 4096, 8192, (2048,)),
 ]
-# route, then the small-row plan (mt, nt8, grid, cluster) or the wgmma plan
-# (bm, bn, split, share, band, deep, blocks)
+# route, then the small-row plan (mt, kc, depth, grid, cluster) or the
+# wgmma plan (bm, bn, split, share, band, deep, blocks)
 LLAMA_PLANS = {
-    "decode_qkv": ("qgemm", (8, 4, 192, 8)),
-    "decode_o": ("qgemm", (8, 2, 256, 8)),
-    "decode_gate_up": ("qgemm", (8, 8, 264, 8)),
-    "decode_down": ("qgemm", (8, 2, 128, 8)),
-    "decode_head": ("qgemm", (8, 8, 264, 1)),
-    "decode_head_b1": ("qgemm", (8, 8, 264, 1)),
+    "decode_qkv": ("qgemm", (8, 256, 2, 132, 2)),
+    "decode_o": ("qgemm", (8, 256, 2, 132, 2)),
+    "decode_gate_up": ("qgemm", (8, 256, 2, 132, 2)),
+    "decode_down": ("qgemm", (8, 256, 2, 120, 8)),
+    "decode_head": ("qgemm", (8, 256, 2, 132, 2)),
+    "decode_head_b1": ("qgemm", (8, 256, 2, 132, 2)),
     "engine_down": ("wgmma", (32, 128, 3, 1, 32, True, 96)),
-    "engine_qkv": ("qgemm", (32, 4, 128, 8)),
+    "engine_qkv": ("qgemm", (32, 256, 2, 120, 8)),
+    "engine_o": ("qgemm", (32, 256, 2, 120, 8)),
+    "engine_gate_up": ("qgemm", (32, 256, 2, 120, 8)),
+    "engine_head": ("qgemm", (32, 128, 1, 120, 8)),
     "verify_qkv": ("wgmma", (80, 128, 2, 1, 48, True, 96)),
     "verify_o": ("wgmma", (80, 128, 3, 1, 32, True, 96)),
     "verify_gate_up": ("wgmma", (128, 128, 1, 1, 224, False, 224)),
@@ -552,11 +556,11 @@ LLAMA_PLANS = {
     "prefill_down": ("wgmma", (128, 128, 1, 2, 32, False, 1024)),
     "engine_verify_qkv": ("wgmma", (128, 128, 1, 3, 48, False, 144)),
     "engine_verify_down": ("wgmma", (128, 128, 1, 3, 32, True, 96)),
-    "1b_decode_head": ("qgemm", (8, 8, 264, 1)),
-    "1b_decode_qkv": ("qgemm", (8, 2, 192, 8)),
-    "1b_decode_o": ("qgemm", (8, 1, 256, 8)),
-    "1b_decode_gate_up": ("qgemm", (8, 8, 256, 8)),
-    "1b_decode_down": ("qgemm", (8, 1, 128, 8)),
+    "1b_decode_head": ("qgemm", (8, 256, 2, 132, 2)),
+    "1b_decode_qkv": ("qgemm", (8, 512, 1, 132, 2)),
+    "1b_decode_o": ("qgemm", (8, 512, 1, 132, 2)),
+    "1b_decode_gate_up": ("qgemm", (8, 256, 2, 132, 2)),
+    "1b_decode_down": ("qgemm", (8, 256, 2, 120, 8)),
     "1b_prefill_qkv": ("wgmma", (128, 128, 1, 1, 24, False, 768)),
     "1b_prefill_o": ("wgmma", (128, 128, 1, 1, 16, False, 512)),
     "1b_prefill_gate_up": ("wgmma", (128, 128, 1, 2, 8, False, 4096)),
@@ -575,7 +579,7 @@ def test_w8a8_route_and_plan_at_llama_shapes(name, m, k, ns):
     assert w8a8._route(m, k, True) == route
     if route == "qgemm":
         got = w8a8._qgemm_plan(m, k, ns, H100_SMS)
-        assert w8a8._qgemm_smem(got[0], k) <= w8a8._BLOCK_SMEM
+        assert w8a8._qgemm_plan_smem(m, k, ns, got) <= w8a8._BLOCK_SMEM
     else:
         got = w8a8._gemm_plan(m, k, ns, H100_SMS)
     assert got == plan

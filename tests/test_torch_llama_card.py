@@ -19,14 +19,18 @@ from rag_inference_pipeline_tpu_torch.models import qwen as tqwen
 from rag_inference_pipeline_tpu_torch.ops import w8a8
 
 # (name, M, K, the N of each weight sharing x): the 8B's decode step at 8
-# and 1 lanes, its engine's 32 and the engine's verify round (32 x 9 rows),
-# a verify round's 72 rows (B 8, gamma 8), a prefill of 8 x 512 tokens;
-# the 1B's decode step at 8 lanes, its prefill and its tied head
+# and 1 lanes, its engine's 32 (its head's ring one stage deep; and 17
+# rows: an m tile of 32 half full) and the engine's verify round (32 x 9
+# rows), a verify round's 72 rows (B 8, gamma 8), a prefill of 8 x 512
+# tokens; the 1B's decode step at 8 lanes, its prefill and its tied head
 LLAMA_PRODUCTS = [
     ("decode_qkv", 8, 4096, (4096, 1024, 1024)), ("decode_o", 8, 4096, (4096,)),
     ("decode_gate_up", 8, 4096, (14336, 14336)), ("decode_down", 8, 14336, (4096,)),
     ("decode_head", 8, 4096, (128256,)), ("decode_head_b1", 1, 4096, (128256,)),
     ("decode_down_b1", 1, 14336, (4096,)), ("engine_qkv", 32, 4096, (4096, 1024, 1024)),
+    ("engine_o", 32, 4096, (4096,)), ("engine_gate_up", 32, 4096, (14336, 14336)),
+    ("engine_head", 32, 4096, (128256,)), ("decode_qkv_b1", 1, 4096, (4096, 1024, 1024)), ("decode_o_b1", 1, 4096, (4096,)),
+    ("decode_gate_up_b1", 1, 4096, (14336, 14336)), ("engine_qkv_m17", 17, 4096, (4096,)),
     ("engine_down", 32, 14336, (4096,)), ("verify_qkv", 72, 4096, (4096, 1024, 1024)),
     ("verify_o", 72, 4096, (4096,)), ("verify_gate_up", 72, 4096, (14336, 14336)),
     ("verify_down", 72, 14336, (4096,)), ("verify_head", 72, 4096, (128256,)),

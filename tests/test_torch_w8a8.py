@@ -236,25 +236,97 @@ def test_route_refuses_what_no_kernel_takes(m, k):
 
 
 # Qwen2.5-0.5B's decode groups at B = 8 on 132 SMs, and the row tiles that
-# K leaves room for: (M, K, N of each weight) -> (mt, nt8, grid_x, cluster);
-# clusters of 8 share the quantize where each block takes two tiles at most
-@pytest.mark.parametrize("m,k,ns,want", [
-    (8, 896, (896, 128, 128), (8, 1, 144, 8)),  # q/k/v: 144 tiles of 8 rows
-    (8, 896, (896,), (8, 1, 112, 8)),  # o: 112 tiles of 8, K split 8 ways
-    (8, 896, (4864, 4864), (8, 8, 152, 8)),  # gate/up: 152 tiles of 64 rows
-    (8, 4864, (896,), (8, 1, 112, 8)),  # down
-    (8, 896, (151936,), (8, 8, 264, 1)),  # the tied head: 2,374 tiles of 64 rows
-    (1, 768, (5,), (8, 1, 8, 8)),  # a classifier: one tile, one cluster
-    (17, 896, (896,), (32, 1, 112, 8)),
-    (64, 896, (896,), (64, 1, 112, 8)),
-    (64, 896, (896, 128, 128), (64, 1, 128, 8)),  # one block an SM: 144 tiles
-    (64, 4864, (896,), (32, 1, 112, 8)),  # K holds 32 rows a block, one a SM
+# K leaves room for: (M, K, N of each weight) -> the kernel and its plan.
+# Rows of at most 1,024 elements under 16 MB of weights take the short-K
+# kernel: (mt, nt8, grid_x, cluster), clusters of 8 sharing the quantize
+# where each block takes two tiles at most. The rest take the streaming
+# kernel: (mt, kc, depth, grid, cluster), one block an SM, rows of at most
+# 1,024 quantized whole by each block (no cluster), else pairs that split
+# K, or clusters of 8 where a pair's slice of a row gives a thread more
+# than two units of 16 elements (down, K 4,864); where not even 128-byte
+# units give each of the 16 warps two (a few MB: latency) 512-byte units,
+# else units of 512 bytes where each warp gets two, else 256 or 128, and
+# the deepest ring that fits
+@pytest.mark.parametrize("m,k,ns,short,want", [
+    (8, 896, (896, 128, 128), True, (8, 1, 144, 8)),  # q/k/v: 144 tiles of 8 rows
+    (8, 896, (896,), True, (8, 1, 112, 8)),  # o: 112 tiles of 8, K split 8 ways
+    (8, 896, (4864, 4864), True, (8, 8, 152, 8)),  # gate/up: 152 tiles of 64 rows
+    (8, 4864, (896,), False, (8, 512, 1, 120, 8)),  # down: 15 clusters of 8
+    (8, 896, (151936,), False, (8, 256, 2, 132, 1)),  # the tied head: 9,496 tiles
+    (1, 768, (5,), True, (8, 1, 8, 8)),  # a classifier: one tile, one cluster
+    (17, 896, (896,), True, (32, 1, 112, 8)),
+    (64, 896, (896,), True, (64, 1, 112, 8)),
+    (64, 896, (896, 128, 128), True, (64, 1, 128, 8)),  # one block an SM: 144 tiles
+    (64, 4864, (896,), False, (32, 512, 1, 120, 8)),  # K holds 32 rows a block
 ])
-def test_qgemm_plan(m, k, ns, want):
-    assert w8a8._qgemm_plan(m, k, ns, 132) == want
+def test_qgemm_plan(m, k, ns, short, want):
+    assert w8a8._qgemm_short(k, ns) == short
     mt = want[0]
-    assert w8a8._qgemm_smem(mt, k) <= w8a8._BLOCK_SMEM
+    assert w8a8._qgemm_smem(mt, k) <= w8a8._BLOCK_SMEM  # the route's rule: all of K
     assert w8a8._qgemm_stride(k) % 128 == 64 and w8a8._qgemm_stride(k) >= k
+    if short:
+        assert w8a8._qshort_plan(m, k, ns, 132) == want
+        assert w8a8._qshort_smem(mt, k) <= w8a8._BLOCK_SMEM
+    else:
+        plan = w8a8._qgemm_plan(m, k, ns, 132)
+        assert plan == want
+        assert w8a8._qgemm_plan_smem(m, k, ns, plan) <= w8a8._BLOCK_SMEM
+
+
+# every small-row product of the port's models at their decode shapes:
+# Qwen2.5-0.5B (B 8 and 1, a classifier, and the s32 kind's row shards at
+# tp 2), Llama-3.2-1B (B 8) and Llama-3.1-8B (B 8 and 1, its engine's 32
+# lanes), and the heads at 32 lanes: (M, K, N of each weight)
+_SMALL_SHAPES = [
+    (8, 896, (896, 128, 128)), (8, 896, (896,)), (8, 896, (4864, 4864)),
+    (8, 4864, (896,)), (8, 896, (151936,)), (1, 896, (151936,)), (1, 896, (896,)),
+    (8, 768, (5,)), (8, 448, (896,)), (8, 2432, (896,)),
+    (8, 2048, (2048, 512, 512)), (8, 2048, (2048,)), (8, 2048, (8192, 8192)),
+    (8, 8192, (2048,)), (8, 2048, (128256,)),
+    (8, 4096, (4096, 1024, 1024)), (8, 4096, (4096,)), (8, 4096, (14336, 14336)),
+    (8, 14336, (4096,)), (8, 4096, (128256,)), (1, 4096, (4096, 1024, 1024)),
+    (1, 14336, (4096,)), (1, 4096, (128256,)),
+    (32, 4096, (4096, 1024, 1024)), (32, 4096, (4096,)), (32, 4096, (14336, 14336)),
+    (32, 896, (151936,)), (32, 4096, (128256,)),
+]
+
+
+@pytest.mark.parametrize("m,k,ns", _SMALL_SHAPES)
+def test_qgemm_tiles_cover_each_tile_once_in_one_wave(m, k, ns):
+    """The twin of the streaming small-row kernel's block -> unit map on
+    `_qgemm_plan`'s plan: each tile of 16 weight rows of each weight
+    is one cluster's, its K covered once by its blocks' chunks of at most
+    kc bytes in order; a cluster's tiles are contiguous and no cluster
+    holds more than one tile past the mean; a block's warps' runs of units
+    differ by one at most; the grid is one block an SM and its clusters fit
+    one wave on a 132-SM H100 under the recorded active-cluster counts."""
+    plan = w8a8._qgemm_plan(m, k, ns, 132)
+    mt, kc, depth, grid, cluster = plan
+    rows = w8a8._QG_TILE_ROWS
+    assert w8a8._qgemm_plan_smem(m, k, ns, plan) <= w8a8._BLOCK_SMEM
+    assert grid <= 132 and grid % cluster == 0
+    assert grid // cluster <= w8a8._QG_WAVE[cluster]
+    tiles = [-(-n // rows) for n in ns]
+    seen, blocks, warps = {}, {}, {}
+    for b, w, mem, n0, k0, k1 in w8a8._qgemm_tiles(m, k, ns, plan):
+        assert 0 <= b < grid and 0 <= w < w8a8._QG_WARPS
+        assert 0 <= mem < len(ns) and n0 % rows == 0 and 0 <= n0 < ns[mem]
+        assert k0 % 64 == 0 and 0 < k1 - k0 <= kc and (k1 % 64 == 0 or k1 == k)
+        seen.setdefault((mem, n0), []).append((k0, k1, b // cluster))
+        blocks.setdefault(b // cluster, set()).add(sum(tiles[:mem]) + n0 // rows)
+        warps[(b, w)] = warps.get((b, w), 0) + 1
+    assert len(seen) == sum(tiles)
+    for ranges in seen.values():
+        ranges.sort()
+        assert len({c for _, _, c in ranges}) == 1  # one cluster's
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+    most = -(-sum(tiles) // (grid // cluster))
+    for ts in blocks.values():
+        assert len(ts) <= most and max(ts) - min(ts) + 1 == len(ts)
+    for b in range(grid):
+        counts = [warps.get((b, w), 0) for w in range(w8a8._QG_WARPS)]
+        assert max(counts) - min(counts) <= 1
 
 
 # Qwen2.5-0.5B's products on the wgmma route on 132 SMs: (M, K, N of each
@@ -616,18 +688,24 @@ def _int8_weights(ns, k, offset=0):
 def test_dense_launches_one_kernel_per_small_group(monkeypatch):
     card = _FakeCard(monkeypatch)
     before = (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
-              w8a8.quantize_rows.launches)
+              w8a8.quantize_rows.launches, w8a8.w8a8_qgemm.short_launches)
     weights = _int8_weights((896, 128, 128), 896)
     ys = w8a8.w8a8_dense(torch.zeros(8, 896, dtype=torch.bfloat16), weights,
                          out_dtype=torch.bfloat16)
     assert [tuple(y.shape) for y in ys] == [(8, 896), (8, 128), (8, 128)]
-    assert card.names() == ["ragtorch_w8a8_qgemm"]
+    assert card.names() == ["ragtorch_w8a8_qshort"]
     args = card.calls[0][1]
     assert list(args[5]) == [896, 128, 128]  # N of each member
     assert args[6:] == (3, 8, 896, 1, 1, 8, 1, 144, 8)  # nmem, M, K, kinds, plan
     assert list(args[3]) == [None, None, None]  # no biases
+    # down (K 4,864): the streaming kernel, plan (mt, kc, depth, grid, cluster)
+    w8a8.w8a8_dense(torch.zeros(8, 4864, dtype=torch.bfloat16), _int8_weights((896,), 4864),
+                    out_dtype=torch.bfloat16)
+    assert card.names() == ["ragtorch_w8a8_qshort", "ragtorch_w8a8_qgemm"]
+    assert card.calls[1][1][6:] == (1, 8, 4864, 1, 1, 8, 512, 1, 120, 8)
     assert (w8a8.w8a8_qgemm.launches, w8a8.w8a8_gemm.launches,
-            w8a8.quantize_rows.launches) == (before[0] + 1, before[1], before[2])
+            w8a8.quantize_rows.launches, w8a8.w8a8_qgemm.short_launches) == (
+        before[0] + 2, before[1], before[2], before[3] + 1)
 
 
 def test_dense_takes_the_wgmma_route_for_many_rows(monkeypatch):
@@ -653,7 +731,7 @@ def test_dense_takes_the_wgmma_route_for_many_rows(monkeypatch):
                     out_dtype=torch.float32)
     w8a8.w8a8_dense(torch.zeros(300, 36), _int8_weights((64,), 36),
                     out_dtype=torch.float32)
-    assert card.names() == ["ragtorch_w8a8_qgemm"] * 2
+    assert card.names() == ["ragtorch_w8a8_qshort"] * 2
     assert card.calls[0][1][-4:] == (64, 1, 8, 8)  # m tiles of 64 rows, one cluster
 
 
