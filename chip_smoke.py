@@ -155,7 +155,7 @@ and exits non-zero before the last line:
              bit for bit: the small-row quantize-and-GEMM (csrc/w8a8_gemm.cu),
              the large-row wgmma GEMM (csrc/w8a8_wgmma.cu) and the
              activation quantize (csrc/w8a8_quant.cu), each called directly
-             on ragged cases (M 1, 5, 17, M* and M* + 1, 64, 65, 72, 300; K
+             on ragged cases (M 1, 5, M* = 16, 17, 24, 32, 33, 64, 65, 72, 300; K
              36, 896, 4,864; the wgmma GEMM where K % 16 == 0), then
              `w8a8_dense` at every shape of the int8 path (Qwen2.5-0.5B's
              decode groups q/k/v and gate/up, o, down and the tied head at
@@ -164,7 +164,8 @@ and exits non-zero before the last line:
              rows, a B = 1 prefill's q/k/v and down at 128 rows, prefill
              q/k/v, gate/up and down at 8 x 512 tokens, a BERT-base FFN at
              8 x 512, a classifier, the engine step's products at 32
-             lanes) on the route `_route` picks, and on the small-row route
+             lanes and some at 17 and 24: the wgmma route) on the route
+             `_route` picks, and on the small-row route
              the kernel `_qgemm_short` picks, each kernel
              there against its plain version (the wgmma GEMM a weight and
              for the whole group in one launch); per shape the route and
@@ -1012,6 +1013,9 @@ W8A8_SHAPES = [
     ("lanes32_qkv", 32, 896, (896, 128, 128), True), ("lanes32_o", 32, 896, (896,), False),
     ("lanes32_gate_up", 32, 896, (4864, 4864), False),
     ("lanes32_down", 32, 4864, (896,), False), ("lanes32_head", 32, 896, (151936,), False),
+    # and at 17 and 24 live lanes (the route's band past 16 rows)
+    ("lanes17_gate_up", 17, 896, (4864, 4864), False),
+    ("lanes24_head", 24, 896, (151936,), False),
     # Llama-3.1-8B (H 4,096, kv 8 x 128, I 14,336, an untied 128,256-row
     # head; no biases): its decode step at 8 lanes (the head at 1 too), a
     # verify round's 72 rows, a prefill of 8 x 512 tokens, the engine's
@@ -1036,6 +1040,8 @@ W8A8_SHAPES = [
     ("l8b_engine_gate_up", 32, 4096, (14336, 14336), False),
     ("l8b_engine_down", 32, 14336, (4096,), False),
     ("l8b_engine_head", 32, 4096, (128256,), False),
+    ("l8b_engine_o_m17", 17, 4096, (4096,), False),
+    ("l8b_engine_gate_up_m24", 24, 4096, (14336, 14336), False),
     ("l8b_engine_verify_qkv", 288, 4096, (4096, 1024, 1024), False),
     ("l8b_engine_verify_down", 288, 14336, (4096,), False),
     ("l1b_decode_qkv", 8, 2048, (2048, 512, 512), False),
@@ -1106,7 +1112,7 @@ def phase_w8a8():
     cases = 0
     # ragged: tails in M, N and K, 4-byte copies at K = 36, m tiles of 8 to
     # 64 rows and several of them, 1 to 3 row tiles of the wgmma GEMM
-    for m in sorted({1, 5, 17, w8a8.M_STAR, w8a8.M_STAR + 1, 64, 65, 72, 300}):
+    for m in sorted({1, 5, w8a8.M_STAR, w8a8.M_STAR + 1, 24, 32, 33, 64, 65, 72, 300}):
         for k in (36, 896, 4864):
             for dtype in (torch.bfloat16, torch.float32):
                 x = (torch.randn(m, k, generator=g, device=DEVICE) * 3).to(dtype)

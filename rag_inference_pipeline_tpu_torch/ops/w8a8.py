@@ -71,14 +71,18 @@ _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _IN_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _S32 = 2  # the s32 kind: int8 rows in (the small-row kernel), int32 sums out
 
-# rows above which a product takes the wgmma route. tools/bench_w8a8.py
-# --sweep (8 to 512 rows, Qwen2.5-0.5B's groups, an H100 80GB HBM3 at 700 W;
-# PERF.md) finds the wgmma route (quantize_rows, then one GEMM launch a
-# group on `_gemm_plan`'s plan) faster than the small-row kernel for one
-# product from 8 rows up, but the whole int8 decode step at 16 and 32 lanes
-# no faster for it in every turn: decode steps up to 32 lanes keep the
-# small-row kernel, one launch a group
-M_STAR = 32
+# rows above which a product takes the wgmma route (quantize_rows, then
+# one GEMM launch a group on `_gemm_plan`'s plan). tools/bench_w8a8.py
+# --sweep put that route ahead of the small-row kernel from 8 rows one
+# product at a time, but a whole int8 decode step at 16 lanes no faster
+# for it: 9 to 16 rows wait on an engine cell. From 17 rows (the engine's
+# 32 lanes) its plans ran 1.2 to 2.5 times faster than both small-row
+# kernels on every product of Qwen2.5-0.5B and Llama-3.1-8B and on the
+# 0.5B's row shards at tp = 2; BERT's classifier (768 -> 5) 1.05 to 1.1
+# times at 17 and 24 rows, and at 32 rows 6.84-6.87 µs against the
+# short-K kernel's 6.79-6.83 alone, a tie in a layer's order
+# (tools/bench_w8a8.py --rows, an H100 80GB HBM3 at 700 W; PERF.md)
+M_STAR = 16
 # csrc/w8a8_gemm.cu's block: 16 warps, K in 64-byte blocks, m tiles of at
 # most 64 rows, tiles of 16 weight rows, units of 512, 256 or 128 bytes of K (a stage row padded by 64), rings of
 # up to 8 stages a warp; the

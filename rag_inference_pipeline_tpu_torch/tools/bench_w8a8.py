@@ -2,7 +2,7 @@
 checkouts.
 
     python3 rag_inference_pipeline_tpu_torch/tools/bench_w8a8.py [--out PATH] [--sweep]
-        [--plans] [--llama8b] [--against PARENT_ROOT]
+        [--plans] [--rows] [--llama8b] [--against PARENT_ROOT]
 
 Imports `rag_inference_pipeline_tpu_torch` from the checkout this file sits
 in, builds its kernels and times on one card, with seeded random inputs:
@@ -76,6 +76,11 @@ card holds at once by the library's query and how many of the grid's run
 in the first wave, the most weight bytes an SM streams beside the mean,
 ms a launch alone and after an elementwise kernel that writes x, and both
 on clusters of 1, 2 and 8 blocks).
+
+`--rows` times only the small-row products at 17, 24 and 32 rows (`rows`,
+`bench_rows`): the small-row kernel, the wgmma route and `quantize_rows` +
+`torch._int_mm` (with and without the plain epilogue), each alone and in a
+layer's order, beside what the route runs.
 
 `--against PARENT_ROOT` compares two checkouts on one card in one call: it
 copies this file into PARENT_ROOT's `rag_inference_pipeline_tpu_torch/
@@ -159,8 +164,8 @@ SHAPES = [
     ("l1b_decode_down", 8, 8192, (2048,), False),
     ("l1b_decode_head", 8, 2048, (128256,), False),
 ]
-# the shapes of SHAPES at most M_STAR rows: the small-row route's, but
-# for the 8B engine's down (32 x 14,336: the wgmma route)
+# the shapes of SHAPES of a decode step's rows (at most 32): those at most
+# M_STAR rows take the small-row route
 SMALL_SHAPES = [(name, m, k, ns) for name, m, k, ns, _ in SHAPES if m <= 32]
 SWEEP_ROWS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 96, 128, 192, 256, 288, 384, 512)
 SWEEP_SHAPES = [("qkv", 896, (896, 128, 128)), ("o", 896, (896,)),
@@ -221,6 +226,22 @@ QUANT_SHAPES = [("prefill_q", 4096, 896, "bfloat16"), ("verify_q", 72, 896, "bfl
                 ("l8b_prefill_down", 4096, 14336, "bfloat16"),
                 ("l8b_verify_down_f32", 72, 14336, "float32"),
                 ("l8b_prefill_down_f32", 4096, 14336, "float32")]
+# the small-row products at 17 to 32 rows (an engine step's lanes):
+# Qwen2.5-0.5B's and Llama-3.1-8B's at 17, 24 and 32 rows, Llama-3.2-1B's
+# gate/up and head at 32, BERT-base's classifier: name, K, the N of each
+# weight, a bias on each
+ROWS_SHAPES = [
+    ("q05_qkv", 896, (896, 128, 128), True), ("q05_o", 896, (896,), False),
+    ("q05_gate_up", 896, (4864, 4864), False), ("q05_down", 4864, (896,), False),
+    ("q05_head", 896, (151936,), False),
+    ("l8b_qkv", 4096, (4096, 1024, 1024), False), ("l8b_o", 4096, (4096,), False),
+    ("l8b_gate_up", 4096, (14336, 14336), False), ("l8b_head", 4096, (128256,), False),
+    ("l1b_gate_up", 2048, (8192, 8192), False), ("l1b_head", 2048, (128256,), False),
+    ("bert_classifier", 768, (5,), True),
+]
+ROWS = (17, 24, 32)
+# the s32 kind's row shards of Qwen2.5-0.5B at tp = 2 (o, down): name, K, N
+ROWS_S32_SHAPES = [("q05_o_tp2", 448, 896), ("q05_down_tp2", 2432, 896)]
 DECODE_BUCKET, DECODE_NEW, STEP_REPLAYS = 512, 64, 48
 STEP_LANES, ROUND_GAMMA, ROUND_REPLAYS = (16, 32), 8, 16
 # the 8B's engine step (32 lanes), speculation's tokens and the engine's
@@ -316,8 +337,7 @@ def bench_shapes(g) -> dict:
         bound_ms = max(nbytes / HBM_BYTES_PER_S, 2.0 * m * k * sum(ns) / INT8_OPS_PER_S) * 1e3
         row = {"ms": ms, "bound_ms": bound_ms, "of_bound": bound_ms / ms}
         if w8a8._route(m, k, True) == "qgemm":
-            # the short-K kernel's plan where the checkout has that kernel
-            short = getattr(w8a8, "_qgemm_short", lambda k, ns: False)(k, ns)
+            short = w8a8._qgemm_short(k, ns)
             pick = w8a8._qshort_plan if short else w8a8._qgemm_plan
             row["small_plan"] = [int(v) for v in pick(m, k, ns, w8a8._sms(0))]
         if m > 16:
@@ -344,6 +364,85 @@ def bench_shapes(g) -> dict:
     return out
 
 
+def bench_rows(g) -> dict:
+    """Each ROWS_SHAPES product at ROWS rows (the 1B's at 32 only) three
+    ways, ms a call of a replayed graph: the small-row kernel on its plan
+    (`small`: `_qgemm_launch`, the short-K or the streaming kernel as
+    `_qgemm_short` picks), the wgmma route (`wgmma`: `quantize_rows`, then
+    one `_gemm_launch` for the group on `_gemm_plan`'s plan), and the
+    yardstick (`yard`: `quantize_rows`, then `torch._int_mm` a weight, int32
+    out, no epilogue); `yard_epi` the yardstick with the plain epilogue
+    (`w8a8_epilogue` in torch ops) after it, and `route` what `w8a8_dense`
+    runs; the yardstick only where every N is a multiple of 8 (`_int_mm`'s
+    rule). Each alone (`*_ms`) and in a layer's order (`*_order_ms`: after
+    an elementwise kernel that writes x), beside the route, the small-row
+    kernel and its plan, and the wgmma route's plan. Then the s32 kind of
+    ROWS_S32_SHAPES at ROWS rows: the small-row kernel, the wgmma GEMM,
+    `_int_mm` and the route (`w8a8_gemm_s32`), alone."""
+    import torch
+    from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+    out, sms = {}, w8a8._sms(0)
+    for name, k, ns, bias in ROWS_SHAPES:
+        head = "head" in name
+        out_dtype = torch.float32 if head else torch.bfloat16
+        ws, bs = _weights(g, k, ns, bias, out_dtype)
+        weights = [(w.q, w.s) for w in ws]
+        it = 20 if sum(ns) * k > 1e8 else 100
+        for m in (ROWS if not name.startswith("l1b") else ROWS[-1:]):
+            x0 = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+            x = x0.clone()
+
+            def yard():
+                q = w8a8.quantize_rows(x)[0]
+                return [torch._int_mm(q, wq.t()) for wq, _ in weights]
+
+            def yard_epi():
+                q, s = w8a8.quantize_rows(x)
+                return [w8a8.w8a8_epilogue(torch._int_mm(q, wq.t()), s, sc, b,
+                                           out_dtype=out_dtype)
+                        for (wq, sc), b in zip(weights, bs)]
+
+            ways = {
+                "small": lambda: w8a8._qgemm_launch(x, weights, bs, out_dtype),
+                "wgmma": lambda: w8a8._gemm_launch(*w8a8.quantize_rows(x), weights, bs,
+                                                   out_dtype),
+                "route": lambda: w8a8.w8a8_dense(x, weights, bs, out_dtype=out_dtype)}
+            if all(n % 8 == 0 for n in ns):  # _int_mm takes N in multiples of 8
+                ways.update(yard=yard, yard_epi=yard_epi)
+            short = w8a8._qgemm_short(k, ns)
+            row = {"route": w8a8._route(m, k, True),
+                   "small_kernel": "short_k" if short else "streaming",
+                   "small_plan": [int(v) for v in (w8a8._qshort_plan if short
+                                                   else w8a8._qgemm_plan)(m, k, ns, sms)],
+                   "wgmma_plan": [int(v) for v in w8a8._gemm_plan(m, k, ns, sms)[:6]]}
+            for way, fn in ways.items():
+                row[f"{way}_ms"] = graph_ms(fn, it)
+
+                def in_order(fn=fn):
+                    torch.mul(x0, 1.0, out=x)
+                    return fn()
+
+                row[f"{way}_order_ms"] = graph_ms(in_order, it)
+            row["front_ms"] = graph_ms(lambda: torch.mul(x0, 1.0, out=x), it)
+            out[f"{name}_m{m}"] = row
+            del x0, x
+        del ws, bs, weights
+        torch.cuda.empty_cache()
+    # the s32 kind (a row shard's exact sums: int8 rows in, int32 out)
+    for name, k, n in ROWS_S32_SHAPES:
+        wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        for m in ROWS:
+            xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+            ways = {"small": lambda: w8a8._qgemm_launch(xq, [(wq, None)], [None], torch.int32),
+                    "wgmma": lambda: w8a8._gemm_launch(xq, None, [(wq, None)], [None],
+                                                       torch.int32),
+                    "yard": lambda: torch._int_mm(xq, wq.t()),
+                    "route": lambda: w8a8.w8a8_gemm_s32(xq, wq)}
+            out[f"{name}_m{m}"] = {f"{way}_ms": graph_ms(fn, 100) for way, fn in ways.items()}
+    return out
+
+
 def bench_quant(g) -> dict:
     """`quantize_rows` alone at each QUANT_SHAPES row, ms a call, beside its
     bound; where the checkout has `_quant_plan`, its plan and, at the 8B's
@@ -360,20 +459,18 @@ def bench_quant(g) -> dict:
         it = 20 if m * k > 1e7 else 100
         ms = graph_ms(lambda: w8a8.quantize_rows(x), it)
         bound_ms = (m * k * (dt.itemsize + 1) + 4 * m) / HBM_BYTES_PER_S * 1e3
-        row = {"ms": ms, "bound_ms": bound_ms, "of_bound": bound_ms / ms}
-        plan_of = getattr(w8a8, "_quant_plan", None)
-        if plan_of is not None:
-            row["plan"] = list(plan_of(m, k, w8a8._IN_KINDS[dt], w8a8._sms(0)))
-            if k == 14336:
-                pieces = k * dt.itemsize // 16
-                plans = [(w8a8._Q_LONG, -(-pieces // (c * 128)), c) for c in (1, 2, 4, 8)]
-                try:
-                    for plan in plans + [(w8a8._Q_STREAMED, 32, 8)]:
-                        w8a8._quant_plan = lambda *a, plan=plan: plan
-                        row[",".join(map(str, plan))] = graph_ms(
-                            lambda: w8a8.quantize_rows(x), it)
-                finally:
-                    w8a8._quant_plan = plan_of
+        plan_of = w8a8._quant_plan
+        row = {"ms": ms, "bound_ms": bound_ms, "of_bound": bound_ms / ms,
+               "plan": list(plan_of(m, k, w8a8._IN_KINDS[dt], w8a8._sms(0)))}
+        if k == 14336:
+            pieces = k * dt.itemsize // 16
+            plans = [(w8a8._Q_LONG, -(-pieces // (c * 128)), c) for c in (1, 2, 4, 8)]
+            try:
+                for plan in plans + [(w8a8._Q_STREAMED, 32, 8)]:
+                    w8a8._quant_plan = lambda *a, plan=plan: plan
+                    row[",".join(map(str, plan))] = graph_ms(lambda: w8a8.quantize_rows(x), it)
+            finally:
+                w8a8._quant_plan = plan_of
         out[name] = row
         del x
         torch.cuda.empty_cache()
@@ -859,7 +956,7 @@ def bench_llama8b() -> dict:
     return out
 
 
-def against(parent: str, sweep: bool, llama8b: bool = False) -> dict:
+def against(parent: str, sweep: bool, llama8b: bool = False, rows: bool = False) -> dict:
     """This checkout and `parent` in turns (parent, change, change,
     parent), each run a process of its own on this file."""
     import shutil
@@ -878,6 +975,8 @@ def against(parent: str, sweep: bool, llama8b: bool = False) -> dict:
             cmd.append("--sweep")
         if llama8b:
             cmd.append("--llama8b")
+        if rows:
+            cmd.append("--rows")
         subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL)
         with open(out) as fh:
             turns.append({"tag": tag, **json.load(fh)})
@@ -891,6 +990,8 @@ def main(argv=None) -> dict:
                     help="time the two routes against each other by rows")
     ap.add_argument("--plans", action="store_true",
                     help="time only the wgmma GEMM on every plan kind")
+    ap.add_argument("--rows", action="store_true",
+                    help="time only the 17-32-row products three ways")
     ap.add_argument("--llama8b", action="store_true",
                     help="also time Llama-3.1-8B's W8A8 step, verify round, "
                          "speculation and engine")
@@ -903,7 +1004,7 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("bench_w8a8 needs a CUDA card")
     if args.against:
-        out = against(args.against, args.sweep, args.llama8b)
+        out = against(args.against, args.sweep, args.llama8b, args.rows)
     else:
         from rag_inference_pipeline_tpu_torch.ops import _kernels
 
@@ -918,6 +1019,8 @@ def main(argv=None) -> dict:
                 out = {"root": ROOT, "card": smi, "small_plans": bench_small_plans(g),
                        "plans": bench_plans(g)}
                 return _write(out, args.out)
+            if args.rows:
+                return _write({"root": ROOT, "card": smi, "rows": bench_rows(g)}, args.out)
             out = {"root": ROOT, "card": smi, "shapes": bench_shapes(g),
                    "quant": bench_quant(g)}
             if args.sweep:

@@ -771,7 +771,7 @@ def _hold_long_rows(g, m):
     torch.cuda.empty_cache()
 
 
-# M in {1, 5, 8, 17, 32, 33, 64, 65, 72, 288, 300, 4096} (32 is M_STAR): one
+# M in {1, 5, 8, 17, 32, 33, 64, 65, 72, 288, 300, 4096} (M_STAR is 16): one
 # m tile of 8 rows, tiles of 16 to 64 rows and several of them (the
 # small-row kernel), one to three 128-row tiles and prefill's 32 (wgmma); N
 # in {2, 3} (the classifiers' few labels: tails in N), 128 and 4,864; K 36

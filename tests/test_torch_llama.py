@@ -532,9 +532,17 @@ LLAMA_PRODUCTS = [
     ("1b_prefill_qkv", 4096, 2048, (2048, 512, 512)), ("1b_prefill_o", 4096, 2048, (2048,)),
     ("1b_prefill_gate_up", 4096, 2048, (8192, 8192)),
     ("1b_prefill_down", 4096, 8192, (2048,)),
+    # the engine's step at 17 and 24 live lanes, and the 1B's at 32
+    *((f"engine_{name}_m{m}", m, k, ns) for m in (17, 24)
+      for name, k, ns in (("qkv", 4096, (4096, 1024, 1024)), ("o", 4096, (4096,)),
+                          ("gate_up", 4096, (14336, 14336)), ("head", 4096, (128256,)))),
+    ("1b_engine_gate_up", 32, 2048, (8192, 8192)), ("1b_engine_head", 32, 2048, (128256,)),
 ]
 # route, then the small-row plan (mt, kc, depth, grid, cluster) or the
-# wgmma plan (bm, bn, split, share, band, deep, blocks)
+# wgmma plan (bm, bn, split, share, band, deep, blocks). From 17 rows (the
+# engine's step) every product takes the wgmma route: q/k/v, o (and down)
+# the few-row plan (128 weight rows by 32 token rows, K split over a
+# cluster), gate/up and the head 64 x 128 tiles over all of K
 LLAMA_PLANS = {
     "decode_qkv": ("qgemm", (8, 256, 2, 132, 2)),
     "decode_o": ("qgemm", (8, 256, 2, 132, 2)),
@@ -543,10 +551,13 @@ LLAMA_PLANS = {
     "decode_head": ("qgemm", (8, 256, 2, 132, 2)),
     "decode_head_b1": ("qgemm", (8, 256, 2, 132, 2)),
     "engine_down": ("wgmma", (32, 128, 3, 1, 32, True, 96)),
-    "engine_qkv": ("qgemm", (32, 256, 2, 120, 8)),
-    "engine_o": ("qgemm", (32, 256, 2, 120, 8)),
-    "engine_gate_up": ("qgemm", (32, 256, 2, 120, 8)),
-    "engine_head": ("qgemm", (32, 128, 1, 120, 8)),
+    **{f"engine_{name}{tag}": plan for tag in ("", "_m17", "_m24") for name, plan in (
+        ("qkv", ("wgmma", (32, 128, 2, 1, 48, True, 96))),
+        ("o", ("wgmma", (32, 128, 3, 1, 32, True, 96))),
+        ("gate_up", ("wgmma", (64, 128, 1, 1, 224, False, 224))),
+        ("head", ("wgmma", (64, 128, 1, 1, 1002, False, 1002))))},
+    "1b_engine_gate_up": ("wgmma", (64, 128, 1, 1, 128, False, 128)),
+    "1b_engine_head": ("wgmma", (64, 128, 1, 1, 1002, False, 1002)),
     "verify_qkv": ("wgmma", (80, 128, 2, 1, 48, True, 96)),
     "verify_o": ("wgmma", (80, 128, 3, 1, 32, True, 96)),
     "verify_gate_up": ("wgmma", (128, 128, 1, 1, 224, False, 224)),
@@ -572,9 +583,10 @@ LLAMA_PLANS = {
 def test_w8a8_route_and_plan_at_llama_shapes(name, m, k, ns):
     """Every 8B product has a kernel: K = 14,336 leaves the small-row
     kernel an 8-row m tile only (a quantized row takes 14 KB of a block's
-    shared memory), so from 9 rows down takes the wgmma route below M*;
-    the plans are pinned for an H100's 132 SMs, and each small-row plan's
-    shared memory fits a block."""
+    shared memory), so from 9 rows down takes the wgmma route below M*,
+    as every product does from 17 rows (past M*); the plans are
+    pinned for an H100's 132 SMs, and each small-row plan's shared memory
+    fits a block."""
     route, plan = LLAMA_PLANS[name]
     assert w8a8._route(m, k, True) == route
     if route == "qgemm":

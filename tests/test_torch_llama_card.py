@@ -19,9 +19,8 @@ from rag_inference_pipeline_tpu_torch.models import qwen as tqwen
 from rag_inference_pipeline_tpu_torch.ops import w8a8
 
 # (name, M, K, the N of each weight sharing x): the 8B's decode step at 8
-# and 1 lanes, its engine's 32 (its head's ring one stage deep; and 17
-# rows: an m tile of 32 half full) and the engine's verify round (32 x 9
-# rows), a verify round's 72 rows (B 8, gamma 8), a prefill of 8 x 512
+# and 1 lanes, its engine's 32 (and 17 rows; both on the wgmma route) and
+# the engine's verify round (32 x 9 rows), a verify round's 72 rows (B 8, gamma 8), a prefill of 8 x 512
 # tokens; the 1B's decode step at 8 lanes, its prefill and its tied head
 LLAMA_PRODUCTS = [
     ("decode_qkv", 8, 4096, (4096, 1024, 1024)), ("decode_o", 8, 4096, (4096,)),

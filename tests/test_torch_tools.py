@@ -492,6 +492,34 @@ class TestBenchW8a8:
         bench_w8a8.against(str(tmp_path / "parent"), sweep=False)
         assert not any("--llama8b" in c or "--sweep" in c for c in cmds[4:])
 
+    def test_against_takes_rows_to_every_turn(self, monkeypatch, tmp_path):
+        """--rows with --against: the 17-32-row section alone, in all four
+        turns."""
+        (tmp_path / "parent" / "rag_inference_pipeline_tpu_torch" / "tools").mkdir(parents=True)
+        monkeypatch.setattr(bench_w8a8, "ROOT", str(tmp_path))
+        cmds = []
+
+        def run(cmd, check, stdout):
+            cmds.append(cmd)
+            out = cmd[cmd.index("--out") + 1]
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w") as fh:
+                json.dump({}, fh)
+
+        monkeypatch.setattr(bench_w8a8.subprocess, "run", run)
+        bench_w8a8.against(str(tmp_path / "parent"), sweep=False, rows=True)
+        assert len(cmds) == 4 and all("--rows" in c and "--llama8b" not in c for c in cmds)
+
+    def test_rows_section_covers_the_engine_rows(self):
+        """Every 17-32-row product the section times is a served shape at
+        17, 24 and 32 rows, and each lies past the small-row kernels' 16
+        rows on the wgmma route."""
+        from rag_inference_pipeline_tpu_torch.ops import w8a8
+
+        assert bench_w8a8.ROWS == (17, 24, 32)
+        for _, k, _, _ in bench_w8a8.ROWS_SHAPES:
+            assert all(w8a8._route(m, k, True) == "wgmma" for m in bench_w8a8.ROWS)
+
     def test_needs_a_card(self, monkeypatch, tmp_path):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -219,11 +219,14 @@ def test_gemm_plain_is_exact_past_f32():
     (4096, 896, False, "qgemm"),  # weights off a 16-byte boundary: no TMA
     (8, 14336, True, "qgemm"),  # Llama-3.1-8B's down: 8 rows fit a block
     (17, 14336, True, "wgmma"),  # 16 rows of it do not: any M takes the wgmma
-    # the re-swept M* = 32: decode steps of 8, 16 and 32 lanes stay on the
-    # small-row kernel, the verify round's 36 to 72 rows and a B = 1
-    # prefill take the wgmma route
-    (8, 4864, True, "qgemm"), (16, 896, True, "qgemm"), (32, 4864, True, "qgemm"),
-    (36, 896, True, "wgmma"), (72, 2432, True, "wgmma"), (128, 4864, True, "wgmma"),
+    # M* = 16: decode steps of 8 and 16 lanes stay on the small-row kernel;
+    # from 17 rows (the engine's 32 lanes) a product takes the wgmma route
+    # at any K it can take, as do the verify round's 36 to 72 rows and a
+    # B = 1 prefill
+    (8, 4864, True, "qgemm"), (16, 896, True, "qgemm"), (32, 4864, True, "wgmma"),
+    (17, 896, True, "wgmma"), (24, 448, True, "wgmma"), (32, 432, True, "wgmma"),
+    (36, 896, True, "wgmma"), (33, 64, True, "wgmma"), (72, 2432, True, "wgmma"),
+    (128, 4864, True, "wgmma"),
 ])
 def test_route_rule(m, k, aligned, want):
     assert w8a8._route(m, k, aligned) == want
@@ -273,6 +276,33 @@ def test_qgemm_plan(m, k, ns, short, want):
         assert w8a8._qgemm_plan_smem(m, k, ns, plan) <= w8a8._BLOCK_SMEM
 
 
+# Qwen2.5-0.5B's products at the engine's 17 to 32 live lanes, BERT's
+# classifier and the 0.5B's row shards at tp = 2 (the s32 kind): (K, N of
+# each weight) -> the wgmma route's plan, the same at 17, 24 and 32 rows:
+# q/k/v, o, the classifier and the shards 64 x 64 tiles, down the same
+# with K split over 8 blocks, gate/up and the head 64 x 128 tiles
+_ENGINE_ROWS = [
+    (896, (896, 128, 128), (64, 64, 1, 1, 18, False, 18)),
+    (896, (896,), (64, 64, 1, 1, 14, False, 14)),
+    (896, (4864, 4864), (64, 128, 1, 1, 76, False, 76)),
+    (4864, (896,), (64, 64, 8, 1, 14, False, 112)),
+    (896, (151936,), (64, 128, 1, 1, 1187, False, 1187)),
+    (448, (896,), (64, 64, 1, 1, 14, False, 14)),
+    (2432, (896,), (64, 64, 4, 1, 14, False, 56)),
+    (768, (5,), (64, 64, 1, 1, 1, False, 1)),
+]
+
+
+@pytest.mark.parametrize("m", [17, 24, 32])
+@pytest.mark.parametrize("k,ns,want", _ENGINE_ROWS)
+def test_route_and_plan_at_the_engine_rows(m, k, ns, want):
+    assert w8a8._route(m, k, True) == "wgmma"
+    assert tuple(w8a8._gemm_plan(m, k, ns, 132)) == want
+    # the same shape at 16 rows (a decode step of 16 lanes) keeps the
+    # small-row kernel
+    assert w8a8._route(16, k, True) == "qgemm"
+
+
 # every small-row product of the port's models at their decode shapes:
 # Qwen2.5-0.5B (B 8 and 1, a classifier, and the s32 kind's row shards at
 # tp 2), Llama-3.2-1B (B 8) and Llama-3.1-8B (B 8 and 1, its engine's 32
@@ -289,6 +319,28 @@ _SMALL_SHAPES = [
     (32, 4096, (4096, 1024, 1024)), (32, 4096, (4096,)), (32, 4096, (14336, 14336)),
     (32, 896, (151936,)), (32, 4096, (128256,)),
 ]
+
+
+@pytest.mark.parametrize("k,ns", sorted({(k, ns) for _, k, ns in _SMALL_SHAPES}))
+def test_small_row_plans_fit_a_block_at_1_to_32_rows(k, ns):
+    """Each small-row product's plan, on the kernel `_qgemm_short` picks,
+    fits a block's shared memory at every row count from 1 to 32 (rows
+    past 16 reach the small-row kernels through `w8a8_qgemm`, and where
+    the wgmma route cannot take a shape), its m tile the rows rounded up
+    to 8 or a multiple of 16, or fewer rows (several m tiles) at long K."""
+    for m in range(1, 33):
+        mt = w8a8._qgemm_rows(m, k)
+        if mt is None:  # a long row past 8 rows: the wgmma route only
+            assert m > 8 and w8a8._route(m, k, True) == "wgmma"
+            continue
+        assert mt == 8 if m <= 8 else 16 <= mt <= -(-m // 16) * 16  # fewer where K is long
+        if w8a8._qgemm_short(k, ns):
+            plan = w8a8._qshort_plan(m, k, ns, 132)
+            assert plan[0] == mt and w8a8._qshort_smem(mt, k) <= w8a8._BLOCK_SMEM
+        else:
+            plan = w8a8._qgemm_plan(m, k, ns, 132)
+            assert plan.mt == mt and plan.depth >= 1
+            assert w8a8._qgemm_plan_smem(m, k, ns, plan) <= w8a8._BLOCK_SMEM
 
 
 @pytest.mark.parametrize("m,k,ns", _SMALL_SHAPES)
